@@ -1,0 +1,59 @@
+"""The port stands alone: it imports without JAX and without the JAX
+package, runs a search on the CPU, and refuses to fall back to the CPU
+when a CUDA device is asked for and absent."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None          # any import of jax now fails
+    import waffle_con_tpu_torch as T
+    from waffle_con_tpu_torch.ops import run_kernel, state_io, torch_scorer
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    truth, reads = generate_test(4, 80, 6, 0.02, seed=5)
+    eng = T.ConsensusDWFA(
+        T.CdwfaConfigBuilder().backend("torch").device("cpu").build()
+    )
+    for r in reads:
+        eng.add_sequence(r)
+    assert eng.consensus()[0].sequence == truth
+    loaded = sorted(m for m in sys.modules
+                    if m == "waffle_con_tpu" or m.startswith("waffle_con_tpu."))
+    assert not loaded, loaded
+    assert sys.modules["jax"] is None
+    print("OK")
+    """
+)
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_cuda_device_never_falls_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal needs a host without one")
+    import waffle_con_tpu_torch as T
+
+    cfg = T.CdwfaConfigBuilder().backend("torch").build()
+    assert cfg.device == "cuda"
+    eng = T.ConsensusDWFA(cfg)
+    eng.add_sequence(b"ACGT")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eng.consensus()

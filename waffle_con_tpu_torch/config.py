@@ -1,0 +1,116 @@
+"""Configuration for the consensus engine of the PyTorch/CUDA port.
+
+Same knobs and defaults as ``waffle_con_tpu.config`` for every field the
+single-consensus search reads, plus the port's own scorer selection:
+``backend`` is ``"python"`` (the :class:`~waffle_con_tpu_torch.ops.dwfa.DWFALite`
+oracle) or ``"torch"`` (the device branch store), and ``device`` names
+the torch device the ``"torch"`` scorer lives on.
+
+Typical usage::
+
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, ConsensusCost
+
+    config = (
+        CdwfaConfigBuilder()
+        .consensus_cost(ConsensusCost.L2_DISTANCE)
+        .wildcard(ord("N"))
+        .build()
+    )
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+
+class ConsensusCost(enum.Enum):
+    """Scoring model for a consensus."""
+
+    #: Minimize the total edit distance across all sequences.
+    L1_DISTANCE = "l1"
+    #: Minimize the sum of squared edit distances across all sequences.
+    L2_DISTANCE = "l2"
+
+    def apply(self, edit_distance: int) -> int:
+        """Map a raw integer edit distance into this cost space."""
+        if self is ConsensusCost.L1_DISTANCE:
+            return edit_distance
+        return edit_distance * edit_distance
+
+
+@dataclasses.dataclass(frozen=True)
+class CdwfaConfig:
+    """Configuration of the single-consensus engine."""
+
+    #: The consensus scoring cost.
+    consensus_cost: ConsensusCost = ConsensusCost.L1_DISTANCE
+    #: Maximum queue size: how many active branches are allowed during
+    #: exploration (counted at or above the rising length threshold).
+    max_queue_size: int = 20
+    #: Maximum number of nodes *processed* at each consensus length.
+    max_capacity_per_size: int = 20
+    #: Maximum number of equally-good results tracked.
+    max_return_size: int = 10
+    #: Maximum explored nodes without constraining the queue threshold;
+    #: prevents hyper-branching in truly ambiguous regions.
+    max_nodes_wo_constraint: int = 1000
+    #: Minimum occurrences of a candidate extension to be used (the
+    #: largest-observed candidate is always eligible regardless).
+    min_count: int = 3
+    #: Optional wildcard symbol (byte value) that matches anything.
+    wildcard: Optional[int] = None
+    #: If true, input sequences shorter than the final consensus are not
+    #: penalized for the unmatched consensus tail.
+    allow_early_termination: bool = False
+    #: If true, shift all provided offsets down when none start at zero.
+    auto_shift_offsets: bool = True
+    #: Number of bases before the last offset searched for the optimal
+    #: start point of a late-activating sequence.
+    offset_window: int = 50
+    #: Number of bases compared when scoring candidate start points.
+    offset_compare_length: int = 50
+    #: Scorer backend: "torch" (device branch store) or "python" (the
+    #: pure-Python oracle).
+    backend: str = "torch"
+    #: Torch device of the "torch" backend.  "cuda" never drops to the
+    #: CPU: the scorer raises when no CUDA device is present.
+    device: str = "cuda"
+    #: Seed the band half-width from the caller's error model instead of
+    #: growing it from a small default (rounded up to a power of two).
+    initial_band: Optional[int] = None
+    #: Expand up to this many queue nodes per scorer dispatch: the
+    #: children of the popped node and of the next best queued nodes are
+    #: cloned and pushed in one call and consumed when those nodes pop.
+    prefetch_width: int = 16
+
+    def __post_init__(self) -> None:
+        if self.wildcard is not None and not 0 <= self.wildcard <= 255:
+            raise ValueError("wildcard must be a byte value (0..=255)")
+        if self.backend not in ("python", "torch"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.prefetch_width < 1:
+            raise ValueError("prefetch_width must be >= 1")
+        if self.initial_band is not None and self.initial_band < 1:
+            raise ValueError("initial_band must be >= 1")
+
+
+class CdwfaConfigBuilder:
+    """Fluent builder for :class:`CdwfaConfig`."""
+
+    def __init__(self) -> None:
+        self._values: dict = {}
+
+    def build(self) -> CdwfaConfig:
+        return CdwfaConfig(**self._values)
+
+    def __getattr__(self, name: str):
+        if name.startswith("_") or name not in CdwfaConfig.__dataclass_fields__:
+            raise AttributeError(name)
+
+        def setter(value):
+            self._values[name] = value
+            return self
+
+        return setter

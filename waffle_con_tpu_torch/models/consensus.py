@@ -1,0 +1,675 @@
+"""Single-consensus engine: least-cost-first search over partial consensus
+strings, scored by incremental per-read wavefronts.
+
+The port of ``waffle_con_tpu``'s ``models/consensus.py``: the same search,
+queue and bookkeeping, byte for byte, over the
+:class:`~waffle_con_tpu_torch.ops.scorer.WavefrontScorer` seam.  On the
+``"torch"`` backend the popped branch extends through unambiguous
+stretches inside one device run call (``run_extend``) — on a CUDA device
+one launch of the hand-written run kernel per engagement.
+
+Example::
+
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, ConsensusDWFA
+
+    cdwfa = ConsensusDWFA(CdwfaConfigBuilder().backend("torch").build())
+    for s in [b"ACGT", b"ACCGT", b"ACCCGT"]:
+        cdwfa.add_sequence(s)
+    results = cdwfa.consensus()
+    assert results[0].sequence == b"ACCGT"
+    assert results[0].scores == [1, 0, 1]
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from waffle_con_tpu_torch.config import CdwfaConfig, ConsensusCost
+from waffle_con_tpu_torch.ops.scorer import (
+    BranchStats,
+    WavefrontScorer,
+    fast_paths,
+    make_scorer,
+)
+from waffle_con_tpu_torch.utils.pqueue import PQueueTracker, SetPriorityQueue
+
+logger = logging.getLogger(__name__)
+
+#: Per-engagement column cap for the device run loop: bounds the host-side
+#: bookkeeping simulation; long clean stretches simply re-engage next pop.
+RUN_SIM_CAP = 65536
+
+
+class EngineError(Exception):
+    """Engine-level failure (coverage gaps, invalid inputs, ...).  The
+    message strings are API surface, shared with ``waffle_con_tpu``."""
+
+
+def check_invariant(condition: bool, message: str) -> None:
+    """Engine invariant check that survives ``python -O``."""
+    if not condition:
+        raise EngineError(f"internal invariant violated: {message}")
+
+
+class Consensus:
+    """A final consensus result: the sequence, the cost model, and the
+    per-read scores."""
+
+    __slots__ = ("sequence", "consensus_cost", "scores")
+
+    def __init__(
+        self,
+        sequence: bytes,
+        consensus_cost: ConsensusCost,
+        scores: List[int],
+    ) -> None:
+        self.sequence = bytes(sequence)
+        self.consensus_cost = consensus_cost
+        self.scores = list(scores)
+
+    def __eq__(self, rhs) -> bool:
+        return (
+            isinstance(rhs, Consensus)
+            and self.sequence == rhs.sequence
+            and self.consensus_cost == rhs.consensus_cost
+            and self.scores == rhs.scores
+        )
+
+    def __repr__(self) -> str:
+        return (
+            f"Consensus(sequence={self.sequence!r}, "
+            f"cost={self.consensus_cost.value}, scores={self.scores})"
+        )
+
+
+def shift_offsets(
+    offsets: List[Optional[int]], auto_shift: bool
+) -> List[Optional[int]]:
+    """When no read starts at offset ``None`` and auto-shift is enabled,
+    shift every offset down by the minimum (the minimum becomes ``None``)."""
+    if not auto_shift or any(o is None for o in offsets):
+        return list(offsets)
+    min_offset = min(offsets)
+    logger.debug("No start sequence detected, shifting all offsets by %d", min_offset)
+    return [None if o == min_offset else o - min_offset for o in offsets]
+
+
+def replay_run_bookkeeping(
+    tracker: PQueueTracker,
+    cfg: CdwfaConfig,
+    top_len: int,
+    steps: int,
+    farthest: int,
+    last_constraint: int,
+) -> Tuple[int, int]:
+    """Replay the per-length tracker bookkeeping for a device-committed
+    extension run, exactly as the per-symbol host loop would have done it:
+    threshold constriction, remove/process/insert, and the farthest /
+    constraint counters.  Returns updated ``(farthest, last_constraint)``.
+
+    Segments between constriction triggers collapse to one
+    ``bulk_run_advance``: the queue total is constant during a run, so
+    the only mid-run trigger is the ``max_nodes_wo_constraint`` counter,
+    whose firing step is computable in closed form."""
+    j = 0
+    while j < steps:
+        if j > 0:
+            # constrict exactly as the scalar loop would before pop j
+            while (
+                len(tracker) > cfg.max_queue_size
+                or last_constraint >= cfg.max_nodes_wo_constraint
+            ) and tracker.threshold() < farthest:
+                tracker.increment_threshold()
+                last_constraint = 0
+        # inside a segment the queue total transiently holds one extra
+        # entry (each step's insert precedes the next step's remove);
+        # if that would trip the queue-size trigger, every inner step
+        # would constrict and the closed form breaks — go scalar
+        if len(tracker) + 1 > cfg.max_queue_size:
+            break
+        seg = min(steps - j, cfg.max_nodes_wo_constraint - last_constraint)
+        if seg <= 0:
+            break  # budget pinned with threshold at farthest: go scalar
+        if not tracker.bulk_run_advance(top_len + j, seg, fresh_pop=(j == 0)):
+            break  # capacity edge: exact scalar loop handles it
+        farthest = max(farthest, top_len + j + seg - 1)
+        last_constraint += seg
+        j += seg
+    for j in range(j, steps):
+        length = top_len + j
+        if j > 0:
+            while (
+                len(tracker) > cfg.max_queue_size
+                or last_constraint >= cfg.max_nodes_wo_constraint
+            ) and tracker.threshold() < farthest:
+                tracker.increment_threshold()
+                last_constraint = 0
+            tracker.remove(length)
+        farthest = max(farthest, length)
+        last_constraint += 1
+        tracker.process(length)
+        tracker.insert(length + 1)
+    return farthest, last_constraint
+
+
+def accept_record(maximum_error, results, total, result, max_return_size):
+    """Result acceptance: a strictly better total resets the budget and
+    clears the tied set; totals at the budget append up to
+    ``max_return_size``.  Returns the new budget."""
+    if total < maximum_error:
+        maximum_error = total
+        results.clear()
+    if total <= maximum_error and len(results) < max_return_size:
+        results.append(result)
+    return maximum_error
+
+
+def candidates_from_stats(
+    stats: BranchStats,
+    symtab: np.ndarray,
+    wildcard: Optional[int],
+) -> Dict[int, float]:
+    """Fold per-read integer tip votes into fractional per-symbol votes.
+
+    Each read splits one unit of vote across its tip symbols
+    (``occ/split``); reads are accumulated in index order in float64 so
+    the sum is identical across backends.  The wildcard is dropped
+    whenever any other candidate exists."""
+    votes: Dict[int, float] = {}
+    occ = stats.occ.tolist()
+    split = stats.split.tolist()
+    syms = symtab.tolist()
+    for r, total in enumerate(split):
+        if total == 0:
+            continue
+        for s, c in enumerate(occ[r]):
+            if c:
+                sym = syms[s]
+                votes[sym] = votes.get(sym, 0.0) + c / total
+    if wildcard is not None and len(votes) > 1:
+        votes.pop(wildcard, None)
+    return votes
+
+
+class _Node:
+    """A search node: a partial consensus plus its scorer branch.
+
+    ``prefetch`` holds this node's expanded children —
+    ``(passing_symbols, {sym: [child_handle, child_stats]})`` — produced
+    by a batched multi-node dispatch before the node was popped.  It is a
+    pure cache: nomination is a deterministic function of ``stats``."""
+
+    __slots__ = ("consensus", "handle", "active", "offsets", "stats", "prefetch")
+
+    def __init__(self, consensus, handle, active, offsets, stats):
+        self.consensus: bytes = consensus
+        self.handle: int = handle
+        self.active: List[bool] = active
+        self.offsets: List[Optional[int]] = offsets
+        self.stats: BranchStats = stats
+        self.prefetch = None
+
+    def key(self) -> Tuple:
+        # Active wavefront state is a deterministic function of
+        # (read, consensus, offset), so this tuple is full-state identity.
+        return (self.consensus, tuple(self.offsets))
+
+    def total_cost(self, cost: ConsensusCost) -> int:
+        return sum(
+            cost.apply(int(e)) for e, a in zip(self.stats.eds, self.active) if a
+        )
+
+    def priority(self, cost: ConsensusCost) -> Tuple[int, int]:
+        # max-queue: smaller cost wins, then longer consensus
+        return (-self.total_cost(cost), len(self.consensus))
+
+
+class ConsensusDWFA:
+    """Generates the single best consensus (or the tied set) for the added
+    sequences."""
+
+    def __init__(self, config: Optional[CdwfaConfig] = None) -> None:
+        self.config = config if config is not None else CdwfaConfig()
+        self.sequences: List[bytes] = []
+        self.offsets: List[Optional[int]] = []
+        self.alphabet: set = set()
+
+    @classmethod
+    def with_config(cls, config: CdwfaConfig) -> "ConsensusDWFA":
+        return cls(config)
+
+    def add_sequence(self, sequence: bytes) -> None:
+        self.add_sequence_offset(sequence, None)
+
+    def add_sequence_offset(
+        self, sequence: bytes, last_offset: Optional[int]
+    ) -> None:
+        sequence = bytes(sequence)
+        self.alphabet.update(sequence)
+        if self.config.wildcard is not None:
+            self.alphabet.discard(self.config.wildcard)
+        self.sequences.append(sequence)
+        self.offsets.append(last_offset)
+
+    @property
+    def consensus_cost(self) -> ConsensusCost:
+        return self.config.consensus_cost
+
+    # ------------------------------------------------------------------
+
+    def consensus(self) -> List[Consensus]:
+        """Run the least-cost-first search and return every tied-best
+        consensus, lexicographically sorted.  Search-shape counters land
+        in ``self.last_search_stats``."""
+        cfg = self.config
+        cost = cfg.consensus_cost
+        maximum_error = math.inf
+        nodes_explored = 0
+        nodes_ignored = 0
+        peak_queue_size = 0
+        farthest_consensus = 0
+        last_constraint = 0
+
+        offsets = shift_offsets(self.offsets, cfg.auto_shift_offsets)
+        logger.debug("Offsets: %s", offsets)
+
+        # lengths at which late reads activate
+        activate_points: Dict[int, List[int]] = {}
+        max_activate = 0
+        initially_active = 0
+        for seq_index, offset in enumerate(offsets):
+            if offset is not None:
+                activate_length = offset + cfg.offset_compare_length
+                activate_points.setdefault(activate_length, []).append(seq_index)
+                max_activate = max(max_activate, activate_length)
+            else:
+                initially_active += 1
+        if initially_active == 0:
+            raise EngineError(
+                "Must have at least one initial offset of None to see the consensus."
+            )
+
+        scorer = make_scorer(self.sequences, cfg)
+        self._max_sequence_len = max(len(s) for s in self.sequences)
+        tracker = PQueueTracker(
+            self._max_sequence_len, cfg.max_capacity_per_size
+        )
+        pqueue = SetPriorityQueue()
+
+        results: List[Consensus] = []
+        active = [o is None for o in offsets]
+        root_handle = scorer.root(np.array(active, dtype=bool))
+        root = _Node(
+            b"",
+            root_handle,
+            active,
+            [0 if a else None for a in active],
+            scorer.stats(root_handle, b""),
+        )
+        tracker.insert(0)
+        pqueue.push(root.key(), root, root.priority(cost))
+        fp = fast_paths(scorer)
+
+        while not pqueue.is_empty():
+            peak_queue_size = max(peak_queue_size, len(pqueue))
+
+            while (
+                len(tracker) > cfg.max_queue_size
+                or last_constraint >= cfg.max_nodes_wo_constraint
+            ) and tracker.threshold() < farthest_consensus:
+                tracker.increment_threshold()
+                last_constraint = 0
+
+            node, priority = pqueue.pop()
+            top_cost = -priority[0]
+            top_len = len(node.consensus)
+            tracker.remove(top_len)
+
+            if (
+                top_cost > maximum_error
+                or top_len < tracker.threshold()
+                or tracker.at_capacity(top_len)
+            ):
+                nodes_ignored += 1
+                self._drop_prefetch(scorer, node)
+                scorer.free(node.handle)
+                continue
+
+            # -- device fast path: extend the popped node through
+            # unambiguous stretches on device (one host round-trip per
+            # event instead of per base), then replay the per-length
+            # bookkeeping exactly.  The run continues while the node keeps
+            # winning pops ((-cost, len) priority vs the best other queued
+            # entry; full ties lose to the earlier insert) and only
+            # engages when this pop's own nomination is a single candidate
+            # — otherwise step 0 would stop immediately.  max_steps is
+            # bounded by an exact host simulation of the threshold /
+            # capacity bookkeeping, so the run may start behind the
+            # farthest frontier without replaying a step the real search
+            # would have pruned.
+            run_extend = fp.run_extend
+            reached_now = self._reached_end(node, cfg.allow_early_termination)
+            force_sym = -1
+            engage = False
+            if run_extend is not None:
+                passing_now = (
+                    node.prefetch[0]
+                    if node.prefetch is not None
+                    else self._nominate(scorer, node)
+                )
+                best_other = pqueue.peek_priority()
+                other_cost = 2**31 - 1
+                other_len = 0
+                if best_other is not None:
+                    other_cost = -best_other[0]
+                    other_len = best_other[1]
+                # -- forced-child fold: with exactly one passing symbol
+                # and no prefetched children, the expand path's outcome
+                # is fully known host-side (one child = consensus + sym),
+                # so the run call pushes it as its forced step 0 and
+                # simply stops there if the child would lose the next
+                # pop.  A reached pop must evaluate its record through
+                # the kernel's loop checks, so it is never forced.
+                if (
+                    len(passing_now) == 1
+                    and node.prefetch is None
+                    and not reached_now
+                ):
+                    force_sym = int(scorer.sym_id[passing_now[0]])
+                engage = len(passing_now) == 1 and (
+                    force_sym >= 0
+                    or top_cost < other_cost
+                    or (top_cost == other_cost and top_len > other_len)
+                )
+            if engage:
+                next_act = min(
+                    (l for l in activate_points if l > top_len), default=None
+                )
+                max_steps = min(self._max_sequence_len * 2 + 256, RUN_SIM_CAP)
+                if next_act is not None:
+                    max_steps = min(max_steps, next_act - top_len - 1)
+                if max_steps >= 1:
+                    max_steps = tracker.simulate_run_bound(
+                        top_len,
+                        farthest_consensus,
+                        last_constraint,
+                        cfg.max_queue_size,
+                        cfg.max_nodes_wo_constraint,
+                        max_steps,
+                    )
+                if max_steps >= 1:
+                    me_budget = (
+                        int(maximum_error)
+                        if maximum_error != math.inf
+                        else 2**31 - 1
+                    )
+                    steps, _code, appended, run_stats, records = run_extend(
+                        node.handle,
+                        node.consensus,
+                        me_budget,
+                        other_cost,
+                        other_len,
+                        cfg.min_count,
+                        cost is ConsensusCost.L2_DISTANCE,
+                        max_steps,
+                        first_sym=force_sym,
+                        # under early termination the host's require-all
+                        # record condition can never hold while a read
+                        # is not yet activated, but the kernel's
+                        # conservative fold would buffer bogus records
+                        allow_records=(
+                            not cfg.allow_early_termination
+                            or all(node.active)
+                        ),
+                    )
+                    # replay absorbed reached-state records in commit
+                    # order, exactly as the completion path would have at
+                    # each pop (the stopped state is NOT in the buffer —
+                    # its own pop records it below)
+                    for rec_j, rec_fin in records:
+                        if not all(node.active):
+                            scorer.free(node.handle)
+                            raise EngineError(
+                                "Finalize called on DWFA that was never initialized."
+                            )
+                        rec_scores = [cost.apply(int(v)) for v in rec_fin]
+                        maximum_error = accept_record(
+                            maximum_error,
+                            results,
+                            sum(rec_scores),
+                            Consensus(
+                                node.consensus + appended[:rec_j],
+                                cost,
+                                rec_scores,
+                            ),
+                            cfg.max_return_size,
+                        )
+                    # the snapshot matches the stopped position whether
+                    # or not steps committed, so adopt it either way — its
+                    # fin field saves the finalize call at a reached pop
+                    node.stats = run_stats
+                    if steps > 0:
+                        # the branch advanced past the prefetched children
+                        self._drop_prefetch(scorer, node)
+                        farthest_consensus, last_constraint = (
+                            replay_run_bookkeeping(
+                                tracker,
+                                cfg,
+                                top_len,
+                                steps,
+                                farthest_consensus,
+                                last_constraint,
+                            )
+                        )
+                        nodes_explored += steps
+                        node.consensus = node.consensus + appended
+                        if not pqueue.push(
+                            node.key(), node, node.priority(cost)
+                        ):  # pragma: no cover - chain nodes are unique
+                            tracker.remove(len(node.consensus))
+                            scorer.free(node.handle)
+                        continue
+
+            farthest_consensus = max(farthest_consensus, top_len)
+            nodes_explored += 1
+            last_constraint += 1
+            tracker.process(top_len)
+
+            # -- result check: any (or, with early termination, all) read
+            # touching its baseline end means this consensus may be complete
+            if reached_now:
+                if not all(node.active):
+                    scorer.free(node.handle)
+                    raise EngineError(
+                        "Finalize called on DWFA that was never initialized."
+                    )
+                fin_eds = (
+                    node.stats.fin
+                    if node.stats.fin is not None
+                    else scorer.finalized_eds(node.handle, node.consensus)
+                )
+                fin_scores = [cost.apply(int(e)) for e in fin_eds]
+                maximum_error = accept_record(
+                    maximum_error,
+                    results,
+                    sum(fin_scores),
+                    Consensus(node.consensus, cost, fin_scores),
+                    cfg.max_return_size,
+                )
+
+            # -- nominate + expand: the popped node's children and the
+            # next best queued nodes' children go through ONE batched
+            # clone+push dispatch, consumed when those nodes are popped
+            if node.prefetch is None:
+                peers = [
+                    n
+                    for n, _p in pqueue.peek_top(cfg.prefetch_width - 1)
+                    if n.prefetch is None
+                ]
+                self._prefetch_expansions(
+                    scorer, [node] + peers, in_place_first=True
+                )
+            passing, expansion = node.prefetch
+            node.prefetch = None
+
+            new_nodes: List[_Node] = []
+            if not passing:
+                if top_len < max_activate:
+                    scorer.free(node.handle)
+                    raise EngineError(
+                        f"Encountered coverage gap: consensus is length {top_len} "
+                        f"with no candidates, but sequences activate at {max_activate}"
+                    )
+                scorer.free(node.handle)
+                # otherwise: dead end past all activations, drop the branch
+            else:
+                for sym in passing:
+                    handle, stats = expansion[sym]
+                    new_nodes.append(
+                        _Node(
+                            node.consensus + bytes([sym]),
+                            handle,
+                            list(node.active),
+                            list(node.offsets),
+                            stats,
+                        )
+                    )
+                if all(c.handle != node.handle for c in new_nodes):
+                    scorer.free(node.handle)
+
+            for child in new_nodes:
+                activate_list = activate_points.get(len(child.consensus))
+                if activate_list:
+                    for seq_index in activate_list:
+                        self._activate(scorer, child, seq_index)
+                    child.stats = scorer.stats(child.handle, child.consensus)
+                tracker.insert(len(child.consensus))
+                if not pqueue.push(child.key(), child, child.priority(cost)):
+                    # identical node already queued (cannot normally happen:
+                    # a consensus string uniquely identifies its path)
+                    logger.warning("duplicate search node %r", child.consensus)
+                    tracker.remove(len(child.consensus))
+                    scorer.free(child.handle)
+
+        check_invariant(len(tracker) == 0, "tracker drained at search end")
+
+        results.sort(key=lambda c: c.sequence)
+        self.last_search_stats = {
+            "nodes_explored": nodes_explored,
+            "nodes_ignored": nodes_ignored,
+            "peak_queue_size": peak_queue_size,
+            "scorer_counters": dict(scorer.counters),
+            "backend": cfg.backend,
+        }
+        return results
+
+    # ------------------------------------------------------------------
+
+    def _nominate(self, scorer: WavefrontScorer, node: _Node) -> List[int]:
+        """Passing extension symbols for a node — a pure function of its
+        stats (so it can run at prefetch time with an identical result)."""
+        cfg = self.config
+        candidates = candidates_from_stats(
+            node.stats, scorer.symtab, cfg.wildcard
+        )
+        max_observed = max(candidates.values(), default=float(cfg.min_count))
+        active_threshold = min(float(cfg.min_count), max_observed)
+        return sorted(
+            sym for sym, count in candidates.items() if count >= active_threshold
+        )
+
+    def _prefetch_expansions(
+        self,
+        scorer: WavefrontScorer,
+        nodes: List[_Node],
+        in_place_first: bool = False,
+    ) -> None:
+        """Expand every listed node's children in one batched clone+push
+        dispatch (or one clone plus one push dispatch), storing the
+        results on the nodes.
+
+        ``in_place_first``: when the FIRST node has exactly one passing
+        symbol, push its sole child onto the parent's own branch slot
+        instead of a clone — exact because the parent is the in-hand pop,
+        consumed and freed in this same iteration (never valid for peers,
+        whose pristine state is still needed at their own pop)."""
+        per_node_passing = [self._nominate(scorer, n) for n in nodes]
+        clone_push = fast_paths(scorer).clone_push_many
+        if clone_push is not None:
+            specs: List[Tuple[int, bytes, bool]] = []
+            slots: List[List] = []
+            for i, (node, passing) in enumerate(
+                zip(nodes, per_node_passing)
+            ):
+                expansion = {}
+                reuse = in_place_first and i == 0 and len(passing) == 1
+                for sym in passing:
+                    entry = [None, None]
+                    expansion[sym] = entry
+                    specs.append(
+                        (node.handle, node.consensus + bytes([sym]), reuse)
+                    )
+                    slots.append(entry)
+                node.prefetch = (passing, expansion)
+            for entry, (handle, stats) in zip(slots, clone_push(specs)):
+                entry[0] = handle
+                entry[1] = stats
+            return
+        clone_srcs: List[int] = []
+        for i, (node, passing) in enumerate(zip(nodes, per_node_passing)):
+            if not (in_place_first and i == 0 and len(passing) == 1):
+                clone_srcs.extend([node.handle] * len(passing))
+        handles = scorer.clone_many(clone_srcs)
+        push_specs: List[Tuple[int, bytes]] = []
+        slots = []
+        hi = 0
+        for i, (node, passing) in enumerate(zip(nodes, per_node_passing)):
+            expansion = {}
+            reuse = in_place_first and i == 0 and len(passing) == 1
+            for sym in passing:
+                if reuse:
+                    handle = node.handle
+                else:
+                    handle = handles[hi]
+                    hi += 1
+                entry = [handle, None]
+                expansion[sym] = entry
+                push_specs.append((handle, node.consensus + bytes([sym])))
+                slots.append(entry)
+            node.prefetch = (passing, expansion)
+        for entry, stats in zip(slots, scorer.push_many(push_specs)):
+            entry[1] = stats
+
+    def _drop_prefetch(self, scorer: WavefrontScorer, node: _Node) -> None:
+        if node.prefetch is not None:
+            for handle, _stats in node.prefetch[1].values():
+                scorer.free(handle)
+            node.prefetch = None
+
+    def _reached_end(self, node: _Node, require_all: bool) -> bool:
+        flags = [
+            bool(r) if a else False
+            for r, a in zip(node.stats.reached, node.active)
+        ]
+        return all(flags) if require_all else any(flags)
+
+    def _activate(
+        self, scorer: WavefrontScorer, node: _Node, seq_index: int
+    ) -> None:
+        check_invariant(not node.active[seq_index], "activating an already-active read")
+        cfg = self.config
+        offset = scorer.best_activation_offset(
+            node.consensus,
+            seq_index,
+            cfg.offset_window,
+            cfg.offset_compare_length,
+            cfg.wildcard,
+        )
+        scorer.activate(node.handle, seq_index, offset, node.consensus)
+        node.active[seq_index] = True
+        node.offsets[seq_index] = offset
+

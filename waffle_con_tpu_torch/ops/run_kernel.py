@@ -1,0 +1,458 @@
+"""The single-branch run loop behind ``TorchScorer.run_extend``.
+
+Three pieces, one contract:
+
+* :func:`run_extend_plain` — the loop in plain PyTorch over the column
+  primitives of :mod:`waffle_con_tpu_torch.ops.torch_scorer`, one
+  consensus symbol per iteration.  It is what runs for tensors on the
+  CPU, and the yardstick the CUDA kernel is held to on the card.
+* :func:`run_extend_cuda` — the wrapper of the hand-written Hopper
+  kernel ``csrc/run_extend.cu`` (built with ``nvcc`` at first use and
+  bound with ``ctypes``); it counts its launches in
+  ``run_extend_cuda.launches``.
+* :func:`run_extend` — the dispatch rule: a state on the CPU runs the
+  plain loop, a state on a CUDA device launches the kernel (or raises).
+
+The contract is the one of ``waffle_con_tpu``'s ``_j_run_pallas``
+(``ops/pallas_run.py``) and ``_j_run`` (``ops/jax_scorer.py``): a forced
+first push (only band overflow, code 5, refuses it), then one symbol per
+step while the tip votes name a unique passing candidate — stop codes 3
+(the branch loses the next pop or goes over budget), 2 (reached end and
+the record cannot be absorbed), 1 (dirty vote), 4 (step cap), 5 (band
+overflow, step not committed) — with reached-end records absorbed into
+``REC_CAP`` buffers, and a final stats snapshot.  Slot ``h`` of the
+branch store is updated in place.
+
+Results come back as one packed ``int32`` tensor (see :func:`out_layout`)
+so the host pays a single device-to-host copy per call, plus the record
+buffers when records were absorbed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from waffle_con_tpu_torch.ops.torch_scorer import (
+    REC_CAP,
+    VOTE_EPS,
+    col_step,
+    finalized,
+    gather_window,
+    stats_core,
+)
+
+
+class RunArgs(NamedTuple):
+    """Per-call scalars of one run (host integers, passed by value)."""
+
+    me_budget: int
+    other_cost: int
+    other_len: int
+    min_count: int
+    l2: bool
+    max_steps: int
+    first_sym: int
+    allow_records: bool
+    #: dense wildcard id, or -2
+    wc: int
+    et: bool
+    #: real dense alphabet size (rows of ``occ``)
+    a_real: int
+
+
+def out_layout(R: int, A: int, max_steps: int) -> Dict[str, Tuple[int, int]]:
+    """``name -> (start, stop)`` of each field in the packed ``int32``
+    output: 8 scalars (steps, code, rec_count, fin_ovf, clen), then the
+    final stats snapshot (eds, split, reached, fin: ``[R]`` each; occ:
+    ``[R, A]`` row-major), then the committed symbols (``max_steps + 1``
+    slots: a forced first push may commit one step even at
+    ``max_steps == 0``)."""
+    fields = [
+        ("scalars", 8), ("eds", R), ("split", R), ("reached", R),
+        ("fin", R), ("occ", R * A), ("syms", max_steps + 1),
+    ]
+    out = {}
+    at = 0
+    for name, n in fields:
+        out[name] = (at, at + n)
+        at += n
+    return out
+
+
+def _wrap32(x: int) -> int:
+    """Two's-complement int32 wrap of a Python integer (the device folds
+    sum and square in wrapping int32 arithmetic)."""
+    return ((int(x) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+# ---------------------------------------------------------------------
+# plain PyTorch version
+
+
+def run_extend_plain(state, h: int, reads, rlen, args: RunArgs):
+    """The run loop in plain PyTorch (same contract and outputs as the
+    CUDA kernel).  Returns ``(out, rec_steps, rec_fins)``."""
+    run_extend_plain.calls += 1
+    dev = state["D"].device
+    W = state["D"].shape[2]
+    R = state["D"].shape[1]
+    E = (W - 2) // 2
+    A = args.a_real
+    off = state["off"][h]
+    act = state["act"][h]
+    D = state["D"][h].clone()
+    e = state["e"][h].clone()
+    rmin = state["rmin"][h].clone()
+    er = state["er"][h].clone()
+    clen = int(state["clen"][h])
+    eps = float(VOTE_EPS)
+    mcf = torch.tensor(float(args.min_count), dtype=torch.float32, device=dev)
+
+    lay = out_layout(R, A, args.max_steps)
+    syms = []
+    rec_steps = torch.zeros(REC_CAP, dtype=torch.int32, device=dev)
+    rec_fins = torch.zeros((REC_CAP, R), dtype=torch.int32, device=dev)
+
+    def window(j):
+        return gather_window(reads, j, off, E, W)
+
+    def step(D, e, rmin, er, j, sym):
+        return col_step(D, e, rmin, er, off, act, rlen, window(j), j + 1,
+                        sym, args.wc, args.et, E)
+
+    def overflows(e_new):
+        return bool((act & (e_new >= E)).any())
+
+    steps = 0
+    code = 0
+    if args.first_sym >= 0:
+        Df, ef, rminf, erf = step(D, e, rmin, er, clen, args.first_sym)
+        if overflows(ef):
+            code = 5
+        else:
+            D, e, rmin, er = Df, ef, rminf, erf
+            syms.append(args.first_sym)
+            clen += 1
+            steps = 1
+
+    budget = args.me_budget
+    rec_count = 0
+    while code == 0:
+        eds, occ, split, reached = stats_core(
+            D, e, rmin, er, off, act, rlen, window(clen), clen, A, E
+        )
+        fin_j, _ = finalized(e, rmin, act, E)
+        eds64 = eds.long()
+        fin64 = fin_j.long()
+        total = _wrap32((eds64 * eds64 if args.l2 else eds64).sum())
+        fin_total = _wrap32((fin64 * fin64 if args.l2 else fin64).sum())
+        max_eds = int(eds.max())
+        fin_max = int(fin_j.max())
+        cost_overflow = args.l2 and max_eds > 2048
+        fin_ovf_j = fin_max >= E
+        fin_cost_ovf = args.l2 and fin_max > 2048
+        all_exact = not bool(((split > 0) & ((split & (split - 1)) != 0)).any())
+        if args.et:
+            reached_here = not bool((act & ~reached).any())
+        else:
+            reached_here = bool(reached.any())
+
+        # fractional votes: each read splits one unit across its tips;
+        # float32 like the device fold (the EPS contract covers the
+        # summation order)
+        frac = torch.where(
+            split[:, None] > 0,
+            occ.float() / split.clamp(min=1)[:, None].float(),
+            torch.zeros((), dtype=torch.float32, device=dev),
+        )
+        counts = frac.sum(0)
+        has_votes = (occ > 0).any(0)
+        n_cands = int(has_votes.sum())
+        if args.wc >= 0 and n_cands > 1:
+            has_votes[args.wc] = False
+            counts[args.wc] = 0.0
+        neg1 = torch.full_like(counts, -1.0)
+        maxc = torch.where(has_votes, counts, neg1).max()
+        thr = torch.minimum(mcf, maxc)
+        passing = has_votes & (counts >= thr)
+        npass = int(passing.sum())
+        near_tie = bool((maxc - mcf).abs() < eps) or bool(
+            (has_votes & ((counts - thr).abs() < eps)).any()
+        )
+        dirty = (
+            (not all_exact and near_tie)
+            or npass != 1
+            or n_cands == 0
+            or cost_overflow
+        )
+        rec_blocked = (
+            not args.allow_records
+            or fin_ovf_j
+            or fin_cost_ovf
+            or rec_count >= REC_CAP
+        )
+        wins_pop = total < args.other_cost or (
+            total == args.other_cost and clen > args.other_len
+        )
+        if total > budget or not wins_pop:
+            code = 3
+        elif reached_here and rec_blocked:
+            code = 2
+        elif dirty:
+            code = 1
+        elif steps >= args.max_steps:
+            code = 4
+        if code != 0:
+            break
+        sym = int(torch.argmax(torch.where(passing, counts, neg1)))
+        D2, e2, rmin2, er2 = step(D, e, rmin, er, clen, sym)
+        if overflows(e2):
+            code = 5
+            break
+        if reached_here:
+            ri = min(rec_count, REC_CAP - 1)
+            rec_steps[ri] = steps
+            rec_fins[ri] = fin_j
+            rec_count += 1
+            if fin_total < budget:
+                budget = fin_total
+        D, e, rmin, er = D2, e2, rmin2, er2
+        syms.append(sym)
+        clen += 1
+        steps += 1
+
+    eds, occ, split, reached = stats_core(
+        D, e, rmin, er, off, act, rlen, window(clen), clen, A, E
+    )
+    fin, fin_ovf = finalized(e, rmin, act, E)
+    clen0 = clen - steps
+    state["D"][h] = D
+    state["e"][h] = e
+    state["rmin"][h] = rmin
+    state["er"][h] = er
+    if steps:
+        state["cons"][h, clen0:clen] = torch.tensor(
+            syms, dtype=torch.int32, device=dev
+        )
+    state["clen"][h] = clen
+
+    out = torch.zeros(lay["syms"][1], dtype=torch.int32, device=dev)
+
+    def put(name, value):
+        a, b = lay[name]
+        out[a:b] = value.reshape(-1).to(torch.int32)
+
+    put("scalars", torch.tensor(
+        [steps, code, rec_count, int(fin_ovf), clen, 0, 0, 0],
+        dtype=torch.int32, device=dev,
+    ))
+    put("eds", eds)
+    put("split", split)
+    put("reached", reached)
+    put("fin", fin)
+    put("occ", occ)
+    if steps:
+        a = lay["syms"][0]
+        out[a:a + steps] = torch.tensor(syms, dtype=torch.int32, device=dev)
+    return out, rec_steps, rec_fins
+
+
+run_extend_plain.calls = 0
+
+
+# ---------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "run_extend.cu"
+#: build directory of the compiled kernels (listed in .gitignore)
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib = None
+_lib_lock = threading.Lock()
+#: wall seconds of the last ``nvcc`` build in this process (0.0 when the
+#: library came from the build directory), and its compiler output
+build_info = {"seconds": 0.0, "log": ""}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for home in (os.environ.get("CUDA_HOME"), CUDA_HOME):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA run kernel cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/run_extend.cu`` into ``BUILD_DIR`` (named by the
+    hash of source and flags, so an edited source rebuilds) and return
+    the library path.  ``verbose`` adds ``-Xptxas -v`` (registers,
+    shared memory and spills per kernel) to the recorded build log."""
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    digest = hashlib.sha256(
+        _SRC.read_bytes() + " ".join(flags).encode()
+    ).hexdigest()[:16]
+    lib = BUILD_DIR / f"librun_extend-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-o", tmp, str(_SRC)],
+        capture_output=True, text=True,
+    )
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.run_extend_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 16 + [
+                ctypes.c_void_p
+            ]
+            _lib = lib
+    return _lib
+
+
+def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
+    """Launch the CUDA run kernel on slot ``h`` (one CTA, the whole run
+    loop inside).  Same contract and outputs as :func:`run_extend_plain`.
+    Raises on anything the kernel does not take (the per-read shared
+    memory caps R at 4096 reads); never falls back.  The caller
+    guarantees ``cons`` capacity ``C > clen[h] + max_steps + 1``, as
+    ``TorchScorer.run_extend`` does."""
+    D = state["D"]
+    dev = D.device
+    if dev.type != "cuda":
+        raise ValueError("run_extend_cuda needs tensors on a CUDA device")
+    B, R, W = D.shape
+    C = state["cons"].shape[1]
+    want = {
+        "D": torch.int32, "e": torch.int32, "rmin": torch.int32,
+        "er": torch.int32, "off": torch.int32, "act": torch.bool,
+        "cons": torch.int32, "clen": torch.int32,
+    }
+    for name, dt in want.items():
+        t = state[name]
+        if t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"state[{name!r}]: need contiguous {dt} on {dev}")
+    if reads.dtype != torch.int16 or reads.device != dev or reads.shape[0] != R:
+        raise ValueError("reads: need contiguous int16 [R, L] on the state device")
+    if rlen.dtype != torch.int32 or rlen.device != dev or rlen.shape != (R,):
+        raise ValueError("rlen: need int32 [R] on the state device")
+    if not (reads.is_contiguous() and rlen.is_contiguous()):
+        raise ValueError("reads/rlen must be contiguous")
+    if not 0 <= h < B:
+        raise ValueError(f"slot {h} out of range")
+    lib = _library()
+    lay = out_layout(R, args.a_real, args.max_steps)
+    out = torch.empty(lay["syms"][1], dtype=torch.int32, device=dev)
+    rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
+    rec_fins = torch.empty((REC_CAP, R), dtype=torch.int32, device=dev)
+    scratch = torch.empty((R, W), dtype=torch.int32, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    rc = lib.run_extend_launch(
+        ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
+        ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
+        ptr(state["clen"]), ptr(reads), ptr(rlen), ptr(scratch), ptr(out),
+        ptr(rec_steps), ptr(rec_fins),
+        h, R, W, C, reads.shape[1], args.a_real,
+        args.me_budget, args.other_cost, args.other_len, args.min_count,
+        int(args.l2), args.max_steps, args.first_sym,
+        int(args.allow_records), args.wc, int(args.et),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"run_extend kernel launch failed: CUDA error {rc} "
+            f"(R={R}, W={W}, A={args.a_real})"
+        )
+    run_extend_cuda.launches += 1
+    return out, rec_steps, rec_fins
+
+
+run_extend_cuda.launches = 0
+
+
+def run_extend(state, h: int, reads, rlen, args: RunArgs):
+    """Dispatch rule: CPU tensors run :func:`run_extend_plain`, CUDA
+    tensors launch the kernel; any other device raises."""
+    kind = state["D"].device.type
+    if kind == "cuda":
+        return run_extend_cuda(state, h, reads, rlen, args)
+    if kind == "cpu":
+        return run_extend_plain(state, h, reads, rlen, args)
+    raise ValueError(f"no run kernel for device type {kind!r}")
+
+
+class RunResult(NamedTuple):
+    """Host view of one run's packed output."""
+
+    steps: int
+    code: int
+    rec_count: int
+    fin_ovf: bool
+    clen: int
+    eds: np.ndarray
+    split: np.ndarray
+    reached: np.ndarray
+    fin: np.ndarray
+    occ: np.ndarray
+    syms: np.ndarray
+
+
+def unpack(out_np: np.ndarray, R: int, A: int,
+           max_steps: int) -> RunResult:
+    """Split a fetched packed output (see :func:`out_layout`)."""
+    lay = out_layout(R, A, max_steps)
+    get = lambda name: out_np[lay[name][0]:lay[name][1]]  # noqa: E731
+    sc = get("scalars")
+    steps = int(sc[0])
+    return RunResult(
+        steps, int(sc[1]), int(sc[2]), bool(sc[3]), int(sc[4]),
+        get("eds"), get("split"), get("reached").astype(bool), get("fin"),
+        get("occ").reshape(R, A), get("syms")[:steps],
+    )
+
+
+def fetch(out, rec_steps, rec_fins, R: int, A: int, max_steps: int
+          ) -> Tuple[RunResult, Optional[np.ndarray], Optional[np.ndarray]]:
+    """One device-to-host copy of the packed output, plus the record
+    rows when any were absorbed."""
+    res = unpack(out.cpu().numpy(), R, A, max_steps)
+    if not res.rec_count:
+        return res, None, None
+    n = res.rec_count
+    return res, rec_steps[:n].cpu().numpy(), rec_fins[:n].cpu().numpy()

@@ -1,0 +1,319 @@
+"""The ``WavefrontScorer`` seam between the host search engine and the
+alignment kernels.
+
+The engine (``models/consensus.py``) owns the least-cost-first search —
+priority queue, thresholds, candidate nomination, activation — and talks
+to per-*branch* wavefront state only through this interface.  A branch is
+one consensus hypothesis; its state is one incremental DWFA per tracked
+read.
+
+Implementations:
+
+* :class:`PythonScorer` (here) — one :class:`~waffle_con_tpu_torch.ops.dwfa.DWFALite`
+  object per (branch, read); the executable-specification oracle.
+* ``TorchScorer`` (:mod:`waffle_con_tpu_torch.ops.torch_scorer`) — all
+  branches and reads batched in torch tensors on one device, with the
+  run loop as a hand-written CUDA kernel.
+
+All implementations agree exactly: integer edit distances and integer
+tip-vote counts (the engine does the fractional-vote arithmetic host-side
+in read order, so float summation order is the same on every backend).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from waffle_con_tpu_torch.config import CdwfaConfig
+from waffle_con_tpu_torch.ops.alignment import wfa_ed_config
+from waffle_con_tpu_torch.ops.dwfa import DWFALite
+
+
+class BranchStats:
+    """Per-branch observation snapshot returned by scorer calls.
+
+    Attributes (``R`` reads, ``A`` dense symbols):
+
+    * ``eds`` — ``[R] int64`` current edit distance per read (0 if
+      untracked).
+    * ``occ`` — ``[R, A] int64`` tip votes: how many wavefront tips of
+      read ``r`` nominate dense symbol ``a`` as the next consensus base.
+    * ``split`` — ``[R] int64`` total tips per read (vote normalizer).
+    * ``reached`` — ``[R] bool`` whether the read's wavefront has touched
+      the end of its baseline (False if untracked).
+    * ``fin`` — optional ``[R] int64`` finalized distances at this
+      position, bundled by scorers whose snapshot computes them for free
+      (``None`` when unknown or out of band).
+    """
+
+    __slots__ = ("eds", "occ", "split", "reached", "fin")
+
+    def __init__(self, eds, occ, split, reached, fin=None):
+        self.eds = eds
+        self.occ = occ
+        self.split = split
+        self.reached = reached
+        self.fin = fin
+
+
+def build_symbol_table(reads: Sequence[bytes], wildcard: Optional[int]) -> np.ndarray:
+    """Dense symbol table: sorted distinct bytes over all reads (plus the
+    wildcard if configured).  Index in this array == dense id."""
+    symbols = set()
+    for read in reads:
+        symbols.update(read)
+    if wildcard is not None:
+        symbols.add(wildcard)
+    return np.array(sorted(symbols), dtype=np.int64)
+
+
+def find_activation_offset(
+    consensus: bytes,
+    sequence: bytes,
+    offset_window: int,
+    offset_compare_length: int,
+    wildcard: Optional[int],
+) -> int:
+    """Search the tail window of ``consensus`` for the best starting offset
+    of a late-activating read: prefix-mode WFA of the read's head against
+    every window position, first-best wins with the window midpoint as
+    the incumbent."""
+    cmp_len = min(offset_compare_length, len(sequence))
+    con_len = len(consensus)
+    start_position = max(0, con_len - (offset_window + cmp_len))
+    end_position = max(0, con_len - cmp_len)
+
+    best_offset = max(0, con_len - (cmp_len + offset_window // 2))
+    head = sequence[:cmp_len]
+    min_ed = wfa_ed_config(consensus[best_offset:], head, False, wildcard)
+    for p in range(start_position, end_position):
+        ed = wfa_ed_config(consensus[p:], head, False, wildcard)
+        if ed < min_ed:
+            min_ed = ed
+            best_offset = p
+    return best_offset
+
+
+class WavefrontScorer:
+    """Abstract branch-store interface. Handles are opaque integers."""
+
+    def __init__(self, reads: Sequence[bytes], config: CdwfaConfig) -> None:
+        self.reads = [bytes(r) for r in reads]
+        self.config = config
+        self.symtab = build_symbol_table(self.reads, config.wildcard)
+        self.sym_id: Dict[int, int] = {
+            int(s): i for i, s in enumerate(self.symtab)
+        }
+        #: dispatch accounting, extended by device backends
+        self.counters: Dict[str, int] = {}
+
+    @property
+    def num_reads(self) -> int:
+        return len(self.reads)
+
+    @property
+    def num_symbols(self) -> int:
+        return len(self.symtab)
+
+    def best_activation_offset(
+        self,
+        consensus: bytes,
+        seq_index: int,
+        offset_window: int,
+        offset_compare_length: int,
+        wildcard: Optional[int],
+    ) -> int:
+        """Best starting offset for a late-activating read (see
+        :func:`find_activation_offset`)."""
+        return find_activation_offset(
+            consensus, self.reads[seq_index], offset_window,
+            offset_compare_length, wildcard,
+        )
+
+    # -- branch lifecycle ------------------------------------------------
+    def root(self, active: np.ndarray) -> int:
+        raise NotImplementedError
+
+    def clone(self, h: int) -> int:
+        raise NotImplementedError
+
+    def clone_many(self, hs: List[int]) -> List[int]:
+        """Batched :meth:`clone`; backends override to fuse into one
+        device call."""
+        return [self.clone(h) for h in hs]
+
+    def free(self, h: int) -> None:
+        raise NotImplementedError
+
+    # -- state evolution -------------------------------------------------
+    def push(self, h: int, consensus: bytes) -> BranchStats:
+        """``consensus`` must be the branch's previous consensus plus
+        exactly one appended symbol; advances every tracked read."""
+        raise NotImplementedError
+
+    def push_many(
+        self, specs: List[Tuple[int, bytes]]
+    ) -> List[BranchStats]:
+        """Batched :meth:`push` over ``(handle, consensus)`` pairs; backends
+        override to fuse into one device call."""
+        return [self.push(h, consensus) for h, consensus in specs]
+
+    def stats(self, h: int, consensus: bytes) -> BranchStats:
+        """Recompute the snapshot without mutating state."""
+        raise NotImplementedError
+
+    def activate(self, h: int, read_index: int, offset: int, consensus: bytes) -> None:
+        """Begin tracking ``read_index`` with the given consensus offset and
+        catch its wavefront up to the current consensus."""
+        raise NotImplementedError
+
+    def deactivate(self, h: int, read_index: int) -> None:
+        """Stop tracking a read."""
+        raise NotImplementedError
+
+    def deactivate_many(self, pairs: List[Tuple[int, int]]) -> None:
+        """Batched :meth:`deactivate` over ``(handle, read_index)`` pairs."""
+        for h, read_index in pairs:
+            self.deactivate(h, read_index)
+
+    def finalized_eds(self, h: int, consensus: bytes) -> np.ndarray:
+        """Edit distances after forcing every tracked read's wavefront to
+        the end of its baseline — computed on a scratch copy, the branch
+        itself is not mutated.  Untracked reads report 0."""
+        raise NotImplementedError
+
+
+class PythonScorer(WavefrontScorer):
+    """Reference oracle: per-(branch, read) ``DWFALite`` objects."""
+
+    def __init__(self, reads: Sequence[bytes], config: CdwfaConfig) -> None:
+        super().__init__(reads, config)
+        self._branches: Dict[int, List[Optional[DWFALite]]] = {}
+        self._next = 0
+
+    def _new_handle(self, dwfas: List[Optional[DWFALite]]) -> int:
+        h = self._next
+        self._next += 1
+        self._branches[h] = dwfas
+        return h
+
+    def root(self, active: np.ndarray) -> int:
+        cfg = self.config
+        dwfas: List[Optional[DWFALite]] = [
+            DWFALite(cfg.wildcard, cfg.allow_early_termination) if a else None
+            for a in active
+        ]
+        return self._new_handle(dwfas)
+
+    def clone(self, h: int) -> int:
+        self._count("clone_calls")
+        return self._new_handle(
+            [dw.clone() if dw is not None else None for dw in self._branches[h]]
+        )
+
+    def free(self, h: int) -> None:
+        self._branches.pop(h, None)
+
+    def _count(self, key: str) -> None:
+        self.counters[key] = self.counters.get(key, 0) + 1
+
+    def push(self, h: int, consensus: bytes) -> BranchStats:
+        self._count("push_calls")
+        dwfas = self._branches[h]
+        for read, dw in zip(self.reads, dwfas):
+            if dw is not None:
+                dw.update(read, consensus)
+        return self._snapshot(dwfas, consensus)
+
+    def stats(self, h: int, consensus: bytes) -> BranchStats:
+        self._count("stats_calls")
+        return self._snapshot(self._branches[h], consensus)
+
+    def activate(self, h: int, read_index: int, offset: int, consensus: bytes) -> None:
+        self._count("activate_calls")
+        dwfas = self._branches[h]
+        assert dwfas[read_index] is None
+        cfg = self.config
+        dw = DWFALite(cfg.wildcard, cfg.allow_early_termination)
+        dw.set_offset(offset)
+        dw.update(self.reads[read_index], consensus)
+        dwfas[read_index] = dw
+
+    def deactivate(self, h: int, read_index: int) -> None:
+        self._branches[h][read_index] = None
+
+    def finalized_eds(self, h: int, consensus: bytes) -> np.ndarray:
+        self._count("finalize_calls")
+        eds = np.zeros(self.num_reads, dtype=np.int64)
+        for r, dw in enumerate(self._branches[h]):
+            if dw is not None:
+                scratch = dw.clone()
+                scratch.finalize(self.reads[r], consensus)
+                eds[r] = scratch.edit_distance
+        return eds
+
+    # -----------------------------------------------------------------
+    def _snapshot(
+        self, dwfas: List[Optional[DWFALite]], consensus: bytes
+    ) -> BranchStats:
+        n = self.num_reads
+        a = self.num_symbols
+        eds = np.zeros(n, dtype=np.int64)
+        occ = np.zeros((n, a), dtype=np.int64)
+        split = np.zeros(n, dtype=np.int64)
+        reached = np.zeros(n, dtype=bool)
+        for r, dw in enumerate(dwfas):
+            if dw is None:
+                continue
+            read = self.reads[r]
+            eds[r] = dw.edit_distance
+            reached[r] = dw.reached_baseline_end(read)
+            votes = dw.get_extension_candidates(read, consensus)
+            total = 0
+            for sym, count in votes.items():
+                occ[r, self.sym_id[sym]] = count
+                total += count
+            split[r] = total
+        return BranchStats(eds, occ, split, reached)
+
+
+class FastPaths:
+    """The resolved optional-capability surface of a scorer, snapshotted
+    once so the engine's per-pop feature tests do not re-probe it.  A
+    scorer without an attribute (the Python oracle) makes the engine take
+    its per-pop expand path instead."""
+
+    __slots__ = ("run_extend", "clone_push_many")
+
+    def __init__(self, scorer) -> None:
+        self.run_extend = getattr(scorer, "run_extend", None)
+        self.clone_push_many = getattr(scorer, "clone_push_many", None)
+
+
+def fast_paths(scorer) -> FastPaths:
+    """Cached :class:`FastPaths` for ``scorer`` (resolved on first use)."""
+    fp = scorer.__dict__.get("_fastpath_cache")
+    if fp is None:
+        fp = FastPaths(scorer)
+        scorer.__dict__["_fastpath_cache"] = fp
+    return fp
+
+
+def construct_backend(
+    reads: Sequence[bytes], config: CdwfaConfig, backend: str
+) -> WavefrontScorer:
+    """Instantiate one concrete backend scorer."""
+    if backend == "python":
+        return PythonScorer(reads, config)
+    if backend == "torch":
+        from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+
+        return TorchScorer(reads, config)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def make_scorer(reads: Sequence[bytes], config: CdwfaConfig) -> WavefrontScorer:
+    """Instantiate the scorer selected by ``config.backend``."""
+    return construct_backend(reads, config, config.backend)

@@ -1,0 +1,633 @@
+"""Device branch store over the banded column DP, in PyTorch.
+
+The torch counterpart of ``waffle_con_tpu``'s ``JaxScorer``
+(``ops/jax_scorer.py``).  Every read's incremental wavefront is re-derived
+from a *banded Levenshtein column*: ``D[b, r, t]`` is the edit distance
+between ``cons[off:j]`` and ``read[:i]`` at ``i = j - off - E + t`` for a
+band of half-width ``E`` (``W = 2E + 2`` cells), kept for every branch
+slot ``b`` and read ``r`` on one torch device, with the per-read running
+folds ``e`` (edit distance), ``rmin`` (running minimum over the read-end
+row) and ``er`` (the cost latched when the wavefront first touched the
+read end).  The equivalence with the DWFA oracle is argued in the JAX
+package's module docstring; the parity tests hold this port to it.
+
+The column primitives (:func:`init_col`, :func:`col_step`,
+:func:`stats_core`, :func:`finalized`) are plain torch ops over any
+number of leading branch dimensions.  The branch life-cycle calls
+(root, clone, push, stats, activate, finalize, band growth) are built
+from them.  The run loop — the hot path — is the CUDA kernel of
+:mod:`waffle_con_tpu_torch.ops.run_kernel` on a CUDA device, and its
+plain torch twin on the CPU.
+
+Geometry follows ``JaxScorer`` so scorer-level outputs and stop codes
+match, not only final sequences: reads padded to a power of two (at
+least 16 rows, 256 columns), ``E`` from ``INITIAL_E`` or the next power
+of two of ``initial_band``, doubling with a replay of every branch on
+band overflow, branch slots and consensus capacity doubling on demand.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from waffle_con_tpu_torch.config import CdwfaConfig
+from waffle_con_tpu_torch.ops.scorer import BranchStats, WavefrontScorer
+
+#: band "infinity" (unreachable cell)
+INF = 1 << 20
+
+#: vote-sum comparison margin of the run loop: decisions whose float32
+#: margin is under this stop the run and go to the host's exact float64
+#: nomination (exact one-hot votes bypass it)
+VOTE_EPS = np.float32(1e-2)
+
+#: capacity of the run loop's record-absorption buffers
+REC_CAP = 256
+
+#: per-call step cap of the run loop (symbol buffer rows)
+RUN_MS_CAP = 32768
+
+
+def _next_pow2(n: int, minimum: int = 1) -> int:
+    return max(minimum, 1 << max(0, (n - 1).bit_length()))
+
+
+# ======================================================================
+# column primitives.  Shapes: D [..., R, W]; e/rmin/er/off/act [..., R];
+# rlen [R]; a consensus position (j / jnew / clen) and a symbol are
+# Python ints or tensors of the leading shape.
+
+
+def _lead(x, like):
+    """A per-branch scalar (int or ``[...]`` tensor) as ``[..., 1, 1]``."""
+    x = torch.as_tensor(x, dtype=torch.int32, device=like.device)
+    return x.reshape(x.shape + (1, 1))
+
+
+def _band_pos(j, off, E: int, W: int):
+    """``[..., R, W]`` read position of every band cell at column ``j``."""
+    t = torch.arange(W, dtype=torch.int32, device=off.device)
+    return _lead(j, off) - off[..., None] - E + t
+
+
+def gather_window(reads, j, off, E: int, W: int):
+    """Read symbols ``reads[r, i]`` at the band positions of column
+    ``j`` (clamped into the padded read; out-of-range lanes are masked by
+    every consumer)."""
+    i = _band_pos(j, off, E, W).clamp(0, reads.shape[1] - 1).long()
+    rows = torch.arange(reads.shape[0], device=reads.device)[:, None]
+    return reads[rows, i]
+
+
+def init_col(off, act, rlen, E: int, W: int):
+    """Fresh DP column at ``j == off`` (nothing of the consensus
+    consumed): the cost of read prefix ``i`` is ``i``.  Returns
+    ``(D, e, rmin, er)``."""
+    t = torch.arange(W, dtype=torch.int32, device=off.device)
+    i0 = t - E
+    D = torch.where((i0 >= 0) & (i0 <= rlen[:, None]), i0, INF)
+    D = torch.where(act[..., None], D, INF).to(torch.int32)
+    e = torch.zeros_like(off)
+    rmin = torch.where(act & (rlen <= E + 1), rlen, INF).to(torch.int32)
+    er = torch.where(rmin <= 0, 0, INF).to(torch.int32)
+    return D, e, rmin, er
+
+
+def col_step(D, e, rmin, er, off, act, rlen, bchar, jnew, sym, wc, et, E):
+    """Advance the banded columns from ``jnew - 1`` to ``jnew`` by
+    consuming consensus symbol ``sym``; ``bchar`` is the read window of
+    column ``jnew - 1`` (:func:`gather_window`).  Inactive reads pass
+    through unchanged."""
+    W = D.shape[-1]
+    t = torch.arange(W, dtype=torch.int32, device=D.device)
+    i_new = _band_pos(jnew, off, E, W)
+    sub = ((bchar != _lead(sym, D)) & (bchar != wc)).to(torch.int32)
+    diag = D + sub
+    dele = torch.cat([D[..., 1:], torch.full_like(D[..., :1], INF)], -1) + 1
+    base = torch.minimum(diag, dele)
+    invalid = (i_new < 0) | (i_new > rlen[:, None])
+    base = torch.where(invalid, INF, base)
+    # insertion chain within the column: prefix-min of (base - t) + t
+    chain = torch.cummin(base - t, dim=-1).values
+    Dn = torch.minimum(base, chain + t).clamp(max=INF)
+
+    colmin = Dn.amin(-1)
+    rend = torch.where(i_new == rlen[:, None], Dn, INF).amin(-1)
+    rmin_n = torch.minimum(rmin, rend)
+    e_uncapped = torch.maximum(e, colmin)
+    e_capped = torch.where(
+        er < INF, e,
+        torch.maximum(e, torch.minimum(colmin, torch.maximum(e, rmin_n))),
+    )
+    e_n = e_capped if et else e_uncapped
+    er_n = torch.where(
+        er < INF, er,
+        torch.where(rmin_n <= e_n, torch.maximum(e, rmin_n), INF),
+    )
+    return (
+        torch.where(act[..., None], Dn, D).to(torch.int32),
+        torch.where(act, e_n, e).to(torch.int32),
+        torch.where(act, rmin_n, rmin).to(torch.int32),
+        torch.where(act, er_n, er).to(torch.int32),
+    )
+
+
+def stats_core(D, e, rmin, er, off, act, rlen, vchar, clen, num_symbols, E):
+    """Snapshot of a branch: per-read edit distance, tip votes over the
+    dense symbols, reached flags.  ``vchar`` is the read window of column
+    ``clen``.  Returns ``(eds, occ [..., R, A], split, reached)``."""
+    W = D.shape[-1]
+    i = _band_pos(clen, off, E, W)
+    tip = (
+        act[..., None] & (D <= e[..., None]) & (i >= 0) & (i < rlen[:, None])
+    )
+    symbols = torch.arange(num_symbols, device=D.device)
+    onehot = (vchar[..., None] == symbols) & tip[..., None]
+    occ = onehot.sum(-2, dtype=torch.int32)
+    split = occ.sum(-1, dtype=torch.int32)
+    reached = act & (er < INF) & (e == er)
+    eds = torch.where(act, e, 0).to(torch.int32)
+    return eds, occ, split, reached
+
+
+def finalized(e, rmin, act, E: int):
+    """Finalized per-read distances (``max(e, rmin)``) and the
+    out-of-band flag (per branch)."""
+    fin = torch.maximum(e, rmin)
+    ovf = (act & (fin >= E)).any(-1)
+    return torch.where(act, fin.clamp(max=INF), 0).to(torch.int32), ovf
+
+
+# ======================================================================
+
+
+class TorchScorer(WavefrontScorer):
+    """Branch store on one torch device.
+
+    Handles are host-side ids mapped to device slots.  Every call keeps
+    its geometry rules and its outputs identical to ``JaxScorer``'s, so
+    the search it drives is byte-identical.
+    """
+
+    INITIAL_E = 8
+    INITIAL_SLOTS = 16
+    MIN_R = 16
+    MIN_L = 256
+    MIN_C = 512
+
+    def __init__(self, reads: Sequence[bytes], config: CdwfaConfig) -> None:
+        super().__init__(reads, config)
+        dev = torch.device(config.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {config.device!r} requested but no CUDA device is "
+                "available (pass device='cpu' to run on the CPU)"
+            )
+        self.device = dev
+        n = len(self.reads)
+        self._R = max(_next_pow2(max(n, 1)), self.MIN_R)
+        max_len = max((len(r) for r in self.reads), default=1)
+        self._L = max(_next_pow2(max(max_len, 1)), self.MIN_L)
+        reads_arr = np.full((self._R, self._L), -1, dtype=np.int16)
+        rlen = np.zeros(self._R, dtype=np.int32)
+        for i, r in enumerate(self.reads):
+            reads_arr[i, : len(r)] = [self.sym_id[b] for b in r]
+            rlen[i] = len(r)
+        self._reads = torch.from_numpy(reads_arr).to(dev)
+        self._rlen = torch.from_numpy(rlen).to(dev)
+        self._wc = (
+            self.sym_id.get(config.wildcard, -2)
+            if config.wildcard is not None else -2
+        )
+        self._et = bool(config.allow_early_termination)
+        if config.initial_band is not None:
+            self._E = _next_pow2(int(config.initial_band), self.INITIAL_E)
+        else:
+            self._E = self.INITIAL_E
+        self._B = self.INITIAL_SLOTS
+        self._C = max(_next_pow2(max_len + 64), self.MIN_C)
+        self._state = self._blank_state()
+        #: host mirrors of the per-slot offset/active state
+        self._off_host = np.zeros((self._B, self._R), dtype=np.int32)
+        self._act_host = np.zeros((self._B, self._R), dtype=bool)
+        self._free: List[int] = list(range(self._B))
+        self._next_handle = 0
+        self._slot_of = {}
+        self.counters = {
+            "push_calls": 0,
+            "run_calls": 0,
+            "run_steps": 0,
+            "stats_calls": 0,
+            "clone_calls": 0,
+            "clone_push_calls": 0,
+            "activate_calls": 0,
+            "finalize_calls": 0,
+            "grow_e_events": 0,
+            "replayed_cols": 0,
+        }
+
+    # -- geometry ------------------------------------------------------
+
+    @property
+    def _W(self) -> int:
+        return 2 * self._E + 2
+
+    def _blank_state(self):
+        B, R, W, C = self._B, self._R, self._W, self._C
+        dev = self.device
+        i32 = torch.int32
+        return {
+            "D": torch.full((B, R, W), INF, dtype=i32, device=dev),
+            "e": torch.zeros((B, R), dtype=i32, device=dev),
+            "rmin": torch.full((B, R), INF, dtype=i32, device=dev),
+            "er": torch.full((B, R), INF, dtype=i32, device=dev),
+            "off": torch.zeros((B, R), dtype=i32, device=dev),
+            "act": torch.zeros((B, R), dtype=torch.bool, device=dev),
+            "cons": torch.zeros((B, C), dtype=i32, device=dev),
+            "clen": torch.zeros((B,), dtype=i32, device=dev),
+        }
+
+    def _grow_e(self) -> None:
+        """Double the band half-width and rebuild every branch's band at
+        the new width by replaying its recorded consensus from each
+        read's anchor (a band is a window, so it cannot be re-padded in
+        place)."""
+        self._E *= 2
+        st = self._state
+        W, E = self._W, self._E
+        off, act, cons, clen = st["off"], st["act"], st["cons"], st["clen"]
+        D, e, rmin, er = init_col(off, act, self._rlen, E, W)
+        maxlen = int(clen.max())
+        self.counters["grow_e_events"] += 1
+        self.counters["replayed_cols"] += maxlen
+        C = cons.shape[1]
+        for j in range(maxlen):
+            sym = cons[:, min(j, C - 1)]
+            Dn, en, rminn, ern = col_step(
+                D, e, rmin, er, off, act, self._rlen,
+                gather_window(self._reads, j, off, E, W), j + 1, sym,
+                self._wc, self._et, E,
+            )
+            stepm = act & (off <= j) & (j < clen[:, None])
+            D = torch.where(stepm[..., None], Dn, D)
+            e = torch.where(stepm, en, e)
+            rmin = torch.where(stepm, rminn, rmin)
+            er = torch.where(stepm, ern, er)
+        st.update(D=D.contiguous(), e=e, rmin=rmin, er=er)
+
+    def _grow_slots(self) -> None:
+        old_b = self._B
+        self._B *= 2
+        pad = self._B - old_b
+        for name, arr in self._state.items():
+            fill = INF if name in ("D", "rmin", "er") else 0
+            extra = torch.full(
+                (pad,) + tuple(arr.shape[1:]), fill, dtype=arr.dtype,
+                device=arr.device,
+            )
+            self._state[name] = torch.cat([arr, extra])
+        self._free.extend(range(old_b, self._B))
+        grow = lambda m, fill: np.concatenate(  # noqa: E731
+            [m, np.full((pad, self._R), fill, m.dtype)]
+        )
+        self._off_host = grow(self._off_host, 0)
+        self._act_host = grow(self._act_host, False)
+
+    def _grow_cons(self) -> None:
+        cons = self._state["cons"]
+        self._C *= 2
+        pad = torch.zeros(
+            (cons.shape[0], self._C - cons.shape[1]), dtype=cons.dtype,
+            device=cons.device,
+        )
+        self._state["cons"] = torch.cat([cons, pad], dim=1)
+
+    def _alloc(self) -> Tuple[int, int]:
+        if not self._free:
+            self._grow_slots()
+        slot = self._free.pop()
+        handle = self._next_handle
+        self._next_handle += 1
+        self._slot_of[handle] = slot
+        return handle, slot
+
+    def _rows(self, slots: List[int]):
+        return torch.as_tensor(slots, dtype=torch.long, device=self.device)
+
+    # -- interface -----------------------------------------------------
+
+    def root(self, active: np.ndarray) -> int:
+        handle, slot = self._alloc()
+        act_np = np.zeros(self._R, dtype=bool)
+        act_np[: len(active)] = active
+        act = torch.from_numpy(act_np).to(self.device)
+        off = torch.zeros(self._R, dtype=torch.int32, device=self.device)
+        D, e, rmin, er = init_col(off, act, self._rlen, self._E, self._W)
+        st = self._state
+        st["D"][slot] = D
+        st["e"][slot] = e
+        st["rmin"][slot] = rmin
+        st["er"][slot] = er
+        st["off"][slot] = 0
+        st["act"][slot] = act
+        st["clen"][slot] = 0
+        self._off_host[slot] = 0
+        self._act_host[slot] = act_np
+        return handle
+
+    def clone(self, h: int) -> int:
+        return self.clone_many([h])[0]
+
+    def clone_many(self, hs: List[int]) -> List[int]:
+        """One batched row copy for a list of branch clones."""
+        if not hs:
+            return []
+        self.counters["clone_calls"] += 1
+        srcs = [self._slot_of[h] for h in hs]
+        alloc = [self._alloc() for _ in hs]
+        dsts = [a[1] for a in alloc]
+        si, di = self._rows(srcs), self._rows(dsts)
+        for arr in self._state.values():
+            arr[di] = arr[si]
+        self._off_host[dsts] = self._off_host[srcs]
+        self._act_host[dsts] = self._act_host[srcs]
+        return [a[0] for a in alloc]
+
+    def free(self, h: int) -> None:
+        slot = self._slot_of.pop(h, None)
+        if slot is not None:
+            self._free.append(slot)
+
+    def push(self, h: int, consensus: bytes) -> BranchStats:
+        return self.push_many([(h, consensus)])[0]
+
+    def push_many(self, specs: List[Tuple[int, bytes]]) -> List[BranchStats]:
+        """Advance every listed branch by its appended symbol in one
+        batched step; nothing commits on band overflow (the band grows
+        and the step is retried)."""
+        if not specs:
+            return []
+        self.counters["push_calls"] += 1
+        for _, consensus in specs:
+            while len(consensus) >= self._C - 1:
+                self._grow_cons()
+        slots = [self._slot_of[h] for h, _ in specs]
+        if len(set(slots)) != len(slots):
+            raise ValueError("push_many: duplicate branch handles in batch")
+        syms = [self.sym_id[consensus[-1]] for _, consensus in specs]
+        rows = [(s, s, y) for s, y in zip(slots, syms)]
+        return self._advance_rows(rows)
+
+    def clone_push_many(self, specs):
+        """Fused expansion: ``specs`` is a list of ``(src_handle,
+        consensus_or_None, in_place)`` — clone ``src`` (or reuse its slot
+        when ``in_place``) and, when a consensus is given, advance the
+        copy by its last symbol.  Returns ``[(handle, stats_or_None),
+        ...]`` in spec order."""
+        if not specs:
+            return []
+        self.counters["clone_push_calls"] += 1
+        for _src, consensus, _inp in specs:
+            if consensus is not None:
+                while len(consensus) >= self._C - 1:
+                    self._grow_cons()
+        rows = []
+        handles = []
+        for src_h, consensus, in_place in specs:
+            src = self._slot_of[src_h]
+            if in_place:
+                handle, dst = src_h, src
+            else:
+                handle, dst = self._alloc()
+            handles.append(handle)
+            sym = -1 if consensus is None else self.sym_id[consensus[-1]]
+            rows.append((src, dst, sym))
+            self._off_host[dst] = self._off_host[src]
+            self._act_host[dst] = self._act_host[src]
+        if len({d for _, d, _ in rows}) != len(rows):
+            raise ValueError("clone_push_many: duplicate destination slots")
+        stats = self._advance_rows(rows)
+        return [
+            (h, stats[i] if specs[i][1] is not None else None)
+            for i, h in enumerate(handles)
+        ]
+
+    def _advance_rows(self, rows) -> List[BranchStats]:
+        """Copy slot ``src`` to slot ``dst`` advanced by ``sym`` (``-1``:
+        copy only) for every ``(src, dst, sym)``; commits nothing while
+        any advanced read overflows the band (grows it and retries).
+        Returns the per-row stats with the finalized distances bundled."""
+        st = self._state
+        si = self._rows([r[0] for r in rows])
+        di = self._rows([r[1] for r in rows])
+        sym = torch.tensor([r[2] for r in rows], dtype=torch.int32,
+                           device=self.device)
+        push = sym >= 0
+        while True:
+            E, W = self._E, self._W
+            D, e, rmin, er = st["D"][si], st["e"][si], st["rmin"][si], st["er"][si]
+            off, act, cons, clen = (
+                st["off"][si], st["act"][si], st["cons"][si], st["clen"][si]
+            )
+            Dn, en, rminn, ern = col_step(
+                D, e, rmin, er, off, act, self._rlen,
+                gather_window(self._reads, clen, off, E, W), clen + 1,
+                sym.clamp(min=0), self._wc, self._et, E,
+            )
+            sel = lambda new, old: torch.where(  # noqa: E731
+                push.reshape((-1,) + (1,) * (new.dim() - 1)), new, old
+            )
+            Dn, en, rminn, ern = sel(Dn, D), sel(en, e), sel(rminn, rmin), sel(ern, er)
+            ovf = push & (act & (en >= E)).any(-1)
+            clenn = torch.where(push, clen + 1, clen)
+            stats = stats_core(
+                Dn, en, rminn, ern, off, act, self._rlen,
+                gather_window(self._reads, clenn, off, E, W), clenn,
+                self.num_symbols, E,
+            )
+            fin, fin_ovf = finalized(en, rminn, act, E)
+            host = [x.cpu().numpy() for x in stats + (fin, fin_ovf, ovf)]
+            if host[-1].any():
+                self._grow_e()
+                continue
+            C = self._C
+            cpos = clen.clamp(0, C - 1).long()
+            cons_n = cons.clone()
+            at = torch.arange(len(rows), device=self.device)
+            cons_n[at, cpos] = torch.where(push, sym, cons[at, cpos])
+            for name, val in (
+                ("D", Dn), ("e", en), ("rmin", rminn), ("er", ern),
+                ("off", off), ("act", act), ("cons", cons_n), ("clen", clenn),
+            ):
+                st[name][di] = val
+            eds, occ, split, reached, fin_np, fovf_np, _ = host
+            return [
+                self._stats_np(eds[i], occ[i], split[i], reached[i],
+                               None if fovf_np[i] else fin_np[i])
+                for i in range(len(rows))
+            ]
+
+    def stats(self, h: int, consensus: bytes) -> BranchStats:
+        self.counters["stats_calls"] += 1
+        slot = self._slot_of[h]
+        st = self._state
+        E, W = self._E, self._W
+        off, clen = st["off"][slot], st["clen"][slot]
+        eds, occ, split, reached = stats_core(
+            st["D"][slot], st["e"][slot], st["rmin"][slot], st["er"][slot],
+            off, st["act"][slot], self._rlen,
+            gather_window(self._reads, clen, off, E, W), clen,
+            self.num_symbols, E,
+        )
+        return self._stats_np(*(x.cpu().numpy() for x in (eds, occ, split, reached)))
+
+    def activate(
+        self, h: int, read_index: int, offset: int, consensus: bytes
+    ) -> None:
+        """Track ``read_index`` from consensus offset ``offset``: a fresh
+        column at ``j == offset``, caught up through the branch's recorded
+        consensus (band overflow grows the band and retries)."""
+        self.counters["activate_calls"] += 1
+        slot = self._slot_of[h]
+        self._off_host[slot, read_index] = offset
+        self._act_host[slot, read_index] = True
+        st = self._state
+        clen = int(st["clen"][slot])
+        syms = st["cons"][slot, offset:clen].tolist()
+        dev = self.device
+        off1 = torch.full((1,), offset, dtype=torch.int32, device=dev)
+        act1 = torch.ones((1,), dtype=torch.bool, device=dev)
+        rlen1 = self._rlen[read_index:read_index + 1]
+        reads1 = self._reads[read_index:read_index + 1]
+        while True:
+            E, W = self._E, self._W
+            D, e, rmin, er = init_col(off1, act1, rlen1, E, W)
+            for j, sym in zip(range(offset, clen), syms):
+                D, e, rmin, er = col_step(
+                    D, e, rmin, er, off1, act1, rlen1,
+                    gather_window(reads1, j, off1, E, W), j + 1, sym,
+                    self._wc, self._et, E,
+                )
+            if int(e[0]) >= E:
+                self._grow_e()
+                continue
+            st["D"][slot, read_index] = D[0]
+            st["e"][slot, read_index] = e[0]
+            st["rmin"][slot, read_index] = rmin[0]
+            st["er"][slot, read_index] = er[0]
+            st["off"][slot, read_index] = offset
+            st["act"][slot, read_index] = True
+            return
+
+    def deactivate(self, h: int, read_index: int) -> None:
+        self.deactivate_many([(h, read_index)])
+
+    def deactivate_many(self, pairs) -> None:
+        if not pairs:
+            return
+        slots = [self._slot_of[h] for h, _ in pairs]
+        ridx = [r for _, r in pairs]
+        self._act_host[slots, ridx] = False
+        self._state["act"][self._rows(slots), self._rows(ridx)] = False
+
+    def finalized_eds(self, h: int, consensus: bytes) -> np.ndarray:
+        self.counters["finalize_calls"] += 1
+        slot = self._slot_of[h]
+        st = self._state
+        while True:
+            fin, ovf = finalized(
+                st["e"][slot], st["rmin"][slot], st["act"][slot], self._E
+            )
+            if bool(ovf):
+                self._grow_e()
+                continue
+            return fin.cpu().numpy()[: self.num_reads].astype(np.int64)
+
+    def run_extend(
+        self,
+        h: int,
+        consensus: bytes,
+        me_budget: int,
+        other_cost: int,
+        other_len: int,
+        min_count: int,
+        l2: bool,
+        max_steps: int,
+        first_sym: int = -1,
+        allow_records: bool = True,
+    ) -> Tuple[int, int, bytes, BranchStats, list]:
+        """Device-side unambiguous-run extension of branch ``h``; returns
+        ``(steps_committed, stop_code, appended_bytes, stats, records)``
+        with ``stats`` the snapshot at the stopped position (its ``fin``
+        the finalized distances there, ``None`` when out of band) and
+        ``records`` the absorbed reached-state snapshots ``[(step,
+        fin_eds), ...]`` in commit order.  ``first_sym`` (a dense id, or
+        -1) force-pushes the host's already-nominated child as step 0.
+        On band overflow (code 5) the band is grown so the caller can
+        simply continue."""
+        from waffle_con_tpu_torch.ops import run_kernel
+
+        slot = self._slot_of[h]
+        while len(consensus) + max_steps + 2 >= self._C:
+            self._grow_cons()
+        # symbol-buffer bucket and step cap of the fused run (the JAX
+        # package's pallas geometry rule, kept so capacities match)
+        ms = _next_pow2(min(max_steps, RUN_MS_CAP - 2) + 2, 256)
+        while len(consensus) + ms + 2 >= self._C:
+            self._grow_cons()
+        max_steps = min(max_steps, ms - 2)
+        args = run_kernel.RunArgs(
+            me_budget=min(int(me_budget), 2**31 - 1),
+            other_cost=min(int(other_cost), 2**31 - 1),
+            other_len=int(other_len),
+            min_count=int(min_count),
+            l2=bool(l2),
+            max_steps=int(max_steps),
+            first_sym=int(first_sym),
+            allow_records=bool(allow_records),
+            wc=self._wc,
+            et=self._et,
+            a_real=self.num_symbols,
+        )
+        out, rec_steps, rec_fins = run_kernel.run_extend(
+            self._state, slot, self._reads, self._rlen, args
+        )
+        res, rsteps, rfins = run_kernel.fetch(
+            out, rec_steps, rec_fins, self._R, self.num_symbols, max_steps
+        )
+        self.counters["run_calls"] += 1
+        self.counters["run_steps"] += res.steps
+        key = f"run_stop_{res.code}"
+        self.counters[key] = self.counters.get(key, 0) + 1
+        appended = b""
+        if res.steps:
+            appended = self.symtab[res.syms].astype(np.uint8).tobytes()
+        if res.code == 5:
+            self._grow_e()
+        n = self.num_reads
+        records = [
+            (int(rsteps[i]), rfins[i, :n].astype(np.int64))
+            for i in range(res.rec_count)
+        ]
+        stats = self._stats_np(
+            res.eds, res.occ, res.split, res.reached,
+            None if res.fin_ovf else res.fin,
+        )
+        return res.steps, res.code, appended, stats, records
+
+    # -----------------------------------------------------------------
+
+    def _stats_np(self, eds, occ, split, reached, fin=None) -> BranchStats:
+        """Host arrays -> :class:`BranchStats`, slicing read padding
+        away."""
+        n = self.num_reads
+        return BranchStats(
+            eds[:n].astype(np.int64),
+            occ[:n].astype(np.int64),
+            split[:n].astype(np.int64),
+            reached[:n].astype(bool),
+            None if fin is None else fin[:n].astype(np.int64),
+        )
