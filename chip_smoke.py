@@ -7,17 +7,33 @@
 Phases, one line each (every failure exits non-zero):
 
 1. device: the card (``nvidia-smi``), torch, and the ``nvcc`` build of
-   ``waffle_con_tpu_torch/csrc/run_extend.cu``.
+   ``waffle_con_tpu_torch/csrc/*.cu`` (one compiler per source, in
+   parallel, linked into one library).
 2. kernel: the CUDA run kernel against its plain PyTorch version on the
-   card, every output compared bitwise, on a small geometry (R=16, E=8)
-   and the north-star geometry (R=256, W=514, 10 kb reads); times per
-   step of both.
+   card, every output compared bitwise, on a small geometry (R=16, E=8),
+   the north-star geometry (R=256, W=514, 10 kb reads) and the dual
+   north star's (R=64, W=258, 5 kb reads: the dual search's first
+   launch, a launch that loses the pop, records at the reads' ends);
+   times per step of both.
 3. main: the north-star search — 256 reads x 10 kb at 1 % error,
    ``min_count=64``, ``initial_band=216`` — through ``ConsensusDWFA`` on
    ``cuda``; the consensus must equal the truth, the run kernel must have
    taken every run (its launch counter > 0, the plain loop never called).
 4. oracle: 16 reads x 1 kb at 2 %: the ``"python"`` oracle and ``"torch"``
    on ``cuda`` give byte-identical results.
+5. dual_kernel: the CUDA dual run kernel (``csrc/run_extend_dual.cu``)
+   against its plain PyTorch version, every output and both slots' rows
+   compared bitwise, on a small geometry (R=16, E=8) and the dual
+   north-star geometry (R=64, W=258, 5 kb reads, launches of more than
+   1,000 steps); times per step of both.
+6. dual_main: the dual north star — 64 reads x 5 kb at 1 %, two
+   haplotypes 3 SNPs apart, ``min_count=16``, ``initial_band=116`` —
+   through ``DualConsensusDWFA`` on ``cuda``; both haplotypes must come
+   back, the dual kernel must have taken every dual run (its launch
+   counter > 0, neither plain loop called).
+7. dual_oracle: 16 reads x 1 kb, 2 SNPs, 2 %: the dual engine's
+   ``"python"`` oracle and ``"torch"`` on ``cuda`` give byte-identical
+   results, scores included.
 
 The last three lines are the card's name and power limit, the kernel
 table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -32,10 +48,13 @@ import subprocess
 import sys
 import time
 
-#: the card's peak rates (NVIDIA H100 SXM data sheet): HBM bytes/s, and
-#: 32-bit scalar operations/s (the float32 non-tensor rate)
+#: the card's HBM rate (NVIDIA H100 SXM data sheet), bytes/s
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+#: int32 lanes per SM and SMs of an H100 SXM (Hopper architecture white
+#: paper: 4 partitions x 16 INT32 units per SM); the int32 peak is lanes
+#: x SMs x the card's maximum SM clock, read from nvidia-smi
+INT32_LANES_PER_SM = 64
+SMS = 132
 #: int32 operations per band cell per step: the column recurrence
 #: (substitution test 2, diagonal and deletion adds 2, min 1, validity 3,
 #: prefix-min 2, re-add and caps 3, column folds 3) plus the tip test 4
@@ -47,12 +66,25 @@ def fail(msg: str) -> int:
     return 1
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def peak_int32_ops_s() -> float:
+    """int32 operations/s of the card at its maximum SM clock."""
+    mhz = float(smi_line("clocks.max.sm").split()[0])
+    return INT32_LANES_PER_SM * SMS * mhz * 1e6
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    int32 operations over the int32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / peak_int32_ops_s() * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 # ---------------------------------------------------------------------
@@ -121,15 +153,13 @@ def _compare(sc, slot, args, st_k, st_p, outs_k, outs_p):
     return err, rk_.steps, rk_.code, rk_.rec_count
 
 
-def _run_args(sc, **kw):
-    from waffle_con_tpu_torch.ops.run_kernel import RunArgs
-
+def _run_args(sc, consensus_len, **kw):
+    """The ``RunArgs`` of a case, as the scorer builds them for
+    ``run_extend`` (unbounded budgets unless the case sets them)."""
     base = dict(me_budget=2**31 - 1, other_cost=2**31 - 1, other_len=0,
-                min_count=3, l2=False, max_steps=200, first_sym=-1,
-                allow_records=True, wc=sc._wc, et=sc._et,
-                a_real=sc.num_symbols)
+                min_count=3, l2=False, max_steps=200)
     base.update(kw)
-    return RunArgs(**base)
+    return sc.run_args(consensus_len, **base)
 
 
 def _time_cuda(fn, reps):
@@ -222,7 +252,29 @@ def kernel_cases(small_only: bool):
     ]:
         cases.append(("north_star/" + label, make, {**ns_cfg, **cfg},
                       dict(min_count=64, **kw), state))
+    # the dual north star's geometry (R=64, W=258), at which the dual
+    # search launches this kernel on every non-dual node
+    for label, kw, state in [
+        # the search's first launch: the root, no forced symbol, the
+        # engine's step bound; it stops at the first SNP
+        ("first_launch", {}, dict(engine_steps=True)),
+        # a later launch of the search: past the first SNP, losing the
+        # pop to a queued node (the search's own other_cost/other_len)
+        ("lose_pop", dict(other_cost=1574, other_len=2413),
+         dict(engine_steps=True, prefix_len=2365)),
+        # the reads' ends: reached reads absorbed as records
+        ("records", dict(max_steps=600), dict(prefix_len=4750)),
+    ]:
+        cases.append(("dual_north_star/" + label, _dual_north_star_h1,
+                      dict(min_count=16, initial_band=116),
+                      dict(min_count=16, **kw), state))
     return cases
+
+
+def _dual_north_star_h1():
+    """The dual north star's reads with its first haplotype as truth."""
+    truth, _h2, reads = dual_north_star()
+    return truth, reads
 
 
 def phase_kernel(small_only: bool):
@@ -244,9 +296,10 @@ def phase_kernel(small_only: bool):
         slot = sc._slot_of[h]
         if spec.get("force_truth"):
             kw = dict(kw, first_sym=sc.sym_id[truth[0]])
-        args = _run_args(sc, **kw)
-        while len(prefix) + args.max_steps + 2 >= sc._C:
-            sc._grow_cons()
+        if spec.get("engine_steps"):
+            # the engines' step bound: twice the longest read, plus 256
+            kw = dict(kw, max_steps=2 * max(map(len, reads)) + 256)
+        args = _run_args(sc, len(prefix), **kw)
         st0 = _copy_state(sc._state)
         st_k, st_p = _copy_state(st0), _copy_state(st0)
         outs_k = rk.run_extend_cuda(st_k, slot, sc._reads, sc._rlen, args)
@@ -261,7 +314,7 @@ def phase_kernel(small_only: bool):
         if err:
             raise AssertionError(f"{label}: kernel != plain (max err {err})")
         line = dict(case=label, steps=steps, code=code, records=nrec)
-        if label.startswith("north_star/") or small_only:
+        if not label.startswith("small/") or small_only:
             # every timed call starts from a fresh copy of the same state
             it = iter([_copy_state(st0) for _ in range(3)])
             k_ms = _time_cuda(
@@ -277,13 +330,10 @@ def phase_kernel(small_only: bool):
                 R, W = sc._R, sc._W
                 nbytes = 2 * R * W * 4 + R * (steps + W) * 2
                 ops = steps * R * W * OPS_PER_CELL
-                t_bytes = nbytes / PEAK_BYTES_S * 1e3
-                t_ops = ops / PEAK_OPS_S * 1e3
+                bound_ms, bound_by = bound(nbytes, ops)
                 timing = dict(
-                    ms=k_ms, plain_ms=p_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    steps=steps,
+                    ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, steps=steps,
                 )
         print("kernel", json.dumps(line), flush=True)
         del sc, st0, st_k, st_p
@@ -326,7 +376,7 @@ def phase_main():
                 f"{run}: run kernel launches {launches}, plain calls "
                 f"{plain_calls}"
             )
-    device_ms = _profiled_kernel_ms(eng)
+    device_ms, _ = _profiled_kernel_ms(eng)
     st = eng.last_search_stats
     c = st["scorer_counters"]
     line = dict(
@@ -350,23 +400,28 @@ def phase_main():
 
 
 def _profiled_kernel_ms(eng):
-    """Device time of every CUDA kernel of one more search of ``eng``'s
-    reads, from ``torch.profiler`` (``{name: ms}``; ``None`` when the
-    profiler saw no device activity)."""
+    """Device time of one more search of ``eng``'s reads, from
+    ``torch.profiler`` tracing the device only (host ops untraced, so a
+    search of many small launches stays cheap to profile).  Returns the
+    total in ms (``None`` when the profiler saw no device activity) and
+    every entry as ``{name: ms}``, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.consensus()
         torch.cuda.synchronize()
-    total = 0.0
+    by_name = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        total += us
-    return round(total / 1e3, 3) if total > 0 else None
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+    total = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return (round(total / 1e3, 3) if total > 0 else None,
+            {name[:60]: round(us / 1e3, 3) for name, us in ranked})
 
 
 def phase_oracle():
@@ -391,12 +446,425 @@ def phase_oracle():
     )), flush=True)
 
 
+# ---------------------------------------------------------------------
+# phases 5-7: the dual engine
+
+
+def dual_north_star(num_reads=64, seq_len=5000, err=0.01):
+    """The dual north star: half the reads from ``generate_test``, half
+    from a second haplotype 3 SNPs away (the JAX package's ``bench.py``
+    draw).  Returns ``(truth, h2, reads)``."""
+    import numpy as np
+    from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
+
+    rng = np.random.default_rng(1)
+    truth, reads1 = generate_test(4, seq_len, num_reads // 2, err, seed=1)
+    h2 = bytearray(truth)
+    for pos in rng.choice(seq_len, size=3, replace=False):
+        h2[pos] = (h2[pos] + 1 + rng.integers(3)) % 4
+    h2 = bytes(h2)
+    reads2 = [corrupt(h2, err, np.random.default_rng(100 + i))
+              for i in range(num_reads // 2)]
+    return truth, h2, list(reads1) + reads2
+
+
+def _small_dual(seed, err, n=6, length=140, snps=((40, 1), (90, 2))):
+    """``n`` reads of one haplotype and ``n`` of a second one ``snps``
+    away.  Returns ``(t1, t2, reads)``."""
+    import numpy as np
+    from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
+
+    rng = np.random.default_rng(seed)
+    t1, reads1 = generate_test(4, length, n, err, seed=seed)
+    t2 = bytearray(t1)
+    for pos, shift in snps:
+        t2[pos] = (t2[pos] + shift) % 4
+    return t1, bytes(t2), list(reads1) + [
+        corrupt(bytes(t2), err, rng) for _ in range(n)
+    ]
+
+
+def _starred(make):
+    """Every 20th base of every read replaced by the wildcard ``*``."""
+    def make2():
+        import numpy as np
+
+        t1, t2, reads = make()
+        rng = np.random.default_rng(7)
+        out = []
+        for r in reads:
+            arr = bytearray(r)
+            for pos in rng.choice(len(arr), size=len(arr) // 20,
+                                  replace=False):
+                arr[pos] = ord("*")
+            out.append(bytes(arr))
+        return t1, t2, out
+    return make2
+
+
+def _dual_random_read(make):
+    """Read 0 replaced by random symbols (band overflow, code 5)."""
+    def make2():
+        import numpy as np
+
+        t1, t2, reads = make()
+        rng = np.random.default_rng(3)
+        reads = list(reads)
+        reads[0] = bytes(rng.integers(0, 4, size=len(reads[0])).astype(np.uint8))
+        return t1, t2, reads
+    return make2
+
+
+def _dual_cut(make, n1, n2):
+    """The first haplotype's reads cut to ``n1`` symbols, the second's to
+    ``n2`` (side 1 locked at its reads' ends absorbs records)."""
+    def make2():
+        t1, t2, reads = make()
+        half = len(reads) // 2
+        return t1, t2, [r[:n1] if k < half else r[:n2]
+                        for k, r in enumerate(reads)]
+    return make2
+
+
+def _dual_state(sc, t1, t2, spec):
+    """Two branch slots for a dual case: roots (reads in ``inactive1`` /
+    ``inactive2`` and the ``late`` ones inactive), each slot pushed to
+    its prefix (``prefix`` symbols of t1 / t2), the late reads activated
+    on slot 1, or — with ``advance`` — both slots driven from the roots
+    through the scorer's own dual runs to position ``advance``, pushing
+    t1's and t2's symbols at every stop.  Returns the two handles and
+    the two consensus strings."""
+    import numpy as np
+
+    n = sc.num_reads
+    a1 = np.ones(n, dtype=bool)
+    a1[[r for r, _o in spec.get("late", ())]
+       + list(spec.get("inactive1", ()))] = False
+    a2 = np.ones(n, dtype=bool)
+    a2[list(spec.get("inactive2", ()))] = False
+    ha, hb = sc.root(a1), sc.root(a2)
+    p1, p2 = spec.get("prefix", (0, 0))
+    c1, c2 = t1[:p1], t2[:p2]
+    for h, c in ((ha, c1), (hb, c2)):
+        for k in range(len(c)):
+            sc.push(h, c[: k + 1])
+    for r, o in spec.get("late", ()):
+        sc.activate(ha, r, o, c1)
+    target = spec.get("advance", 0)
+    while len(c1) < target:
+        steps, code, app1, app2 = sc.run_extend_dual(
+            ha, hb, c1, c2, 2**31 - 1, 2**31 - 1, 0, spec["min_count"],
+            20, 2, False, False, target - len(c1),
+        )[:4]
+        c1, c2 = c1 + app1, c2 + app2
+        if code not in (1, 4, 5):
+            raise AssertionError(f"advance: unexpected stop code {code}")
+        if code == 1:
+            c1, c2 = c1 + t1[len(c1):len(c1) + 1], c2 + t2[len(c2):len(c2) + 1]
+            sc.push(ha, c1)
+            sc.push(hb, c2)
+    return ha, hb, c1, c2
+
+
+def _dual_args(sc, c1, c2, kw):
+    """``(DualRunArgs, mc_tab, imb_tab)`` of a case, as the scorer builds
+    them for ``run_extend_dual`` (unbounded budgets unless the case sets
+    them)."""
+    base = dict(me_budget=2**31 - 1, other_cost=2**31 - 1, other_len=0,
+                ed_delta=20, imb_min=2, l2=False, weighted=False,
+                max_steps=200)
+    base.update(kw)
+    return sc.dual_run_args(max(len(c1), len(c2)), **base)
+
+
+def _dual_compare(sc, slots, args, st_k, st_p, outs_k, outs_p):
+    """Bitwise comparison of two dual runs' packed outputs, records and
+    both slots' rows; returns (max_abs_err, steps, code, rec_count)."""
+    import torch
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+
+    R, A = sc._R, sc.num_symbols
+    a_out, b_out = outs_k[0].cpu(), outs_p[0].cpu()
+    err = int((a_out.long() - b_out.long()).abs().max())
+    res, rs_k, rf_k = rdk.fetch(*outs_k, R, A, args.max_steps)
+    _res_p, rs_p, rf_p = rdk.fetch(*outs_p, R, A, args.max_steps)
+    if res.rec_count:
+        err = max(err, int(abs(rs_k - rs_p).max()), int(abs(rf_k - rf_p).max()))
+    for slot in slots:
+        clen = int(st_k["clen"][slot])
+        for name in ("D", "e", "rmin", "er", "act", "clen"):
+            d = (st_k[name][slot].long() - st_p[name][slot].long()).abs().max()
+            err = max(err, int(d))
+        d = st_k["cons"][slot, :clen].long() - st_p["cons"][slot, :clen].long()
+        if d.numel():
+            err = max(err, int(d.abs().max()))
+    torch.cuda.synchronize()
+    return err, res.steps, res.code, res.rec_count
+
+
+def dual_kernel_cases(small_only: bool):
+    """(label, make-reads, scorer config, run args, state spec) cases."""
+    split = dict(prefix=(45, 45))
+    cases = [
+        ("small/from_root", lambda: _small_dual(41, 0.0), {},
+         dict(max_steps=120), {}),
+        ("small/split", lambda: _small_dual(42, 0.02), {},
+         dict(max_steps=120), split),
+        ("small/err3", lambda: _small_dual(43, 0.03), {},
+         dict(max_steps=120), split),
+        ("small/early_term", lambda: _small_dual(44, 0.02),
+         dict(allow_early_termination=True), dict(max_steps=120), split),
+        ("small/l2", lambda: _small_dual(45, 0.03), {},
+         dict(max_steps=120, l2=True, ed_delta=2), split),
+        ("small/weighted", lambda: _small_dual(46, 0.02), {},
+         dict(max_steps=120, weighted=True), split),
+        ("small/lock1", lambda: _small_dual(47, 0.02), {},
+         dict(max_steps=80, lock1=True), dict(prefix=(8, 12))),
+        ("small/lock2", lambda: _small_dual(48, 0.02), {},
+         dict(max_steps=80, lock2=True), dict(prefix=(12, 8))),
+        ("small/ed_delta", lambda: _small_dual(49, 0.0), {},
+         dict(max_steps=150, ed_delta=0), split),
+        ("small/imbalance", lambda: _small_dual(50, 0.0), {},
+         dict(max_steps=150, ed_delta=0, imb_min=7), split),
+        ("small/budget", lambda: _small_dual(51, 0.03), {},
+         dict(max_steps=100, me_budget=15), split),
+        ("small/step_cap", lambda: _small_dual(52, 0.0), {},
+         dict(max_steps=10), split),
+        ("small/overflow", _dual_random_read(lambda: _small_dual(53, 0.0)),
+         {}, dict(max_steps=120, ed_delta=200), {}),
+        ("small/records", _dual_cut(lambda: _small_dual(54, 0.0), 100, 106),
+         {}, dict(max_steps=200, lock1=True),
+         dict(prefix=(100, 100), inactive1=range(6, 12),
+              inactive2=range(6))),
+        ("small/mc_dyn", lambda: _small_dual(55, 0.01), {},
+         dict(max_steps=120, mc_dyn=True, rec_min=4,
+              mc_tab=[2] * 9 + [3] * 4, imb_tab=[2, 2, 3, 3, 3, 4]), {}),
+        ("small/offsets", lambda: _small_dual(56, 0.02), {},
+         dict(max_steps=100), dict(prefix=(30, 30), late=((3, 6), (8, 11)))),
+        ("small/wildcard", _starred(lambda: _small_dual(57, 0.02)),
+         dict(wildcard=ord("*")), dict(max_steps=120), split),
+    ]
+    cases = [(lb, mk, cfg, dict(min_count=3, **kw), dict(min_count=3, **st))
+             for lb, mk, cfg, kw, st in cases]
+    if small_only:
+        return cases
+    ns = dual_north_star
+    ns_cfg = dict(min_count=16, initial_band=116)
+    long_steps = 2 * 5000 + 256
+    for label, make, cfg, kw, spec in [
+        # both slots from the roots: identical sides up to the first SNP
+        ("from_root", ns, {}, dict(max_steps=long_steps), {}),
+        ("l2", ns, {}, dict(max_steps=300, l2=True), {}),
+        ("weighted", ns, {}, dict(max_steps=300, weighted=True), {}),
+        ("early_term", ns, dict(allow_early_termination=True),
+         dict(max_steps=300), {}),
+        ("offsets", ns, {}, dict(max_steps=300),
+         dict(prefix=(60, 60), late=((5, 4), (17, 9), (40, 13)))),
+        ("overflow", _dual_random_read(ns), {}, dict(max_steps=1500), {}),
+        # a long launch at the search's geometry, made for timing (the
+        # search's own dual launches are short: dual_main's profile
+        # gives their mean): split sides, from just past the second SNP
+        # (and the ambiguous columns right after it) to the third
+        ("long_launch", ns, {}, dict(max_steps=long_steps),
+         dict(advance=2570)),
+    ]:
+        cases.append(("north_star/" + label, make, {**ns_cfg, **cfg},
+                      dict(min_count=16, **kw), dict(min_count=16, **spec)))
+    return cases
+
+
+def phase_dual_kernel(small_only: bool):
+    """Dual kernel vs plain on the card.  Returns the kernel table's
+    numbers (from the long launch at the north-star geometry, or the
+    first small case with ``small_only``) and the max error over every
+    compared output."""
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+
+    max_err = 0
+    timing = None
+    cache = {}
+    for label, make, cfg, kw, spec in dual_kernel_cases(small_only):
+        if make not in cache:
+            cache[make] = make()
+        t1, t2, reads = cache[make]
+        sc = _scorer(reads, **cfg)
+        ha, hb, c1, c2 = _dual_state(sc, t1, t2, spec)
+        slots = (sc._slot_of[ha], sc._slot_of[hb])
+        args, mc, imb = _dual_args(sc, c1, c2, kw)
+        st0 = _copy_state(sc._state)
+        st_k, st_p = _copy_state(st0), _copy_state(st0)
+        call = lambda fn, st: fn(  # noqa: E731
+            st, slots[0], slots[1], sc._reads, sc._rlen, mc, imb, args)
+        outs_k = call(rdk.run_extend_dual_cuda, st_k)
+        held = []
+        p_ms = _time_cuda(lambda: held.append(
+            call(rdk.run_extend_dual_plain, st_p)), 1)
+        err, steps, code, nrec = _dual_compare(sc, slots, args, st_k, st_p,
+                                               outs_k, held[0])
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"{label}: dual kernel != plain (max err {err})")
+        line = dict(case=label, steps=steps, code=code, records=nrec)
+        if not label.startswith("small/") or small_only:
+            it = iter([_copy_state(st0) for _ in range(3)])
+            k_ms = _time_cuda(
+                lambda: call(rdk.run_extend_dual_cuda, next(it)), 3)
+            per = max(steps, 1)
+            line.update(kernel_ms=round(k_ms, 4), plain_ms=round(p_ms, 3),
+                        kernel_us_per_step=round(1000 * k_ms / per, 3),
+                        plain_us_per_step=round(1000 * p_ms / per, 2))
+            if label == "north_star/long_launch" or (
+                small_only and timing is None
+            ):
+                R, W = sc._R, sc._W
+                act = [int(st0["act"][sl].sum()) for sl in slots]
+                unlocked = [not args.lock1, not args.lock2]
+                # each side's band read and written once, its read
+                # windows read once; int32 work on the active rows of
+                # each unlocked side
+                nbytes = 2 * (2 * R * W * 4 + R * (steps + W) * 2)
+                ops = steps * W * OPS_PER_CELL * sum(
+                    a for a, u in zip(act, unlocked) if u)
+                bound_ms, bound_by = bound(nbytes, ops)
+                timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, steps=steps)
+        print("dual_kernel", json.dumps(line), flush=True)
+        del sc, st0, st_k, st_p
+    return timing, max_err
+
+
+def _dual_key(results):
+    cons = lambda c: None if c is None else (c.sequence, list(c.scores))  # noqa: E731
+    return [(cons(d.consensus1), cons(d.consensus2), list(d.is_consensus1),
+             list(d.scores1), list(d.scores2)) for d in results]
+
+
+def phase_dual_main():
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, DualConsensusDWFA
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+    import torch
+
+    t0 = time.perf_counter()
+    truth, h2, reads = dual_north_star()
+    gen_s = time.perf_counter() - t0
+    cfg = (CdwfaConfigBuilder().backend("torch").device("cuda")
+           .min_count(16).initial_band(116).build())
+    walls = []
+    for run in ("cold", "warm"):
+        eng = DualConsensusDWFA(cfg)
+        for r in reads:
+            eng.add_sequence(r)
+        rdk.run_extend_dual_cuda.launches = 0
+        rdk.run_extend_dual_plain.calls = 0
+        rk.run_extend_cuda.launches = 0
+        rk.run_extend_plain.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.consensus()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = (rdk.run_extend_dual_cuda.launches,
+                    rk.run_extend_cuda.launches)
+        plain_calls = (rdk.run_extend_dual_plain.calls,
+                       rk.run_extend_plain.calls)
+        if not res or not res[0].is_dual() or {
+            res[0].consensus1.sequence, res[0].consensus2.sequence
+        } != {truth, h2}:
+            raise AssertionError(f"{run}: haplotypes not recovered")
+        # the path runs both kernels: the single one up to the split
+        if min(launches) <= 0 or plain_calls != (0, 0):
+            raise AssertionError(
+                f"{run}: kernel launches (dual, single) {launches}, plain "
+                f"calls {plain_calls}"
+            )
+    device_ms, by_name = _profiled_kernel_ms(eng)
+    # the profiled search is the same deterministic search: same launches
+    per_launch = {
+        key: None if not n else round(sum(
+            ms for name, ms in by_name.items() if kernel + "(" in name
+        ) / n, 4)
+        for key, kernel, n in (
+            ("dual_kernel_device_ms_per_launch", "run_extend_dual_kernel",
+             launches[0]),
+            ("run_kernel_device_ms_per_launch", "run_extend_kernel",
+             launches[1]),
+        )
+    }
+    st = eng.last_search_stats
+    c = st["scorer_counters"]
+    steps = c["run_dual_steps"] + c["run_steps"]
+    line = dict(
+        reads=len(reads), length=len(truth), gen_s=round(gen_s, 3),
+        cold_s=round(walls[0], 3), warm_s=round(walls[1], 3),
+        pops=st["nodes_explored"] + st["nodes_ignored"],
+        nodes_explored=st["nodes_explored"],
+        run_dual_calls=c["run_dual_calls"], run_dual_steps=c["run_dual_steps"],
+        run_calls=c["run_calls"], run_steps=c["run_steps"],
+        dual_kernel_launches=launches[0], run_kernel_launches=launches[1],
+        plain_calls=list(plain_calls),
+        steps_per_s=round(steps / walls[1], 1),
+        push_calls=c["push_calls"], clone_push_calls=c["clone_push_calls"],
+        activate_calls=c["activate_calls"], grow_e_events=c["grow_e_events"],
+        scores_sum=sum(res[0].consensus1.scores) + sum(res[0].consensus2.scores),
+        profiled_device_ms=device_ms,
+        top_device_ms=dict(list(by_name.items())[:6]), **per_launch,
+        device_busy_share=(
+            None if device_ms is None
+            else round(device_ms / 1e3 / walls[1], 4)
+        ),
+    )
+    print("dual_main", json.dumps(line), flush=True)
+    return launches[0]
+
+
+def phase_dual_oracle():
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, DualConsensusDWFA
+
+    t1, t2, reads = _small_dual(61, 0.02, n=8, length=1000,
+                                snps=((300, 1), (700, 2)))
+    got = {}
+    for be in ("python", "torch"):
+        eng = DualConsensusDWFA(
+            CdwfaConfigBuilder().backend(be).device("cuda").min_count(4)
+            .build()
+        )
+        for r in reads:
+            eng.add_sequence(r)
+        got[be] = _dual_key(eng.consensus())
+    if got["python"] != got["torch"]:
+        raise AssertionError("dual_oracle: python and torch results differ")
+    first = got["torch"][0]
+    print("dual_oracle", json.dumps(dict(
+        results=len(got["torch"]), dual=first[1] is not None,
+        truth={first[0][0], None if first[1] is None else first[1][0]}
+        == {t1, t2},
+        identical=True,
+    )), flush=True)
+
+
+def kernel_row(name, source, replaces, check, launches):
+    """One kernel's entry of the kernel table, from its kernel phase's
+    ``(timing, max_err)`` and its main path's launch count (``None``
+    where the phase did not run)."""
+    timing, max_err = check or (None, None)
+    timing = timing or {}
+    return dict(
+        name=name, route="cuda", source="waffle_con_tpu_torch/csrc/" + source,
+        replaces="waffle_con_tpu/ops/" + replaces, launches=launches,
+        max_abs_err=max_err, ms=timing.get("ms"),
+        plain_ms=timing.get("plain_ms"), bound_ms=timing.get("bound_ms"),
+        bound_by=timing.get("bound_by"), library_ms=None,
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,main,oracle",
-                    help="phases after the build, comma-separated")
+    ap.add_argument(
+        "--phases", default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle",
+        help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
-                    help="kernel phase on the small geometry only")
+                    help="kernel phases on the small geometry only")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
     try:
@@ -406,43 +874,51 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     try:
-        from waffle_con_tpu_torch.ops import run_kernel as rk
+        from waffle_con_tpu_torch.ops import cuda_build
     except ImportError as exc:
         return fail(f"waffle_con_tpu_torch not importable: {exc}")
 
     smi = smi_line()
     t0 = time.perf_counter()
-    rk.build(verbose=True)
+    cuda_build.build(verbose=True)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in rk.build_info["log"].splitlines()
+    ptxas = [ln.strip() for ln in cuda_build.build_info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
     print("device", json.dumps(dict(
         smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=round(build_s, 2), nvcc_s=round(rk.build_info["seconds"], 2),
-        ptxas=ptxas,
+        max_sm_clock=smi_line("clocks.max.sm"),
+        int32_peak_ops_s=peak_int32_ops_s(),
+        build_s=round(build_s, 2),
+        nvcc_s=round(cuda_build.build_info["seconds"], 2), ptxas=ptxas,
     )), flush=True)
 
-    timing, max_err, launches = None, None, None
-    if "kernel" in phases:
-        timing, max_err = phase_kernel(opts.small)
-    if "main" in phases:
-        launches = phase_main()
-    if "oracle" in phases:
-        phase_oracle()
+    phase_s = {}
 
+    def timed(phase, fn, *a):
+        """Run ``fn`` when ``phase`` was asked for; returns its result."""
+        if phase not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[phase] = round(time.perf_counter() - t0, 2)
+        return out
+
+    run_check = timed("kernel", phase_kernel, opts.small)
+    run_launches = timed("main", phase_main)
+    timed("oracle", phase_oracle)
+    dual_check = timed("dual_kernel", phase_dual_kernel, opts.small)
+    dual_launches = timed("dual_main", phase_dual_main)
+    timed("dual_oracle", phase_dual_oracle)
+    rows = [
+        kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
+                   run_check, run_launches),
+        kernel_row("run_extend_dual", "run_extend_dual.cu",
+                   "pallas_run.py:976", dual_check, dual_launches),
+    ]
+
+    print("phase_seconds", json.dumps(phase_s), flush=True)
     print(smi)
-    kernel = dict(
-        name="run_extend", route="cuda",
-        source="waffle_con_tpu_torch/csrc/run_extend.cu",
-        replaces="waffle_con_tpu/ops/pallas_run.py:495",
-        launches=launches, max_abs_err=max_err,
-        ms=None if timing is None else timing["ms"],
-        plain_ms=None if timing is None else timing["plain_ms"],
-        bound_ms=None if timing is None else timing["bound_ms"],
-        bound_by=None if timing is None else timing["bound_by"],
-        library_ms=None,
-    )
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

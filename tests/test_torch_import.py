@@ -1,5 +1,5 @@
 """The port stands alone: it imports without JAX and without the JAX
-package, runs a search on the CPU, and refuses to fall back to the CPU
+package, runs a single and a dual search on the CPU, and refuses to fall back to the CPU
 when a CUDA device is asked for and absent."""
 
 import os
@@ -27,6 +27,24 @@ _PROBE = textwrap.dedent(
     for r in reads:
         eng.add_sequence(r)
     assert eng.consensus()[0].sequence == truth
+
+    from waffle_con_tpu_torch import DualConsensusDWFA
+    from waffle_con_tpu_torch.ops import cuda_build, run_dual_kernel
+
+    t2 = bytearray(truth)
+    t2[30] = (t2[30] + 1) % 4
+    dual = DualConsensusDWFA(
+        T.CdwfaConfigBuilder().backend("torch").device("cpu").min_count(2)
+        .build()
+    )
+    for r in [truth] * 3 + [bytes(t2)] * 3:
+        dual.add_sequence(r)
+    res = dual.consensus()
+    assert res[0].is_dual()
+    assert {res[0].consensus1.sequence, res[0].consensus2.sequence} == {
+        truth, bytes(t2)
+    }
+    assert dual.last_search_stats["scorer_counters"]["run_dual_calls"] >= 1
     loaded = sorted(m for m in sys.modules
                     if m == "waffle_con_tpu" or m.startswith("waffle_con_tpu."))
     assert not loaded, loaded

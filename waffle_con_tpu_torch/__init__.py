@@ -3,20 +3,22 @@
 Backbone-free consensus of noisy long reads: a least-cost-first search
 over partial consensus strings whose per-read scoring step is an
 incremental edit-distance wavefront.  This package runs that search with
-its branch store in torch tensors on an NVIDIA GPU, and the run loop —
-the hot path — as a hand-written CUDA kernel for Hopper
-(``csrc/run_extend.cu``).  It imports torch, numpy and the standard
+its branch store in torch tensors on an NVIDIA GPU, and the run loops —
+the hot path — as hand-written CUDA kernels for Hopper
+(``csrc/run_extend.cu`` for one branch, ``csrc/run_extend_dual.cu`` for
+the two branches of a dual node).  It imports torch, numpy and the standard
 library only; ``waffle_con_tpu`` (the JAX package beside it) is its
 reference, reached by the tests alone.
 
 * ``ops``    — the DWFA oracle, the scorer seam, the torch branch store
-  and the CUDA run kernel with its plain PyTorch twin.
-* ``models`` — the single-consensus engine.
+  and the CUDA run kernels with their plain PyTorch twins.
+* ``models`` — the single- and dual-consensus engines.
 * ``utils``  — the priority-queue tracker and synthetic data generation.
 """
 
 from waffle_con_tpu_torch.config import CdwfaConfig, CdwfaConfigBuilder, ConsensusCost
 from waffle_con_tpu_torch.models.consensus import Consensus, ConsensusDWFA
+from waffle_con_tpu_torch.models.dual_consensus import DualConsensus, DualConsensusDWFA
 
 __all__ = [
     "CdwfaConfig",
@@ -24,4 +26,6 @@ __all__ = [
     "ConsensusCost",
     "Consensus",
     "ConsensusDWFA",
+    "DualConsensus",
+    "DualConsensusDWFA",
 ]

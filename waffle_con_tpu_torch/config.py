@@ -1,7 +1,7 @@
 """Configuration for the consensus engine of the PyTorch/CUDA port.
 
 Same knobs and defaults as ``waffle_con_tpu.config`` for every field the
-single-consensus search reads, plus the port's own scorer selection:
+single- and dual-consensus searches read, plus the port's own scorer selection:
 ``backend`` is ``"python"`` (the :class:`~waffle_con_tpu_torch.ops.dwfa.DWFALite`
 oracle) or ``"torch"`` (the device branch store), and ``device`` names
 the torch device the ``"torch"`` scorer lives on.
@@ -42,7 +42,7 @@ class ConsensusCost(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class CdwfaConfig:
-    """Configuration of the single-consensus engine."""
+    """Configuration of the single- and dual-consensus engines."""
 
     #: The consensus scoring cost.
     consensus_cost: ConsensusCost = ConsensusCost.L1_DISTANCE
@@ -59,8 +59,16 @@ class CdwfaConfig:
     #: Minimum occurrences of a candidate extension to be used (the
     #: largest-observed candidate is always eligible regardless).
     min_count: int = 3
+    #: Minimum fraction of sequences voting for a candidate extension.
+    min_af: float = 0.0
+    #: For dual consensus: weight nominated extensions by relative edit
+    #: distance, accelerating convergence.
+    weighted_by_ed: bool = False
     #: Optional wildcard symbol (byte value) that matches anything.
     wildcard: Optional[int] = None
+    #: Dual-mode pruning threshold: when a read's two tracked wavefronts
+    #: diverge in edit distance by more than this, drop the worse one.
+    dual_max_ed_delta: int = 20
     #: If true, input sequences shorter than the final consensus are not
     #: penalized for the unmatched consensus tail.
     allow_early_termination: bool = False

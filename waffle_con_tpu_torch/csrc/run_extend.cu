@@ -15,13 +15,8 @@
 // inside it, so a run costs one launch and one host round trip, as on the
 // TPU.  The band keeps the branch store's [R, W] layout: each read's
 // column is contiguous, and a warp owns one read at a time (reads strided
-// over the 32 warps).  Lanes walk the column in 32-cell tiles with
-// coalesced loads; the insertion chain (a prefix min of base - t along
-// the column) is a __shfl_up_sync warp scan per tile with the carry
-// handed from tile to tile.  Reads are fetched straight from the [R, L]
-// int16 array with a bounds check (out-of-range lanes read -1, which no
-// consumer looks at), at per-read offsets, so uniform and mixed-offset
-// branches take the same kernel and any alphabet size works.  A step is
+// over the 32 warps); the per-read tip histogram and column step are the
+// warp routines of csrc/band_ops.cuh, shared with the dual kernel.  A step is
 // two passes over the band: the vote pass (tip histogram per read in
 // shared memory, per-warp float32 partial sums in read order) and, once
 // one thread has taken the decision, the column pass, which writes the
@@ -37,16 +32,16 @@
 // distributed shared memory) and keeps the band on chip in int16.
 
 #include <cuda_runtime.h>
-#include <climits>
 #include <cstdint>
+
+#include "band_ops.cuh"
 
 namespace {
 
-constexpr int kInf = 1 << 20;       // band "infinity" (torch_scorer.INF)
+using band::kInf;
 constexpr int kRecCap = 256;        // record buffer rows (REC_CAP)
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kVoteEps = 0.01f;   // VOTE_EPS, float32(1e-2)
 
 struct Args {
@@ -128,22 +123,11 @@ __device__ void vote_pass(const Args& a, const Smem& s, const int32_t* Dcur,
   for (int r = warp; r < a.R; r += kWarps) {
     const int act = s.act[r];
     const int e = s.e[r];
-    int ntips = 0;
-    if (act) {
-      const int32_t* Dr = Dcur + (size_t)r * a.W;
-      const int16_t* rd = a.reads + (size_t)r * a.L;
-      const int rl = s.rlen[r];
-      const int i0 = clen - s.off[r] - a.E;
-      for (int t = lane; t < a.W; t += 32) {
-        const int i = i0 + t;
-        if (i >= 0 && i < rl && Dr[t] <= e) {
-          atomicAdd(&hist[rd[i]], 1);
-          ++ntips;
-        }
-      }
-    }
-    const int split = __reduce_add_sync(kFull, ntips);
-    __syncwarp();
+    const int split =
+        act ? band::tip_histogram(Dcur + (size_t)r * a.W,
+                                  a.reads + (size_t)r * a.L, a.W, s.rlen[r],
+                                  clen - s.off[r] - a.E, e, hist)
+            : 0;
     const float split_f = (float)max(split, 1);
     for (int sym = lane; sym < a.A; sym += 32) {
       const int c = hist[sym];
@@ -199,56 +183,16 @@ __device__ void column_pass(const Args& a, const Smem& s,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < a.R; r += kWarps) {
     if (!s.act[r]) continue;
-    const int32_t* Do = Dcur + (size_t)r * a.W;
-    int32_t* Dn = Dnext + (size_t)r * a.W;
-    const int16_t* rd = a.reads + (size_t)r * a.L;
-    const int rl = s.rlen[r];
-    const int i0 = jnew - s.off[r] - a.E;  // read position of cell t = 0
-    int carry = INT_MAX, colmin = kInf, rend = kInf;
-    for (int t0 = 0; t0 < a.W; t0 += 32) {
-      const int t = t0 + lane;
-      const bool in_band = t < a.W;
-      const int i_new = i0 + t;
-      int base = kInf;
-      if (in_band) {
-        const int d_diag = Do[t];
-        const int d_del = t + 1 < a.W ? Do[t + 1] : kInf;
-        const int bi = i_new - 1;
-        const int ch = bi >= 0 && bi < a.L ? rd[bi] : -1;
-        const int sub = ch != sym && ch != a.wc;
-        base = min(d_diag + sub, d_del + 1);
-        if (i_new < 0 || i_new > rl) base = kInf;
-      }
-      // insertion chain: inclusive prefix min of (base - t) over the column
-      int x = in_band ? base - t : INT_MAX;
-#pragma unroll
-      for (int k = 1; k < 32; k <<= 1) {
-        const int y = __shfl_up_sync(kFull, x, k);
-        if (lane >= k) x = min(x, y);
-      }
-      x = min(x, carry);
-      carry = __shfl_sync(kFull, x, 31);
-      if (in_band) {
-        const int dn = min(min(base, x + t), kInf);
-        Dn[t] = dn;
-        colmin = min(colmin, dn);
-        if (i_new == rl) rend = min(rend, dn);
-      }
-    }
-    colmin = __reduce_min_sync(kFull, colmin);
-    rend = __reduce_min_sync(kFull, rend);
+    const band::Folds3 f = band::column_step(
+        Dcur + (size_t)r * a.W, Dnext + (size_t)r * a.W,
+        a.reads + (size_t)r * a.L, a.W, a.L, s.rlen[r],
+        jnew - s.off[r] - a.E, sym, a.wc, a.et,
+        band::Folds3{s.e[r], s.rmin[r], s.er[r]});
     if (lane == 0) {
-      const int e = s.e[r], rmin = s.rmin[r], er = s.er[r];
-      const int rmin_n = min(rmin, rend);
-      const int e_unc = max(e, colmin);
-      const int e_cap = er < kInf ? e : max(e, min(colmin, max(e, rmin_n)));
-      const int e_n = a.et ? e_cap : e_unc;
-      const int er_n =
-          er < kInf ? er : (rmin_n <= e_n ? max(e, rmin_n) : kInf);
-      s.e2[r] = e_n;
-      s.rmin2[r] = rmin_n;
-      s.er2[r] = er_n;
-      if (e_n >= a.E) *ovf = 1;
+      s.e2[r] = f.e;
+      s.rmin2[r] = f.rmin;
+      s.er2[r] = f.er;
+      if (f.e >= a.E) *ovf = 1;
     }
   }
 }

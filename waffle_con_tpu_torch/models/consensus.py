@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +42,9 @@ logger = logging.getLogger(__name__)
 #: Per-engagement column cap for the device run loop: bounds the host-side
 #: bookkeeping simulation; long clean stretches simply re-engage next pop.
 RUN_SIM_CAP = 65536
+
+#: Queue pops between search-progress debug lines of the dual engine.
+PROGRESS_LOG_INTERVAL = 1000
 
 
 class EngineError(Exception):
@@ -105,18 +108,22 @@ def replay_run_bookkeeping(
     steps: int,
     farthest: int,
     last_constraint: int,
+    on_length=None,
 ) -> Tuple[int, int]:
     """Replay the per-length tracker bookkeeping for a device-committed
     extension run, exactly as the per-symbol host loop would have done it:
     threshold constriction, remove/process/insert, and the farthest /
-    constraint counters.  Returns updated ``(farthest, last_constraint)``.
+    constraint counters.  ``on_length`` runs once per replayed length for
+    engine-specific tables.  Returns updated ``(farthest,
+    last_constraint)``.
 
-    Segments between constriction triggers collapse to one
-    ``bulk_run_advance``: the queue total is constant during a run, so
-    the only mid-run trigger is the ``max_nodes_wo_constraint`` counter,
-    whose firing step is computable in closed form."""
+    Without ``on_length``, segments between constriction triggers
+    collapse to one ``bulk_run_advance``: the queue total is constant
+    during a run, so the only mid-run trigger is the
+    ``max_nodes_wo_constraint`` counter, whose firing step is computable
+    in closed form."""
     j = 0
-    while j < steps:
+    while on_length is None and j < steps:
         if j > 0:
             # constrict exactly as the scalar loop would before pop j
             while (
@@ -153,6 +160,8 @@ def replay_run_bookkeeping(
         last_constraint += 1
         tracker.process(length)
         tracker.insert(length + 1)
+        if on_length is not None:
+            on_length(length)
     return farthest, last_constraint
 
 
@@ -172,13 +181,15 @@ def candidates_from_stats(
     stats: BranchStats,
     symtab: np.ndarray,
     wildcard: Optional[int],
+    weights: Optional[Sequence[float]] = None,
 ) -> Dict[int, float]:
     """Fold per-read integer tip votes into fractional per-symbol votes.
 
     Each read splits one unit of vote across its tip symbols
-    (``occ/split``); reads are accumulated in index order in float64 so
-    the sum is identical across backends.  The wildcard is dropped
-    whenever any other candidate exists."""
+    (``occ/split``), optionally scaled by a per-read weight; reads are
+    accumulated in index order in float64 so the sum is identical across
+    backends.  The wildcard is dropped whenever any other candidate
+    exists."""
     votes: Dict[int, float] = {}
     occ = stats.occ.tolist()
     split = stats.split.tolist()
@@ -186,10 +197,14 @@ def candidates_from_stats(
     for r, total in enumerate(split):
         if total == 0:
             continue
+        w = 1.0 if weights is None else weights[r]
+        if w <= 0.0:
+            continue
         for s, c in enumerate(occ[r]):
             if c:
                 sym = syms[s]
-                votes[sym] = votes.get(sym, 0.0) + c / total
+                add = c / total if weights is None else w * c / total
+                votes[sym] = votes.get(sym, 0.0) + add
     if wildcard is not None and len(votes) > 1:
         votes.pop(wildcard, None)
     return votes

@@ -7,8 +7,9 @@ Three pieces, one contract:
   consensus symbol per iteration.  It is what runs for tensors on the
   CPU, and the yardstick the CUDA kernel is held to on the card.
 * :func:`run_extend_cuda` — the wrapper of the hand-written Hopper
-  kernel ``csrc/run_extend.cu`` (built with ``nvcc`` at first use and
-  bound with ``ctypes``); it counts its launches in
+  kernel ``csrc/run_extend.cu`` (built with ``nvcc`` at first use by
+  :mod:`~waffle_con_tpu_torch.ops.cuda_build` and bound with
+  ``ctypes``); it counts its launches in
   ``run_extend_cuda.launches``.
 * :func:`run_extend` — the dispatch rule: a state on the CPU runs the
   plain loop, a state on a CUDA device launches the kernel (or raises).
@@ -31,19 +32,13 @@ buffers when records were absorbed.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from waffle_con_tpu_torch.ops import cuda_build
+from waffle_con_tpu_torch.ops.cuda_build import BUILD_DIR, build, build_info  # noqa: F401
 from waffle_con_tpu_torch.ops.torch_scorer import (
     REC_CAP,
     VOTE_EPS,
@@ -273,77 +268,18 @@ run_extend_plain.calls = 0
 
 
 # ---------------------------------------------------------------------
-# CUDA kernel: build, bind, launch
-
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "run_extend.cu"
-#: build directory of the compiled kernels (listed in .gitignore)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_lib = None
-_lib_lock = threading.Lock()
-#: wall seconds of the last ``nvcc`` build in this process (0.0 when the
-#: library came from the build directory), and its compiler output
-build_info = {"seconds": 0.0, "log": ""}
+# CUDA kernel: bind, launch (the build lives in ops/cuda_build.py; its
+# names stay importable from here)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for home in (os.environ.get("CUDA_HOME"), CUDA_HOME):
-        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-            return os.path.join(home, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA run kernel cannot be built")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/run_extend.cu`` into ``BUILD_DIR`` (named by the
-    hash of source and flags, so an edited source rebuilds) and return
-    the library path.  ``verbose`` adds ``-Xptxas -v`` (registers,
-    shared memory and spills per kernel) to the recorded build log."""
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(flags).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"librun_extend-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *flags, "-o", tmp, str(_SRC)],
-        capture_output=True, text=True,
-    )
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.run_extend_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 16 + [
-                ctypes.c_void_p
-            ]
-            _lib = lib
-    return _lib
+def _launcher():
+    fn = cuda_build.library().run_extend_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 16 + [
+            ctypes.c_void_p
+        ]
+    return fn
 
 
 def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
@@ -376,14 +312,14 @@ def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
         raise ValueError("reads/rlen must be contiguous")
     if not 0 <= h < B:
         raise ValueError(f"slot {h} out of range")
-    lib = _library()
+    launch = _launcher()
     lay = out_layout(R, args.a_real, args.max_steps)
     out = torch.empty(lay["syms"][1], dtype=torch.int32, device=dev)
     rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
     rec_fins = torch.empty((REC_CAP, R), dtype=torch.int32, device=dev)
     scratch = torch.empty((R, W), dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = lib.run_extend_launch(
+    rc = launch(
         ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
         ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
         ptr(state["clen"]), ptr(reads), ptr(rlen), ptr(scratch), ptr(out),
@@ -392,7 +328,7 @@ def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
         args.me_budget, args.other_cost, args.other_len, args.min_count,
         int(args.l2), args.max_steps, args.first_sym,
         int(args.allow_records), args.wc, int(args.et),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        cuda_build.stream_ptr(dev),
     )
     if rc != 0:
         raise RuntimeError(

@@ -1,9 +1,9 @@
 """The ``WavefrontScorer`` seam between the host search engine and the
 alignment kernels.
 
-The engine (``models/consensus.py``) owns the least-cost-first search —
-priority queue, thresholds, candidate nomination, activation — and talks
-to per-*branch* wavefront state only through this interface.  A branch is
+The engines (``models/consensus.py``, ``models/dual_consensus.py``) own
+the least-cost-first search — priority queue, thresholds, candidate
+nomination, activation — and talk to per-*branch* wavefront state only through this interface.  A branch is
 one consensus hypothesis; its state is one incremental DWFA per tracked
 read.
 
@@ -285,10 +285,11 @@ class FastPaths:
     scorer without an attribute (the Python oracle) makes the engine take
     its per-pop expand path instead."""
 
-    __slots__ = ("run_extend", "clone_push_many")
+    __slots__ = ("run_extend", "run_extend_dual", "clone_push_many")
 
     def __init__(self, scorer) -> None:
         self.run_extend = getattr(scorer, "run_extend", None)
+        self.run_extend_dual = getattr(scorer, "run_extend_dual", None)
         self.clone_push_many = getattr(scorer, "clone_push_many", None)
 
 

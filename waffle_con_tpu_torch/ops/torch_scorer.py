@@ -15,9 +15,10 @@ The column primitives (:func:`init_col`, :func:`col_step`,
 :func:`stats_core`, :func:`finalized`) are plain torch ops over any
 number of leading branch dimensions.  The branch life-cycle calls
 (root, clone, push, stats, activate, finalize, band growth) are built
-from them.  The run loop — the hot path — is the CUDA kernel of
-:mod:`waffle_con_tpu_torch.ops.run_kernel` on a CUDA device, and its
-plain torch twin on the CPU.
+from them.  The run loops — the hot path — are the CUDA kernels of
+:mod:`waffle_con_tpu_torch.ops.run_kernel` (one branch) and
+:mod:`waffle_con_tpu_torch.ops.run_dual_kernel` (the two branches of a
+dual node) on a CUDA device, and their plain torch twins on the CPU.
 
 Geometry follows ``JaxScorer`` so scorer-level outputs and stop codes
 match, not only final sequences: reads padded to a power of two (at
@@ -53,6 +54,16 @@ RUN_MS_CAP = 32768
 
 def _next_pow2(n: int, minimum: int = 1) -> int:
     return max(minimum, 1 << max(0, (n - 1).bit_length()))
+
+
+def _pad_len_table(tab: np.ndarray, need: int) -> np.ndarray:
+    """Pad a per-length int table to a power-of-two length >= ``need``
+    with its final value (tables are constant past the last activation
+    point), as ``JaxScorer`` does, so clipped lookups agree."""
+    n = _next_pow2(max(int(need), len(tab), 8))
+    out = np.full(n, tab[-1], dtype=np.int32)
+    out[: len(tab)] = tab
+    return out
 
 
 # ======================================================================
@@ -220,6 +231,8 @@ class TorchScorer(WavefrontScorer):
             "push_calls": 0,
             "run_calls": 0,
             "run_steps": 0,
+            "run_dual_calls": 0,
+            "run_dual_steps": 0,
             "stats_calls": 0,
             "clone_calls": 0,
             "clone_push_calls": 0,
@@ -546,6 +559,104 @@ class TorchScorer(WavefrontScorer):
                 continue
             return fin.cpu().numpy()[: self.num_reads].astype(np.int64)
 
+    def _fit_steps(self, longest: int, max_steps: int) -> int:
+        """Grow the consensus buffer for a run of ``max_steps`` from a
+        consensus of ``longest`` symbols and return the step count the
+        run may take: the symbol-buffer bucket and step cap of the fused
+        run (the JAX package's pallas geometry rule, kept so capacities
+        match)."""
+        while longest + max_steps + 2 >= self._C:
+            self._grow_cons()
+        ms = _next_pow2(min(max_steps, RUN_MS_CAP - 2) + 2, 256)
+        while longest + ms + 2 >= self._C:
+            self._grow_cons()
+        return min(max_steps, ms - 2)
+
+    def run_args(
+        self,
+        consensus_len: int,
+        me_budget: int,
+        other_cost: int,
+        other_len: int,
+        min_count: int,
+        l2: bool,
+        max_steps: int,
+        first_sym: int = -1,
+        allow_records: bool = True,
+    ):
+        """The :class:`~waffle_con_tpu_torch.ops.run_kernel.RunArgs` of a
+        :meth:`run_extend` call from a consensus of ``consensus_len``
+        symbols (the consensus buffer grown to fit)."""
+        from waffle_con_tpu_torch.ops import run_kernel
+
+        return run_kernel.RunArgs(
+            me_budget=min(int(me_budget), 2**31 - 1),
+            other_cost=min(int(other_cost), 2**31 - 1),
+            other_len=int(other_len),
+            min_count=int(min_count),
+            l2=bool(l2),
+            max_steps=int(self._fit_steps(consensus_len, max_steps)),
+            first_sym=int(first_sym),
+            allow_records=bool(allow_records),
+            wc=self._wc,
+            et=self._et,
+            a_real=self.num_symbols,
+        )
+
+    def dual_run_args(
+        self,
+        longest: int,
+        me_budget: int,
+        other_cost: int,
+        other_len: int,
+        min_count: int,
+        ed_delta: int,
+        imb_min: int,
+        l2: bool,
+        weighted: bool,
+        max_steps: int,
+        lock1: bool = False,
+        lock2: bool = False,
+        allow_records: bool = True,
+        rec_min: int | None = None,
+        mc_tab: np.ndarray | None = None,
+        imb_tab: np.ndarray | None = None,
+        mc_dyn: bool = False,
+    ):
+        """``(DualRunArgs, mc_tab, imb_tab)`` of a :meth:`run_extend_dual`
+        call whose longer consensus has ``longest`` symbols: the consensus
+        buffer grown to fit, the default tables, and both tables padded
+        as ``JaxScorer`` pads them, on the store's device."""
+        from waffle_con_tpu_torch.ops import run_dual_kernel
+
+        if mc_tab is None:
+            mc_tab = np.full(self._R + 1, min_count, dtype=np.int32)
+        mc_tab = _pad_len_table(mc_tab, self._R + 1)
+        if imb_tab is None:
+            imb_tab = np.full(8, imb_min, dtype=np.int32)
+        imb_tab = _pad_len_table(imb_tab, longest + max_steps + 2)
+        args = run_dual_kernel.DualRunArgs(
+            me_budget=min(int(me_budget), 2**31 - 1),
+            other_cost=min(int(other_cost), 2**31 - 1),
+            other_len=int(other_len),
+            delta=int(ed_delta),
+            l2=bool(l2),
+            weighted=bool(weighted),
+            max_steps=int(self._fit_steps(longest, max_steps)),
+            lock1=bool(lock1),
+            lock2=bool(lock2),
+            allow_records=bool(allow_records),
+            rec_min=int(min_count if rec_min is None else rec_min),
+            mc_dyn=bool(mc_dyn),
+            wc=self._wc,
+            et=self._et,
+            a_real=self.num_symbols,
+        )
+        tab = lambda t: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(t, dtype=np.int32)
+        ).to(self.device)
+        return args, tab(mc_tab), tab(imb_tab)
+
     def run_extend(
         self,
         h: int,
@@ -571,27 +682,11 @@ class TorchScorer(WavefrontScorer):
         from waffle_con_tpu_torch.ops import run_kernel
 
         slot = self._slot_of[h]
-        while len(consensus) + max_steps + 2 >= self._C:
-            self._grow_cons()
-        # symbol-buffer bucket and step cap of the fused run (the JAX
-        # package's pallas geometry rule, kept so capacities match)
-        ms = _next_pow2(min(max_steps, RUN_MS_CAP - 2) + 2, 256)
-        while len(consensus) + ms + 2 >= self._C:
-            self._grow_cons()
-        max_steps = min(max_steps, ms - 2)
-        args = run_kernel.RunArgs(
-            me_budget=min(int(me_budget), 2**31 - 1),
-            other_cost=min(int(other_cost), 2**31 - 1),
-            other_len=int(other_len),
-            min_count=int(min_count),
-            l2=bool(l2),
-            max_steps=int(max_steps),
-            first_sym=int(first_sym),
-            allow_records=bool(allow_records),
-            wc=self._wc,
-            et=self._et,
-            a_real=self.num_symbols,
+        args = self.run_args(
+            len(consensus), me_budget, other_cost, other_len, min_count, l2,
+            max_steps, first_sym, allow_records,
         )
+        max_steps = args.max_steps
         out, rec_steps, rec_fins = run_kernel.run_extend(
             self._state, slot, self._reads, self._rlen, args
         )
@@ -617,6 +712,92 @@ class TorchScorer(WavefrontScorer):
             None if res.fin_ovf else res.fin,
         )
         return res.steps, res.code, appended, stats, records
+
+    def run_extend_dual(
+        self,
+        h1: int,
+        h2: int,
+        consensus1: bytes,
+        consensus2: bytes,
+        me_budget: int,
+        other_cost: int,
+        other_len: int,
+        min_count: int,
+        ed_delta: int,
+        imb_min: int,
+        l2: bool,
+        weighted: bool,
+        max_steps: int,
+        lock1: bool = False,
+        lock2: bool = False,
+        allow_records: bool = True,
+        rec_min: int | None = None,
+        mc_tab: np.ndarray | None = None,
+        imb_tab: np.ndarray | None = None,
+        mc_dyn: bool = False,
+    ):
+        """Device-side dual-node extension: both branches step together,
+        with divergence pruning on device.  Returns ``(steps, stop_code,
+        appended1, appended2, stats1, stats2, active1, active2,
+        records)`` with ``records`` the absorbed reached-state snapshots
+        ``[(step, fin1, fin2, act1, act2), ...]`` in commit order.  A
+        locked side is frozen.  ``mc_tab`` / ``imb_tab`` default to
+        constant ``min_count`` / ``imb_min`` tables (the ``min_af == 0``
+        semantics).  On band overflow (code 5) the band is grown so the
+        caller can simply continue."""
+        from waffle_con_tpu_torch.ops import run_dual_kernel
+
+        s1 = self._slot_of[h1]
+        s2 = self._slot_of[h2]
+        args, mc_t, imb_t = self.dual_run_args(
+            max(len(consensus1), len(consensus2)), me_budget, other_cost,
+            other_len, min_count, ed_delta, imb_min, l2, weighted, max_steps,
+            lock1, lock2, allow_records, rec_min, mc_tab, imb_tab, mc_dyn,
+        )
+        max_steps = args.max_steps
+        out = run_dual_kernel.run_extend_dual(
+            self._state, s1, s2, self._reads, self._rlen, mc_t, imb_t, args,
+        )
+        res, rsteps, rplanes = run_dual_kernel.fetch(
+            *out, self._R, self.num_symbols, max_steps
+        )
+        steps, code = res.steps, res.code
+        self.counters["run_dual_calls"] += 1
+        self.counters["run_dual_steps"] += steps
+        key = f"run_dual_stop_{code}"
+        self.counters[key] = self.counters.get(key, 0) + 1
+
+        def appended(side, locked):
+            if not steps or locked:
+                return b""
+            return self.symtab[res.syms[side][:steps]].astype(np.uint8).tobytes()
+
+        n = self.num_reads
+        records = [
+            (
+                int(rsteps[i]),
+                rplanes[0, i, :n].astype(np.int64),
+                rplanes[1, i, :n].astype(np.int64),
+                rplanes[2, i, :n].astype(bool),
+                rplanes[3, i, :n].astype(bool),
+            )
+            for i in range(res.rec_count)
+        ]
+        # divergence pruning deactivates reads on the device: keep the
+        # host mirror exact, or later activations are mis-routed
+        self._act_host[s1] = res.act[0]
+        self._act_host[s2] = res.act[1]
+        if code == 5:
+            self._grow_e()
+        stats = [
+            self._stats_np(res.eds[k], res.occ[k], res.split[k],
+                           res.reached[k])
+            for k in (0, 1)
+        ]
+        return (
+            steps, code, appended(0, lock1), appended(1, lock2),
+            stats[0], stats[1], res.act[0][:n], res.act[1][:n], records,
+        )
 
     # -----------------------------------------------------------------
 

@@ -114,6 +114,10 @@ class PQueueTracker:
     def __len__(self) -> int:
         return self._total_count
 
+    def unfiltered_len(self) -> int:
+        """Entries tracked at every length, below the threshold too."""
+        return sum(self._length_counts)
+
     def is_empty(self) -> bool:
         return self._total_count == 0
 
