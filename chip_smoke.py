@@ -9,12 +9,16 @@ Phases, one line each (every failure exits non-zero):
 1. device: the card (``nvidia-smi``), torch, and the ``nvcc`` build of
    ``waffle_con_tpu_torch/csrc/*.cu`` (one compiler per source, in
    parallel, linked into one library).
-2. kernel: the CUDA run kernel against its plain PyTorch version on the
-   card, every output compared bitwise, on a small geometry (R=16, E=8),
-   the north-star geometry (R=256, W=514, 10 kb reads) and the dual
-   north star's (R=64, W=258, 5 kb reads: the dual search's first
-   launch, a launch that loses the pop, records at the reads' ends);
-   times per step of both.
+2. kernel: the CUDA run kernel (one thread-block cluster per launch)
+   against its plain PyTorch version on the card, every output compared
+   bitwise, on a small geometry (R=16, E=8; one read; a band of
+   W=2050), the north-star geometry (R=256, W=514, 10 kb
+   reads), the dual north star's (R=64, W=258, 5 kb reads: the dual
+   search's first launch, a launch that loses the pop, records at the
+   reads' ends) and the cluster's edges (300 reads, a CTA of inactive
+   reads, the grown band W=1026, 1,024 reads with the band in device
+   memory, records reached CTA by CTA); each line gives the launch plan
+   (cluster, threads per CTA, band placement) and times per step of both.
 3. main: the north-star search — 256 reads x 10 kb at 1 % error,
    ``min_count=64``, ``initial_band=216`` — through ``ConsensusDWFA`` on
    ``cuda``; the consensus must equal the truth, the run kernel must have
@@ -101,12 +105,13 @@ def _scorer(reads, **cfg):
     return TorchScorer(reads, b.build())
 
 
-def _case_state(sc, *, prefix=b"", late=()):
-    """Root a branch, push ``prefix``, activate ``late`` reads at their
-    offsets; returns the slot."""
+def _case_state(sc, *, prefix=b"", late=(), inactive=()):
+    """Root a branch (reads in ``inactive`` left out), push ``prefix``,
+    activate ``late`` reads at their offsets; returns the slot."""
     import numpy as np
 
     act = np.ones(sc.num_reads, dtype=bool)
+    act[list(inactive)] = False
     for r, _o in late:
         act[r] = False
     h = sc.root(act)
@@ -121,13 +126,20 @@ def _copy_state(state):
     return {k: v.clone() for k, v in state.items()}
 
 
-def _compare(sc, slot, args, st_k, st_p, outs_k, outs_p):
-    """Bitwise comparison of two runs' outputs and slot rows; returns
-    (max_abs_err, steps, code, rec_count)."""
+def _cut_reads(state, reads, rlen, n):
+    """The first ``n`` reads of a branch store (any read count, where the
+    scorer pads to a power of two): ``(state, reads, rlen)``."""
+    cut = {k: (v[:, :n].contiguous() if v.dim() >= 2 and k != "cons"
+               else v.clone()) for k, v in state.items()}
+    return cut, reads[:n].contiguous(), rlen[:n].contiguous()
+
+
+def _compare(R, A, slot, args, st_k, st_p, outs_k, outs_p):
+    """Bitwise comparison of two runs' outputs and slot rows (``R`` reads,
+    ``A`` symbols); returns (max_abs_err, steps, code, rec_count)."""
     import torch
     from waffle_con_tpu_torch.ops import run_kernel as rk
 
-    R, A = sc._R, sc.num_symbols
     rk_, rs_k, rf_k = rk.fetch(*outs_k, R, A, args.max_steps)
     rp_, rs_p, rf_p = rk.fetch(*outs_p, R, A, args.max_steps)
     err = 0
@@ -201,8 +213,23 @@ def _one_random_read(make):
     return make2
 
 
+def _cut_by_block(make, block, per):
+    """Read k cut by ``per`` symbols for every ``block`` reads before it:
+    each CTA's share of the reads ends at another consensus position, so
+    the reached ends (records) come from one CTA after another."""
+    def make2():
+        truth, reads = make()
+        return truth, [r[: len(r) - per * (k // block)]
+                       for k, r in enumerate(reads)]
+    return make2
+
+
 def kernel_cases(small_only: bool):
-    """(label, make-reads, scorer config, run args, state spec) cases."""
+    """(label, make-reads, scorer config, run args, state spec) cases.
+    State spec keys: ``prefix_len``, ``late`` (read, offset) pairs,
+    ``inactive`` reads, ``inactive_cta`` (the reads of that CTA of the
+    launch plan left inactive), ``reads`` (cut the store to that many
+    reads), ``force_truth`` and ``engine_steps``."""
     from waffle_con_tpu_torch.utils.example_gen import generate_test
 
     def small(seed, err):
@@ -225,6 +252,12 @@ def kernel_cases(small_only: bool):
          dict(max_steps=120), {}),
         ("small/offsets", small(9, 0.02), {}, dict(max_steps=100),
          dict(prefix_len=30, late=((3, 6), (7, 11)))),
+        # one read: a cluster of one CTA with one warp
+        ("small/one_read", small(12, 0.02), {}, dict(max_steps=100, min_count=1),
+         dict(reads=1)),
+        # a wide band (E=1024, W=2050): 65 cells per lane, two CTAs
+        ("small/wide_band", lambda: generate_test(4, 1000, 16, 0.02, seed=13),
+         dict(initial_band=1024), dict(max_steps=200), {}),
     ]
     if small_only:
         return cases
@@ -252,6 +285,22 @@ def kernel_cases(small_only: bool):
     ]:
         cases.append(("north_star/" + label, make, {**ns_cfg, **cfg},
                       dict(min_count=64, **kw), state))
+    # the cluster's edges: a read count that does not fill the CTAs, a
+    # CTA whose reads are all inactive, the band after growth, the band
+    # in device memory, records reached in several CTAs
+    for label, make, cfg, kw, state in [
+        ("reads_300", lambda: generate_test(4, 10000, 300, 0.01, seed=0),
+         {}, dict(max_steps=300), dict(reads=300)),
+        ("inactive_cta", ns, {}, dict(max_steps=300), dict(inactive_cta=1)),
+        ("band_1026", ns, dict(initial_band=512), dict(max_steps=300), {}),
+        ("global_band", lambda: generate_test(4, 2000, 1024, 0.01, seed=4),
+         {}, dict(max_steps=100, min_count=256), {}),
+        ("records_by_cta", _cut_by_block(
+            lambda: generate_test(4, 400, 256, 0.01, seed=5), 16, 2),
+         {}, dict(max_steps=600), {}),
+    ]:
+        cases.append(("cluster/" + label, make, {**ns_cfg, **cfg},
+                      {"min_count": 64, **kw}, state))
     # the dual north star's geometry (R=64, W=258), at which the dual
     # search launches this kernel on every non-dual node
     for label, kw, state in [
@@ -292,7 +341,13 @@ def phase_kernel(small_only: bool):
         truth, reads = cache[make]
         sc = _scorer(reads, **cfg)
         prefix = truth[: spec.get("prefix_len", 0)]
-        h = _case_state(sc, prefix=prefix, late=spec.get("late", ()))
+        inactive = spec.get("inactive", ())
+        if "inactive_cta" in spec:
+            rpc = rk.plan_run(sc._R, sc._W, sc.num_symbols).reads_per_cta
+            inactive = range(spec["inactive_cta"] * rpc,
+                             (spec["inactive_cta"] + 1) * rpc)
+        h = _case_state(sc, prefix=prefix, late=spec.get("late", ()),
+                        inactive=inactive)
         slot = sc._slot_of[h]
         if spec.get("force_truth"):
             kw = dict(kw, first_sym=sc.sym_id[truth[0]])
@@ -300,26 +355,32 @@ def phase_kernel(small_only: bool):
             # the engines' step bound: twice the longest read, plus 256
             kw = dict(kw, max_steps=2 * max(map(len, reads)) + 256)
         args = _run_args(sc, len(prefix), **kw)
-        st0 = _copy_state(sc._state)
+        st0, rd, rl = sc._state, sc._reads, sc._rlen
+        if "reads" in spec:
+            st0, rd, rl = _cut_reads(st0, rd, rl, spec["reads"])
+        R, A = rd.shape[0], sc.num_symbols
+        st0 = _copy_state(st0)
         st_k, st_p = _copy_state(st0), _copy_state(st0)
-        outs_k = rk.run_extend_cuda(st_k, slot, sc._reads, sc._rlen, args)
+        outs_k = rk.run_extend_cuda(st_k, slot, rd, rl, args)
+        plan = rk.run_extend_cuda.last_plan
         # the compared plain run is also the plain version's timing
         held = []
         p_ms = _time_cuda(lambda: held.append(rk.run_extend_plain(
-            st_p, slot, sc._reads, sc._rlen, args)), 1)
+            st_p, slot, rd, rl, args)), 1)
         outs_p = held[0]
-        err, steps, code, nrec = _compare(sc, slot, args, st_k, st_p,
+        err, steps, code, nrec = _compare(R, A, slot, args, st_k, st_p,
                                           outs_k, outs_p)
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"{label}: kernel != plain (max err {err})")
-        line = dict(case=label, steps=steps, code=code, records=nrec)
+        line = dict(case=label, reads=R, W=sc._W, steps=steps, code=code,
+                    records=nrec, cluster=plan.cluster,
+                    ctas_threads=plan.threads, band=plan.band)
         if not label.startswith("small/") or small_only:
             # every timed call starts from a fresh copy of the same state
             it = iter([_copy_state(st0) for _ in range(3)])
             k_ms = _time_cuda(
-                lambda: rk.run_extend_cuda(next(it), slot, sc._reads,
-                                           sc._rlen, args), 3)
+                lambda: rk.run_extend_cuda(next(it), slot, rd, rl, args), 3)
             per = max(steps, 1)
             line.update(kernel_ms=round(k_ms, 4), plain_ms=round(p_ms, 3),
                         kernel_us_per_step=round(1000 * k_ms / per, 3),
@@ -361,6 +422,7 @@ def phase_main():
         for r in reads:
             eng.add_sequence(r)
         rk.run_extend_cuda.launches = 0
+        rk.run_extend_cuda.placements = {"smem": 0, "global": 0}
         rk.run_extend_plain.calls = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -368,6 +430,7 @@ def phase_main():
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = rk.run_extend_cuda.launches
+        placements = dict(rk.run_extend_cuda.placements)
         plain_calls = rk.run_extend_plain.calls
         if not res or res[0].sequence != truth:
             raise AssertionError(f"{run}: consensus != truth")
@@ -385,7 +448,8 @@ def phase_main():
         pops=st["nodes_explored"] + st["nodes_ignored"],
         nodes_explored=st["nodes_explored"], run_calls=c["run_calls"],
         run_steps=c["run_steps"], kernel_launches=launches,
-        plain_calls=plain_calls,
+        kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
+        band_placements=placements, plain_calls=plain_calls,
         steps_per_s=round(c["run_steps"] / walls[1], 1),
         push_calls=c["push_calls"], clone_push_calls=c["clone_push_calls"],
         grow_e_events=c["grow_e_events"], scores_sum=sum(res[0].scores),
@@ -397,6 +461,14 @@ def phase_main():
     )
     print("main", json.dumps(line), flush=True)
     return launches
+
+
+def _plan_fields(plan):
+    """The launch geometry of a run-kernel plan, for a result line."""
+    return None if plan is None else dict(
+        cluster=plan.cluster, ctas_threads=plan.threads,
+        reads_per_cta=plan.reads_per_cta, band=plan.band,
+        smem_bytes=plan.smem_bytes)
 
 
 def _profiled_kernel_ms(eng):
@@ -758,6 +830,7 @@ def phase_dual_main():
         rdk.run_extend_dual_cuda.launches = 0
         rdk.run_extend_dual_plain.calls = 0
         rk.run_extend_cuda.launches = 0
+        rk.run_extend_cuda.placements = {"smem": 0, "global": 0}
         rk.run_extend_plain.calls = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -766,6 +839,7 @@ def phase_dual_main():
         walls.append(time.perf_counter() - t0)
         launches = (rdk.run_extend_dual_cuda.launches,
                     rk.run_extend_cuda.launches)
+        placements = dict(rk.run_extend_cuda.placements)
         plain_calls = (rdk.run_extend_dual_plain.calls,
                        rk.run_extend_plain.calls)
         if not res or not res[0].is_dual() or {
@@ -782,7 +856,8 @@ def phase_dual_main():
     # the profiled search is the same deterministic search: same launches
     per_launch = {
         key: None if not n else round(sum(
-            ms for name, ms in by_name.items() if kernel + "(" in name
+            ms for name, ms in by_name.items()
+            if kernel + "(" in name or kernel + "<" in name
         ) / n, 4)
         for key, kernel, n in (
             ("dual_kernel_device_ms_per_launch", "run_extend_dual_kernel",
@@ -802,6 +877,8 @@ def phase_dual_main():
         run_dual_calls=c["run_dual_calls"], run_dual_steps=c["run_dual_steps"],
         run_calls=c["run_calls"], run_steps=c["run_steps"],
         dual_kernel_launches=launches[0], run_kernel_launches=launches[1],
+        run_kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
+        run_kernel_band_placements=placements,
         plain_calls=list(plain_calls),
         steps_per_s=round(steps / walls[1], 1),
         push_calls=c["push_calls"], clone_push_calls=c["clone_push_calls"],

@@ -11,38 +11,99 @@
 // `run_extend_plain` computes (stop codes 1-5, record absorption, the
 // float32 vote fold under the VOTE_EPS contract).
 //
-// Design.  One CTA of 1024 threads per launch; the whole step loop runs
-// inside it, so a run costs one launch and one host round trip, as on the
-// TPU.  The band keeps the branch store's [R, W] layout: each read's
-// column is contiguous, and a warp owns one read at a time (reads strided
-// over the 32 warps); the per-read tip histogram and column step are the
-// warp routines of csrc/band_ops.cuh, shared with the dual kernel.  A step is
-// two passes over the band: the vote pass (tip histogram per read in
-// shared memory, per-warp float32 partial sums in read order) and, once
-// one thread has taken the decision, the column pass, which writes the
-// new column into the other of two band buffers (slot h of the store and
-// a scratch [R, W] buffer) so a step that overflows the band is simply
-// never swapped in.
+// What bounds it.  Not bytes or operations: a step's work is small (R x W
+// band cells, ~20 int32 operations each: 0.16 us of the card's int32
+// rate at R = 256, W = 514), and each step needs the decision of the step
+// before, so the loop is bound by the latency of one step.  A step is one
+// DP column per read, the tip votes of the new column, and the reduction
+// of every read's votes and folds into one decision; one SM, as on the
+// TPU's one core, spends ~100 us on it at the north star.
 //
-// What bounds it.  Each step reads the R x W int32 band twice and writes
-// it once: about 1.5 MB at R = 256, W = 514, streamed by ONE SM from L2
-// (the two buffers fit in L2), plus the per-step __syncthreads barriers
-// of the decision.  A later design spreads the reads over a thread-block
-// cluster or a cooperative grid (votes and folds reduced through
-// distributed shared memory) and keeps the band on chip in int16.
+// Design.  One thread-block cluster per launch (1-16 CTAs of at most 16
+// warps, the geometry chosen by `plan_run` in ops/run_kernel.py and
+// passed in).  Reads are split over the CTAs in contiguous blocks and,
+// within a CTA, over its warps: at the north star (R = 256, W = 514) 16
+// CTAs of 16 warps, one read per warp, so a step costs one read's column
+// on each of 16 SMs.
+//  * The band lives on chip: each CTA loads its reads' rows of slot h into
+//    shared memory once, with a second buffer for the next column (a step
+//    swaps an index; a column that overflows the band, code 5, is simply
+//    never swapped in) and writes them back once at the end.  Shapes whose
+//    two buffers do not fit in 16 CTAs keep the rows in device memory (slot
+//    h and a scratch buffer) through the template parameter kOnChip; the
+//    planner decides this from the shape alone.
+//  * The column step (band_ops.cuh `column_step_runs`) gives each lane a
+//    contiguous run of cells: the insertion chain is a sequential min along
+//    the run plus one warp scan per column, and the new column's tip votes
+//    come from bit masks kept while it is written, so the band is read once
+//    a step.
+//  * The read window: each read keeps a ring of its symbols in shared
+//    memory (a power of two >= W + 2 slots) holding the current window; the
+//    one symbol a step adds is loaded from device memory a whole step ahead
+//    and stored at the top of the step, so no device-memory latency lies on
+//    the step.  (Prefetching the whole window instead would move W + 1
+//    symbols a step for the same effect.)
+//  * One cluster barrier per step: the vote of step j + 1 is taken in the
+//    column pass of step j, over the column just written.  Each warp folds
+//    its reads into a partial (in read order), warp 0 folds the warps'
+//    partials into the CTA's parity-double-buffered slot (in warp order),
+//    then one barrier.cluster arrive/wait.  Warp 0 of every CTA then copies
+//    all CTAs' slots over distributed shared memory, folds them in rank
+//    order (float32 adds with __fadd_rn, wrapping unsigned int32 totals) and
+//    takes the decision; every CTA computes the same one, so no second
+//    cluster barrier is needed, only a CTA barrier to broadcast it.
+//  * Record rows and the snapshot's per-read outputs are written by the
+//    CTA that owns each read; the symbols, record steps, scalars and the
+//    consensus by rank 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
 #include <cstdint>
+#include <mutex>
 
 #include "band_ops.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+using band::kFull;
 using band::kInf;
 constexpr int kRecCap = 256;        // record buffer rows (REC_CAP)
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;   // 16 warps: up to 128 registers a thread
+constexpr int kMaxCluster = 16;
 constexpr float kVoteEps = 0.01f;   // VOTE_EPS, float32(1e-2)
+
+// A partial (of a warp, or of a CTA): five scalar words, then has[A] and
+// counts[A] (float32 bits).
+constexpr int kTot = 0, kFinTot = 1, kMaxEds = 2, kMaxFin = 3, kFlags = 4;
+constexpr int kHead = 8;
+constexpr int kNonexact = 1, kNotReached = 2, kAnyReached = 4, kFinOvf = 8,
+              kOvf = 16;
+
+__host__ __device__ inline int part_words(int A) {
+  return (kHead + 2 * A + 3) & ~3;
+}
+
+// Slots of a read's symbol ring: a power of two >= W + 2, so the symbol a
+// step adds never lands on a slot of the window it is still reading.
+__host__ __device__ inline int ring_len(int W) {
+  int n = 1;
+  while (n < W + 2) n <<= 1;
+  return n;
+}
+
+// Dynamic shared memory of one CTA (mirrored by run_kernel._smem_bytes).
+__host__ __device__ inline size_t smem_bytes(int rpc, int nw, int W, int A,
+                                             bool on_chip) {
+  const size_t P = part_words(A);
+  const size_t words = (1 + 2 * kMaxCluster) * P + 11 * (size_t)rpc +
+                       (size_t)nw * ((size_t)A + P) + 2 * (size_t)A + 8;
+  size_t bytes = 4 * words;
+  if (on_chip) bytes += 8 * (size_t)rpc * W + 2 * (size_t)rpc * ring_len(W);
+  return bytes;
+}
 
 struct Args {
   int32_t* D;          // [B, R, W] band store; slot h updated in place
@@ -55,373 +116,634 @@ struct Args {
   int32_t* clen;       // [B]
   const int16_t* reads;  // [R, L] dense symbol ids, -1 padded
   const int32_t* rlen;   // [R]
-  int32_t* scratch;    // [R, W] second band buffer
+  int32_t* scratch;    // [R, W] second band buffer (device-memory band only)
   int32_t* out;        // packed outputs (run_kernel.out_layout)
   int32_t* rec_steps;  // [REC_CAP]
   int32_t* rec_fins;   // [REC_CAP, R]
   int h, R, W, C, L, A, E;
   int me_budget, other_cost, other_len, min_count, l2, max_steps;
   int first_sym, allow_records, wc, et;
+  int csize, nw, rpc, rpw;  // the launch plan
   // offsets of the packed output fields
   int o_eds, o_split, o_reached, o_fin, o_occ, o_syms;
 };
 
-// Shared-memory working set (dynamic, carved in order by carve()).
 struct Smem {
-  int* e; int* rmin; int* er;        // [R] per-read folds of the current state
-  int* e2; int* rmin2; int* er2;     // [R] folds after the column pass
-  int* fin;                          // [R] finalized distances (vote pass)
-  int* off; int* act; int* rlen;     // [R]
-  int* hist;                         // [kWarps, A] tip histogram of a read
-  float* pcount;                     // [kWarps, A] per-warp vote sums
-  int* phas;                         // [kWarps, A] per-warp "has votes"
-  float* counts;                     // [A]
-  int* has;                          // [A]
-  // per-warp folds of the vote pass
-  unsigned* w_total; unsigned* w_fin_total;
-  int* w_max_eds; int* w_max_fin; int* w_nonexact; int* w_notreached;
-  int* w_reached; int* w_fin_ovf;
+  int32_t* band;  // [2, rpc, W] (on-chip band only)
+  int* e; int* rmin; int* er;        // [rpc] folds of the committed column
+  int* e2; int* rmin2; int* er2;     // [rpc] folds of the speculative column
+  int* fin; int* fin2;               // [rpc] finalized distances of both
+  int* off; int* act; int* rlen;     // [rpc]
+  int* hist;                         // [nw, A] tip histogram of one read
+  int* wpart;                        // [nw, P] per-warp partials
+  float* gcount; int* ghas;          // [A] each: the cluster's votes
+  int* part;                         // [P] the CTA's partial
+  int* gath;                         // [2, kMaxCluster, P] every CTA's
+                                     // partial, by parity
+  int* dec;                          // [8] warp 0's decision, broadcast
+  int16_t* ring;                     // [rpc, ring_len(W)] (on-chip only)
 };
 
-__host__ __device__ inline size_t smem_bytes(int R, int A) {
-  return sizeof(int) * (10 * (size_t)R + 3 * (size_t)kWarps * A + 2 * (size_t)A +
-                        8 * (size_t)kWarps);
-}
-
-__device__ inline Smem carve(char* base, int R, int A) {
+template <bool kOnChip>
+__device__ inline Smem carve(char* base, const Args& a) {
   Smem s;
+  const int P = part_words(a.A);
+  if (kOnChip) {
+    s.band = reinterpret_cast<int32_t*>(base);
+    base += 8 * (size_t)a.rpc * a.W;
+  } else {
+    s.band = nullptr;
+  }
   int* p = reinterpret_cast<int*>(base);
-  s.e = p; p += R; s.rmin = p; p += R; s.er = p; p += R;
-  s.e2 = p; p += R; s.rmin2 = p; p += R; s.er2 = p; p += R;
-  s.fin = p; p += R; s.off = p; p += R; s.act = p; p += R; s.rlen = p; p += R;
-  s.hist = p; p += kWarps * A;
-  s.pcount = reinterpret_cast<float*>(p); p += kWarps * A;
-  s.phas = p; p += kWarps * A;
-  s.counts = reinterpret_cast<float*>(p); p += A;
-  s.has = p; p += A;
-  s.w_total = reinterpret_cast<unsigned*>(p); p += kWarps;
-  s.w_fin_total = reinterpret_cast<unsigned*>(p); p += kWarps;
-  s.w_max_eds = p; p += kWarps; s.w_max_fin = p; p += kWarps;
-  s.w_nonexact = p; p += kWarps; s.w_notreached = p; p += kWarps;
-  s.w_reached = p; p += kWarps; s.w_fin_ovf = p; p += kWarps;
+  s.part = p; p += P;  // 16-byte aligned: copied over DSMEM as int4
+  s.gath = p; p += 2 * kMaxCluster * P;
+  s.e = p; p += a.rpc; s.rmin = p; p += a.rpc; s.er = p; p += a.rpc;
+  s.e2 = p; p += a.rpc; s.rmin2 = p; p += a.rpc; s.er2 = p; p += a.rpc;
+  s.fin = p; p += a.rpc; s.fin2 = p; p += a.rpc;
+  s.off = p; p += a.rpc; s.act = p; p += a.rpc; s.rlen = p; p += a.rpc;
+  s.hist = p; p += a.nw * a.A;
+  s.wpart = p; p += a.nw * P;
+  s.gcount = reinterpret_cast<float*>(p); p += a.A;
+  s.ghas = p; p += a.A;
+  s.dec = p; p += 8;
+  s.ring = kOnChip ? reinterpret_cast<int16_t*>(p) : nullptr;
   return s;
 }
 
-// Vote pass at consensus length `clen`: per read, the tip histogram over
-// the dense symbols (band cells with D <= e facing a real read base) and
-// the per-read folds, reduced per warp.  `snap` also writes the final
-// stats snapshot into the packed output.
-__device__ void vote_pass(const Args& a, const Smem& s, const int32_t* Dcur,
-                          int clen, bool snap) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* hist = s.hist + warp * a.A;
-  float* pcount = s.pcount + warp * a.A;
-  int* phas = s.phas + warp * a.A;
+// Per-thread view of the launch: who this warp is and which reads it owns.
+struct Ctx {
+  int rank, warp, lane, P;
+  int r0, nloc;   // first read of the CTA, reads the CTA owns
+  int lo, hi;     // local reads [lo, hi) of this warp
+  int ring_mask;
+};
+
+// Band row of local read lr (global r) in buffer buf.
+template <bool kOnChip>
+__device__ __forceinline__ int32_t* row(const Args& a, const Smem& s,
+                                        int buf, int lr, int r) {
+  if (kOnChip) return s.band + ((size_t)buf * a.rpc + lr) * a.W;
+  int32_t* base = buf == 0 ? a.D + (size_t)a.h * a.R * a.W : a.scratch;
+  return base + (size_t)r * a.W;
+}
+
+// Symbol of read r at position i (-1 outside [0, L)), from device memory.
+__device__ __forceinline__ int read_sym(const Args& a, int r, int i) {
+  return i >= 0 && i < a.L ? a.reads[(size_t)r * a.L + i] : -1;
+}
+
+struct Fold {
+  unsigned tot, fin_tot;
+  int max_eds, max_fin, flags;
+};
+
+// One warp's pass over its reads at consensus length j.  `step`: first
+// advance each active read's column from buffer cur (length j - 1) into
+// cur ^ 1 by consuming `sym`, then vote over the new column with the new
+// folds (kept in e2/rmin2/er2/fin2).  Otherwise vote over buffer cur with
+// the committed folds (fin into fin2).  Votes and folds go into the warp's
+// partial, or, with `snap`, into the packed per-read outputs.  Returns the
+// warp's flags.
+template <bool kOnChip>
+__device__ int warp_pass(const Args& a, const Smem& s, const Ctx& x,
+                         bool step, bool snap, int cur, int j, int sym) {
+  const int lane = x.lane;
+  int* hist = s.hist + x.warp * a.A;
+  int* wp = s.wpart + x.warp * x.P;
+  int* whas = wp + kHead;
+  float* wcount = reinterpret_cast<float*>(wp + kHead + a.A);
+  if (!snap) {
+    for (int k = lane; k < a.A; k += 32) {
+      whas[k] = 0;
+      wcount[k] = 0.f;
+    }
+  }
   unsigned tot = 0, ftot = 0;
-  int mx_eds = 0, mx_fin = 0, nonexact = 0, notreached = 0, anyreached = 0;
-  int fin_ovf = 0;
-  for (int r = warp; r < a.R; r += kWarps) {
-    const int act = s.act[r];
-    const int e = s.e[r];
-    const int split =
-        act ? band::tip_histogram(Dcur + (size_t)r * a.W,
-                                  a.reads + (size_t)r * a.L, a.W, s.rlen[r],
-                                  clen - s.off[r] - a.E, e, hist)
-            : 0;
+  int mx_eds = 0, mx_fin = 0, flags = 0;
+  for (int lr = x.lo; lr < x.hi; ++lr) {
+    const int r = x.r0 + lr;
+    if (!s.act[lr]) {
+      if (snap) {
+        for (int k = lane; k < a.A; k += 32) a.out[a.o_occ + r * a.A + k] = 0;
+        if (lane == 0) {
+          a.out[a.o_eds + r] = 0;
+          a.out[a.o_split + r] = 0;
+          a.out[a.o_reached + r] = 0;
+          a.out[a.o_fin + r] = 0;
+        }
+      }
+      continue;
+    }
+    const int rl = s.rlen[lr];
+    const int i0 = j - s.off[lr] - a.E;  // read position of cell 0
+    int e = s.e[lr], rmin = s.rmin[lr], er = s.er[lr];
+    const int32_t* Dv = row<kOnChip>(a, s, cur, lr, r);
+    const int16_t* ring = kOnChip ? s.ring + (size_t)lr * (x.ring_mask + 1)
+                                  : nullptr;
+    const band::RingWindow rwin{ring, x.ring_mask};
+    const band::GlobalWindow gwin{a.reads + (size_t)r * a.L, a.L};
+    int split = 0;
+    if (step) {
+      int32_t* Dn = row<kOnChip>(a, s, cur ^ 1, lr, r);
+      const band::Folds3 f0{e, rmin, er};
+      // the new column's tip votes come out of the column step
+      const band::Folds3 f =
+          kOnChip ? band::column_step_runs(Dv, Dn, rwin, a.W, rl, i0, sym,
+                                           a.wc, a.et, f0, hist, &split)
+                  : band::column_step_runs(Dv, Dn, gwin, a.W, rl, i0, sym,
+                                           a.wc, a.et, f0, hist, &split);
+      e = f.e;
+      rmin = f.rmin;
+      er = f.er;
+      if (e >= a.E) flags |= kOvf;
+      if (lane == 0) {
+        s.e2[lr] = e;
+        s.rmin2[lr] = rmin;
+        s.er2[lr] = er;
+      }
+      Dv = Dn;
+      __syncwarp();
+    }
+    if (!step) {
+      split = kOnChip
+                  ? band::tip_histogram_win(Dv, rwin, a.W, rl, i0, e, hist)
+                  : band::tip_histogram_win(Dv, gwin, a.W, rl, i0, e, hist);
+    }
     const float split_f = (float)max(split, 1);
-    for (int sym = lane; sym < a.A; sym += 32) {
-      const int c = hist[sym];
-      if (split > 0) pcount[sym] += (float)c / split_f;
-      if (c > 0) phas[sym] = 1;
-      if (snap) a.out[a.o_occ + r * a.A + sym] = c;
-      hist[sym] = 0;
+    for (int k = lane; k < a.A; k += 32) {
+      const int c = hist[k];
+      if (snap) {
+        a.out[a.o_occ + r * a.A + k] = c;
+      } else {
+        if (split > 0) {
+          wcount[k] = __fadd_rn(wcount[k], __fdiv_rn((float)c, split_f));
+        }
+        if (c > 0) whas[k] = 1;
+      }
+      hist[k] = 0;
     }
     __syncwarp();
+    const int fin_u = max(e, rmin);
+    const int fin = min(fin_u, kInf);
+    const int reached = er < kInf && e == er;
+    const unsigned ue = (unsigned)e, uf = (unsigned)fin;
+    tot += a.l2 ? ue * ue : ue;       // wrapping int32, as on the TPU
+    ftot += a.l2 ? uf * uf : uf;
+    mx_eds = max(mx_eds, e);
+    mx_fin = max(mx_fin, fin);
+    if (split > 0 && (split & (split - 1)) != 0) flags |= kNonexact;
+    flags |= reached ? kAnyReached : kNotReached;
+    if (fin_u >= a.E) flags |= kFinOvf;
     if (lane == 0) {
-      const int rmin = s.rmin[r], er = s.er[r];
-      const int eds = act ? e : 0;
-      const int fin_u = max(e, rmin);
-      const int fin = act ? min(fin_u, kInf) : 0;
-      const int reached = act && er < kInf && e == er;
-      s.fin[r] = fin;
-      const unsigned ue = (unsigned)eds, uf = (unsigned)fin;
-      tot += a.l2 ? ue * ue : ue;       // wrapping int32, as on the TPU
-      ftot += a.l2 ? uf * uf : uf;
-      mx_eds = max(mx_eds, eds);
-      mx_fin = max(mx_fin, fin);
-      nonexact |= split > 0 && (split & (split - 1)) != 0;
-      notreached |= act && !reached;
-      anyreached |= reached;
-      fin_ovf |= act && fin_u >= a.E;
       if (snap) {
-        a.out[a.o_eds + r] = eds;
+        a.out[a.o_eds + r] = e;
         a.out[a.o_split + r] = split;
         a.out[a.o_reached + r] = reached;
         a.out[a.o_fin + r] = fin;
+      } else {
+        s.fin2[lr] = fin;
       }
     }
+  }
+  if (lane == 0 && !snap) {
+    wp[kTot] = (int)tot;
+    wp[kFinTot] = (int)ftot;
+    wp[kMaxEds] = mx_eds;
+    wp[kMaxFin] = mx_fin;
+    wp[kFlags] = flags;
+  }
+  return flags;
+}
+
+// Warp 0: fold the warps' partials, in warp order, into the CTA's
+// partial, and store it into slot `rank` of every CTA's gather rows of
+// parity p over distributed shared memory (before the cluster barrier,
+// so after it every CTA folds from its own shared memory).
+__device__ void cta_fold(cg::cluster_group& cl, const Args& a,
+                         const Smem& s, const Ctx& x, int p) {
+  int* dst = s.part;
+  const int lane = x.lane;
+  unsigned tot = 0, ftot = 0;
+  int mx_eds = 0, mx_fin = 0;
+  unsigned flags = 0;
+  if (lane < a.nw) {
+    const int* wp = s.wpart + lane * x.P;
+    tot = (unsigned)wp[kTot];
+    ftot = (unsigned)wp[kFinTot];
+    mx_eds = wp[kMaxEds];
+    mx_fin = wp[kMaxFin];
+    flags = (unsigned)wp[kFlags];
+  }
+  tot = __reduce_add_sync(kFull, tot);
+  ftot = __reduce_add_sync(kFull, ftot);
+  mx_eds = __reduce_max_sync(kFull, mx_eds);
+  mx_fin = __reduce_max_sync(kFull, mx_fin);
+  flags = __reduce_or_sync(kFull, flags);
+  for (int k = lane; k < a.A; k += 32) {
+    float c = 0.f;
+    int hv = 0;
+    for (int w = 0; w < a.nw; ++w) {
+      const int* wp = s.wpart + w * x.P;
+      c = __fadd_rn(c, __int_as_float(wp[kHead + a.A + k]));
+      hv |= wp[kHead + k];
+    }
+    dst[kHead + k] = hv;
+    dst[kHead + a.A + k] = __float_as_int(c);
   }
   if (lane == 0) {
-    s.w_total[warp] = tot;
-    s.w_fin_total[warp] = ftot;
-    s.w_max_eds[warp] = mx_eds;
-    s.w_max_fin[warp] = mx_fin;
-    s.w_nonexact[warp] = nonexact;
-    s.w_notreached[warp] = notreached;
-    s.w_reached[warp] = anyreached;
-    s.w_fin_ovf[warp] = fin_ovf;
+    dst[kTot] = (int)tot;
+    dst[kFinTot] = (int)ftot;
+    dst[kMaxEds] = mx_eds;
+    dst[kMaxFin] = mx_fin;
+    dst[kFlags] = (int)flags;
+  }
+  __syncwarp();
+  const int n4 = x.P / 4;
+  const int4* src = reinterpret_cast<const int4*>(s.part);
+  int* slot = s.gath + ((size_t)p * kMaxCluster + x.rank) * x.P;
+  for (int i = lane; i < a.csize * n4; i += 32) {
+    int4* q = reinterpret_cast<int4*>(cl.map_shared_rank(slot, i / n4));
+    q[i % n4] = src[i % n4];
   }
 }
 
-// Column pass: advance every active read's band column from consensus
-// length jnew - 1 to jnew by consuming `sym`, into Dnext; per-read folds
-// into e2/rmin2/er2.  Returns (through *ovf) whether any active read's
-// edit distance reached the band edge.
-__device__ void column_pass(const Args& a, const Smem& s,
-                            const int32_t* Dcur, int32_t* Dnext, int jnew,
-                            int sym, int* ovf) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < a.R; r += kWarps) {
-    if (!s.act[r]) continue;
-    const band::Folds3 f = band::column_step(
-        Dcur + (size_t)r * a.W, Dnext + (size_t)r * a.W,
-        a.reads + (size_t)r * a.L, a.W, a.L, s.rlen[r],
-        jnew - s.off[r] - a.E, sym, a.wc, a.et,
-        band::Folds3{s.e[r], s.rmin[r], s.er[r]});
-    if (lane == 0) {
-      s.e2[r] = f.e;
-      s.rmin2[r] = f.rmin;
-      s.er2[r] = f.er;
-      if (f.e >= a.E) *ovf = 1;
+// Warp 0: fold the CTAs' partials of parity p (gathered in this CTA's
+// shared memory), in rank order.  The votes land in gcount/ghas; the
+// scalars are returned, the same in every lane.
+__device__ Fold cluster_fold(const Args& a, const Smem& s, const Ctx& x,
+                             int p) {
+  const int lane = x.lane;
+  const int* gath = s.gath + (size_t)p * kMaxCluster * x.P;
+  unsigned tot = 0, ftot = 0, flags = 0;
+  int mx_eds = 0, mx_fin = 0;
+  if (lane < a.csize) {
+    const int* q = gath + lane * x.P;
+    tot = (unsigned)q[kTot];
+    ftot = (unsigned)q[kFinTot];
+    mx_eds = q[kMaxEds];
+    mx_fin = q[kMaxFin];
+    flags = (unsigned)q[kFlags];
+  }
+  Fold f;
+  f.tot = __reduce_add_sync(kFull, tot);
+  f.fin_tot = __reduce_add_sync(kFull, ftot);
+  f.max_eds = __reduce_max_sync(kFull, mx_eds);
+  f.max_fin = __reduce_max_sync(kFull, mx_fin);
+  f.flags = (int)__reduce_or_sync(kFull, flags);
+  for (int k = lane; k < a.A; k += 32) {
+    float c = 0.f;
+    int hv = 0;
+    for (int r = 0; r < a.csize; ++r) {
+      const int* q = gath + r * x.P;
+      c = __fadd_rn(c, __int_as_float(q[kHead + a.A + k]));
+      hv |= q[kHead + k];
+    }
+    s.gcount[k] = c;
+    s.ghas[k] = hv;
+  }
+  __syncwarp();
+  return f;
+}
+
+struct Dec {
+  int code, sym, reached_here, fin_total;
+};
+
+// Warp 0: the step decision from the cluster fold (every lane computes
+// the same): nomination (fractional votes, wildcard drop, EPS near-tie
+// guard, first-max tie-break) and stop codes 3, 2, 1, 4 in that order.
+__device__ Dec decide(const Args& a, const Smem& s, const Fold& f,
+                      int steps, int budget, int rec_count, int clen) {
+  const float* counts = s.gcount;
+  const int* has = s.ghas;
+  const int itotal = (int)f.tot;
+  const bool cost_overflow = a.l2 && f.max_eds > 2048;
+  const bool fin_ovf_j = f.max_fin >= a.E;
+  const bool fin_cost_ovf = a.l2 && f.max_fin > 2048;
+  const bool all_exact = !(f.flags & kNonexact);
+  const bool reached_here =
+      a.et ? !(f.flags & kNotReached) : (f.flags & kAnyReached) != 0;
+  const float mcf = (float)a.min_count;
+  int n_cands = 0, npass = 0, sym_best = 0;
+  float maxc = -1.f, thr;
+  bool near_any = false;
+  if (a.A <= 32) {
+    // lane k holds symbol k: counts by ballot, maxima by butterfly
+    const int lane = threadIdx.x & 31;
+    const bool in = lane < a.A;
+    const bool has_raw = in && has[lane] != 0;
+    n_cands = __popc(__ballot_sync(kFull, has_raw));
+    const int dropped = a.wc >= 0 && n_cands > 1 ? a.wc : -1;
+    const bool hv = has_raw && lane != dropped;
+    const float c = in && lane != dropped ? counts[lane] : 0.f;
+    maxc = hv ? c : -1.f;
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1)
+      maxc = fmaxf(maxc, __shfl_xor_sync(kFull, maxc, k));
+    thr = fminf(mcf, maxc);
+    const bool passing = hv && c >= thr;
+    npass = __popc(__ballot_sync(kFull, passing));
+    near_any = __ballot_sync(kFull, hv && fabsf(c - thr) < kVoteEps) != 0;
+    float best = passing ? c : -1.f;
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1)
+      best = fmaxf(best, __shfl_xor_sync(kFull, best, k));
+    // the first symbol at the passing maximum (0 when none passes)
+    const unsigned at = __ballot_sync(kFull, passing && c == best);
+    sym_best = at ? __ffs(at) - 1 : 0;
+  } else {
+    for (int k = 0; k < a.A; ++k) n_cands += has[k] != 0;
+    const int dropped = a.wc >= 0 && n_cands > 1 ? a.wc : -1;
+    for (int k = 0; k < a.A; ++k)
+      maxc = fmaxf(maxc, has[k] && k != dropped ? counts[k] : -1.f);
+    thr = fminf(mcf, maxc);
+    float best = -1.f;
+    for (int k = 0; k < a.A; ++k) {
+      const bool hv = has[k] != 0 && k != dropped;
+      const float c = k != dropped ? counts[k] : 0.f;
+      const bool passing = hv && c >= thr;
+      npass += passing;
+      near_any = near_any || (hv && fabsf(c - thr) < kVoteEps);
+      const float ca = passing ? c : -1.f;
+      if (ca > best) {
+        sym_best = k;
+        best = ca;
+      }
     }
   }
+  const bool near_tie = fabsf(maxc - mcf) < kVoteEps || near_any;
+  const bool dirty = (!all_exact && near_tie) || npass != 1 ||
+                     n_cands == 0 || cost_overflow;
+  const bool rec_blocked = !a.allow_records || fin_ovf_j || fin_cost_ovf ||
+                           rec_count >= kRecCap;
+  const bool wins_pop = itotal < a.other_cost ||
+                        (itotal == a.other_cost && clen > a.other_len);
+  int code = 0;
+  if (itotal > budget || !wins_pop) code = 3;
+  else if (reached_here && rec_blocked) code = 2;
+  else if (dirty) code = 1;
+  else if (steps >= a.max_steps) code = 4;
+  return Dec{code, sym_best, reached_here, (int)f.fin_tot};
 }
 
-__global__ void __launch_bounds__(kThreads, 1) run_extend_kernel(Args a) {
+template <bool kOnChip>
+__global__ void __launch_bounds__(kMaxThreads, 1) run_extend_kernel(Args a) {
   extern __shared__ __align__(16) char smem_raw[];
-  const Smem s = carve(smem_raw, a.R, a.A);
-  __shared__ int32_t* buf[2];
-  __shared__ int s_cur, s_clen, s_steps, s_code, s_sym, s_rec_count;
-  __shared__ int s_budget, s_fin_total, s_reached_here, s_ovf, s_commit;
-  __shared__ int s_do_rec, s_ri;
+  cg::cluster_group cl = cg::this_cluster();
+  const Smem s = carve<kOnChip>(smem_raw, a);
   const int tid = threadIdx.x;
-  const size_t RW = (size_t)a.R * a.W;
-  int32_t* Dstate = a.D + (size_t)a.h * RW;
+  const int nthreads = blockDim.x;
+  Ctx x;
+  x.rank = (int)cl.block_rank();
+  x.warp = tid >> 5;
+  x.lane = tid & 31;
+  x.P = part_words(a.A);
+  x.r0 = x.rank * a.rpc;
+  x.nloc = max(0, min(a.rpc, a.R - x.r0));
+  x.lo = min(x.warp * a.rpw, x.nloc);
+  x.hi = min(x.lo + a.rpw, x.nloc);
+  x.ring_mask = ring_len(a.W) - 1;
+  const bool lead = x.rank == 0 && tid == 0;
+  const size_t hR = (size_t)a.h * a.R;
+  const int clen0 = a.clen[a.h];
 
-  for (int r = tid; r < a.R; r += kThreads) {
-    const size_t hr = (size_t)a.h * a.R + r;
-    s.e[r] = a.e[hr];
-    s.rmin[r] = a.rmin[hr];
-    s.er[r] = a.er[hr];
-    s.off[r] = a.off[hr];
-    s.act[r] = a.act[hr] != 0;
-    s.rlen[r] = a.rlen[r];
+  for (int lr = tid; lr < x.nloc; lr += nthreads) {
+    const size_t hr = hR + x.r0 + lr;
+    s.e[lr] = a.e[hr];
+    s.rmin[lr] = a.rmin[hr];
+    s.er[lr] = a.er[hr];
+    s.off[lr] = a.off[hr];
+    s.act[lr] = a.act[hr] != 0;
+    s.rlen[lr] = a.rlen[x.r0 + lr];
+    s.fin[lr] = 0;
   }
-  for (int i = tid; i < kWarps * a.A; i += kThreads) {
-    s.hist[i] = 0;
-    s.pcount[i] = 0.f;
-    s.phas[i] = 0;
-  }
-  if (tid == 0) {
-    buf[0] = Dstate;
-    buf[1] = a.scratch;
-    s_cur = 0;
-    s_clen = a.clen[a.h];
-    s_steps = 0;
-    s_code = 0;
-    s_rec_count = 0;
-    s_budget = a.me_budget;
-    s_ovf = 0;
+  for (int i = tid; i < a.nw * a.A; i += nthreads) s.hist[i] = 0;
+  if (tid < 8) s.dec[tid] = 0;
+  if (kOnChip) {
+    // each warp loads its own reads' rows and symbol rings
+    const int RS = x.ring_mask + 1;
+    for (int lr = x.lo; lr < x.hi; ++lr) {
+      const int r = x.r0 + lr;
+      if (!a.act[hR + r]) continue;
+      const int32_t* src = a.D + (hR + r) * a.W;
+      int32_t* dst = row<kOnChip>(a, s, 0, lr, r);
+      for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
+      const int base = clen0 - a.off[hR + r] - a.E;
+      for (int k = x.lane; k <= a.W; k += 32) {
+        const int i = base + k;
+        s.ring[(size_t)lr * RS + (i & x.ring_mask)] =
+            (int16_t)read_sym(a, r, i);
+      }
+    }
   }
   __syncthreads();
-  // inactive reads never change: the scratch buffer carries their rows too
-  for (int r = 0; r < a.R; ++r) {
-    if (s.act[r]) continue;
-    for (int t = tid; t < a.W; t += kThreads)
-      a.scratch[(size_t)r * a.W + t] = Dstate[(size_t)r * a.W + t];
+
+  // The read window's feed, one step ahead: lane l of a warp holds in
+  // `pend` the symbol that the column at length j + 1 adds to the ring of
+  // the warp's read lo + l; it is loaded a whole step before the column at
+  // length j stores it (that slot is outside the window of the column at
+  // j), so the device-memory latency stays off the step.
+  const int feed_lr = x.lo + x.lane;
+  const bool feeds = kOnChip && feed_lr < x.hi && s.act[feed_lr];
+  const int feed_base =
+      feeds ? a.W - s.off[feed_lr] - a.E : 0;  // ring position - j
+  int16_t* feed_ring =
+      feeds ? s.ring + (size_t)feed_lr * (x.ring_mask + 1) : nullptr;
+  int pend = feeds ? read_sym(a, x.r0 + feed_lr, clen0 + 1 + feed_base) : 0;
+
+  int steps = 0, clen = clen0, cur = 0, p = 0, rec_count = 0;
+  int budget = a.me_budget;
+  Dec dec{0, a.first_sym, 0, 0};
+
+  // After a pass: the warps' partials -> the CTA's partial, stored into
+  // every CTA's gather rows of parity p -> the one cluster barrier of the
+  // step -> warp 0 folds the gathered rows and decides the next step with
+  // the counters it will have then (n_steps, n_budget, n_rec, n_clen) ->
+  // broadcast in the CTA.  Returns whether the pass's column overflowed.
+  auto publish = [&](int n_steps, int n_budget, int n_rec, int n_clen) {
+    __syncthreads();
+    if (x.warp == 0) {
+      cta_fold(cl, a, s, x, p);
+    }
+    cl.sync();
+    if (x.warp == 0) {
+      const Fold f = cluster_fold(a, s, x, p);
+      const Dec d = decide(a, s, f, n_steps, n_budget, n_rec, n_clen);
+      if (x.lane == 0) {
+        s.dec[0] = d.code;
+        s.dec[1] = d.sym;
+        s.dec[2] = d.reached_here;
+        s.dec[3] = d.fin_total;
+        s.dec[4] = (f.flags & kOvf) != 0;
+      }
+    }
+    p ^= 1;
+    __syncthreads();
+    const Dec d{s.dec[0], s.dec[1], s.dec[2], s.dec[3]};
+    const bool ovf = s.dec[4] != 0;
+    dec = d;
+    return ovf;
+  };
+
+  if (a.first_sym < 0) {
+    // the vote of the committed column
+    warp_pass<kOnChip>(a, s, x, false, false, cur, clen, 0);
+    publish(steps, budget, rec_count, clen);
+    for (int lr = x.lo + x.lane; lr < x.hi; lr += 32)
+      if (s.act[lr]) s.fin[lr] = s.fin2[lr];
+    __syncwarp();
+  }
+  // one consensus symbol per iteration (the first one forced when
+  // first_sym >= 0) until a stop code
+  while (dec.code == 0) {
+    const Dec cur_dec = dec;
+    if (feeds) {
+      feed_ring[(clen + 1 + feed_base) & x.ring_mask] = (int16_t)pend;
+      pend = read_sym(a, x.r0 + feed_lr, clen + 2 + feed_base);
+    }
+    __syncwarp();
+    warp_pass<kOnChip>(a, s, x, true, false, cur, clen + 1, cur_dec.sym);
+    // the counters after this step's commit
+    int rec_next = rec_count, budget_next = budget;
+    if (cur_dec.reached_here) {
+      rec_next += 1;
+      budget_next = min(budget, cur_dec.fin_total);
+    }
+    if (publish(steps + 1, budget_next, rec_next, clen + 1)) {
+      dec.code = 5;  // the column stays uncommitted
+      break;
+    }
+    if (cur_dec.reached_here) {
+      // record of the popped (pre-push) state
+      const int ri = min(rec_count, kRecCap - 1);
+      for (int lr = x.lo + x.lane; lr < x.hi; lr += 32)
+        a.rec_fins[(size_t)ri * a.R + x.r0 + lr] = s.fin[lr];
+      if (lead) a.rec_steps[ri] = steps;
+    }
+    if (lead) {
+      a.cons[(size_t)a.h * a.C + clen] = cur_dec.sym;
+      a.out[a.o_syms + steps] = cur_dec.sym;
+    }
+    for (int lr = x.lo + x.lane; lr < x.hi; lr += 32) {
+      if (!s.act[lr]) continue;
+      s.e[lr] = s.e2[lr];
+      s.rmin[lr] = s.rmin2[lr];
+      s.er[lr] = s.er2[lr];
+      s.fin[lr] = s.fin2[lr];
+    }
+    __syncwarp();
+    rec_count = rec_next;
+    budget = budget_next;
+    steps += 1;
+    clen += 1;
+    cur ^= 1;
   }
 
-  // ---- forced first push (host-nominated child): only band overflow
-  // refuses it
-  if (a.first_sym >= 0) {
-    column_pass(a, s, buf[0], buf[1], s_clen + 1, a.first_sym, &s_ovf);
-    __syncthreads();
-    if (tid == 0) {
-      s_commit = !s_ovf;
-      if (s_ovf) {
-        s_code = 5;
-      } else {
-        a.cons[(size_t)a.h * a.C + s_clen] = a.first_sym;
-        a.out[a.o_syms] = a.first_sym;
-        s_steps = 1;
-        s_clen += 1;
-        s_cur = 1;
-      }
-    }
-    __syncthreads();
-    if (s_commit) {
-      for (int r = tid; r < a.R; r += kThreads) {
-        if (!s.act[r]) continue;
-        s.e[r] = s.e2[r];
-        s.rmin[r] = s.rmin2[r];
-        s.er[r] = s.er2[r];
-      }
-    }
+  // ---- final snapshot over the committed column, write-back of slot h
+  const int flags = warp_pass<kOnChip>(a, s, x, false, true, cur, clen, 0);
+  if (x.lane == 0 && (flags & kFinOvf)) atomicOr(&s.dec[7], 1);
+  for (int lr = x.lo; lr < x.hi; ++lr) {
+    const int r = x.r0 + lr;
+    if (!s.act[lr] || (!kOnChip && cur == 0)) continue;
+    const int32_t* src = row<kOnChip>(a, s, cur, lr, r);
+    int32_t* dst = a.D + (hR + r) * a.W;
+    for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
   }
-
-  // ---- one consensus symbol per iteration until a stop code
-  while (true) {
-    __syncthreads();
-    if (s_code != 0) break;
-    const int cur = s_cur;
-    const int clen = s_clen;
-    vote_pass(a, s, buf[cur], clen, false);
-    __syncthreads();
-    for (int sym = tid; sym < a.A; sym += kThreads) {
-      float c = 0.f;
-      int hv = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        c += s.pcount[w * a.A + sym];
-        hv |= s.phas[w * a.A + sym];
-        s.pcount[w * a.A + sym] = 0.f;
-        s.phas[w * a.A + sym] = 0;
-      }
-      s.counts[sym] = c;
-      s.has[sym] = hv;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      unsigned total = 0, fin_total = 0;
-      int mx_eds = 0, mx_fin = 0, nonexact = 0, notreached = 0, anyreached = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        total += s.w_total[w];
-        fin_total += s.w_fin_total[w];
-        mx_eds = max(mx_eds, s.w_max_eds[w]);
-        mx_fin = max(mx_fin, s.w_max_fin[w]);
-        nonexact |= s.w_nonexact[w];
-        notreached |= s.w_notreached[w];
-        anyreached |= s.w_reached[w];
-      }
-      const int itotal = (int)total;
-      const bool cost_overflow = a.l2 && mx_eds > 2048;
-      const bool fin_ovf_j = mx_fin >= a.E;
-      const bool fin_cost_ovf = a.l2 && mx_fin > 2048;
-      const bool all_exact = !nonexact;
-      const bool reached_here = a.et ? !notreached : anyreached != 0;
-
-      // nomination: fractional votes, wildcard drop, EPS near-tie guard,
-      // first-max tie-break
-      int n_cands = 0;
-      for (int sym = 0; sym < a.A; ++sym) n_cands += s.has[sym] != 0;
-      if (a.wc >= 0 && n_cands > 1) {
-        s.has[a.wc] = 0;
-        s.counts[a.wc] = 0.f;
-      }
-      float maxc = -1.f;
-      for (int sym = 0; sym < a.A; ++sym)
-        maxc = fmaxf(maxc, s.has[sym] ? s.counts[sym] : -1.f);
-      const float mcf = (float)a.min_count;
-      const float thr = fminf(mcf, maxc);
-      int npass = 0, sym_best = 0;
-      bool near_any = false;
-      float best = -1.f;
-      for (int sym = 0; sym < a.A; ++sym) {
-        const bool hv = s.has[sym] != 0;
-        const bool passing = hv && s.counts[sym] >= thr;
-        npass += passing;
-        near_any = near_any || (hv && fabsf(s.counts[sym] - thr) < kVoteEps);
-        const float ca = passing ? s.counts[sym] : -1.f;
-        if (ca > best) {
-          sym_best = sym;
-          best = ca;
-        }
-      }
-      const bool near_tie = fabsf(maxc - mcf) < kVoteEps || near_any;
-      const bool dirty = (!all_exact && near_tie) || npass != 1 ||
-                         n_cands == 0 || cost_overflow;
-      const bool rec_blocked = !a.allow_records || fin_ovf_j ||
-                               fin_cost_ovf || s_rec_count >= kRecCap;
-      const bool wins_pop =
-          itotal < a.other_cost ||
-          (itotal == a.other_cost && clen > a.other_len);
-      int code = 0;
-      if (itotal > s_budget || !wins_pop) code = 3;
-      else if (reached_here && rec_blocked) code = 2;
-      else if (dirty) code = 1;
-      else if (s_steps >= a.max_steps) code = 4;
-      s_code = code;
-      s_sym = sym_best;
-      s_reached_here = reached_here;
-      s_fin_total = (int)fin_total;
-      s_ovf = 0;
-    }
-    __syncthreads();
-    if (s_code != 0) break;
-    column_pass(a, s, buf[cur], buf[cur ^ 1], clen + 1, s_sym, &s_ovf);
-    __syncthreads();
-    if (tid == 0) {
-      s_commit = !s_ovf;
-      s_do_rec = 0;
-      if (s_ovf) {
-        s_code = 5;
-      } else {
-        a.cons[(size_t)a.h * a.C + clen] = s_sym;
-        a.out[a.o_syms + s_steps] = s_sym;
-        if (s_reached_here) {
-          // record of the popped (pre-push) state
-          s_do_rec = 1;
-          s_ri = min(s_rec_count, kRecCap - 1);
-          a.rec_steps[s_ri] = s_steps;
-          s_rec_count += 1;
-          if (s_fin_total < s_budget) s_budget = s_fin_total;
-        }
-        s_steps += 1;
-        s_clen = clen + 1;
-        s_cur = cur ^ 1;
-      }
-    }
-    __syncthreads();
-    if (s_commit) {
-      for (int r = tid; r < a.R; r += kThreads) {
-        if (s_do_rec) a.rec_fins[(size_t)s_ri * a.R + r] = s.fin[r];
-        if (!s.act[r]) continue;
-        s.e[r] = s.e2[r];
-        s.rmin[r] = s.rmin2[r];
-        s.er[r] = s.er2[r];
-      }
-    }
+  for (int lr = x.lo + x.lane; lr < x.hi; lr += 32) {
+    const size_t hr = hR + x.r0 + lr;
+    a.e[hr] = s.e[lr];
+    a.rmin[hr] = s.rmin[lr];
+    a.er[hr] = s.er[lr];
   }
-
-  // ---- final snapshot and write-back of slot h
-  const int cur = s_cur;
-  vote_pass(a, s, buf[cur], s_clen, true);
-  __syncthreads();
-  if (tid == 0) {
+  cl.sync();
+  if (lead) {
     int fin_ovf = 0;
-    for (int w = 0; w < kWarps; ++w) fin_ovf |= s.w_fin_ovf[w];
-    a.out[0] = s_steps;
-    a.out[1] = s_code;
-    a.out[2] = s_rec_count;
+    for (int q = 0; q < a.csize; ++q)
+      fin_ovf |= *cl.map_shared_rank(&s.dec[7], q);
+    a.out[0] = steps;
+    a.out[1] = dec.code;
+    a.out[2] = rec_count;
     a.out[3] = fin_ovf;
-    a.out[4] = s_clen;
+    a.out[4] = clen;
     a.out[5] = a.out[6] = a.out[7] = 0;
-    a.clen[a.h] = s_clen;
+    a.clen[a.h] = clen;
   }
-  if (cur == 1) {
-    for (size_t i = tid; i < RW; i += kThreads) Dstate[i] = a.scratch[i];
+  // no CTA leaves while rank 0 may still read its shared memory
+  cl.sync();
+}
+
+// Launch shapes already checked on this device (attributes set, at least
+// one cluster of the shape fits).
+struct Checked {
+  const void* fn;
+  int csize, threads;
+  size_t smem;
+};
+std::mutex g_checked_mu;
+Checked g_checked[16];
+int g_nchecked = 0;
+
+template <bool kOnChip>
+int launch(const Args& a, int threads, size_t smem, cudaStream_t stream) {
+  auto* fn = run_extend_kernel<kOnChip>;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(a.csize, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  {
+    std::lock_guard<std::mutex> lock(g_checked_mu);
+    bool known = false;
+    for (int i = 0; i < g_nchecked; ++i) {
+      const Checked& c = g_checked[i];
+      known |= c.fn == (const void*)fn && c.csize == a.csize &&
+               c.threads == threads && c.smem == smem;
+    }
+    if (!known) {
+      // the attribute only ever grows, so shapes checked earlier still fit
+      static size_t smem_attr = 0;
+      if (smem > smem_attr) {
+        cudaError_t err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_attr = smem;
+      }
+      cudaError_t err = cudaSuccess;
+      if (a.csize > 8) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+      }
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters <= 0) return -2;
+      g_checked[g_nchecked % 16] = Checked{(const void*)fn, a.csize, threads, smem};
+      g_nchecked = g_nchecked < 16 ? g_nchecked + 1 : 16;
+    }
   }
-  for (int r = tid; r < a.R; r += kThreads) {
-    const size_t hr = (size_t)a.h * a.R + r;
-    a.e[hr] = s.e[r];
-    a.rmin[hr] = s.rmin[r];
-    a.er[hr] = s.er[r];
-  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, fn, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches one CTA on `stream`
-// and returns cudaGetLastError() (0 on success); the launch does not
+// Plain C entry point (bound with ctypes).  Launches one cluster of
+// `csize` CTAs of `threads` threads on `stream`, with the geometry of the
+// plan (`plan_run` in ops/run_kernel.py): `rpc` reads per CTA, `rpw` per
+// warp, the band on chip (`on_chip`) or in device memory (`scratch` then
+// holds the second buffer), `smem` bytes of dynamic shared memory.
+// Returns 0 on success, -1 when the plan does not cover the shape or its
+// shared memory disagrees with the kernel's layout, -2 when no cluster of
+// that shape fits on the device, else the CUDA error; the launch does not
 // synchronise.
 extern "C" int run_extend_launch(
     void* D, void* e, void* rmin, void* er, void* off, void* act, void* cons,
@@ -429,6 +751,7 @@ extern "C" int run_extend_launch(
     void* rec_steps, void* rec_fins, int h, int R, int W, int C, int L,
     int A, int me_budget, int other_cost, int other_len, int min_count,
     int l2, int max_steps, int first_sym, int allow_records, int wc, int et,
+    int csize, int threads, int rpc, int rpw, int on_chip, long long smem,
     void* stream) {
   Args a;
   a.D = static_cast<int32_t*>(D);
@@ -451,6 +774,7 @@ extern "C" int run_extend_launch(
   a.other_len = other_len; a.min_count = min_count; a.l2 = l2;
   a.max_steps = max_steps; a.first_sym = first_sym;
   a.allow_records = allow_records; a.wc = wc; a.et = et;
+  a.csize = csize; a.nw = threads / 32; a.rpc = rpc; a.rpw = rpw;
   // packed output layout (mirrors run_kernel.out_layout)
   a.o_eds = 8;
   a.o_split = a.o_eds + R;
@@ -458,13 +782,14 @@ extern "C" int run_extend_launch(
   a.o_fin = a.o_reached + R;
   a.o_occ = a.o_fin + R;
   a.o_syms = a.o_occ + R * A;
-  const size_t smem = smem_bytes(R, A);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        run_extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  run_extend_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const bool plan_ok =
+      csize >= 1 && csize <= kMaxCluster && threads >= 32 &&
+      threads <= kMaxThreads && threads % 32 == 0 && rpc >= 1 && rpw >= 1 &&
+      (long long)csize * rpc >= R && (long long)a.nw * rpw >= rpc &&
+      A >= 1 && W >= 4 && (on_chip || scratch != nullptr) &&
+      (size_t)smem == smem_bytes(rpc, a.nw, W, A, on_chip != 0);
+  if (!plan_ok) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return on_chip ? launch<true>(a, threads, (size_t)smem, st)
+                 : launch<false>(a, threads, (size_t)smem, st);
 }

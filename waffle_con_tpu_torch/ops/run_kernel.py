@@ -1,11 +1,14 @@
 """The single-branch run loop behind ``TorchScorer.run_extend``.
 
-Three pieces, one contract:
+Four pieces, one contract:
 
 * :func:`run_extend_plain` — the loop in plain PyTorch over the column
   primitives of :mod:`waffle_con_tpu_torch.ops.torch_scorer`, one
-  consensus symbol per iteration.  It is what runs for tensors on the
-  CPU, and the yardstick the CUDA kernel is held to on the card.
+  consensus symbol per iteration (its vote nomination is
+  :func:`nominate`).  It is what runs for tensors on the CPU, and the
+  yardstick the CUDA kernel is held to on the card.
+* :func:`plan_run` — the launch geometry of the kernel (one
+  thread-block cluster per run) from the shape alone.
 * :func:`run_extend_cuda` — the wrapper of the hand-written Hopper
   kernel ``csrc/run_extend.cu`` (built with ``nvcc`` at first use by
   :mod:`~waffle_con_tpu_torch.ops.cuda_build` and bound with
@@ -93,7 +96,147 @@ def _wrap32(x: int) -> int:
 
 
 # ---------------------------------------------------------------------
+# launch planner of the CUDA kernel
+
+#: shared memory a CTA may use on an H100 (227 KB, the opt-in maximum)
+SMEM_LIMIT = 232448
+#: largest thread-block cluster (16 needs the non-portable cluster size)
+MAX_CLUSTER = 16
+#: warps of a CTA (512 threads, so a thread may hold 128 registers)
+MAX_WARPS = 16
+
+
+class RunPlan(NamedTuple):
+    """Launch geometry of one ``run_extend`` kernel call."""
+
+    #: CTAs of the one thread-block cluster
+    cluster: int
+    #: threads of each CTA (32 per warp)
+    threads: int
+    #: reads of each CTA (contiguous blocks; the last CTA may own fewer)
+    reads_per_cta: int
+    #: reads of each warp (contiguous within the CTA)
+    reads_per_warp: int
+    #: ``"smem"``: both band buffers of a CTA's reads in its shared
+    #: memory; ``"global"``: slot ``h`` and a scratch buffer in device
+    #: memory
+    band: str
+    #: dynamic shared memory of each CTA, bytes
+    smem_bytes: int
+
+
+def _part_words(A: int) -> int:
+    return (8 + 2 * A + 3) & ~3
+
+
+def _ring_len(W: int) -> int:
+    n = 1
+    while n < W + 2:
+        n <<= 1
+    return n
+
+
+def _smem_bytes(rpc: int, nw: int, W: int, A: int, on_chip: bool) -> int:
+    """Dynamic shared memory of one CTA (the layout of ``carve`` in
+    ``csrc/run_extend.cu``): the CTA's partial and every CTA's partial
+    by parity, 11 words per read, a histogram and a partial row per
+    warp, the cluster's votes and the broadcast decision; on chip also
+    two band buffers and a symbol ring per read."""
+    P = _part_words(A)
+    words = (1 + 2 * MAX_CLUSTER) * P + 11 * rpc + nw * (A + P) + 2 * A + 8
+    nbytes = 4 * words
+    if on_chip:
+        nbytes += 8 * rpc * W + 2 * rpc * _ring_len(W)
+    return nbytes
+
+
+def plan_run(R: int, W: int, A: int) -> RunPlan:
+    """The launch geometry of the run kernel for ``R`` reads, band width
+    ``W`` and ``A`` dense symbols.  The rule:
+
+    * the smallest cluster (1, 2, 4, 8 or 16 CTAs) whose CTAs own at most
+      16 reads each, one read per warp, with the band on chip;
+    * else 16 CTAs of up to 16 warps, several reads per warp, with the
+      band on chip when the CTA's share fits in shared memory, and in
+      device memory when it does not.
+
+    Raises ``ValueError`` on a shape no plan takes (an empty read set, a
+    band narrower than 4 cells or odd, no symbol, or per-read state
+    that exceeds a CTA's shared memory even with the band off chip)."""
+    if R < 1 or A < 1 or W < 4 or W % 2:
+        raise ValueError(f"no run plan for R={R}, W={W}, A={A}")
+
+    def make(c, rpc, nw, band):
+        return RunPlan(c, 32 * nw, rpc, -(-rpc // nw), band,
+                       _smem_bytes(rpc, nw, W, A, band == "smem"))
+
+    c = 1
+    while c <= MAX_CLUSTER:
+        rpc = -(-R // c)
+        if rpc <= MAX_WARPS and _smem_bytes(rpc, rpc, W, A, True) <= SMEM_LIMIT:
+            return make(c, rpc, rpc, "smem")
+        c *= 2
+    rpc = -(-R // MAX_CLUSTER)
+    nw = min(MAX_WARPS, rpc)
+    for band in ("smem", "global"):
+        plan = make(MAX_CLUSTER, rpc, nw, band)
+        if plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+    raise ValueError(
+        f"no run plan for R={R}, W={W}, A={A}: {rpc} reads per CTA need "
+        f"{plan.smem_bytes} bytes of shared memory (limit {SMEM_LIMIT})"
+    )
+
+
+# ---------------------------------------------------------------------
 # plain PyTorch version
+
+
+def vote_counts(occ, split):
+    """Fractional tip votes of a snapshot: each read splits one unit
+    across its tips, summed over the reads in float32 (the device folds
+    in another order; the VOTE_EPS contract of :func:`nominate` covers
+    the difference).  Returns ``(counts [A] float32, has_votes [A])``."""
+    frac = torch.where(
+        split[:, None] > 0,
+        occ.float() / split.clamp(min=1)[:, None].float(),
+        torch.zeros((), dtype=torch.float32, device=occ.device),
+    )
+    return frac.sum(0), (occ > 0).any(0)
+
+
+def nominate(counts, has_votes, min_count: int, wc: int, all_exact: bool,
+             cost_overflow: bool) -> Tuple[int, int, bool]:
+    """The run loop's nomination from the summed votes: wildcard drop,
+    passing threshold ``min(min_count, max vote)``, the EPS near-tie
+    guard, first-max tie-break.  Returns ``(npass, sym, dirty)``: the run
+    may commit ``sym`` only when ``dirty`` is false.  ``counts`` and
+    ``has_votes`` are not modified."""
+    counts = counts.to(torch.float32).clone()
+    has_votes = has_votes.clone()
+    eps = float(VOTE_EPS)
+    mcf = torch.tensor(float(min_count), dtype=torch.float32,
+                       device=counts.device)
+    n_cands = int(has_votes.sum())
+    if wc >= 0 and n_cands > 1:
+        has_votes[wc] = False
+        counts[wc] = 0.0
+    neg1 = torch.full_like(counts, -1.0)
+    maxc = torch.where(has_votes, counts, neg1).max()
+    thr = torch.minimum(mcf, maxc)
+    passing = has_votes & (counts >= thr)
+    npass = int(passing.sum())
+    near_tie = bool((maxc - mcf).abs() < eps) or bool(
+        (has_votes & ((counts - thr).abs() < eps)).any()
+    )
+    dirty = (
+        (not all_exact and near_tie)
+        or npass != 1
+        or n_cands == 0
+        or cost_overflow
+    )
+    sym = int(torch.argmax(torch.where(passing, counts, neg1)))
+    return npass, sym, dirty
 
 
 def run_extend_plain(state, h: int, reads, rlen, args: RunArgs):
@@ -112,8 +255,6 @@ def run_extend_plain(state, h: int, reads, rlen, args: RunArgs):
     rmin = state["rmin"][h].clone()
     er = state["er"][h].clone()
     clen = int(state["clen"][h])
-    eps = float(VOTE_EPS)
-    mcf = torch.tensor(float(args.min_count), dtype=torch.float32, device=dev)
 
     lay = out_layout(R, A, args.max_steps)
     syms = []
@@ -164,33 +305,10 @@ def run_extend_plain(state, h: int, reads, rlen, args: RunArgs):
         else:
             reached_here = bool(reached.any())
 
-        # fractional votes: each read splits one unit across its tips;
-        # float32 like the device fold (the EPS contract covers the
-        # summation order)
-        frac = torch.where(
-            split[:, None] > 0,
-            occ.float() / split.clamp(min=1)[:, None].float(),
-            torch.zeros((), dtype=torch.float32, device=dev),
-        )
-        counts = frac.sum(0)
-        has_votes = (occ > 0).any(0)
-        n_cands = int(has_votes.sum())
-        if args.wc >= 0 and n_cands > 1:
-            has_votes[args.wc] = False
-            counts[args.wc] = 0.0
-        neg1 = torch.full_like(counts, -1.0)
-        maxc = torch.where(has_votes, counts, neg1).max()
-        thr = torch.minimum(mcf, maxc)
-        passing = has_votes & (counts >= thr)
-        npass = int(passing.sum())
-        near_tie = bool((maxc - mcf).abs() < eps) or bool(
-            (has_votes & ((counts - thr).abs() < eps)).any()
-        )
-        dirty = (
-            (not all_exact and near_tie)
-            or npass != 1
-            or n_cands == 0
-            or cost_overflow
+        counts, has_votes = vote_counts(occ, split)
+        _npass, sym, dirty = nominate(
+            counts, has_votes, args.min_count, args.wc, all_exact,
+            cost_overflow,
         )
         rec_blocked = (
             not args.allow_records
@@ -211,7 +329,6 @@ def run_extend_plain(state, h: int, reads, rlen, args: RunArgs):
             code = 4
         if code != 0:
             break
-        sym = int(torch.argmax(torch.where(passing, counts, neg1)))
         D2, e2, rmin2, er2 = step(D, e, rmin, er, clen, sym)
         if overflows(e2):
             code = 5
@@ -276,19 +393,28 @@ def _launcher():
     fn = cuda_build.library().run_extend_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 16 + [
-            ctypes.c_void_p
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 20 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
         ]
     return fn
 
 
+_LAUNCH_ERRORS = {
+    -1: "the plan does not match the kernel's layout",
+    -2: "no cluster of this shape fits on the device",
+}
+
+
 def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
-    """Launch the CUDA run kernel on slot ``h`` (one CTA, the whole run
-    loop inside).  Same contract and outputs as :func:`run_extend_plain`.
-    Raises on anything the kernel does not take (the per-read shared
-    memory caps R at 4096 reads); never falls back.  The caller
-    guarantees ``cons`` capacity ``C > clen[h] + max_steps + 1``, as
-    ``TorchScorer.run_extend`` does."""
+    """Launch the CUDA run kernel on slot ``h``: one thread-block cluster
+    of the geometry :func:`plan_run` gives, the whole run loop inside.
+    Same contract and outputs as :func:`run_extend_plain`.  Raises on
+    anything the kernel does not take, and when the launch is refused;
+    never falls back.  The caller guarantees ``cons`` capacity
+    ``C > clen[h] + max_steps + 1``, as ``TorchScorer.run_extend`` does.
+    Each launch adds one to ``run_extend_cuda.launches`` and to its band
+    placement's count in ``run_extend_cuda.placements``;
+    ``run_extend_cuda.last_plan`` is the last launch's plan."""
     D = state["D"]
     dev = D.device
     if dev.type != "cuda":
@@ -312,13 +438,16 @@ def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
         raise ValueError("reads/rlen must be contiguous")
     if not 0 <= h < B:
         raise ValueError(f"slot {h} out of range")
+    plan = plan_run(R, W, args.a_real)
     launch = _launcher()
     lay = out_layout(R, args.a_real, args.max_steps)
     out = torch.empty(lay["syms"][1], dtype=torch.int32, device=dev)
     rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
     rec_fins = torch.empty((REC_CAP, R), dtype=torch.int32, device=dev)
-    scratch = torch.empty((R, W), dtype=torch.int32, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    on_chip = plan.band == "smem"
+    scratch = None if on_chip else torch.empty((R, W), dtype=torch.int32,
+                                               device=dev)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     rc = launch(
         ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
         ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
@@ -328,18 +457,24 @@ def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
         args.me_budget, args.other_cost, args.other_len, args.min_count,
         int(args.l2), args.max_steps, args.first_sym,
         int(args.allow_records), args.wc, int(args.et),
-        cuda_build.stream_ptr(dev),
+        plan.cluster, plan.threads, plan.reads_per_cta, plan.reads_per_warp,
+        int(on_chip), plan.smem_bytes, cuda_build.stream_ptr(dev),
     )
     if rc != 0:
+        why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(
-            f"run_extend kernel launch failed: CUDA error {rc} "
-            f"(R={R}, W={W}, A={args.a_real})"
+            f"run_extend kernel launch failed: {why} (R={R}, W={W}, "
+            f"A={args.a_real}, {plan})"
         )
     run_extend_cuda.launches += 1
+    run_extend_cuda.placements[plan.band] += 1
+    run_extend_cuda.last_plan = plan
     return out, rec_steps, rec_fins
 
 
 run_extend_cuda.launches = 0
+run_extend_cuda.placements = {"smem": 0, "global": 0}
+run_extend_cuda.last_plan = None
 
 
 def run_extend(state, h: int, reads, rlen, args: RunArgs):
