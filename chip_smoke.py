@@ -25,11 +25,16 @@ Phases, one line each (every failure exits non-zero):
    taken every run (its launch counter > 0, the plain loop never called).
 4. oracle: 16 reads x 1 kb at 2 %: the ``"python"`` oracle and ``"torch"``
    on ``cuda`` give byte-identical results.
-5. dual_kernel: the CUDA dual run kernel (``csrc/run_extend_dual.cu``)
-   against its plain PyTorch version, every output and both slots' rows
-   compared bitwise, on a small geometry (R=16, E=8) and the dual
-   north-star geometry (R=64, W=258, 5 kb reads, launches of more than
-   1,000 steps); times per step of both.
+5. dual_kernel: the CUDA dual run kernel (``csrc/run_extend_dual.cu``,
+   one thread-block cluster per launch) against its plain PyTorch
+   version, every output and both slots' rows compared bitwise, on a
+   small geometry (R=16, E=8; one read), the dual north-star geometry
+   (R=64, W=258, 5 kb reads: launches of more than 1,000 steps, a
+   2-step launch for the fixed cost, a locked side, weighted votes on
+   split sides) and the cluster's edges (60 reads, a CTA whose reads are
+   inactive on one side, pruning outside rank 0, records reached CTA by
+   CTA, 256 reads at W=1026 with the band in device memory); each line
+   gives the launch plan and times per step of both.
 6. dual_main: the dual north star — 64 reads x 5 kb at 1 %, two
    haplotypes 3 SNPs apart, ``min_count=16``, ``initial_band=116`` —
    through ``DualConsensusDWFA`` on ``cuda``; both haplotypes must come
@@ -439,7 +444,7 @@ def phase_main():
                 f"{run}: run kernel launches {launches}, plain calls "
                 f"{plain_calls}"
             )
-    device_ms, _ = _profiled_kernel_ms(eng)
+    device_ms, _ = _device_ms(eng.consensus)
     st = eng.last_search_stats
     c = st["scorer_counters"]
     line = dict(
@@ -471,17 +476,18 @@ def _plan_fields(plan):
         smem_bytes=plan.smem_bytes)
 
 
-def _profiled_kernel_ms(eng):
-    """Device time of one more search of ``eng``'s reads, from
-    ``torch.profiler`` tracing the device only (host ops untraced, so a
-    search of many small launches stays cheap to profile).  Returns the
-    total in ms (``None`` when the profiler saw no device activity) and
-    every entry as ``{name: ms}``, largest first."""
+def _device_ms(fn):
+    """Device time of ``fn()``, from ``torch.profiler`` tracing the
+    device only (host ops untraced, so a search of many small launches
+    stays cheap to profile).  Returns the total in ms (``None`` when the
+    profiler saw no device activity) and the entries as ``{name: ms}``
+    (names cut to 60 characters, entries of one cut name summed),
+    largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.consensus()
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
@@ -489,11 +495,20 @@ def _profiled_kernel_ms(eng):
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+            # torch's many instantiations of one kernel template share a
+            # cut name
+            key = ev.key[:60]
+            by_name[key] = by_name.get(key, 0.0) + us
     total = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return (round(total / 1e3, 3) if total > 0 else None,
-            {name[:60]: round(us / 1e3, 3) for name, us in ranked})
+            {name: round(us / 1e3, 3) for name, us in ranked})
+
+
+def _kernel_ms(by_name, kernel):
+    """Device ms of the entries of ``kernel`` (plain or templated name)."""
+    return sum(ms for name, ms in by_name.items()
+               if kernel + "(" in name or kernel + "<" in name)
 
 
 def phase_oracle():
@@ -649,13 +664,13 @@ def _dual_args(sc, c1, c2, kw):
     return sc.dual_run_args(max(len(c1), len(c2)), **base)
 
 
-def _dual_compare(sc, slots, args, st_k, st_p, outs_k, outs_p):
+def _dual_compare(R, A, slots, args, st_k, st_p, outs_k, outs_p):
     """Bitwise comparison of two dual runs' packed outputs, records and
-    both slots' rows; returns (max_abs_err, steps, code, rec_count)."""
+    both slots' rows (``R`` reads, ``A`` symbols); returns (max_abs_err,
+    steps, code, rec_count)."""
     import torch
     from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
 
-    R, A = sc._R, sc.num_symbols
     a_out, b_out = outs_k[0].cpu(), outs_p[0].cpu()
     err = int((a_out.long() - b_out.long()).abs().max())
     res, rs_k, rf_k = rdk.fetch(*outs_k, R, A, args.max_steps)
@@ -674,8 +689,21 @@ def _dual_compare(sc, slots, args, st_k, st_p, outs_k, outs_p):
     return err, res.steps, res.code, res.rec_count
 
 
+def _same_haplotype(make):
+    """Reads of one haplotype as both sides' truth: ``(t, t, reads)``."""
+    def make2():
+        truth, reads = make()
+        return truth, truth, list(reads)
+    return make2
+
+
 def dual_kernel_cases(small_only: bool):
-    """(label, make-reads, scorer config, run args, state spec) cases."""
+    """(label, make-reads, scorer config, run args, state spec) cases.
+    State spec keys: those of :func:`_dual_state`, ``reads`` (cut the
+    store to that many reads) and ``inactive2_cta`` (the reads of that
+    CTA of the launch plan left inactive on side 2)."""
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
     split = dict(prefix=(45, 45))
     cases = [
         ("small/from_root", lambda: _small_dual(41, 0.0), {},
@@ -715,8 +743,11 @@ def dual_kernel_cases(small_only: bool):
          dict(max_steps=100), dict(prefix=(30, 30), late=((3, 6), (8, 11)))),
         ("small/wildcard", _starred(lambda: _small_dual(57, 0.02)),
          dict(wildcard=ord("*")), dict(max_steps=120), split),
+        # one read: a cluster of one CTA, one warp pair
+        ("small/one_read", lambda: _small_dual(58, 0.02), {},
+         dict(max_steps=100, min_count=1, imb_min=1), dict(reads=1)),
     ]
-    cases = [(lb, mk, cfg, dict(min_count=3, **kw), dict(min_count=3, **st))
+    cases = [(lb, mk, cfg, {"min_count": 3, **kw}, {"min_count": 3, **st})
              for lb, mk, cfg, kw, st in cases]
     if small_only:
         return cases
@@ -739,8 +770,39 @@ def dual_kernel_cases(small_only: bool):
         # (and the ambiguous columns right after it) to the third
         ("long_launch", ns, {}, dict(max_steps=long_steps),
          dict(advance=2570)),
+        # the same state, two steps: the fixed cost of a launch (the
+        # search's own launches commit about two steps each)
+        ("short_launch", ns, {}, dict(max_steps=2), dict(advance=2570)),
+        # split sides, side 2 locked (its rows on chip, frozen)
+        ("lock2", ns, {}, dict(max_steps=300, lock2=True),
+         dict(advance=2570)),
+        # split sides, weighted votes: non-dyadic weights from every CTA
+        ("weighted_split", ns, {}, dict(max_steps=300, weighted=True),
+         dict(advance=2570)),
     ]:
         cases.append(("north_star/" + label, make, {**ns_cfg, **cfg},
+                      dict(min_count=16, **kw), dict(min_count=16, **spec)))
+    # the cluster's edges at the dual north star's geometry (8 CTAs of 8
+    # reads): a read count that does not fill the CTAs, a CTA whose reads
+    # are inactive on one side, pruning in the CTAs of the second
+    # haplotype's reads (ranks 4-7: ed_delta 0 just past the first SNP),
+    # records (a locked side whose reads ended CTA by CTA, at 2 symbols
+    # a CTA, while the other side runs to its reads' ends); and 256 reads
+    # at W=1026, the band in device memory
+    for label, make, cfg, kw, spec in [
+        ("reads_60", ns, {}, dict(max_steps=300),
+         dict(advance=2570, reads=60)),
+        ("inactive_cta", ns, {}, dict(max_steps=300),
+         dict(inactive2_cta=1)),
+        ("prune", ns, {}, dict(max_steps=300, ed_delta=0),
+         dict(advance=2400)),
+        ("records_by_cta", _same_haplotype(_cut_by_block(
+            lambda: generate_test(4, 400, 64, 0.01, seed=5), 8, 2)),
+         {}, dict(max_steps=600, lock1=True), dict(prefix=(400, 300))),
+        ("global_band", lambda: dual_north_star(256, 2000),
+         dict(initial_band=512), dict(max_steps=200), {}),
+    ]:
+        cases.append(("cluster/" + label, make, {**ns_cfg, **cfg},
                       dict(min_count=16, **kw), dict(min_count=16, **spec)))
     return cases
 
@@ -760,23 +822,34 @@ def phase_dual_kernel(small_only: bool):
             cache[make] = make()
         t1, t2, reads = cache[make]
         sc = _scorer(reads, **cfg)
+        if "inactive2_cta" in spec:
+            k = spec["inactive2_cta"]
+            rpc = rdk.plan_run_dual(sc._R, sc._W,
+                                    sc.num_symbols).reads_per_cta
+            spec = dict(spec, inactive2=range(k * rpc, (k + 1) * rpc))
         ha, hb, c1, c2 = _dual_state(sc, t1, t2, spec)
         slots = (sc._slot_of[ha], sc._slot_of[hb])
         args, mc, imb = _dual_args(sc, c1, c2, kw)
-        st0 = _copy_state(sc._state)
+        st0, rd, rl = sc._state, sc._reads, sc._rlen
+        if "reads" in spec:
+            st0, rd, rl = _cut_reads(st0, rd, rl, spec["reads"])
+        R, A = rd.shape[0], sc.num_symbols
+        st0 = _copy_state(st0)
         st_k, st_p = _copy_state(st0), _copy_state(st0)
         call = lambda fn, st: fn(  # noqa: E731
-            st, slots[0], slots[1], sc._reads, sc._rlen, mc, imb, args)
+            st, slots[0], slots[1], rd, rl, mc, imb, args)
         outs_k = call(rdk.run_extend_dual_cuda, st_k)
+        plan = rdk.run_extend_dual_cuda.last_plan
         held = []
         p_ms = _time_cuda(lambda: held.append(
             call(rdk.run_extend_dual_plain, st_p)), 1)
-        err, steps, code, nrec = _dual_compare(sc, slots, args, st_k, st_p,
+        err, steps, code, nrec = _dual_compare(R, A, slots, args, st_k, st_p,
                                                outs_k, held[0])
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"{label}: dual kernel != plain (max err {err})")
-        line = dict(case=label, steps=steps, code=code, records=nrec)
+        line = dict(case=label, reads=R, W=sc._W, steps=steps, code=code,
+                    records=nrec, plan=_dual_plan_fields(plan))
         if not label.startswith("small/") or small_only:
             it = iter([_copy_state(st0) for _ in range(3)])
             k_ms = _time_cuda(
@@ -785,24 +858,45 @@ def phase_dual_kernel(small_only: bool):
             line.update(kernel_ms=round(k_ms, 4), plain_ms=round(p_ms, 3),
                         kernel_us_per_step=round(1000 * k_ms / per, 3),
                         plain_us_per_step=round(1000 * p_ms / per, 2))
+            if label == "north_star/short_launch":
+                # the fixed cost of a launch on the device alone (the
+                # events above also hold the wrapper's host time)
+                it = iter([_copy_state(st0) for _ in range(20)])
+                _, by_name = _device_ms(lambda: [
+                    call(rdk.run_extend_dual_cuda, next(it))
+                    for _ in range(20)])
+                line["kernel_device_ms"] = round(
+                    _kernel_ms(by_name, "run_extend_dual_kernel") / 20, 4)
             if label == "north_star/long_launch" or (
                 small_only and timing is None
             ):
-                R, W = sc._R, sc._W
                 act = [int(st0["act"][sl].sum()) for sl in slots]
                 unlocked = [not args.lock1, not args.lock2]
-                # each side's band read and written once, its read
-                # windows read once; int32 work on the active rows of
-                # each unlocked side
-                nbytes = 2 * (2 * R * W * 4 + R * (steps + W) * 2)
-                ops = steps * W * OPS_PER_CELL * sum(
-                    a for a, u in zip(act, unlocked) if u)
-                bound_ms, bound_by = bound(nbytes, ops)
+                bound_ms, bound_by = dual_bound(
+                    R, sc._W, steps,
+                    sum(a for a, u in zip(act, unlocked) if u))
                 timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                               bound_by=bound_by, steps=steps)
         print("dual_kernel", json.dumps(line), flush=True)
         del sc, st0, st_k, st_p
     return timing, max_err
+
+
+def dual_bound(R, W, steps, rows):
+    """(bound_ms, bound_by) of a dual launch of ``steps`` steps: each
+    side's band read and written once and its read windows read once;
+    int32 work on ``rows`` stepped (side, read) rows."""
+    nbytes = 2 * (2 * R * W * 4 + R * (steps + W) * 2)
+    return bound(nbytes, steps * W * OPS_PER_CELL * rows)
+
+
+def _dual_plan_fields(plan):
+    """The launch geometry of a dual-kernel plan, for a result line."""
+    return None if plan is None else dict(
+        cluster=plan.cluster, ctas_threads=plan.threads,
+        rows_per_cta=2 * plan.reads_per_cta,
+        rows_per_warp=plan.rows_per_warp, band=plan.band,
+        smem_bytes=plan.smem_bytes)
 
 
 def _dual_key(results):
@@ -828,6 +922,7 @@ def phase_dual_main():
         for r in reads:
             eng.add_sequence(r)
         rdk.run_extend_dual_cuda.launches = 0
+        rdk.run_extend_dual_cuda.placements = {"smem": 0, "global": 0}
         rdk.run_extend_dual_plain.calls = 0
         rk.run_extend_cuda.launches = 0
         rk.run_extend_cuda.placements = {"smem": 0, "global": 0}
@@ -840,6 +935,7 @@ def phase_dual_main():
         launches = (rdk.run_extend_dual_cuda.launches,
                     rk.run_extend_cuda.launches)
         placements = dict(rk.run_extend_cuda.placements)
+        dual_placements = dict(rdk.run_extend_dual_cuda.placements)
         plain_calls = (rdk.run_extend_dual_plain.calls,
                        rk.run_extend_plain.calls)
         if not res or not res[0].is_dual() or {
@@ -852,13 +948,10 @@ def phase_dual_main():
                 f"{run}: kernel launches (dual, single) {launches}, plain "
                 f"calls {plain_calls}"
             )
-    device_ms, by_name = _profiled_kernel_ms(eng)
+    device_ms, by_name = _device_ms(eng.consensus)
     # the profiled search is the same deterministic search: same launches
     per_launch = {
-        key: None if not n else round(sum(
-            ms for name, ms in by_name.items()
-            if kernel + "(" in name or kernel + "<" in name
-        ) / n, 4)
+        key: None if not n else round(_kernel_ms(by_name, kernel) / n, 4)
         for key, kernel, n in (
             ("dual_kernel_device_ms_per_launch", "run_extend_dual_kernel",
              launches[0]),
@@ -869,6 +962,12 @@ def phase_dual_main():
     st = eng.last_search_stats
     c = st["scorer_counters"]
     steps = c["run_dual_steps"] + c["run_steps"]
+    # the least time of the search's mean dual launch (its band width as
+    # the scorer starts it; every row of both sides stepped)
+    W = _scorer(reads, min_count=16, initial_band=116)._W
+    mean_steps = c["run_dual_steps"] / max(c["run_dual_calls"], 1)
+    mean_bound_ms, mean_bound_by = dual_bound(
+        len(reads), W, mean_steps, 2 * len(reads))
     line = dict(
         reads=len(reads), length=len(truth), gen_s=round(gen_s, 3),
         cold_s=round(walls[0], 3), warm_s=round(walls[1], 3),
@@ -877,6 +976,8 @@ def phase_dual_main():
         run_dual_calls=c["run_dual_calls"], run_dual_steps=c["run_dual_steps"],
         run_calls=c["run_calls"], run_steps=c["run_steps"],
         dual_kernel_launches=launches[0], run_kernel_launches=launches[1],
+        dual_kernel_plan=_dual_plan_fields(rdk.run_extend_dual_cuda.last_plan),
+        dual_kernel_band_placements=dual_placements,
         run_kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
         run_kernel_band_placements=placements,
         plain_calls=list(plain_calls),
@@ -886,6 +987,9 @@ def phase_dual_main():
         scores_sum=sum(res[0].consensus1.scores) + sum(res[0].consensus2.scores),
         profiled_device_ms=device_ms,
         top_device_ms=dict(list(by_name.items())[:6]), **per_launch,
+        dual_steps_per_launch=round(mean_steps, 4),
+        dual_kernel_bound_ms_per_launch=mean_bound_ms,
+        dual_kernel_bound_by=mean_bound_by,
         device_busy_share=(
             None if device_ms is None
             else round(device_ms / 1e3 / walls[1], 4)

@@ -35,8 +35,8 @@
 //  * The column step (band_ops.cuh `column_step_runs`) gives each lane a
 //    contiguous run of cells: the insertion chain is a sequential min along
 //    the run plus one warp scan per column, and the new column's tip votes
-//    come from bit masks kept while it is written, so the band is read once
-//    a step.
+//    come from a third walk by the few lanes whose least cell is within
+//    the new e, so the vote needs no pass of its own.
 //  * The read window: each read keeps a ring of its symbols in shared
 //    memory (a power of two >= W + 2 slots) holding the current window; the
 //    one symbol a step adds is loaded from device memory a whole step ahead
@@ -46,12 +46,14 @@
 //  * One cluster barrier per step: the vote of step j + 1 is taken in the
 //    column pass of step j, over the column just written.  Each warp folds
 //    its reads into a partial (in read order), warp 0 folds the warps'
-//    partials into the CTA's parity-double-buffered slot (in warp order),
-//    then one barrier.cluster arrive/wait.  Warp 0 of every CTA then copies
-//    all CTAs' slots over distributed shared memory, folds them in rank
-//    order (float32 adds with __fadd_rn, wrapping unsigned int32 totals) and
-//    takes the decision; every CTA computes the same one, so no second
-//    cluster barrier is needed, only a CTA barrier to broadcast it.
+//    partials (in warp order) into the CTA's partial and stores it over
+//    distributed shared memory into slot `rank` of every CTA's
+//    parity-double-buffered gather rows, then one barrier.cluster
+//    arrive/wait.  Warp 0 of every CTA then folds the gathered rows in
+//    rank order (float32 adds with __fadd_rn, wrapping unsigned int32
+//    totals; csrc/cluster_ops.cuh, shared with the dual kernel) and takes
+//    the decision; every CTA computes the same one, so no second cluster
+//    barrier is needed, only a CTA barrier to broadcast it.
 //  * Record rows and the snapshot's per-read outputs are written by the
 //    CTA that owns each read; the symbols, record steps, scalars and the
 //    consensus by rank 0.
@@ -63,6 +65,7 @@
 #include <mutex>
 
 #include "band_ops.cuh"
+#include "cluster_ops.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -70,29 +73,21 @@ namespace {
 
 using band::kFull;
 using band::kInf;
+using band::ring_len;
+using clu::kMaxCluster;
 constexpr int kRecCap = 256;        // record buffer rows (REC_CAP)
 constexpr int kMaxThreads = 512;   // 16 warps: up to 128 registers a thread
-constexpr int kMaxCluster = 16;
 constexpr float kVoteEps = 0.01f;   // VOTE_EPS, float32(1e-2)
 
-// A partial (of a warp, or of a CTA): five scalar words, then has[A] and
-// counts[A] (float32 bits).
-constexpr int kTot = 0, kFinTot = 1, kMaxEds = 2, kMaxFin = 3, kFlags = 4;
-constexpr int kHead = 8;
+// A partial (of a warp, or of a CTA, csrc/cluster_ops.cuh): two sums, two
+// maxima, the flags, then one vote row (has[A], counts[A]).
+using Part = clu::Layout<2, 2, 1>;
+constexpr int kTot = 0, kFinTot = 1, kMaxEds = 2, kMaxFin = 3;
+constexpr int kFlags = Part::kFlags, kHead = Part::kHead;
 constexpr int kNonexact = 1, kNotReached = 2, kAnyReached = 4, kFinOvf = 8,
               kOvf = 16;
 
-__host__ __device__ inline int part_words(int A) {
-  return (kHead + 2 * A + 3) & ~3;
-}
-
-// Slots of a read's symbol ring: a power of two >= W + 2, so the symbol a
-// step adds never lands on a slot of the window it is still reading.
-__host__ __device__ inline int ring_len(int W) {
-  int n = 1;
-  while (n < W + 2) n <<= 1;
-  return n;
-}
+__host__ __device__ inline int part_words(int A) { return Part::words(A); }
 
 // Dynamic shared memory of one CTA (mirrored by run_kernel._smem_bytes).
 __host__ __device__ inline size_t smem_bytes(int rpc, int nw, int W, int A,
@@ -315,93 +310,25 @@ __device__ int warp_pass(const Args& a, const Smem& s, const Ctx& x,
   return flags;
 }
 
-// Warp 0: fold the warps' partials, in warp order, into the CTA's
-// partial, and store it into slot `rank` of every CTA's gather rows of
-// parity p over distributed shared memory (before the cluster barrier,
-// so after it every CTA folds from its own shared memory).
-__device__ void cta_fold(cg::cluster_group& cl, const Args& a,
-                         const Smem& s, const Ctx& x, int p) {
-  int* dst = s.part;
-  const int lane = x.lane;
-  unsigned tot = 0, ftot = 0;
-  int mx_eds = 0, mx_fin = 0;
-  unsigned flags = 0;
-  if (lane < a.nw) {
-    const int* wp = s.wpart + lane * x.P;
-    tot = (unsigned)wp[kTot];
-    ftot = (unsigned)wp[kFinTot];
-    mx_eds = wp[kMaxEds];
-    mx_fin = wp[kMaxFin];
-    flags = (unsigned)wp[kFlags];
-  }
-  tot = __reduce_add_sync(kFull, tot);
-  ftot = __reduce_add_sync(kFull, ftot);
-  mx_eds = __reduce_max_sync(kFull, mx_eds);
-  mx_fin = __reduce_max_sync(kFull, mx_fin);
-  flags = __reduce_or_sync(kFull, flags);
-  for (int k = lane; k < a.A; k += 32) {
-    float c = 0.f;
-    int hv = 0;
-    for (int w = 0; w < a.nw; ++w) {
-      const int* wp = s.wpart + w * x.P;
-      c = __fadd_rn(c, __int_as_float(wp[kHead + a.A + k]));
-      hv |= wp[kHead + k];
-    }
-    dst[kHead + k] = hv;
-    dst[kHead + a.A + k] = __float_as_int(c);
-  }
-  if (lane == 0) {
-    dst[kTot] = (int)tot;
-    dst[kFinTot] = (int)ftot;
-    dst[kMaxEds] = mx_eds;
-    dst[kMaxFin] = mx_fin;
-    dst[kFlags] = (int)flags;
-  }
-  __syncwarp();
-  const int n4 = x.P / 4;
-  const int4* src = reinterpret_cast<const int4*>(s.part);
-  int* slot = s.gath + ((size_t)p * kMaxCluster + x.rank) * x.P;
-  for (int i = lane; i < a.csize * n4; i += 32) {
-    int4* q = reinterpret_cast<int4*>(cl.map_shared_rank(slot, i / n4));
-    q[i % n4] = src[i % n4];
-  }
-}
-
 // Warp 0: fold the CTAs' partials of parity p (gathered in this CTA's
 // shared memory), in rank order.  The votes land in gcount/ghas; the
 // scalars are returned, the same in every lane.
 __device__ Fold cluster_fold(const Args& a, const Smem& s, const Ctx& x,
                              int p) {
-  const int lane = x.lane;
   const int* gath = s.gath + (size_t)p * kMaxCluster * x.P;
-  unsigned tot = 0, ftot = 0, flags = 0;
-  int mx_eds = 0, mx_fin = 0;
-  if (lane < a.csize) {
-    const int* q = gath + lane * x.P;
-    tot = (unsigned)q[kTot];
-    ftot = (unsigned)q[kFinTot];
-    mx_eds = q[kMaxEds];
-    mx_fin = q[kMaxFin];
-    flags = (unsigned)q[kFlags];
-  }
-  Fold f;
-  f.tot = __reduce_add_sync(kFull, tot);
-  f.fin_tot = __reduce_add_sync(kFull, ftot);
-  f.max_eds = __reduce_max_sync(kFull, mx_eds);
-  f.max_fin = __reduce_max_sync(kFull, mx_fin);
-  f.flags = (int)__reduce_or_sync(kFull, flags);
-  for (int k = lane; k < a.A; k += 32) {
-    float c = 0.f;
-    int hv = 0;
-    for (int r = 0; r < a.csize; ++r) {
-      const int* q = gath + r * x.P;
-      c = __fadd_rn(c, __int_as_float(q[kHead + a.A + k]));
-      hv |= q[kHead + k];
-    }
-    s.gcount[k] = c;
-    s.ghas[k] = hv;
-  }
+  unsigned head[kFlags + 1];
+  clu::fold<Part>(gath, a.csize, x.P, a.A, head,
+                  [&](int, int k, int hv, float c) {
+                    s.gcount[k] = c;
+                    s.ghas[k] = hv;
+                  });
   __syncwarp();
+  Fold f;
+  f.tot = head[kTot];
+  f.fin_tot = head[kFinTot];
+  f.max_eds = (int)head[kMaxEds];
+  f.max_fin = (int)head[kMaxFin];
+  f.flags = (int)head[kFlags];
   return f;
 }
 
@@ -563,7 +490,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) run_extend_kernel(Args a) {
   auto publish = [&](int n_steps, int n_budget, int n_rec, int n_clen) {
     __syncthreads();
     if (x.warp == 0) {
-      cta_fold(cl, a, s, x, p);
+      clu::cta_fold<Part>(cl, s.wpart, a.nw, x.P, a.A, s.part,
+                          s.gath + (size_t)p * kMaxCluster * x.P, x.rank,
+                          a.csize);
     }
     cl.sync();
     if (x.warp == 0) {

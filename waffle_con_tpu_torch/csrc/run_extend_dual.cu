@@ -12,48 +12,99 @@
 // `run_extend_dual_plain` computes (stop codes 1-6, the float32 vote fold
 // under the VOTE_EPS contract, wrapping int32 cost folds).
 //
-// Design.  One CTA of 1024 threads per launch; the two sides are coupled
-// per read every step (the node cost takes each read's better side, the
-// vote weights compare the two sides' distances, pruning compares the
-// new ones), so both live in the one CTA.  The band keeps the branch
-// store's [R, W] layout; a warp owns one (side, read) row at a time and
-// runs the tip histogram and the column step of csrc/band_ops.cuh on it
-// (32-cell tiles, warp-scan insertion chain), shared with
-// csrc/run_extend.cu.  Reads are fetched from the [R, L] int16 array at
-// per-read offsets, and the alphabet size is a runtime bound, so uniform
-// and mixed offsets take the same kernel.  A step is: the per-read cost
-// and record folds (a thread per read) together with the vote pass of
-// each unlocked side (tip histograms, per-warp float32 partial sums in
-// read order); one thread's decision; the column pass of each unlocked
-// side into the other of its two band buffers (its slot of the store and
-// a scratch [R, W] buffer), so a step that overflows the band is never
-// swapped in; the pruning fold on the new distances; and the commit.  A
-// read pruned at a commit gets its new row copied into the side's other
-// buffer, since the column pass only writes active reads.
+// What bounds it.  Not bytes or operations: a step's work is small (two
+// sides x R x W band cells, ~20 int32 operations each), and each step
+// needs the decision of the step before, so the loop is bound by the
+// latency of one step; and the dual search's launches commit about two
+// steps each, so the fixed cost of a launch (state in, snapshot and state
+// out) weighs as much as the steps.
 //
-// What bounds it.  Each step streams the two sides' R x W int32 bands
-// through ONE SM (read twice, written once per unlocked side: about
-// 0.4 MB at the dual north star's R = 64, W = 258), and holds about nine
-// block-wide barriers on the way through the decision.  A later design
-// spreads the (side, read) rows over a thread-block cluster with the
-// folds reduced in distributed shared memory, keeps the bands on chip in
-// int16, and cuts the barrier chain by letting each warp fold its own
-// partial decision.
+// Design: the cluster design of csrc/run_extend.cu, with the unit of work
+// a (side, read) row.  One thread-block cluster per launch (1-16 CTAs of
+// at most 16 warps, the geometry chosen by `plan_run_dual` in
+// ops/run_dual_kernel.py and passed in).  Reads are split over the CTAs
+// in contiguous blocks, and both sides of a read always sit in one CTA:
+// the sides are coupled per read every step (the node cost takes each
+// read's better side, the vote weights read both sides' distances,
+// pruning compares the two new ones), so that coupling never crosses
+// distributed shared memory.
+//  * Rows over warps: a warp pair per read, one side each (paired by a
+//    64-thread named barrier), while a cluster's CTAs hold 16 rows each;
+//    otherwise each warp takes both sides of several reads.  At the dual
+//    north star (R = 64, W = 258): 8 CTAs of 16 warps, one row a warp.
+//  * The band lives on chip: each CTA loads its reads' rows of both slots
+//    into shared memory once (only rows of active reads; a locked side's
+//    rows into one buffer, for its snapshot), steps each unlocked side
+//    into its second buffer (a column that overflows the band, code 5, is
+//    never swapped in), and writes back only the final buffer of rows
+//    that were stepped.  A read pruned at a commit gets its new row copied
+//    into the other buffer by its warp.  Shapes whose buffers do not fit
+//    in 16 CTAs keep the rows in device memory (the slot and a scratch
+//    buffer per side) through the template parameter kOnChip.
+//  * Each row keeps a ring of its read's symbols in shared memory
+//    (band_ops.cuh `RingWindow`), fed one symbol a step, loaded a step
+//    ahead, so no device-memory load lies on the step.
+//  * One cluster barrier per step.  The column pass of step j
+//    (`column_step_runs`, which also takes the new column's tip
+//    histogram) is followed, per read, by the pruning of step j and the
+//    read's folds of the post-step state: the commit inputs of step j
+//    (band overflow, active counts after pruning) and the decision inputs
+//    of step j + 1 (cost and record folds, reached flags, each unlocked
+//    side's weighted votes under the post-pruning masks).  Warp partials
+//    fold per CTA and are pushed into every CTA's gather rows over
+//    distributed shared memory (csrc/cluster_ops.cuh, shared with the
+//    single kernel); after the barrier warp 0 of every CTA folds them in
+//    rank order and takes the same decision: code 5 drops step j and the
+//    speculative votes, code 6 commits step j and ends the loop, else
+//    step j commits and the decision of step j + 1 stands.
+//  * The kernel writes the whole packed output itself (rank 0 the
+//    scalars; every CTA a share of the unused symbol slots, zeroed), so a
+//    launch needs no memset.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
 #include <cstdint>
+#include <mutex>
 
 #include "band_ops.cuh"
+#include "cluster_ops.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using band::kFull;
 using band::kInf;
+using band::ring_len;
+using clu::kMaxCluster;
 constexpr int kBig = 1 << 28;       // cost of an untracked side
 constexpr int kRecCap = 256;        // record buffer rows (REC_CAP)
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;    // 16 warps: up to 128 registers a thread
 constexpr float kVoteEps = 0.01f;   // VOTE_EPS, float32(1e-2)
+
+// A partial (of a warp, or of a CTA, csrc/cluster_ops.cuh): six sums, two
+// maxima, the flags, then a vote row per side (has[A], counts[A]).
+using Part = clu::Layout<6, 2, 2>;
+constexpr int kTot = 0, kFinTot = 1, kCount0 = 2, kNAny = 3;
+constexpr int kCnt2 = 4;            // 4, 5: active reads of each side after
+                                    // pruning
+constexpr int kMaxEds = 6, kFinMax = 7, kFlags = Part::kFlags;
+// flags: a finalized distance out of band; the reached stop (et: a read
+// not reached, else: a read reached); band overflow of the step; per side
+// k, (kFin0 << k) the side's finish (et: a read not reached, else: a read
+// reached) and (kNonexact0 << k) a voting read with a non-dyadic split
+constexpr int kFo = 1, kStop = 2, kOvf = 4, kFin0 = 8, kNonexact0 = 32;
+
+// Dynamic shared memory of one CTA (mirrored by run_dual_kernel._smem_bytes).
+__host__ __device__ inline size_t smem_bytes(int rpc, int nw, int W, int A,
+                                             bool on_chip) {
+  const size_t P = Part::words(A);
+  const size_t words = (1 + 2 * kMaxCluster) * P + 23 * (size_t)rpc +
+                       (size_t)nw * (2 * (size_t)A + P) + 4 * (size_t)A + 8;
+  size_t bytes = 4 * words;
+  if (on_chip) bytes += 16 * (size_t)rpc * W + 4 * (size_t)rpc * ring_len(W);
+  return bytes;
+}
 
 struct Args {
   int32_t* D;          // [B, R, W] band store; slots h[0], h[1] updated
@@ -69,6 +120,7 @@ struct Args {
   const int32_t* mc_tab;   // [MCN] vote threshold by vote total
   const int32_t* imb_tab;  // [IMBN] imbalance floor by node length
   int32_t* scratch;    // [2, R, W] second band buffer of each side
+                       // (device-memory band only)
   int32_t* out;        // packed outputs (run_dual_kernel.dual_out_layout)
   int32_t* rec_steps;  // [REC_CAP]
   int32_t* rec_planes; // [4, REC_CAP, R]: fin1, fin2, act1, act2
@@ -76,179 +128,316 @@ struct Args {
   int R, W, C, L, A, E, MCN, IMBN;
   int me_budget, other_cost, other_len, delta, l2, weighted, max_steps;
   int allow_records, rec_min, mc_dyn, wc, et;
+  int csize, nw, rpc, rpw;  // the launch plan (rpw: rows per warp)
   // offsets of the packed output fields, per side
   int o_eds[2], o_split[2], o_reached[2], o_act[2], o_occ[2], o_syms[2];
 };
 
-// Shared-memory working set (dynamic, carved in order by carve()).
-struct Smem {
-  int* e[2]; int* rmin[2]; int* er[2];     // [R] folds of the current state
-  int* e2[2]; int* rmin2[2]; int* er2[2];  // [R] folds after the column pass
-  int* fin[2];                             // [R] finalized distances
-  int* off[2]; int* act[2];                // [R]
-  int* act2[2];                            // [R] activity after pruning
-  int* prn[2];                             // [R] pruned at this step
-  int* rlen;                               // [R]
-  int* hist;                               // [kWarps, A] tip histogram
-  float* pcount;                           // [2, kWarps, A] per-warp votes
-  int* phas;                               // [2, kWarps, A] "has votes"
-  float* counts;                           // [2, A]
-  int* has;                                // [2, A]
+// The per-read words of a CTA: field k of side sd at rd[(2k + sd) * rpc].
+enum Field {
+  kE, kRmin, kEr,       // committed folds
+  kE2, kRmin2, kEr2,    // folds after the column (a locked side's stay
+                        // equal)
+  kFin, kFin2,          // finalized distances, committed and after the step
+  kOff, kAct, kAct2,    // act2: activity after pruning
+  kFields
 };
 
-__host__ __device__ inline size_t smem_bytes(int R, int A) {
-  return sizeof(int) * (23 * (size_t)R + 5 * (size_t)kWarps * A + 4 * (size_t)A);
-}
-
-__device__ inline Smem carve(char* base, int R, int A) {
-  Smem s;
-  int* p = reinterpret_cast<int*>(base);
-  for (int k = 0; k < 2; ++k) {
-    s.e[k] = p; p += R; s.rmin[k] = p; p += R; s.er[k] = p; p += R;
-    s.e2[k] = p; p += R; s.rmin2[k] = p; p += R; s.er2[k] = p; p += R;
-    s.fin[k] = p; p += R; s.off[k] = p; p += R; s.act[k] = p; p += R;
-    s.act2[k] = p; p += R; s.prn[k] = p; p += R;
+struct Smem {
+  int32_t* band;  // [2 sides, 2 buffers, rpc, W] (on-chip band only)
+  int* part;      // [P] the CTA's partial
+  int* gath;      // [2, kMaxCluster, P] every CTA's partial, by parity
+  int* rd;        // [kFields, 2, rpc] per-read words
+  int rpc;
+  int* rlen;      // [rpc]
+  int* hist;      // [nw, 2, A] tip histograms
+  int* wpart;     // [nw, P] per-warp partials
+  float* gcount; int* ghas;  // [2, A] the cluster's votes
+  int* dec;       // [8] warp 0's decision
+  int16_t* ring;  // [2, rpc, ring_len(W)] (on-chip band only)
+  __device__ __forceinline__ int* f(Field k, int sd) const {
+    return rd + (2 * k + sd) * rpc;
   }
-  s.rlen = p; p += R;
-  s.hist = p; p += kWarps * A;
-  s.pcount = reinterpret_cast<float*>(p); p += 2 * kWarps * A;
-  s.phas = p; p += 2 * kWarps * A;
-  s.counts = reinterpret_cast<float*>(p); p += 2 * A;
-  s.has = p; p += 2 * A;
+};
+
+template <bool kOnChip>
+__device__ inline Smem carve(char* base, const Args& a) {
+  Smem s;
+  const int P = Part::words(a.A);
+  if (kOnChip) {
+    s.band = reinterpret_cast<int32_t*>(base);
+    base += 16 * (size_t)a.rpc * a.W;
+  } else {
+    s.band = nullptr;
+  }
+  int* p = reinterpret_cast<int*>(base);
+  s.part = p; p += P;  // 16-byte aligned: copied over DSMEM as int4
+  s.gath = p; p += 2 * kMaxCluster * P;
+  s.rd = p; p += 2 * kFields * a.rpc;
+  s.rpc = a.rpc;
+  s.rlen = p; p += a.rpc;
+  s.hist = p; p += a.nw * 2 * a.A;
+  s.wpart = p; p += a.nw * P;
+  s.gcount = reinterpret_cast<float*>(p); p += 2 * a.A;
+  s.ghas = p; p += 2 * a.A;
+  s.dec = p; p += 8;
+  s.ring = kOnChip ? reinterpret_cast<int16_t*>(p) : nullptr;
   return s;
 }
 
-// Block-wide accumulators of one step (integer folds: order-free).
-struct Folds {
-  unsigned total, fin_total;     // wrapping int32 sums
-  int max_eds, fin_max;          // max over tracked (read, side)
-  int count0, n_any;             // record assignment counts
-  int fo;                        // a finalized distance out of band
-  int fin_flag[2];               // et: a side not finished; else: finished
-  int stop_flag;                 // et: a read not reached; else: any reached
-  int nonexact[2];               // a voting read with a non-dyadic split
-  int cnt2[2];                   // active reads after pruning
-  int ovf;                       // band overflow of the step
-  int pruned;                    // a read was pruned at the step
+// The cluster barrier in two halves (every thread of the cluster arrives
+// once, then waits), so the work between them hides its latency.  The
+// arrival orders nothing; the wait acquires.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Per-thread view of the launch: who this warp is and which rows it owns.
+struct Ctx {
+  int rank, warp, lane, P;
+  int r0, nloc;   // first read of the CTA, reads the CTA owns
+  int lo, hi;     // local reads [lo, hi) of this warp
+  int s0, ns;     // its sides: s0 only (ns = 1, a warp pair per read) or
+                  // both (ns = 2)
+  int ring_mask;
+  // this warp owns side sd of its reads
+  __device__ __forceinline__ bool mine(int sd) const {
+    return ns == 2 || sd == s0;
+  }
 };
 
-__device__ inline unsigned cost_of(int x, int l2) {
+// The warps of a read meet: the two warps of a pair at a 64-thread named
+// barrier (id 1 + pair), a warp that owns both sides at a warp barrier.
+__device__ __forceinline__ void pair_sync(const Ctx& x) {
+  if (x.ns == 1) {
+    asm volatile("bar.sync %0, 64;" ::"r"(1 + (x.warp >> 1)) : "memory");
+  } else {
+    __syncwarp();
+  }
+}
+
+// Band row of side sd, local read lr (global r), in buffer buf.
+template <bool kOnChip>
+__device__ __forceinline__ int32_t* row(const Args& a, const Smem& s, int sd,
+                                        int buf, int lr, int r) {
+  if (kOnChip) return s.band + ((size_t)(2 * sd + buf) * a.rpc + lr) * a.W;
+  int32_t* base = buf == 0 ? a.D + (size_t)a.h[sd] * a.R * a.W
+                           : a.scratch + (size_t)sd * a.R * a.W;
+  return base + (size_t)r * a.W;
+}
+
+__device__ __forceinline__ int16_t* ring_of(const Smem& s, const Ctx& x,
+                                            const Args& a, int sd, int lr) {
+  return s.ring + ((size_t)sd * a.rpc + lr) * (x.ring_mask + 1);
+}
+
+// Symbol of read r at position i (-1 outside [0, L)), from device memory.
+__device__ __forceinline__ int read_sym(const Args& a, int r, int i) {
+  return i >= 0 && i < a.L ? a.reads[(size_t)r * a.L + i] : -1;
+}
+
+__device__ __forceinline__ unsigned cost_of(int x, int l2) {
   const unsigned u = (unsigned)x;
   return l2 ? u * u : u;  // wrapping int32, as on the TPU
 }
 
-// Per-read vote weight of side `side` (reference get_ed_weights under
-// `weighted`; otherwise full weight for a tracked read).
-__device__ inline float weight(const Args& a, const Smem& s, int side, int r) {
-  const int aa = s.act[0][r], ab = s.act[1][r];
-  const int mine = side ? ab : aa;
-  if (!a.weighted || !(aa && ab)) return mine ? 1.f : 0.f;
-  const float c1 = fmaxf((float)s.e[0][r], 0.5f);
-  const float c2 = fmaxf((float)s.e[1][r], 0.5f);
-  return __fdiv_rn(side ? c1 : c2, __fadd_rn(c1, c2));
+// Vote weight of side sd of a read with activity (n0, n1) and distances
+// (e0, e1) (reference get_ed_weights under `weighted`; otherwise full
+// weight for a tracked read).
+__device__ __forceinline__ float weight(const Args& a, int sd, int n0, int n1,
+                                        int e0, int e1) {
+  const int mine = sd ? n1 : n0;
+  if (!a.weighted || !(n0 && n1)) return mine ? 1.f : 0.f;
+  const float c1 = fmaxf((float)e0, 0.5f);
+  const float c2 = fmaxf((float)e1, 0.5f);
+  return __fdiv_rn(sd ? c1 : c2, __fadd_rn(c1, c2));
 }
 
-// Tip histogram of read r of one side at consensus length `clen` into the
-// warp's `hist`; returns the number of tips (split), warp-uniform.
-__device__ inline int tips(const Args& a, const Smem& s, int side,
-                           const int32_t* Dcur, int clen, int r, int* hist) {
-  return band::tip_histogram(Dcur + (size_t)r * a.W,
-                             a.reads + (size_t)r * a.L, a.W, s.rlen[r],
-                             clen - s.off[side][r] - a.E, s.e[side][r], hist);
+// Tip histogram of side sd of local read lr over buffer buf at consensus
+// length j into `hist`; returns the split.
+template <bool kOnChip>
+__device__ __forceinline__ int tips(const Args& a, const Smem& s,
+                                    const Ctx& x, int sd, int buf, int lr,
+                                    int j, int* hist) {
+  const int r = x.r0 + lr;
+  const int32_t* Dv = row<kOnChip>(a, s, sd, buf, lr, r);
+  const int i0 = j - s.f(kOff, sd)[lr] - a.E;
+  const int e = s.f(kE, sd)[lr], rl = s.rlen[lr];
+  if (kOnChip) {
+    const band::RingWindow win{ring_of(s, x, a, sd, lr), x.ring_mask};
+    return band::tip_histogram_win(Dv, win, a.W, rl, i0, e, hist);
+  }
+  const band::GlobalWindow win{a.reads + (size_t)r * a.L, a.L};
+  return band::tip_histogram_win(Dv, win, a.W, rl, i0, e, hist);
 }
 
-// Vote pass of one unlocked side: per read, the tip histogram folded into
-// the warp's float32 partial sums (read order within the warp).
-__device__ void vote_pass(const Args& a, const Smem& s, Folds* F, int side,
-                          const int32_t* Dcur, int clen) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* hist = s.hist + warp * a.A;
-  float* pc = s.pcount + (side * kWarps + warp) * a.A;
-  int* ph = s.phas + (side * kWarps + warp) * a.A;
-  int nonexact = 0;
-  for (int r = warp; r < a.R; r += kWarps) {
-    if (!s.act[side][r]) continue;
-    const int split = tips(a, s, side, Dcur, clen, r, hist);
-    const float w = weight(a, s, side, r);
-    const bool voting = w > 0.f && split > 0;
-    const float split_f = (float)max(split, 1);
-    for (int sym = lane; sym < a.A; sym += 32) {
-      const int c = hist[sym];
-      if (voting && c > 0) {
-        pc[sym] += __fmul_rn(__fdiv_rn((float)c, split_f), w);
-        ph[sym] = 1;
+// One warp's pass over its rows.  `step`: first advance each active row of
+// each unlocked side from buffer cur (length clen) into cur ^ 1 by
+// consuming sym, prune on the new distances, then fold the post-step
+// state; otherwise fold the committed state (its tip histograms taken
+// here).  The folds and votes go into the warp's partial; the post-step
+// activity and finalized distances into act2 / fin2.
+template <bool kOnChip>
+__device__ void warp_pass(const Args& a, const Smem& s, const Ctx& x,
+                          bool step, int cur, int clen0, int clen1,
+                          int sym0, int sym1) {
+  const int lane = x.lane;
+  int* wp = s.wpart + x.warp * x.P;
+  for (int i = lane; i < 4 * a.A; i += 32) wp[Part::kHead + i] = 0;
+  __syncwarp();
+  unsigned tot = 0, ftot = 0;
+  int count0 = 0, n_any = 0, cnt0 = 0, cnt1 = 0, mx_eds = 0, mx_fin = 0;
+  int flags = 0;
+  for (int lr = x.lo; lr < x.hi; ++lr) {
+    const int r = x.r0 + lr;
+    const int rl = s.rlen[lr];
+    int split[2] = {0, 0};
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      if (!x.mine(sd) || a.lock[sd] || !s.f(kAct, sd)[lr]) continue;
+      int* hist = s.hist + (x.warp * 2 + sd) * a.A;
+      const int clen = sd ? clen1 : clen0;
+      if (!step) {
+        split[sd] = tips<kOnChip>(a, s, x, sd, cur, lr, clen, hist);
+        continue;
       }
-      hist[sym] = 0;
+      const int32_t* Dv = row<kOnChip>(a, s, sd, cur, lr, r);
+      int32_t* Dn = row<kOnChip>(a, s, sd, cur ^ 1, lr, r);
+      const int i0 = clen + 1 - s.f(kOff, sd)[lr] - a.E;
+      const int sym = sd ? sym1 : sym0;
+      const band::Folds3 f0{s.f(kE, sd)[lr], s.f(kRmin, sd)[lr],
+                            s.f(kEr, sd)[lr]};
+      band::Folds3 f;
+      if (kOnChip) {
+        const band::RingWindow win{ring_of(s, x, a, sd, lr), x.ring_mask};
+        f = band::column_step_runs(Dv, Dn, win, a.W, rl, i0, sym, a.wc, a.et,
+                                   f0, hist, &split[sd]);
+      } else {
+        const band::GlobalWindow win{a.reads + (size_t)r * a.L, a.L};
+        f = band::column_step_runs(Dv, Dn, win, a.W, rl, i0, sym, a.wc, a.et,
+                                   f0, hist, &split[sd]);
+      }
+      if (lane == 0) {
+        s.f(kE2, sd)[lr] = f.e;
+        s.f(kRmin2, sd)[lr] = f.rmin;
+        s.f(kEr2, sd)[lr] = f.er;
+      }
+    }
+    pair_sync(x);
+    // divergence pruning on the new distances (a locked side's e2 is its
+    // frozen e, which counts in the overflow test too)
+    const int a0 = s.f(kAct, 0)[lr], a1 = s.f(kAct, 1)[lr];
+    const int e0 = s.f(kE2, 0)[lr], e1 = s.f(kE2, 1)[lr];
+    int n0 = a0, n1 = a1;
+    if (step) {
+      const int both = a0 && a1;
+      n0 = a0 && !(both && e1 + a.delta < e0);
+      n1 = a1 && !(both && e0 + a.delta < e1);
+      if ((x.mine(0) && a0 && e0 >= a.E) || (x.mine(1) && a1 && e1 >= a.E))
+        flags |= kOvf;
+    }
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      if (!x.mine(sd)) continue;
+      const int nsd = sd ? n1 : n0;
+      if (sd) cnt1 += nsd; else cnt0 += nsd;
+      if (lane == 0) s.f(kAct2, sd)[lr] = nsd;
+      if (a.lock[sd]) continue;
+      // the side's votes of the next step, under the post-pruning masks
+      int* hist = s.hist + (x.warp * 2 + sd) * a.A;
+      const int sp = split[sd];
+      const float w = weight(a, sd, n0, n1, e0, e1);
+      const bool voting = w > 0.f && sp > 0;
+      const float split_f = (float)max(sp, 1);
+      int* whas = wp + Part::has_at(a.A, sd);
+      float* wcount = reinterpret_cast<float*>(wp + Part::counts_at(a.A, sd));
+      for (int k = lane; k < a.A; k += 32) {
+        const int c = hist[k];
+        if (voting && c > 0) {
+          wcount[k] = __fadd_rn(wcount[k],
+                                __fmul_rn(__fdiv_rn((float)c, split_f), w));
+          whas[k] = 1;
+        }
+        hist[k] = 0;
+      }
+      if (voting && (sp & (sp - 1)) != 0) flags |= kNonexact0 << sd;
+    }
+    if (x.s0 == 0) {
+      // the read's cost and record folds (by the side-0 warp of a pair)
+      const int eda = n0 ? e0 : 0, edb = n1 ? e1 : 0;
+      const unsigned ca = cost_of(eda, a.l2), cb = cost_of(edb, a.l2);
+      const int best = min(n0 ? (int)ca : kBig, n1 ? (int)cb : kBig);
+      const int any = n0 || n1;
+      tot += any ? (unsigned)best : 0u;
+      int fin0 = 0, fin1 = 0;
+      if (n0) {
+        const int fu = max(e0, s.f(kRmin2, 0)[lr]);
+        fin0 = min(fu, kInf);
+        if (fu >= a.E) flags |= kFo;
+      }
+      if (n1) {
+        const int fu = max(e1, s.f(kRmin2, 1)[lr]);
+        fin1 = min(fu, kInf);
+        if (fu >= a.E) flags |= kFo;
+      }
+      const unsigned fc0 = cost_of(fin0, a.l2), fc1 = cost_of(fin1, a.l2);
+      const int side0 = n0 && (!n1 || (int)fc0 <= (int)fc1);
+      ftot += any ? (side0 ? fc0 : fc1) : 0u;
+      count0 += side0 && any;
+      n_any += any;
+      mx_eds = max(mx_eds, max(eda, edb));
+      mx_fin = max(mx_fin, max(fin0, fin1));
+      const int er0 = s.f(kEr2, 0)[lr], er1 = s.f(kEr2, 1)[lr];
+      const int re0 = n0 && er0 < kInf && e0 == er0;
+      const int re1 = n1 && er1 < kInf && e1 == er1;
+      const int f0 = a.et ? (n0 && !re0) : re0;
+      const int f1 = a.et ? (n1 && !re1) : re1;
+      const int st = a.et ? (any && !(re0 || re1)) : (re0 || re1);
+      if (f0) flags |= kFin0;
+      if (f1) flags |= kFin0 << 1;
+      if (st) flags |= kStop;
+      if (lane == 0) {
+        s.f(kFin2, 0)[lr] = fin0;
+        s.f(kFin2, 1)[lr] = fin1;
+      }
     }
     __syncwarp();
-    nonexact |= voting && (split & (split - 1)) != 0;
   }
-  if (lane == 0 && nonexact) atomicOr(&F->nonexact[side], 1);
-}
-
-// Final snapshot of one side into the packed output.
-__device__ void snapshot(const Args& a, const Smem& s, int side,
-                         const int32_t* Dcur, int clen) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* hist = s.hist + warp * a.A;
-  for (int r = warp; r < a.R; r += kWarps) {
-    const int act = s.act[side][r];
-    const int split = act ? tips(a, s, side, Dcur, clen, r, hist) : 0;
-    for (int sym = lane; sym < a.A; sym += 32) {
-      a.out[a.o_occ[side] + r * a.A + sym] = hist[sym];
-      hist[sym] = 0;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      const int e = s.e[side][r], er = s.er[side][r];
-      a.out[a.o_eds[side] + r] = act ? e : 0;
-      a.out[a.o_split[side] + r] = split;
-      a.out[a.o_reached[side] + r] = act && er < kInf && e == er;
-      a.out[a.o_act[side] + r] = act;
-    }
-  }
-}
-
-// Column pass of one unlocked side: advance every active read's band
-// column from consensus length jnew - 1 to jnew by consuming `sym`, into
-// Dnext; per-read folds into e2/rmin2/er2; band overflow into F->ovf.
-__device__ void column_pass(const Args& a, const Smem& s, Folds* F, int side,
-                            const int32_t* Dcur, int32_t* Dnext, int jnew,
-                            int sym) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < a.R; r += kWarps) {
-    if (!s.act[side][r]) continue;
-    const band::Folds3 f = band::column_step(
-        Dcur + (size_t)r * a.W, Dnext + (size_t)r * a.W,
-        a.reads + (size_t)r * a.L, a.W, a.L, s.rlen[r],
-        jnew - s.off[side][r] - a.E, sym, a.wc, a.et,
-        band::Folds3{s.e[side][r], s.rmin[side][r], s.er[side][r]});
-    if (lane == 0) {
-      s.e2[side][r] = f.e;
-      s.rmin2[side][r] = f.rmin;
-      s.er2[side][r] = f.er;
-      if (f.e >= a.E) atomicOr(&F->ovf, 1);
-    }
+  if (lane == 0) {
+    wp[kTot] = (int)tot;
+    wp[kFinTot] = (int)ftot;
+    wp[kCount0] = count0;
+    wp[kNAny] = n_any;
+    wp[kCnt2] = cnt0;
+    wp[kCnt2 + 1] = cnt1;
+    wp[kMaxEds] = mx_eds;
+    wp[kFinMax] = mx_fin;
+    wp[kFlags] = flags;
   }
 }
 
 // One side's nomination (the JAX package's `_dual_votes` +
 // `_nominate_side`): wildcard drop, candidates recounted after it, the
 // mc_tab threshold at the rounded vote total, EPS near-tie guard,
-// first-max tie-break.  Run by one thread.
-__device__ void nominate(const Args& a, float* counts, int* has,
-                         bool nonexact, bool* dirty, int* sym_out) {
+// first-max tie-break.  Run by one lane.
+__device__ __forceinline__ void nominate(const Args& a, const float* counts,
+                                         const int* has, bool nonexact,
+                                         bool* dirty, int* sym_out) {
+  int n_raw = 0;
+#pragma unroll 4
+  for (int k = 0; k < a.A; ++k) n_raw += has[k] != 0;
+  const int dropped = a.wc >= 0 && n_raw > 1 ? a.wc : -1;
   int n_cands = 0;
-  for (int k = 0; k < a.A; ++k) n_cands += has[k] != 0;
-  if (a.wc >= 0 && n_cands > 1) {
-    has[a.wc] = 0;
-    counts[a.wc] = 0.f;
-  }
-  n_cands = 0;
-  for (int k = 0; k < a.A; ++k) n_cands += has[k] != 0;
-  bool exactable = !nonexact && !a.weighted;
   float n_vote_f = 0.f;
-  for (int k = 0; k < a.A; ++k) n_vote_f = __fadd_rn(n_vote_f, counts[k]);
+#pragma unroll 4
+  for (int k = 0; k < a.A; ++k) {
+    n_cands += has[k] != 0 && k != dropped;
+    n_vote_f = __fadd_rn(n_vote_f, k != dropped ? counts[k] : 0.f);
+  }
+  bool exactable = !nonexact && !a.weighted;
   const float n_vote_r = rintf(n_vote_f);  // half to even, as jnp.round
   const bool int_ok = fabsf(__fsub_rn(n_vote_f, n_vote_r)) < kVoteEps;
   const bool tab_bad = a.mc_dyn && !int_ok;
@@ -256,17 +445,21 @@ __device__ void nominate(const Args& a, float* counts, int* has,
   const int idx = min(max((int)n_vote_r, 0), a.MCN - 1);
   const float mc_f = (float)a.mc_tab[idx];
   float maxc = -1.f;
-  for (int k = 0; k < a.A; ++k) maxc = fmaxf(maxc, has[k] ? counts[k] : -1.f);
+#pragma unroll 4
+  for (int k = 0; k < a.A; ++k)
+    maxc = fmaxf(maxc, has[k] && k != dropped ? counts[k] : -1.f);
   const float thr = fminf(mc_f, maxc);
   int npass = 0, sym = 0;
   bool near_any = false;
   float best = -1.f;
+#pragma unroll 4
   for (int k = 0; k < a.A; ++k) {
-    const bool hv = has[k] != 0;
-    const bool passing = hv && counts[k] >= thr;
+    const bool hv = has[k] != 0 && k != dropped;
+    const float c = k != dropped ? counts[k] : 0.f;
+    const bool passing = hv && c >= thr;
     npass += passing;
-    near_any = near_any || (hv && fabsf(__fsub_rn(counts[k], thr)) < kVoteEps);
-    const float ca = passing ? counts[k] : -1.f;
+    near_any = near_any || (hv && fabsf(__fsub_rn(c, thr)) < kVoteEps);
+    const float ca = passing ? c : -1.f;
     if (ca > best) {
       sym = k;
       best = ca;
@@ -277,325 +470,438 @@ __device__ void nominate(const Args& a, float* counts, int* has,
   *sym_out = sym;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) run_extend_dual_kernel(Args a) {
-  extern __shared__ __align__(16) char smem_raw[];
-  const Smem s = carve(smem_raw, a.R, a.A);
-  __shared__ Folds F;
-  __shared__ int32_t* buf[2][2];
-  __shared__ int s_cur[2], s_clen[2], s_sym[2];
-  __shared__ int s_steps, s_code, s_rec_count, s_budget, s_commit, s_do_rec;
-  __shared__ int s_ri, s_reached_stop, s_rec_imb, s_fin_total;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t RW = (size_t)a.R * a.W;
+// The decision a publish broadcasts: the commit of the step just taken
+// (ovf: code 5; code6) and the decision of the next step.
+struct Dec {
+  int ovf, code6, code, sym0, sym1, reached, rec_imb, fin_total;
+};
 
-  for (int r = tid; r < a.R; r += kThreads) {
-    for (int k = 0; k < 2; ++k) {
-      const size_t hr = (size_t)a.h[k] * a.R + r;
-      s.e[k][r] = a.e[hr];
-      s.rmin[k][r] = a.rmin[hr];
-      s.er[k][r] = a.er[hr];
-      s.off[k][r] = a.off[hr];
-      s.act[k][r] = a.act[hr] != 0;
-    }
-    s.rlen[r] = a.rlen[r];
+// Warp 0: fold the CTAs' partials of parity p (gathered in this CTA's
+// shared memory) in rank order and decide, with the counters the next
+// step will have (n_steps, n_budget, n_rec, lengths nc0 / nc1); `stepped`:
+// the partials carry a step's commit inputs, taken at length len_pre.
+// Stop codes 3, 2, 1, 4 in that order; lane 0 stores the decision.
+__device__ void decide(const Args& a, const Smem& s, const Ctx& x, int p,
+                       bool stepped, int n_steps, int n_budget, int n_rec,
+                       int nc0, int nc1, int len_pre) {
+  // the imbalance floor's load is issued before the fold
+  const int imb_v =
+      stepped ? a.imb_tab[min(max(len_pre + 1, 0), a.IMBN - 1)] : 0;
+  const int* gath = s.gath + (size_t)p * kMaxCluster * x.P;
+  unsigned h[kFlags + 1];
+  clu::fold<Part>(gath, a.csize, x.P, a.A, h,
+                  [&](int v, int k, int hv, float c) {
+                    s.gcount[v * a.A + k] = c;
+                    s.ghas[v * a.A + k] = hv;
+                  });
+  __syncwarp();
+  const int flags = (int)h[kFlags];
+  const int ovf = stepped && (flags & kOvf) != 0;
+  const int code6 =
+      stepped && ((int)h[kCnt2] < imb_v || (int)h[kCnt2 + 1] < imb_v);
+  // lane parity k nominates side k (both sides at once); a locked side
+  // never arbitrates
+  const int k = x.lane & 1;
+  bool my_dirty = false;
+  int my_sym = 0;
+  if (!a.lock[k])
+    nominate(a, s.gcount + k * a.A, s.ghas + k * a.A,
+             (flags & (kNonexact0 << k)) != 0, &my_dirty, &my_sym);
+  const unsigned dirty_at = __ballot_sync(clu::kFull, my_dirty);
+  const bool dirty[2] = {(dirty_at & 1u) != 0, (dirty_at & 2u) != 0};
+  const int sym[2] = {__shfl_sync(clu::kFull, my_sym, 0),
+                      __shfl_sync(clu::kFull, my_sym, 1)};
+  const int total = (int)h[kTot];
+  const bool cost_overflow = a.l2 && (int)h[kMaxEds] > 2048;
+  const bool fin_a = a.et ? !(flags & kFin0) : (flags & kFin0) != 0;
+  const bool fin_b =
+      a.et ? !(flags & (kFin0 << 1)) : (flags & (kFin0 << 1)) != 0;
+  const bool reached_stop = a.et ? !(flags & kStop) : (flags & kStop) != 0;
+  const int cur_len = max(nc0, nc1);
+  const bool wins_pop = total < a.other_cost ||
+                        (total == a.other_cost && cur_len > a.other_len);
+  const int count0 = (int)h[kCount0];
+  const int count1 = (int)h[kNAny] - count0;
+  const bool fin_cost_ovf = a.l2 && (int)h[kFinMax] > 2048;
+  const bool rec_blocked = !a.allow_records || (flags & kFo) ||
+                           fin_cost_ovf || n_rec >= kRecCap;
+  int code = 0;
+  if (total > n_budget || !wins_pop) code = 3;
+  else if (reached_stop && rec_blocked) code = 2;
+  else if (dirty[0] || dirty[1] || (fin_a && !a.lock[0]) ||
+           (fin_b && !a.lock[1]) || cost_overflow) code = 1;
+  else if (n_steps >= a.max_steps) code = 4;
+  if (x.lane == 0) {
+    s.dec[0] = ovf;
+    s.dec[1] = code6;
+    s.dec[2] = code;
+    s.dec[3] = sym[0];
+    s.dec[4] = sym[1];
+    s.dec[5] = reached_stop;
+    s.dec[6] = count0 < a.rec_min || count1 < a.rec_min;
+    s.dec[7] = (int)h[kFinTot];
   }
-  for (int i = tid; i < kWarps * a.A; i += kThreads) s.hist[i] = 0;
-  for (int i = tid; i < 2 * kWarps * a.A; i += kThreads) {
-    s.pcount[i] = 0.f;
-    s.phas[i] = 0;
+}
+
+template <bool kOnChip>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    run_extend_dual_kernel(Args a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const Smem s = carve<kOnChip>(smem_raw, a);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  Ctx x;
+  x.rank = (int)cl.block_rank();
+  x.warp = tid >> 5;
+  x.lane = tid & 31;
+  x.P = Part::words(a.A);
+  x.r0 = x.rank * a.rpc;
+  x.nloc = max(0, min(a.rpc, a.R - x.r0));
+  if (a.rpw == 1) {  // a warp pair per read, one side each
+    x.lo = min(x.warp >> 1, x.nloc);
+    x.hi = min(x.lo + 1, x.nloc);
+    x.s0 = x.warp & 1;
+    x.ns = 1;
+  } else {           // both sides of rpw / 2 reads per warp
+    const int k = a.rpw / 2;
+    x.lo = min(x.warp * k, x.nloc);
+    x.hi = min(x.lo + k, x.nloc);
+    x.s0 = 0;
+    x.ns = 2;
   }
-  if (tid == 0) {
+  x.ring_mask = ring_len(a.W) - 1;
+  const bool lead = x.rank == 0 && tid == 0;
+  int clen0 = a.clen[a.h[0]], clen1 = a.clen[a.h[1]];
+  // every CTA of the cluster is running before any partial is pushed: the
+  // barrier's wait comes after the state is loaded
+  cluster_arrive_relaxed();
+
+  for (int lr = tid; lr < x.nloc; lr += nthreads) {
     for (int k = 0; k < 2; ++k) {
-      buf[k][0] = a.D + (size_t)a.h[k] * RW;
-      buf[k][1] = a.scratch + (size_t)k * RW;
-      s_cur[k] = 0;
-      s_clen[k] = a.clen[a.h[k]];
+      const size_t hr = (size_t)a.h[k] * a.R + x.r0 + lr;
+      s.f(kE, k)[lr] = s.f(kE2, k)[lr] = a.e[hr];
+      s.f(kRmin, k)[lr] = s.f(kRmin2, k)[lr] = a.rmin[hr];
+      s.f(kEr, k)[lr] = s.f(kEr2, k)[lr] = a.er[hr];
+      s.f(kOff, k)[lr] = a.off[hr];
+      s.f(kAct, k)[lr] = s.f(kAct2, k)[lr] = a.act[hr] != 0;
+      s.f(kFin, k)[lr] = s.f(kFin2, k)[lr] = 0;
     }
-    s_steps = 0;
-    s_code = 0;
-    s_rec_count = 0;
-    s_budget = a.me_budget;
-    F = Folds{};
+    s.rlen[lr] = a.rlen[x.r0 + lr];
+  }
+  for (int i = tid; i < a.nw * 2 * a.A; i += nthreads) s.hist[i] = 0;
+  if (tid < 8) s.dec[tid] = 0;
+  if (kOnChip) {
+    // each warp loads the rows of its active reads and their symbol rings
+    for (int lr = x.lo; lr < x.hi; ++lr) {
+      const int r = x.r0 + lr;
+#pragma unroll
+      for (int sd = 0; sd < 2; ++sd) {
+        const size_t hr = (size_t)a.h[sd] * a.R + r;
+        if (!x.mine(sd) || !a.act[hr]) continue;
+        const int32_t* src = a.D + hr * a.W;
+        int32_t* dst = row<kOnChip>(a, s, sd, 0, lr, r);
+        for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
+        int16_t* rg = ring_of(s, x, a, sd, lr);
+        const int base = (sd ? clen1 : clen0) - a.off[hr] - a.E;
+        for (int k = x.lane; k <= a.W; k += 32) {
+          const int i = base + k;
+          rg[i & x.ring_mask] = (int16_t)read_sym(a, r, i);
+        }
+      }
+    }
   }
   __syncthreads();
-  // inactive reads are never stepped: each unlocked side's scratch buffer
-  // carries their rows too (reads pruned later are copied at the commit)
-  for (int k = 0; k < 2; ++k) {
-    if (a.lock[k]) continue;
-    for (int r = warp; r < a.R; r += kWarps) {
-      if (s.act[k][r]) continue;
-      for (int t = lane; t < a.W; t += 32)
-        buf[k][1][(size_t)r * a.W + t] = buf[k][0][(size_t)r * a.W + t];
+  cluster_wait();
+
+  // The read window's feed, one step ahead: lane l of a warp feeds its
+  // row l (read lo + l / ns, side s0 + l % ns) of an unlocked side: `pend`
+  // is the symbol the next column adds to the row's ring, at `feed_pos`;
+  // it is loaded a whole step before it is stored.
+  const int feed_lr = x.lo + x.lane / x.ns;
+  const int feed_sd = x.s0 + x.lane % x.ns;
+  const bool feeds = kOnChip && feed_lr < x.hi && !a.lock[feed_sd] &&
+                     s.f(kAct, feed_sd)[feed_lr];
+  const int feed_r = x.r0 + feed_lr;
+  int16_t* feed_ring = feeds ? ring_of(s, x, a, feed_sd, feed_lr) : nullptr;
+  int feed_pos = feeds ? (feed_sd ? clen1 : clen0) + 1 + a.W -
+                             s.f(kOff, feed_sd)[feed_lr] - a.E
+                       : 0;
+  int pend = feeds ? read_sym(a, feed_r, feed_pos) : 0;
+
+  int steps = 0, cur = 0, p = 0, rec_count = 0, code = 0;
+  int budget = a.me_budget;
+
+  // After a pass: the warps' partials -> the CTA's partial, stored into
+  // every CTA's gather rows of parity p -> the one cluster barrier of the
+  // step -> warp 0 folds the gathered rows and decides -> broadcast in
+  // the CTA.
+  auto publish = [&](bool stepped, int n_steps, int n_budget, int n_rec,
+                     int nc0, int nc1, int len_pre) {
+    __syncthreads();
+    if (x.warp == 0) {
+      clu::cta_fold<Part>(cl, s.wpart, a.nw, x.P, a.A, s.part,
+                          s.gath + (size_t)p * kMaxCluster * x.P, x.rank,
+                          a.csize);
     }
+    cl.sync();
+    if (x.warp == 0) {
+      decide(a, s, x, p, stepped, n_steps, n_budget, n_rec, nc0, nc1,
+             len_pre);
+    }
+    p ^= 1;
+    __syncthreads();
+    return Dec{s.dec[0], s.dec[1], s.dec[2], s.dec[3],
+               s.dec[4], s.dec[5], s.dec[6], s.dec[7]};
+  };
+
+  // the vote and folds of the committed state decide the first step
+  warp_pass<kOnChip>(a, s, x, false, cur, clen0, clen1, 0, 0);
+  Dec dec = publish(false, 0, budget, 0, clen0, clen1, 0);
+  code = dec.code;
+  for (int i = x.lane; i < (x.hi - x.lo) * x.ns; i += 32) {
+    const int lr = x.lo + i / x.ns, sd = x.s0 + i % x.ns;
+    s.f(kFin, sd)[lr] = s.f(kFin2, sd)[lr];
+  }
+  __syncwarp();
+
+  while (code == 0) {
+    if (feeds) {
+      feed_ring[feed_pos & x.ring_mask] = (int16_t)pend;
+      ++feed_pos;
+      pend = read_sym(a, feed_r, feed_pos);
+    }
+    __syncwarp();
+    warp_pass<kOnChip>(a, s, x, true, cur, clen0, clen1, dec.sym0, dec.sym1);
+    // the counters after this step's commit
+    int rec_next = rec_count, budget_next = budget;
+    if (dec.reached) {
+      rec_next += 1;
+      if (!dec.rec_imb && dec.fin_total < budget) budget_next = dec.fin_total;
+    }
+    const int nc0 = clen0 + !a.lock[0], nc1 = clen1 + !a.lock[1];
+    const Dec nd = publish(true, steps + 1, budget_next, rec_next, nc0, nc1,
+                           max(clen0, clen1));
+    if (nd.ovf) {
+      code = 5;  // the step stays uncommitted
+      break;
+    }
+    // ---- commit of the step
+    if (dec.reached) {
+      // record of the pre-step state
+      const int ri = min(rec_count, kRecCap - 1);
+      const size_t plane = (size_t)kRecCap * a.R;
+      for (int i = x.lane; i < (x.hi - x.lo) * x.ns; i += 32) {
+        const int lr = x.lo + i / x.ns, sd = x.s0 + i % x.ns;
+        const size_t at = (size_t)ri * a.R + x.r0 + lr;
+        a.rec_planes[sd * plane + at] = s.f(kFin, sd)[lr];
+        a.rec_planes[(2 + sd) * plane + at] = s.f(kAct, sd)[lr];
+      }
+      if (lead) a.rec_steps[ri] = steps;
+    }
+    if (lead) {
+      if (!a.lock[0]) {
+        a.cons[(size_t)a.h[0] * a.C + clen0] = dec.sym0;
+        a.out[a.o_syms[0] + steps] = dec.sym0;
+      }
+      if (!a.lock[1]) {
+        a.cons[(size_t)a.h[1] * a.C + clen1] = dec.sym1;
+        a.out[a.o_syms[1] + steps] = dec.sym1;
+      }
+    }
+    // a read pruned now is no longer stepped: its new row goes into the
+    // side's other buffer too
+    for (int lr = x.lo; lr < x.hi; ++lr) {
+#pragma unroll
+      for (int sd = 0; sd < 2; ++sd) {
+        if (!x.mine(sd) || a.lock[sd] || !s.f(kAct, sd)[lr] ||
+            s.f(kAct2, sd)[lr])
+          continue;
+        const int r = x.r0 + lr;
+        const int32_t* src = row<kOnChip>(a, s, sd, cur ^ 1, lr, r);
+        int32_t* dst = row<kOnChip>(a, s, sd, cur, lr, r);
+        for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
+      }
+    }
+    __syncwarp();
+    for (int i = x.lane; i < (x.hi - x.lo) * x.ns; i += 32) {
+      const int lr = x.lo + i / x.ns, sd = x.s0 + i % x.ns;
+      if (!a.lock[sd] && s.f(kAct, sd)[lr]) {
+        s.f(kE, sd)[lr] = s.f(kE2, sd)[lr];
+        s.f(kRmin, sd)[lr] = s.f(kRmin2, sd)[lr];
+        s.f(kEr, sd)[lr] = s.f(kEr2, sd)[lr];
+      }
+      s.f(kFin, sd)[lr] = s.f(kFin2, sd)[lr];
+      s.f(kAct, sd)[lr] = s.f(kAct2, sd)[lr];
+    }
+    __syncwarp();
+    rec_count = rec_next;
+    budget = budget_next;
+    steps += 1;
+    clen0 = nc0;
+    clen1 = nc1;
+    cur ^= 1;
+    if (nd.code6) {
+      code = 6;  // committed all the same
+      break;
+    }
+    dec = nd;
+    code = nd.code;
   }
 
-  while (true) {
-    __syncthreads();
-    if (s_code != 0) break;
-    const int clen0 = s_clen[0], clen1 = s_clen[1];
+  // no CTA leaves while a peer may still touch its shared memory (the
+  // pushes all came before the last publish's barrier); the barrier's
+  // wait comes after the snapshot and the write-back
+  cluster_arrive_relaxed();
 
-    // ---- per-read folds (a thread per read; whole warps per round)
-    for (int base = 0; base < a.R; base += kThreads) {
-      const int r = base + tid;
-      const bool ok = r < a.R;
-      const int aa = ok && s.act[0][r], ab = ok && s.act[1][r];
-      const int eda = aa ? s.e[0][r] : 0, edb = ab ? s.e[1][r] : 0;
-      const unsigned ca = cost_of(eda, a.l2), cb = cost_of(edb, a.l2);
-      const int best = min(aa ? (int)ca : kBig, ab ? (int)cb : kBig);
-      const unsigned tot = (aa || ab) ? (unsigned)best : 0u;
-      int fin1 = 0, fin2 = 0, fo = 0;
-      if (aa) {
-        const int fu = max(s.e[0][r], s.rmin[0][r]);
-        fin1 = min(fu, kInf);
-        fo |= fu >= a.E;
+  // ---- final snapshot of both sides
+  for (int lr = x.lo; lr < x.hi; ++lr) {
+    const int r = x.r0 + lr;
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd) {
+      if (!x.mine(sd)) continue;
+      int* hist = s.hist + (x.warp * 2 + sd) * a.A;
+      const int act = s.f(kAct, sd)[lr];
+      const int split =
+          act ? tips<kOnChip>(a, s, x, sd, a.lock[sd] ? 0 : cur, lr,
+                              sd ? clen1 : clen0, hist)
+              : 0;
+      for (int k = x.lane; k < a.A; k += 32) {
+        a.out[a.o_occ[sd] + r * a.A + k] = hist[k];
+        hist[k] = 0;
       }
-      if (ab) {
-        const int fu = max(s.e[1][r], s.rmin[1][r]);
-        fin2 = min(fu, kInf);
-        fo |= fu >= a.E;
-      }
-      if (ok) {
-        s.fin[0][r] = fin1;
-        s.fin[1][r] = fin2;
-      }
-      const unsigned fc1 = cost_of(fin1, a.l2), fc2 = cost_of(fin2, a.l2);
-      const int side0 = aa && (!ab || (int)fc1 <= (int)fc2);
-      const int any_act = aa || ab;
-      const unsigned ftot = any_act ? (side0 ? fc1 : fc2) : 0u;
-      const int rea = aa && s.er[0][r] < kInf && s.e[0][r] == s.er[0][r];
-      const int reb = ab && s.er[1][r] < kInf && s.e[1][r] == s.er[1][r];
-      const int rr = rea || reb;
-      const int fa = a.et ? (aa && !rea) : rea;
-      const int fb = a.et ? (ab && !reb) : reb;
-      const int st = a.et ? (any_act && !rr) : rr;
-      const unsigned w_tot = __reduce_add_sync(kFull, tot);
-      const unsigned w_ftot = __reduce_add_sync(kFull, ftot);
-      const int w_max_eds = __reduce_max_sync(kFull, max(eda, edb));
-      const int w_fin_max = __reduce_max_sync(kFull, max(fin1, fin2));
-      const int w_count0 = __reduce_add_sync(kFull, side0 && any_act);
-      const int w_any = __reduce_add_sync(kFull, any_act);
-      const int w_fo = __reduce_or_sync(kFull, fo);
-      const int w_fa = __reduce_or_sync(kFull, fa);
-      const int w_fb = __reduce_or_sync(kFull, fb);
-      const int w_st = __reduce_or_sync(kFull, st);
-      if (lane == 0) {
-        atomicAdd(&F.total, w_tot);
-        atomicAdd(&F.fin_total, w_ftot);
-        atomicMax(&F.max_eds, w_max_eds);
-        atomicMax(&F.fin_max, w_fin_max);
-        atomicAdd(&F.count0, w_count0);
-        atomicAdd(&F.n_any, w_any);
-        if (w_fo) atomicOr(&F.fo, 1);
-        if (w_fa) atomicOr(&F.fin_flag[0], 1);
-        if (w_fb) atomicOr(&F.fin_flag[1], 1);
-        if (w_st) atomicOr(&F.stop_flag, 1);
-      }
-    }
-    // ---- vote pass of each unlocked side
-    for (int k = 0; k < 2; ++k) {
-      if (!a.lock[k])
-        vote_pass(a, s, &F, k, buf[k][s_cur[k]], k ? clen1 : clen0);
-    }
-    __syncthreads();
-    for (int i = tid; i < 2 * a.A; i += kThreads) {
-      const int k = i / a.A, sym = i - k * a.A;
-      float c = 0.f;
-      int hv = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        const int j = (k * kWarps + w) * a.A + sym;
-        c = __fadd_rn(c, s.pcount[j]);
-        hv |= s.phas[j];
-        s.pcount[j] = 0.f;
-        s.phas[j] = 0;
-      }
-      s.counts[i] = c;
-      s.has[i] = hv;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      bool dirty[2] = {false, false};
-      int sym[2] = {0, 0};
-      for (int k = 0; k < 2; ++k) {
-        if (!a.lock[k])  // a locked side never arbitrates
-          nominate(a, s.counts + k * a.A, s.has + k * a.A,
-                   F.nonexact[k] != 0, &dirty[k], &sym[k]);
-      }
-      const int total = (int)F.total;
-      const bool cost_overflow = a.l2 && F.max_eds > 2048;
-      const bool fin_a = a.et ? !F.fin_flag[0] : F.fin_flag[0] != 0;
-      const bool fin_b = a.et ? !F.fin_flag[1] : F.fin_flag[1] != 0;
-      const bool reached_stop = a.et ? !F.stop_flag : F.stop_flag != 0;
-      const int cur_len = max(clen0, clen1);
-      const bool wins_pop = total < a.other_cost ||
-                            (total == a.other_cost && cur_len > a.other_len);
-      const int count1 = F.n_any - F.count0;
-      const bool fin_cost_ovf = a.l2 && F.fin_max > 2048;
-      const bool rec_blocked = !a.allow_records || F.fo || fin_cost_ovf ||
-                               s_rec_count >= kRecCap;
-      int code = 0;
-      if (total > s_budget || !wins_pop) code = 3;
-      else if (reached_stop && rec_blocked) code = 2;
-      else if (dirty[0] || dirty[1] || (fin_a && !a.lock[0]) ||
-               (fin_b && !a.lock[1]) || cost_overflow) code = 1;
-      else if (s_steps >= a.max_steps) code = 4;
-      s_code = code;
-      s_sym[0] = sym[0];
-      s_sym[1] = sym[1];
-      s_reached_stop = reached_stop;
-      s_rec_imb = F.count0 < a.rec_min || count1 < a.rec_min;
-      s_fin_total = (int)F.fin_total;
-      F.cnt2[0] = F.cnt2[1] = 0;
-      F.ovf = 0;
-      F.pruned = 0;
-    }
-    __syncthreads();
-    if (s_code != 0) break;
-
-    // ---- one column on each unlocked side
-    for (int k = 0; k < 2; ++k) {
-      if (!a.lock[k])
-        column_pass(a, s, &F, k, buf[k][s_cur[k]], buf[k][s_cur[k] ^ 1],
-                    (k ? clen1 : clen0) + 1, s_sym[k]);
-    }
-    __syncthreads();
-
-    // ---- divergence pruning on the new distances (a thread per read)
-    for (int base = 0; base < a.R; base += kThreads) {
-      const int r = base + tid;
-      const bool ok = r < a.R;
-      const int aa = ok && s.act[0][r], ab = ok && s.act[1][r];
-      int ea2 = 0, eb2 = 0;
-      if (ok) {
-        ea2 = a.lock[0] ? s.e[0][r] : s.e2[0][r];
-        eb2 = a.lock[1] ? s.e[1][r] : s.e2[1][r];
-      }
-      // a locked side's frozen distances count in the overflow test too
-      const int ovf = (aa && a.lock[0] && ea2 >= a.E) ||
-                      (ab && a.lock[1] && eb2 >= a.E);
-      const int both = aa && ab;
-      const int na = aa && !(both && eb2 + a.delta < ea2);
-      const int nb = ab && !(both && ea2 + a.delta < eb2);
-      if (ok) {
-        s.act2[0][r] = na;
-        s.act2[1][r] = nb;
-        s.prn[0][r] = aa && !na;
-        s.prn[1][r] = ab && !nb;
-      }
-      const int w_na = __reduce_add_sync(kFull, na);
-      const int w_nb = __reduce_add_sync(kFull, nb);
-      const int w_ovf = __reduce_or_sync(kFull, ovf);
-      const int w_prn = __reduce_or_sync(kFull, (aa && !na) || (ab && !nb));
-      if (lane == 0) {
-        atomicAdd(&F.cnt2[0], w_na);
-        atomicAdd(&F.cnt2[1], w_nb);
-        if (w_ovf) atomicOr(&F.ovf, 1);
-        if (w_prn) atomicOr(&F.pruned, 1);
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      s_commit = !F.ovf;
-      s_do_rec = 0;
-      if (F.ovf) {
-        s_code = 5;
-      } else {
-        const int cur_len = max(clen0, clen1);
-        const int imb_v =
-            a.imb_tab[min(max(cur_len + 1, 0), a.IMBN - 1)];
-        if (F.cnt2[0] < imb_v || F.cnt2[1] < imb_v) s_code = 6;  // committed
-        for (int k = 0; k < 2; ++k) {
-          if (a.lock[k]) continue;
-          a.cons[(size_t)a.h[k] * a.C + s_clen[k]] = s_sym[k];
-          a.out[a.o_syms[k] + s_steps] = s_sym[k];
-          s_clen[k] += 1;
-          s_cur[k] ^= 1;
-        }
-        if (s_reached_stop) {
-          // record of the pre-step state
-          s_do_rec = 1;
-          s_ri = min(s_rec_count, kRecCap - 1);
-          a.rec_steps[s_ri] = s_steps;
-          s_rec_count += 1;
-          if (!s_rec_imb && s_fin_total < s_budget) s_budget = s_fin_total;
-        }
-        s_steps += 1;
-      }
-      // next step's per-read folds start from zero
-      F.total = F.fin_total = 0u;
-      F.max_eds = F.fin_max = F.count0 = F.n_any = F.fo = 0;
-      F.fin_flag[0] = F.fin_flag[1] = F.stop_flag = 0;
-      F.nonexact[0] = F.nonexact[1] = 0;
-    }
-    __syncthreads();
-    if (s_commit) {
-      // a pruned read is no longer stepped: give the side's other buffer
-      // its new row
-      if (F.pruned) {
-        for (int k = 0; k < 2; ++k) {
-          if (a.lock[k]) continue;
-          const int32_t* src = buf[k][s_cur[k]];
-          int32_t* dst = buf[k][s_cur[k] ^ 1];
-          for (int r = warp; r < a.R; r += kWarps) {
-            if (!s.prn[k][r]) continue;
-            for (int t = lane; t < a.W; t += 32)
-              dst[(size_t)r * a.W + t] = src[(size_t)r * a.W + t];
-          }
-        }
-      }
-      for (int r = tid; r < a.R; r += kThreads) {
-        if (s_do_rec) {
-          const size_t row = (size_t)s_ri * a.R + r;
-          const size_t plane = (size_t)kRecCap * a.R;
-          a.rec_planes[row] = s.fin[0][r];
-          a.rec_planes[plane + row] = s.fin[1][r];
-          a.rec_planes[2 * plane + row] = s.act[0][r];
-          a.rec_planes[3 * plane + row] = s.act[1][r];
-        }
-        for (int k = 0; k < 2; ++k) {
-          if (!a.lock[k] && s.act[k][r]) {
-            s.e[k][r] = s.e2[k][r];
-            s.rmin[k][r] = s.rmin2[k][r];
-            s.er[k][r] = s.er2[k][r];
-          }
-          s.act[k][r] = s.act2[k][r];
-        }
+      __syncwarp();
+      if (x.lane == 0) {
+        const int e = s.f(kE, sd)[lr], er = s.f(kEr, sd)[lr];
+        a.out[a.o_eds[sd] + r] = act ? e : 0;
+        a.out[a.o_split[sd] + r] = split;
+        a.out[a.o_reached[sd] + r] = act && er < kInf && e == er;
+        a.out[a.o_act[sd] + r] = act;
       }
     }
   }
-
-  // ---- final snapshot and write-back of both slots
-  for (int k = 0; k < 2; ++k) snapshot(a, s, k, buf[k][s_cur[k]], s_clen[k]);
-  if (tid == 0) {
-    a.out[0] = s_steps;
-    a.out[1] = s_code;
-    a.out[2] = s_rec_count;
-    a.out[3] = s_clen[0];
-    a.out[4] = s_clen[1];
+  // ---- write-back: the final buffer of each stepped row (the rows of
+  // reads active at the start; the slot's mask is still the original
+  // here), then the per-read state of both slots
+  if (steps > 0 && (kOnChip || cur == 1)) {
+    for (int lr = x.lo; lr < x.hi; ++lr) {
+      const int r = x.r0 + lr;
+#pragma unroll
+      for (int sd = 0; sd < 2; ++sd) {
+        const size_t hr = (size_t)a.h[sd] * a.R + r;
+        if (!x.mine(sd) || a.lock[sd] || !a.act[hr]) continue;
+        const int32_t* src = row<kOnChip>(a, s, sd, cur, lr, r);
+        int32_t* dst = a.D + hr * a.W;
+        for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
+      }
+    }
+  }
+  __syncwarp();
+  for (int i = x.lane; i < (x.hi - x.lo) * x.ns; i += 32) {
+    const int lr = x.lo + i / x.ns, sd = x.s0 + i % x.ns;
+    const size_t hr = (size_t)a.h[sd] * a.R + x.r0 + lr;
+    a.e[hr] = s.f(kE, sd)[lr];
+    a.rmin[hr] = s.f(kRmin, sd)[lr];
+    a.er[hr] = s.f(kEr, sd)[lr];
+    a.act[hr] = (uint8_t)(s.f(kAct, sd)[lr] != 0);
+  }
+  // symbol slots past each side's commits (all of a locked side's) are 0
+  {
+    const int c0 = a.lock[0] ? 0 : steps, c1 = a.lock[1] ? 0 : steps;
+    const int stride = a.csize * nthreads;
+    for (int i = x.rank * nthreads + tid; i < a.max_steps; i += stride) {
+      if (i >= c0) a.out[a.o_syms[0] + i] = 0;
+      if (i >= c1) a.out[a.o_syms[1] + i] = 0;
+    }
+  }
+  if (lead) {
+    a.out[0] = steps;
+    a.out[1] = code;
+    a.out[2] = rec_count;
+    a.out[3] = clen0;
+    a.out[4] = clen1;
     a.out[5] = a.out[6] = a.out[7] = 0;
-    a.clen[a.h[0]] = s_clen[0];
-    a.clen[a.h[1]] = s_clen[1];
+    a.clen[a.h[0]] = clen0;
+    a.clen[a.h[1]] = clen1;
   }
-  for (int k = 0; k < 2; ++k) {
-    if (s_cur[k] == 1) {
-      for (size_t i = tid; i < RW; i += kThreads) buf[k][0][i] = buf[k][1][i];
+  cluster_wait();
+}
+
+// Launch shapes already checked on this device (attributes set, at least
+// one cluster of the shape fits).
+struct Checked {
+  const void* fn;
+  int csize, threads;
+  size_t smem;
+};
+std::mutex g_checked_mu;
+Checked g_checked[16];
+int g_nchecked = 0;
+
+template <bool kOnChip>
+int launch(const Args& a, int threads, size_t smem, cudaStream_t stream) {
+  auto* fn = run_extend_dual_kernel<kOnChip>;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(a.csize, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  {
+    std::lock_guard<std::mutex> lock(g_checked_mu);
+    bool known = false;
+    for (int i = 0; i < g_nchecked; ++i) {
+      const Checked& c = g_checked[i];
+      known |= c.fn == (const void*)fn && c.csize == a.csize &&
+               c.threads == threads && c.smem == smem;
+    }
+    if (!known) {
+      // the attribute only ever grows, so shapes checked earlier still fit
+      static size_t smem_attr = 0;
+      if (smem > smem_attr) {
+        cudaError_t err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_attr = smem;
+      }
+      cudaError_t err = cudaSuccess;
+      if (a.csize > 8) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+      }
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (clusters <= 0) return -2;
+      g_checked[g_nchecked % 16] =
+          Checked{(const void*)fn, a.csize, threads, smem};
+      g_nchecked = g_nchecked < 16 ? g_nchecked + 1 : 16;
     }
   }
-  for (int r = tid; r < a.R; r += kThreads) {
-    for (int k = 0; k < 2; ++k) {
-      const size_t hr = (size_t)a.h[k] * a.R + r;
-      a.e[hr] = s.e[k][r];
-      a.rmin[hr] = s.rmin[k][r];
-      a.er[hr] = s.er[k][r];
-      a.act[hr] = (uint8_t)(s.act[k][r] != 0);
-    }
-  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, fn, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches one CTA on `stream`
-// and returns cudaGetLastError() (0 on success); the launch does not
-// synchronise.
+// Plain C entry point (bound with ctypes).  Launches one cluster of
+// `csize` CTAs of `threads` threads on `stream`, with the geometry of the
+// plan (`plan_run_dual` in ops/run_dual_kernel.py): `rpc` reads per CTA,
+// `rpw` rows per warp (1: a warp pair per read; an even number: both
+// sides of rpw / 2 reads per warp), the band on chip (`on_chip`) or in
+// device memory (`scratch` then holds each side's second buffer), `smem`
+// bytes of dynamic shared memory.  Returns 0 on success, -1 when the plan
+// does not cover the shape or its shared memory disagrees with the
+// kernel's layout, -2 when no cluster of that shape fits on the device,
+// else the CUDA error; the launch does not synchronise.
 extern "C" int run_extend_dual_launch(
     void* D, void* e, void* rmin, void* er, void* off, void* act, void* cons,
     void* clen, void* reads, void* rlen, void* mc_tab, void* imb_tab,
@@ -603,7 +909,8 @@ extern "C" int run_extend_dual_launch(
     int h2, int R, int W, int C, int L, int A, int MCN, int IMBN,
     int me_budget, int other_cost, int other_len, int delta, int l2,
     int weighted, int max_steps, int lock1, int lock2, int allow_records,
-    int rec_min, int mc_dyn, int wc, int et, void* stream) {
+    int rec_min, int mc_dyn, int wc, int et, int csize, int threads, int rpc,
+    int rpw, int on_chip, long long smem, void* stream) {
   Args a;
   a.D = static_cast<int32_t*>(D);
   a.e = static_cast<int32_t*>(e);
@@ -630,6 +937,7 @@ extern "C" int run_extend_dual_launch(
   a.weighted = weighted; a.max_steps = max_steps;
   a.allow_records = allow_records; a.rec_min = rec_min; a.mc_dyn = mc_dyn;
   a.wc = wc; a.et = et;
+  a.csize = csize; a.nw = threads / 32; a.rpc = rpc; a.rpw = rpw;
   // packed output layout (mirrors run_dual_kernel.dual_out_layout)
   int at = 8;
   for (int k = 0; k < 2; ++k) {
@@ -641,14 +949,22 @@ extern "C" int run_extend_dual_launch(
   }
   a.o_syms[0] = at; at += max_steps;
   a.o_syms[1] = at;
-  const size_t smem = smem_bytes(R, A);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        run_extend_dual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  run_extend_dual_kernel<<<1, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  // rows over warps: a warp pair per read (an even warp count, two warps
+  // for each of the CTA's reads), or both sides of rpw / 2 reads a warp;
+  // on chip a warp feeds the rings of at most 32 rows
+  const int nw = a.nw;
+  const bool rows_ok =
+      rpw == 1 ? nw % 2 == 0 && nw >= 2 * rpc
+               : rpw % 2 == 0 && (long long)nw * (rpw / 2) >= rpc &&
+                     (!on_chip || rpw <= 32);
+  const bool plan_ok =
+      csize >= 1 && csize <= kMaxCluster && threads >= 32 &&
+      threads <= kMaxThreads && threads % 32 == 0 && rpc >= 1 && rpw >= 1 &&
+      rows_ok && (long long)csize * rpc >= R && A >= 1 && W >= 4 &&
+      MCN >= 1 && IMBN >= 1 && (on_chip || scratch != nullptr) &&
+      (size_t)smem == smem_bytes(rpc, nw, W, A, on_chip != 0);
+  if (!plan_ok) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return on_chip ? launch<true>(a, threads, (size_t)smem, st)
+                 : launch<false>(a, threads, (size_t)smem, st);
 }

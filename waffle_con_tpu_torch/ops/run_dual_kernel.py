@@ -1,11 +1,13 @@
 """The dual run loop behind ``TorchScorer.run_extend_dual``.
 
-Three pieces, one contract, as in :mod:`~waffle_con_tpu_torch.ops.run_kernel`:
+Four pieces, one contract, as in :mod:`~waffle_con_tpu_torch.ops.run_kernel`:
 
 * :func:`run_extend_dual_plain` — the loop in plain PyTorch over the
   column primitives of :mod:`waffle_con_tpu_torch.ops.torch_scorer`, one
   step per iteration.  It is what runs for tensors on the CPU, and the
   yardstick the CUDA kernel is held to on the card.
+* :func:`plan_run_dual` — the launch geometry of the kernel (one
+  thread-block cluster per dual run) from the shape alone.
 * :func:`run_extend_dual_cuda` — the wrapper of the hand-written Hopper
   kernel ``csrc/run_extend_dual.cu`` (built by
   :mod:`~waffle_con_tpu_torch.ops.cuda_build`, bound with ``ctypes``); it
@@ -44,7 +46,14 @@ import numpy as np
 import torch
 
 from waffle_con_tpu_torch.ops import cuda_build
-from waffle_con_tpu_torch.ops.run_kernel import _wrap32
+from waffle_con_tpu_torch.ops.run_kernel import (
+    _LAUNCH_ERRORS,
+    MAX_CLUSTER,
+    MAX_WARPS,
+    SMEM_LIMIT,
+    _ring_len,
+    _wrap32,
+)
 from waffle_con_tpu_torch.ops.torch_scorer import (
     REC_CAP,
     VOTE_EPS,
@@ -56,11 +65,6 @@ from waffle_con_tpu_torch.ops.torch_scorer import (
 
 #: the "untracked side" cost of a read in the node-cost fold
 BIG = 1 << 28
-#: shared memory a CTA may use on Hopper (bytes)
-SMEM_CAP = 232448
-#: threads (and warps) of the kernel's one CTA
-THREADS = 1024
-WARPS = THREADS // 32
 
 
 class DualRunArgs(NamedTuple):
@@ -115,10 +119,13 @@ def _wrap_t(x):
     return torch.remainder(x + (1 << 31), 1 << 32) - (1 << 31)
 
 
-def _nominate(occ, split, w, wc: int, weighted: bool, mc_tab, mc_dyn: bool):
-    """One side's vote fold and nomination (``_dual_votes`` +
-    ``_nominate_side`` of the JAX package).  Returns ``(dirty, sym)``."""
-    eps = float(VOTE_EPS)
+def dual_votes(occ, split, w):
+    """One side's fractional tip votes: each voting read (weight > 0,
+    a tip at all) splits its weight ``w`` across its tips, summed over
+    the reads in float32 (the device folds in another order; the
+    VOTE_EPS contract of :func:`nominate_side` covers the difference).
+    Returns ``(counts [A] float32, has_votes [A], nonexact)``: whether a
+    voting read's split is not a power of two."""
     voting = (w > 0) & (split > 0)
     voters = (occ > 0) & voting[:, None]
     zero = torch.zeros((), dtype=torch.float32, device=occ.device)
@@ -127,14 +134,25 @@ def _nominate(occ, split, w, wc: int, weighted: bool, mc_tab, mc_dyn: bool):
         occ.float() / split.clamp(min=1)[:, None].float(), zero,
     ) * w[:, None]
     counts = torch.where(voters, frac, zero).sum(0)
-    has_votes = voters.any(0)
+    dyadic = (split & (split - 1)) == 0
+    return counts, voters.any(0), bool((voting & ~dyadic).any())
+
+
+def nominate_side(counts, has_votes, nonexact: bool, wc: int,
+                  weighted: bool, mc_tab, mc_dyn: bool):
+    """One side's nomination from its summed votes (``_nominate_side`` of
+    the JAX package): the wildcard drop with candidates recounted after
+    it, the ``mc_tab`` threshold at the rounded vote total, the EPS
+    near-tie guard, first-max tie-break.  Returns ``(dirty, sym)``;
+    ``counts`` and ``has_votes`` are not modified."""
+    eps = float(VOTE_EPS)
+    counts, has_votes = counts.clone(), has_votes.clone()
     if wc >= 0 and int(has_votes.sum()) > 1:
         # the dual fold recounts candidates after the wildcard drop
         has_votes[wc] = False
         counts[wc] = 0.0
     n_cands = int(has_votes.sum())
-    dyadic = (split & (split - 1)) == 0
-    exactable = not bool((voting & ~dyadic).any()) and not weighted
+    exactable = not nonexact and not weighted
     n_vote_f = counts.sum()
     n_vote_r = torch.round(n_vote_f)
     int_ok = bool((n_vote_f - n_vote_r).abs() < eps)
@@ -154,6 +172,14 @@ def _nominate(occ, split, w, wc: int, weighted: bool, mc_tab, mc_dyn: bool):
         or tab_bad
     sym = int(torch.argmax(torch.where(passing, counts, neg1)))
     return dirty, sym
+
+
+def _nominate(occ, split, w, wc: int, weighted: bool, mc_tab, mc_dyn: bool):
+    """One side's vote fold and nomination (``_dual_votes`` +
+    ``_nominate_side`` of the JAX package).  Returns ``(dirty, sym)``."""
+    counts, has_votes, nonexact = dual_votes(occ, split, w)
+    return nominate_side(counts, has_votes, nonexact, wc, weighted, mc_tab,
+                         mc_dyn)
 
 
 # ---------------------------------------------------------------------
@@ -354,33 +380,116 @@ run_extend_dual_plain.calls = 0
 
 
 # ---------------------------------------------------------------------
+# launch planner of the CUDA kernel
+
+
+class DualRunPlan(NamedTuple):
+    """Launch geometry of one ``run_extend_dual`` kernel call.  The unit
+    of work is a (side, read) row; both sides of a read sit in one CTA."""
+
+    #: CTAs of the one thread-block cluster
+    cluster: int
+    #: threads of each CTA (32 per warp)
+    threads: int
+    #: reads of each CTA (contiguous blocks; the last CTA may own fewer)
+    reads_per_cta: int
+    #: rows of each warp: 1 is a warp pair per read, one side each; an
+    #: even number ``2k`` is both sides of ``k`` reads per warp
+    rows_per_warp: int
+    #: ``"smem"``: both band buffers of both sides of a CTA's reads in
+    #: its shared memory; ``"global"``: each slot and a scratch buffer per
+    #: side in device memory
+    band: str
+    #: dynamic shared memory of each CTA, bytes
+    smem_bytes: int
+
+
+def _part_words(A: int) -> int:
+    """Words of one partial: 12 header words, then has[A] and counts[A]
+    per side (``clu::Layout<6, 2, 2>`` in ``csrc/cluster_ops.cuh``)."""
+    return (12 + 4 * A + 3) & ~3
+
+
+def _smem_bytes(rpc: int, nw: int, W: int, A: int, on_chip: bool) -> int:
+    """Dynamic shared memory of one CTA (the layout of ``carve`` in
+    ``csrc/run_extend_dual.cu``): the CTA's partial and every CTA's
+    partial by parity, 23 words per read (11 per side and its length),
+    two histograms and a partial per warp, both sides' cluster votes and
+    the broadcast decision; on chip also two band buffers and a symbol
+    ring per (side, read) row."""
+    P = _part_words(A)
+    words = (1 + 2 * MAX_CLUSTER) * P + 23 * rpc + nw * (2 * A + P) \
+        + 4 * A + 8
+    nbytes = 4 * words
+    if on_chip:
+        nbytes += 16 * rpc * W + 4 * rpc * _ring_len(W)
+    return nbytes
+
+
+def plan_run_dual(R: int, W: int, A: int) -> DualRunPlan:
+    """The launch geometry of the dual run kernel for ``R`` reads (``2R``
+    rows), band width ``W`` and ``A`` dense symbols.  The rule:
+
+    * the smallest cluster (1, 2, 4, 8 or 16 CTAs) whose CTAs hold at most
+      16 rows each, one row per warp (a warp pair per read), with the
+      band on chip;
+    * else 16 CTAs of up to 16 warps, both sides of several reads per
+      warp, with the band on chip when the CTA's share fits in shared
+      memory (and a warp's rows are at most 32, one symbol ring fed per
+      lane), and in device memory when it does not.
+
+    Raises ``ValueError`` on a shape no plan takes (an empty read set, a
+    band narrower than 4 cells or odd, no symbol, or per-read state that
+    exceeds a CTA's shared memory even with the band off chip)."""
+    if R < 1 or A < 1 or W < 4 or W % 2:
+        raise ValueError(f"no dual run plan for R={R}, W={W}, A={A}")
+    c = 1
+    while c <= MAX_CLUSTER:
+        rpc = -(-R // c)
+        nw = 2 * rpc
+        smem = _smem_bytes(rpc, nw, W, A, True)
+        if nw <= MAX_WARPS and smem <= SMEM_LIMIT:
+            return DualRunPlan(c, 32 * nw, rpc, 1, "smem", smem)
+        c *= 2
+    rpc = -(-R // MAX_CLUSTER)
+    nw = min(MAX_WARPS, rpc)
+    rpw = 2 * -(-rpc // nw)
+    for band in ("smem", "global"):
+        smem = _smem_bytes(rpc, nw, W, A, band == "smem")
+        if smem <= SMEM_LIMIT and (band == "global" or rpw <= 32):
+            return DualRunPlan(MAX_CLUSTER, 32 * nw, rpc, rpw, band, smem)
+    raise ValueError(
+        f"no dual run plan for R={R}, W={W}, A={A}: {rpc} reads per CTA "
+        f"need {smem} bytes of shared memory (limit {SMEM_LIMIT})"
+    )
+
+
+# ---------------------------------------------------------------------
 # CUDA kernel: bind, launch
-
-
-def smem_bytes(R: int, A: int) -> int:
-    """Dynamic shared memory of one launch (mirrors ``smem_bytes`` in
-    ``csrc/run_extend_dual.cu``)."""
-    return 4 * (23 * R + 5 * WARPS * A + 4 * A)
 
 
 def _launcher():
     fn = cuda_build.library().run_extend_dual_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 23 + [
-            ctypes.c_void_p
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 28 + [
+            ctypes.c_longlong, ctypes.c_void_p,
         ]
     return fn
 
 
 def run_extend_dual_cuda(state, h1: int, h2: int, reads, rlen, mc_tab,
                          imb_tab, args: DualRunArgs):
-    """Launch the CUDA dual run kernel on slots ``h1``/``h2`` (one CTA,
-    the whole loop inside).  Same contract and outputs as
+    """Launch the CUDA dual run kernel on slots ``h1``/``h2``: one
+    thread-block cluster of the geometry :func:`plan_run_dual` gives, the
+    whole loop inside.  Same contract and outputs as
     :func:`run_extend_dual_plain`.  Raises on anything the kernel does
-    not take (the per-read shared memory caps R); never falls back.  The
+    not take, and when the launch is refused; never falls back.  The
     caller guarantees ``cons`` capacity ``C > clen + max_steps`` on both
-    slots, as ``TorchScorer.run_extend_dual`` does."""
+    slots, as ``TorchScorer.run_extend_dual`` does.  Each launch adds one
+    to ``run_extend_dual_cuda.launches`` and to its band placement's
+    count in ``run_extend_dual_cuda.placements``;
+    ``run_extend_dual_cuda.last_plan`` is the last launch's plan."""
     D = state["D"]
     dev = D.device
     if dev.type != "cuda":
@@ -408,20 +517,17 @@ def run_extend_dual_cuda(state, h1: int, h2: int, reads, rlen, mc_tab,
         raise ValueError("reads/rlen/mc_tab/imb_tab must be contiguous")
     if not (0 <= h1 < B and 0 <= h2 < B) or h1 == h2:
         raise ValueError(f"slots {h1}, {h2}: need two distinct slots < {B}")
-    if smem_bytes(R, args.a_real) > SMEM_CAP - 1024:  # static smem beside
-        raise ValueError(
-            f"R={R} reads x A={args.a_real} symbols need "
-            f"{smem_bytes(R, args.a_real)} bytes of shared memory "
-            f"(cap {SMEM_CAP})"
-        )
+    plan = plan_run_dual(R, W, args.a_real)
     launch = _launcher()
     lay = dual_out_layout(R, args.a_real, args.max_steps)
-    # zeroed: symbol slots past a side's commits stay 0, as in the plain loop
-    out = torch.zeros(lay["syms2"][1], dtype=torch.int32, device=dev)
+    # the kernel writes every field, the unused symbol slots included
+    out = torch.empty(lay["syms2"][1], dtype=torch.int32, device=dev)
     rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
     rec_planes = torch.empty((4, REC_CAP, R), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, R, W), dtype=torch.int32, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    on_chip = plan.band == "smem"
+    scratch = None if on_chip else torch.empty((2, R, W), dtype=torch.int32,
+                                               device=dev)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
     rc = launch(
         ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
         ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
@@ -434,18 +540,24 @@ def run_extend_dual_cuda(state, h1: int, h2: int, reads, rlen, mc_tab,
         int(args.l2), int(args.weighted), args.max_steps, int(args.lock1),
         int(args.lock2), int(args.allow_records), args.rec_min,
         int(args.mc_dyn), args.wc, int(args.et),
-        cuda_build.stream_ptr(dev),
+        plan.cluster, plan.threads, plan.reads_per_cta, plan.rows_per_warp,
+        int(on_chip), plan.smem_bytes, cuda_build.stream_ptr(dev),
     )
     if rc != 0:
+        why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(
-            f"run_extend_dual kernel launch failed: CUDA error {rc} "
-            f"(R={R}, W={W}, A={args.a_real})"
+            f"run_extend_dual kernel launch failed: {why} (R={R}, W={W}, "
+            f"A={args.a_real}, {plan})"
         )
     run_extend_dual_cuda.launches += 1
+    run_extend_dual_cuda.placements[plan.band] += 1
+    run_extend_dual_cuda.last_plan = plan
     return out, rec_steps, rec_planes
 
 
 run_extend_dual_cuda.launches = 0
+run_extend_dual_cuda.placements = {"smem": 0, "global": 0}
+run_extend_dual_cuda.last_plan = None
 
 
 def run_extend_dual(state, h1: int, h2: int, reads, rlen, mc_tab, imb_tab,
