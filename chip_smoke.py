@@ -43,6 +43,20 @@ Phases, one line each (every failure exits non-zero):
 7. dual_oracle: 16 reads x 1 kb, 2 SNPs, 2 %: the dual engine's
    ``"python"`` oracle and ``"torch"`` on ``cuda`` give byte-identical
    results, scores included.
+8. priority_main: the priority north star — 32 two-level chains (1 kb
+   reads of one truth, then 2 kb reads of two haplotypes two SNPs
+   apart), ``min_count=8``, ``initial_band=56`` — through
+   ``PriorityConsensusDWFA`` on ``cuda``, one shared scorer per chain
+   level seen by each group through a ``SubsetScorer``; both groups'
+   chains must equal the truth, two scorers must be built (and freed),
+   both kernels must have launched (neither plain loop called).
+9. priority_oracle: the twelve ``tests/data`` fixtures and two draws of
+   16 chains x 1 kb at 2 %: the priority engine's ``"python"`` oracle
+   and ``"torch"`` on ``cuda`` give equal results, scores included.
+
+Both kernel phases also hold their kernel on a priority-engine group's
+shape (``subset/`` cases): the reads outside the group inactive from the
+root, interleaved across the CTAs or filling whole CTAs.
 
 The last three lines are the card's name and power limit, the kernel
 table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -322,7 +336,38 @@ def kernel_cases(small_only: bool):
         cases.append(("dual_north_star/" + label, _dual_north_star_h1,
                       dict(min_count=16, initial_band=116),
                       dict(min_count=16, **kw), state))
+    # a priority-engine group on its level's shared store (a SubsetScorer
+    # view): the reads outside the group inactive from the root, every
+    # other read (rows of every CTA inactive) or the second half (whole
+    # CTAs), at the priority north star's level-1 geometry (R=32, W=130;
+    # both haplotypes in the interleaved group, so the run stops at the
+    # first SNP) and at the dual north star's (R=64, W=258)
+    odd = lambda n: range(1, n, 2)  # noqa: E731
+    for label, make, cfg, kw, state in [
+        ("interleaved", _priority_level1, PRIORITY_CFG, {},
+         dict(engine_steps=True, inactive=odd(32))),
+        ("half", _priority_level1, PRIORITY_CFG, {},
+         dict(engine_steps=True, inactive=range(16, 32))),
+        ("interleaved_64", _dual_north_star_h1,
+         dict(min_count=16, initial_band=116), dict(max_steps=600),
+         dict(inactive=odd(64))),
+    ]:
+        cases.append(("subset/" + label, make, cfg,
+                      dict(min_count=cfg["min_count"], **kw), state))
     return cases
+
+
+def _priority_level1():
+    """The priority north star's level-1 reads, its first haplotype as
+    truth."""
+    _truth, (t1a, _t1b), chains = priority_north_star()
+    return t1a, [chain[1] for chain in chains]
+
+
+def _priority_level1_dual():
+    """The priority north star's level-1 reads and both haplotypes."""
+    _truth, (t1a, t1b), chains = priority_north_star()
+    return t1a, t1b, [chain[1] for chain in chains]
 
 
 def _dual_north_star_h1():
@@ -804,6 +849,21 @@ def dual_kernel_cases(small_only: bool):
     ]:
         cases.append(("cluster/" + label, make, {**ns_cfg, **cfg},
                       dict(min_count=16, **kw), dict(min_count=16, **spec)))
+    # a priority-engine group on its level's shared store: every other
+    # read inactive from the root in both slots, split sides driven past
+    # the first SNP, at the priority north star's level-1 geometry (R=32,
+    # W=130; its SNPs at 666 and 1333) and at the dual north star's
+    for label, make, cfg, spec in [
+        ("interleaved", _priority_level1_dual, PRIORITY_CFG,
+         dict(advance=700, inactive1=range(1, 32, 2),
+              inactive2=range(1, 32, 2))),
+        ("interleaved_64", ns, ns_cfg,
+         dict(advance=2570, inactive1=range(1, 64, 2),
+              inactive2=range(1, 64, 2))),
+    ]:
+        mc = dict(min_count=cfg["min_count"])
+        cases.append(("subset/" + label, make, cfg,
+                      dict(max_steps=600, **mc), dict(spec, **mc)))
     return cases
 
 
@@ -996,7 +1056,7 @@ def phase_dual_main():
         ),
     )
     print("dual_main", json.dumps(line), flush=True)
-    return launches[0]
+    return launches
 
 
 def phase_dual_oracle():
@@ -1024,15 +1084,213 @@ def phase_dual_oracle():
     )), flush=True)
 
 
+# ---------------------------------------------------------------------
+# phases 8-9: the priority engine
+
+
+#: the priority north star's engine settings: ``bench.py``'s
+#: ``bench_priority`` at its defaults (``min_count`` a quarter of the 32
+#: chains; ``initial_band`` its band seed for 2 kb at 1 %: E=64, W=130)
+PRIORITY_CFG = dict(min_count=8, initial_band=56)
+
+
+def priority_north_star():
+    """The priority north star: 32 two-level chains, level 0 of 1 kb
+    reads of one truth, level 1 of 2 kb reads of two haplotypes two SNPs
+    apart (16 chains each).  Returns ``(truth, (t1a, t1b), chains)``."""
+    from waffle_con_tpu_torch.utils.example_gen import generate_priority_test
+
+    return generate_priority_test(32, 2000, 0.01)
+
+
+def _priority_key(res):
+    return ([[(c.sequence, list(c.scores)) for c in chain]
+             for chain in res.consensuses], list(res.sequence_indices))
+
+
+def phase_priority_main():
+    """The priority north star through ``PriorityConsensusDWFA`` on
+    ``cuda``, cold and warm.  Returns the launches of (run_extend,
+    run_extend_dual) in the warm search."""
+    import weakref
+
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, PriorityConsensusDWFA
+    from waffle_con_tpu_torch.models import priority_consensus as pc
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+    import torch
+
+    t0 = time.perf_counter()
+    truth, (t1a, t1b), chains = priority_north_star()
+    gen_s = time.perf_counter() - t0
+    want_seqs = [[truth, min(t1a, t1b)], [truth, max(t1a, t1b)]]
+    first = 0 if t1a < t1b else 1
+    want_idx = [first] * 16 + [1 - first] * 16
+    b = CdwfaConfigBuilder().backend("torch").device("cuda")
+    for k, v in PRIORITY_CFG.items():
+        b = getattr(b, k)(v)
+    cfg = b.build()
+
+    # each level's shared scorer, seen as it is built (geometry) and
+    # after the search (a weak reference: eviction must have freed it)
+    built = []
+    make = pc.make_scorer
+
+    def recording(reads, config):
+        sc = make(reads, config)
+        built.append(dict(length=max(map(len, reads)), R=sc._R, W=sc._W,
+                          A=sc.num_symbols, ref=weakref.ref(sc)))
+        return sc
+
+    walls = []
+    pc.make_scorer = recording
+    try:
+        for run in ("cold", "warm"):
+            eng = PriorityConsensusDWFA(cfg)
+            for chain in chains:
+                eng.add_sequence_chain(chain)
+            del built[:]
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            rk.run_extend_cuda.launches = 0
+            rk.run_extend_plain.calls = 0
+            rdk.run_extend_dual_cuda.launches = 0
+            rdk.run_extend_dual_plain.calls = 0
+            t0 = time.perf_counter()
+            res = eng.consensus()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = (rk.run_extend_cuda.launches,
+                        rdk.run_extend_dual_cuda.launches)
+            plain_calls = (rk.run_extend_plain.calls,
+                           rdk.run_extend_dual_plain.calls)
+            st = eng.last_search_stats
+            c = st["scorer_counters"]
+            got = _priority_key(res)
+            if [[s for s, _ in chain] for chain in got[0]] != want_seqs:
+                raise AssertionError(f"{run}: consensus chains != truth")
+            if got[1] != want_idx:
+                raise AssertionError(f"{run}: read groups {got[1]}")
+            if st["scorer_constructions"] != 2:
+                raise AssertionError(
+                    f"{run}: {st['scorer_constructions']} scorers built")
+            if (min(launches) <= 0 or plain_calls != (0, 0)
+                    or launches != (c["run_calls"], c["run_dual_calls"])):
+                raise AssertionError(
+                    f"{run}: kernel launches (run, dual) {launches}, counted "
+                    f"{(c['run_calls'], c['run_dual_calls'])}, plain calls "
+                    f"{plain_calls}")
+            alive = [lv for lv in built if lv["ref"]() is not None]
+            if alive:
+                raise AssertionError(f"{run}: {len(alive)} level scorers "
+                                     "still alive after the search")
+            mem_after = torch.cuda.memory_allocated()
+    finally:
+        pc.make_scorer = make
+    device_ms, by_name = _device_ms(eng.consensus)
+    groups = [
+        dict(level=g["level"], reads=g["size"], dual=g["dual"],
+             pops=g["nodes_explored"] + g["nodes_ignored"],
+             run_launches=g["scorer_counters"]["run_calls"],
+             run_steps=g["scorer_counters"]["run_steps"],
+             dual_launches=g["scorer_counters"]["run_dual_calls"],
+             dual_steps=g["scorer_counters"]["run_dual_steps"],
+             grow_e_events=g["scorer_counters"]["grow_e_events"],
+             live_handles=g["live_handles"])
+        for g in st["groups"]
+    ]
+    levels = [
+        dict(read_length=lv["length"], R=lv["R"], W=lv["W"],
+             run_plan=_plan_fields(rk.plan_run(lv["R"], lv["W"], lv["A"])),
+             dual_plan=_dual_plan_fields(
+                 rdk.plan_run_dual(lv["R"], lv["W"], lv["A"])))
+        for lv in built
+    ]
+    line = dict(
+        chains=len(chains), lengths=[len(truth), len(t1a)],
+        gen_s=round(gen_s, 3), cold_s=round(walls[0], 3),
+        warm_s=round(walls[1], 3), groups_solved=len(groups),
+        scorer_constructions=st["scorer_constructions"],
+        pops=st["nodes_explored"] + st["nodes_ignored"],
+        run_launches=launches[0], run_steps=c["run_steps"],
+        dual_launches=launches[1], dual_steps=c["run_dual_steps"],
+        plain_calls=list(plain_calls), grow_e_events=c["grow_e_events"],
+        groups=groups, levels=levels,
+        live_handles=[g["live_handles"] for g in groups],
+        device_mem_before_after=[mem_before, mem_after],
+        profiled_device_ms=device_ms,
+        run_kernel_device_ms=round(_kernel_ms(by_name, "run_extend_kernel"), 3),
+        dual_kernel_device_ms=round(
+            _kernel_ms(by_name, "run_extend_dual_kernel"), 3),
+        top_device_ms=dict(list(by_name.items())[:6]),
+        device_busy_share=(
+            None if device_ms is None
+            else round(device_ms / 1e3 / walls[1], 4)
+        ),
+    )
+    print("priority_main", json.dumps(line), flush=True)
+    return launches
+
+
+def phase_priority_oracle():
+    """Every fixture and two generated draws (16 chains x 1 kb at 2 %):
+    the ``"python"`` oracle and ``"torch"`` on ``cuda`` give equal
+    ``PriorityConsensus`` results, scores included."""
+    from waffle_con_tpu_torch import (
+        CdwfaConfigBuilder,
+        ConsensusCost,
+        PriorityConsensusDWFA,
+    )
+    from waffle_con_tpu_torch.utils.example_gen import generate_priority_test
+    from waffle_con_tpu_torch.utils.fixtures import (
+        PRIORITY_SCENARIOS,
+        load_priority_fixture,
+    )
+
+    cases = []
+    for name, include, fields in PRIORITY_SCENARIOS:
+        fields = dict(fields, wildcard=ord("*"))
+        chains, _ = load_priority_fixture(
+            name, include,
+            fields.get("consensus_cost", ConsensusCost.L1_DISTANCE))
+        cases.append((name, chains, fields))
+    for seeds in ((5, 6, 300), (7, 8, 400)):
+        _truth, _hap, chains = generate_priority_test(16, 1000, 0.02, seeds)
+        cases.append((f"draw_{seeds[0]}", chains,
+                      dict(min_count=4, initial_band=56)))
+    seen = {}
+    for name, chains, fields in cases:
+        got = {}
+        for be in ("python", "torch"):
+            b = CdwfaConfigBuilder().backend(be).device("cuda")
+            for k, v in fields.items():
+                b = getattr(b, k)(v)
+            eng = PriorityConsensusDWFA(b.build())
+            for chain in chains:
+                eng.add_sequence_chain(chain)
+            t0 = time.perf_counter()
+            got[be] = _priority_key(eng.consensus())
+            got[be + "_s"] = round(time.perf_counter() - t0, 3)
+        if got["python"] != got["torch"]:
+            raise AssertionError(f"priority_oracle: {name}: python and torch "
+                                 "results differ")
+        seen[name] = dict(groups=len(got["torch"][0]),
+                          python_s=got["python_s"], torch_s=got["torch_s"])
+    print("priority_oracle", json.dumps(dict(cases=seen, identical=True)),
+          flush=True)
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
-    ``(timing, max_err)`` and its main path's launch count (``None``
-    where the phase did not run)."""
+    ``(timing, max_err)`` and its launch count on each main path that ran
+    (``launches``: path -> count, ``None`` where the phase did not run)."""
     timing, max_err = check or (None, None)
     timing = timing or {}
+    ran = {path: n for path, n in launches.items() if n is not None}
     return dict(
         name=name, route="cuda", source="waffle_con_tpu_torch/csrc/" + source,
-        replaces="waffle_con_tpu/ops/" + replaces, launches=launches,
+        replaces="waffle_con_tpu/ops/" + replaces,
+        launches=sum(ran.values()) if ran else None, launches_by_path=ran,
         max_abs_err=max_err, ms=timing.get("ms"),
         plain_ms=timing.get("plain_ms"), bound_ms=timing.get("bound_ms"),
         bound_by=timing.get("bound_by"), library_ms=None,
@@ -1042,7 +1300,9 @@ def kernel_row(name, source, replaces, check, launches):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
-        "--phases", default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle",
+        "--phases",
+        default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
+                "priority_main,priority_oracle",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -1088,13 +1348,19 @@ def main(argv=None) -> int:
     run_launches = timed("main", phase_main)
     timed("oracle", phase_oracle)
     dual_check = timed("dual_kernel", phase_dual_kernel, opts.small)
-    dual_launches = timed("dual_main", phase_dual_main)
+    dual_launches = timed("dual_main", phase_dual_main) or (None, None)
     timed("dual_oracle", phase_dual_oracle)
+    prio_launches = timed("priority_main", phase_priority_main) or (None, None)
+    timed("priority_oracle", phase_priority_oracle)
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
-                   run_check, run_launches),
+                   run_check, dict(main=run_launches,
+                                   dual_main=dual_launches[1],
+                                   priority_main=prio_launches[0])),
         kernel_row("run_extend_dual", "run_extend_dual.cu",
-                   "pallas_run.py:976", dual_check, dual_launches),
+                   "pallas_run.py:976", dual_check,
+                   dict(dual_main=dual_launches[0],
+                        priority_main=prio_launches[1])),
     ]
 
     print("phase_seconds", json.dumps(phase_s), flush=True)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports without JAX and without the JAX
-package, runs a single and a dual search on the CPU, and refuses to fall back to the CPU
+package, runs a single, a dual and a priority search on the CPU (the
+fixtures read by its own loader), and refuses to fall back to the CPU
 when a CUDA device is asked for and absent."""
 
 import os
@@ -45,6 +46,24 @@ _PROBE = textwrap.dedent(
         truth, bytes(t2)
     }
     assert dual.last_search_stats["scorer_counters"]["run_dual_calls"] >= 1
+
+    from waffle_con_tpu_torch import MultiConsensus, PriorityConsensusDWFA
+    from waffle_con_tpu_torch.models import multi_consensus, priority_consensus
+    from waffle_con_tpu_torch.utils import fixtures
+
+    chains, expected = fixtures.load_priority_fixture(
+        "priority_003", True, T.ConsensusCost.L1_DISTANCE
+    )
+    prio = PriorityConsensusDWFA(
+        T.CdwfaConfigBuilder().backend("torch").device("cpu")
+        .wildcard(ord("*")).build()
+    )
+    for chain in chains:
+        prio.add_sequence_chain(chain)
+    got = prio.consensus()
+    assert got.sequence_indices == expected.sequence_indices
+    assert prio.last_search_stats["scorer_constructions"] == 2
+    assert MultiConsensus([], []).consensuses == []
     loaded = sorted(m for m in sys.modules
                     if m == "waffle_con_tpu" or m.startswith("waffle_con_tpu."))
     assert not loaded, loaded
@@ -75,3 +94,7 @@ def test_cuda_device_never_falls_back_to_cpu():
     eng.add_sequence(b"ACGT")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eng.consensus()
+    prio = T.PriorityConsensusDWFA()
+    prio.add_sequence_chain([b"ACGT", b"ACGTT"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prio.consensus()

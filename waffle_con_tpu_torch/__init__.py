@@ -12,13 +12,19 @@ reference, reached by the tests alone.
 
 * ``ops``    — the DWFA oracle, the scorer seam, the torch branch store
   and the CUDA run kernels with their plain PyTorch twins.
-* ``models`` — the single- and dual-consensus engines.
-* ``utils``  — the priority-queue tracker and synthetic data generation.
+* ``models`` — the single-, dual- and priority-consensus engines.
+* ``utils``  — the priority-queue tracker, synthetic data generation and
+  the JSON scenario fixtures' loaders.
 """
 
 from waffle_con_tpu_torch.config import CdwfaConfig, CdwfaConfigBuilder, ConsensusCost
 from waffle_con_tpu_torch.models.consensus import Consensus, ConsensusDWFA
 from waffle_con_tpu_torch.models.dual_consensus import DualConsensus, DualConsensusDWFA
+from waffle_con_tpu_torch.models.multi_consensus import MultiConsensus
+from waffle_con_tpu_torch.models.priority_consensus import (
+    PriorityConsensus,
+    PriorityConsensusDWFA,
+)
 
 __all__ = [
     "CdwfaConfig",
@@ -28,4 +34,7 @@ __all__ = [
     "ConsensusDWFA",
     "DualConsensus",
     "DualConsensusDWFA",
+    "MultiConsensus",
+    "PriorityConsensus",
+    "PriorityConsensusDWFA",
 ]

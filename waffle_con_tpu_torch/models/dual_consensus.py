@@ -323,11 +323,19 @@ class _DualNode:
 class DualConsensusDWFA:
     """Generates the best single- or dual-consensus for the added reads."""
 
-    def __init__(self, config: Optional[CdwfaConfig] = None) -> None:
+    def __init__(
+        self,
+        config: Optional[CdwfaConfig] = None,
+        scorer: Optional[WavefrontScorer] = None,
+    ) -> None:
         self.config = config if config is not None else CdwfaConfig()
         self.sequences: List[bytes] = []
         self.offsets: List[Optional[int]] = []
         self.alphabet: set = set()
+        #: optional injected scorer (the priority engine's SubsetScorer
+        #: view of a scorer shared across worklist groups); its reads
+        #: must equal the added sequences
+        self._injected_scorer = scorer
 
     @classmethod
     def with_config(cls, config: CdwfaConfig) -> "DualConsensusDWFA":
@@ -387,7 +395,17 @@ class DualConsensusDWFA:
                 "Must have at least one initial offset of None to see the consensus."
             )
 
-        scorer = make_scorer(self.sequences, cfg)
+        if self._injected_scorer is not None:
+            scorer = self._injected_scorer
+            check_invariant(
+                scorer.reads == self.sequences,
+                "injected scorer reads match added sequences",
+            )
+        else:
+            scorer = make_scorer(self.sequences, cfg)
+        # a shared (injected) scorer carries cumulative counters across
+        # searches: report this search's delta, not the running total
+        counters_before = dict(scorer.counters)
         initial_size = max(len(s) for s in self.sequences)
         single_tracker = PQueueTracker(initial_size, cfg.max_capacity_per_size)
         dual_tracker = PQueueTracker(initial_size, cfg.max_capacity_per_size)
@@ -814,7 +832,10 @@ class DualConsensusDWFA:
             "nodes_explored": nodes_explored,
             "nodes_ignored": nodes_ignored,
             "peak_queue_size": peak_queue_size,
-            "scorer_counters": dict(scorer.counters),
+            "scorer_counters": {
+                k: v - counters_before.get(k, 0)
+                for k, v in scorer.counters.items()
+            },
             "backend": cfg.backend,
         }
         return results

@@ -1,7 +1,8 @@
 """The ``WavefrontScorer`` seam between the host search engine and the
 alignment kernels.
 
-The engines (``models/consensus.py``, ``models/dual_consensus.py``) own
+The engines (``models/consensus.py``, ``models/dual_consensus.py``;
+``models/priority_consensus.py`` drives the dual one) own
 the least-cost-first search — priority queue, thresholds, candidate
 nomination, activation — and talk to per-*branch* wavefront state only through this interface.  A branch is
 one consensus hypothesis; its state is one incremental DWFA per tracked
@@ -14,6 +15,9 @@ Implementations:
 * ``TorchScorer`` (:mod:`waffle_con_tpu_torch.ops.torch_scorer`) — all
   branches and reads batched in torch tensors on one device, with the
   run loop as a hand-written CUDA kernel.
+* :class:`SubsetScorer` (here) — a view of either, restricted to the reads
+  of one priority-engine worklist group, so that one scorer per chain
+  level serves every group at that level.
 
 All implementations agree exactly: integer edit distances and integer
 tip-vote counts (the engine does the fractional-vote arithmetic host-side
@@ -22,6 +26,7 @@ in read order, so float summation order is the same on every backend).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -277,6 +282,158 @@ class PythonScorer(WavefrontScorer):
                 total += count
             split[r] = total
         return BranchStats(eds, occ, split, reached)
+
+
+def _slice_stats(stats: BranchStats, idx: np.ndarray) -> BranchStats:
+    """``stats`` restricted to the reads at ``idx``."""
+    return BranchStats(
+        stats.eds[idx],
+        stats.occ[idx],
+        stats.split[idx],
+        stats.reached[idx],
+        stats.fin[idx] if stats.fin is not None else None,
+    )
+
+
+def _sliced_clone_push_many(inner, idx, specs):
+    return [
+        (h, _slice_stats(s, idx) if s is not None else None)
+        for h, s in inner(specs)
+    ]
+
+
+def _sliced_run_extend(inner, idx, h, consensus, *args, **kwargs):
+    steps, code, appended, stats, records = inner(h, consensus, *args, **kwargs)
+    return (
+        steps, code, appended, _slice_stats(stats, idx),
+        [(j, fin[idx]) for j, fin in records],
+    )
+
+
+def _sliced_run_extend_dual(inner, idx, *args, **kwargs):
+    (steps, code, app1, app2, stats1, stats2, act1, act2, records) = inner(
+        *args, **kwargs
+    )
+    return (
+        steps, code, app1, app2,
+        _slice_stats(stats1, idx), _slice_stats(stats2, idx),
+        act1[idx], act2[idx],
+        [
+            (j, f1[idx], f2[idx], a1[idx], a2[idx])
+            for j, f1, f2, a1, a2 in records
+        ],
+    )
+
+
+class SubsetScorer(WavefrontScorer):
+    """View of a shared base scorer restricted to a subset of its reads.
+
+    The priority engine solves one dual search per worklist group over a
+    subset of one chain level's sequences.  A scorer built per group
+    would upload the reads again and plan the kernels for each group's
+    geometry; this view maps a group onto one scorer built over the whole
+    level instead.  Group membership is the root activation mask: reads
+    outside the group are inactive lanes, exactly as pruned reads are, so
+    results equal those of a scorer over the group alone.  Per-read
+    outputs are gathered back to the group's local index space, and
+    local read indices are mapped to the base's on the way in.
+
+    Handles are the base's handles.  ``indices`` must be sorted.  The
+    fast paths (``clone_push_many``, ``run_extend``, ``run_extend_dual``)
+    are ``None`` when the base lacks them, and otherwise hold the base and
+    the index map but not the view, so the engine's cached
+    :func:`fast_paths` snapshot makes no reference cycle: once the last
+    view and the caller's reference go, the base and its device tensors
+    are freed at once.
+    """
+
+    def __init__(self, base: WavefrontScorer, indices: Sequence[int]) -> None:
+        self.base = base
+        self.indices = np.asarray(list(indices), dtype=np.int64)
+        self.reads = [base.reads[i] for i in self.indices]
+        self.config = base.config
+        self.symtab = base.symtab
+        self.sym_id = base.sym_id
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        return self.base.counters
+
+    def _slice(self, stats: BranchStats) -> BranchStats:
+        return _slice_stats(stats, self.indices)
+
+    # -- branch lifecycle ----------------------------------------------
+    def root(self, active: np.ndarray) -> int:
+        full = np.zeros(self.base.num_reads, dtype=bool)
+        full[self.indices] = np.asarray(active, dtype=bool)
+        return self.base.root(full)
+
+    def clone(self, h: int) -> int:
+        return self.base.clone(h)
+
+    def clone_many(self, hs: List[int]) -> List[int]:
+        return self.base.clone_many(hs)
+
+    def free(self, h: int) -> None:
+        self.base.free(h)
+
+    # -- state evolution -----------------------------------------------
+    def push(self, h: int, consensus: bytes) -> BranchStats:
+        return self._slice(self.base.push(h, consensus))
+
+    def push_many(
+        self, specs: List[Tuple[int, bytes]]
+    ) -> List[BranchStats]:
+        return [self._slice(s) for s in self.base.push_many(specs)]
+
+    def stats(self, h: int, consensus: bytes) -> BranchStats:
+        return self._slice(self.base.stats(h, consensus))
+
+    def activate(
+        self, h: int, read_index: int, offset: int, consensus: bytes
+    ) -> None:
+        self.base.activate(
+            h, int(self.indices[read_index]), offset, consensus
+        )
+
+    def deactivate(self, h: int, read_index: int) -> None:
+        self.base.deactivate(h, int(self.indices[read_index]))
+
+    def deactivate_many(self, pairs: List[Tuple[int, int]]) -> None:
+        self.base.deactivate_many(
+            [(h, int(self.indices[r])) for h, r in pairs]
+        )
+
+    def finalized_eds(self, h: int, consensus: bytes) -> np.ndarray:
+        return self.base.finalized_eds(h, consensus)[self.indices]
+
+    def best_activation_offset(
+        self, consensus, seq_index, offset_window, offset_compare_length,
+        wildcard,
+    ) -> int:
+        return self.base.best_activation_offset(
+            consensus, int(self.indices[seq_index]), offset_window,
+            offset_compare_length, wildcard,
+        )
+
+    # -- device fast paths (None when the base lacks them) -------------
+    def _forward(self, name: str, sliced):
+        inner = getattr(self.base, name, None)
+        if inner is None:
+            return None
+        return functools.partial(sliced, inner, self.indices)
+
+    @property
+    def clone_push_many(self):
+        return self._forward("clone_push_many", _sliced_clone_push_many)
+
+    @property
+    def run_extend(self):
+        return self._forward("run_extend", _sliced_run_extend)
+
+    @property
+    def run_extend_dual(self):
+        return self._forward("run_extend_dual", _sliced_run_extend_dual)
 
 
 class FastPaths:

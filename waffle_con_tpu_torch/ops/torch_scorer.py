@@ -327,6 +327,10 @@ class TorchScorer(WavefrontScorer):
         self._slot_of[handle] = slot
         return handle, slot
 
+    def live_handles(self) -> int:
+        """Branch handles allocated and not yet freed."""
+        return len(self._slot_of)
+
     def _rows(self, slots: List[int]):
         return torch.as_tensor(slots, dtype=torch.long, device=self.device)
 

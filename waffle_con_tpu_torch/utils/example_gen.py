@@ -66,3 +66,33 @@ def generate_test(
         for _ in range(num_samples)
     ]
     return bytes(consensus), samples
+
+
+def generate_priority_test(
+    num_chains: int,
+    seq_len: int,
+    error_rate: float,
+    seeds: Tuple[int, int, int] = (3, 4, 200),
+) -> Tuple[bytes, Tuple[bytes, bytes], List[List[bytes]]]:
+    """Two-level sequence chains whose second level splits the reads in
+    two: the JAX package's priority benchmark draw (``bench.py``
+    ``bench_priority``).  Level 0 is ``generate_test`` at ``seq_len // 2``
+    (seed ``seeds[0]``); level 1 is one of two haplotypes of ``seq_len``
+    bases, the second with the bases at ``seq_len // 3`` and
+    ``2 * seq_len // 3`` shifted by +1 and +2 (mod 4), the first half of
+    the chains from the first (read ``i`` corrupted with the generator
+    seeded ``seeds[2] + i``).  Returns ``(level0_truth, (t1a, t1b),
+    chains)``."""
+    truth, level0 = generate_test(4, seq_len // 2, num_chains, error_rate,
+                                  seed=seeds[0])
+    t1a, _ = generate_test(4, seq_len, 1, 0.0, seed=seeds[1])
+    t1b = bytearray(t1a)
+    t1b[seq_len // 3] = (t1b[seq_len // 3] + 1) % 4
+    t1b[2 * seq_len // 3] = (t1b[2 * seq_len // 3] + 2) % 4
+    t1b = bytes(t1b)
+    chains = [
+        [level0[i], corrupt(t1a if i < num_chains // 2 else t1b, error_rate,
+                            np.random.default_rng(seeds[2] + i))]
+        for i in range(num_chains)
+    ]
+    return truth, (t1a, t1b), chains
