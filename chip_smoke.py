@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases kernel --small   # build + quick check
+    python3 chip_smoke.py --phases replay_kernel,late_main,late_oracle
 
 Phases, one line each (every failure exits non-zero):
 
@@ -54,9 +55,52 @@ Phases, one line each (every failure exits non-zero):
    16 chains x 1 kb at 2 %: the priority engine's ``"python"`` oracle
    and ``"torch"`` on ``cuda`` give equal results, scores included.
 
-Both kernel phases also hold their kernel on a priority-engine group's
-shape (``subset/`` cases): the reads outside the group inactive from the
-root, interleaved across the CTAs or filling whole CTAs.
+10. late_main: the late-read deployment — the single north star's 256
+    reads x 10 kb at 1 %, every read ``i % 4 == 3`` (64 reads) cut at a
+    start from ``default_rng(7).integers(1000, 5000)`` and added with
+    ``add_sequence_offset``, ``min_count=64``, no ``initial_band`` (the
+    band starts at E=8 and grows), the default ``offset_window`` and
+    ``offset_compare_length`` of 50 — through ``ConsensusDWFA`` on
+    ``cuda``, cold then warm; the consensus must equal the truth, every
+    activation must take the offset-scan kernel (its launches equal the
+    scorer's ``offset_scan_calls``), the column replay and run kernels
+    must have launched, 64 activations and a band growth must have
+    happened, and no plain twin may have run.  The cold search records
+    the inputs of its first three offset scans, its first three
+    activations and every growth replay; a second warm search times the
+    scorer's offset, activation and growth calls; the warm wall and the
+    device profile come from a third search with nothing wrapped.  It
+    prints the walls, pops, launches, activations, growth events,
+    replayed columns, the final W, the activations' and growths' share
+    of the timed wall and the device time by kernel.
+11. replay_kernel: the offset scan (``csrc/offset_scan.cu``) and the
+    column replay (``csrc/col_replay.cu``) against their plain PyTorch
+    twins on the card, every output compared bitwise: scans of the
+    default window (P=64, M=64, m=50), the same with the whole head
+    compared (m=64), one position (P=1), a wide window with the wildcard
+    (P=128, M=256), heads too long for the register column (m=1500,
+    the column in shared memory; m=1100 at M=32768, in device memory),
+    and the deployment's first three;
+    one row caught up over 50, 100, 5,000 and no columns (the offset at
+    the branch's end, and past it), an overflow at E=8 that must commit
+    nothing, one row at W=32770 (its columns in device memory) and the
+    deployment's first three activations; growth replays of 16 x 256
+    rows to W=34 at clen 300, to W=258 at clen 6,000 with mixed
+    anchors, inactive rows and free slots, to W=2050, to W=32770, and
+    every growth of the deployment; each line gives the launch geometry
+    (where the columns live included), the kernel's time (CUDA events
+    around the call), the twin's time and the bound.
+12. late_oracle: the ``"python"`` oracle and ``"torch"`` on ``cuda`` give
+    byte-identical results, scores included, with late reads and the
+    default band: 16 reads x 1 kb at 2 % with every 4th read cut at
+    100-500 on the single engine, the same shape with 2 SNPs on the dual
+    engine, and the ``length_gap_001`` fixture.
+
+Both run-kernel phases also hold their kernel on a priority-engine
+group's shape (``subset/`` cases): the reads outside the group inactive
+from the root, interleaved across the CTAs or filling whole CTAs.
+``late_main`` runs before ``replay_kernel``, which also holds the
+deployment's own recorded calls (scans, activations and growths).
 
 The last three lines are the card's name and power limit, the kernel
 table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -1280,6 +1324,593 @@ def phase_priority_oracle():
           flush=True)
 
 
+# ---------------------------------------------------------------------
+# phases 10-12: late reads and band growth
+
+#: int32 operations per DP cell per column of the offset scan: the match
+#: test (3 compares, 2 ors), the substitution and deletion adds 2, their
+#: min 1, and the insertion chain (subtract, min, add) 3
+SCAN_OPS_PER_CELL = 10
+
+#: the late-read deployment's engine settings: the single north star's
+#: reads and min_count, no initial_band (the band starts at E=8 and
+#: grows), the default offset_window and offset_compare_length of 50
+LATE_CFG = dict(min_count=64)
+
+
+def _cut_late(reads, cut, seed=7):
+    """Every read ``i % 4 == 3`` cut at a start drawn from
+    ``default_rng(seed).integers(*cut)`` in read order: ``[(read,
+    offset or None), ...]``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, r in enumerate(reads):
+        if i % 4 == 3:
+            s = int(rng.integers(*cut))
+            out.append((r[s:], s))
+        else:
+            out.append((r, None))
+    return out
+
+
+def late_draw(num_reads=256, seq_len=10000, err=0.01, cut=(1000, 5000),
+              seed=0):
+    """``generate_test(4, seq_len, num_reads, err, seed=seed)`` with every
+    read ``i % 4 == 3`` cut as :func:`_cut_late` does.  Returns
+    ``(truth, [(read, offset or None), ...])``."""
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    truth, reads = generate_test(4, seq_len, num_reads, err, seed=seed)
+    return truth, _cut_late(reads, cut)
+
+
+def late_dual_draw(n=8, length=1000, err=0.02, cut=(100, 500)):
+    """``n`` reads of one haplotype and ``n`` of a second one 2 SNPs away
+    (``_small_dual``), every read ``i % 4 == 3`` of each haplotype cut as
+    in :func:`late_draw`.  Returns ``(t1, t2, [(read, offset), ...])``."""
+    t1, t2, reads = _small_dual(62, err, n=n, length=length,
+                                snps=((300, 1), (700, 2)))
+    return t1, t2, _cut_late(reads, cut)
+
+
+def _add_reads(eng, reads):
+    for r, off in reads:
+        if off is None:
+            eng.add_sequence(r)
+        else:
+            eng.add_sequence_offset(r, off)
+
+
+def scan_bound(B, P, M, m):
+    """(bound_ms, bound_by) of one offset scan: the window and heads read
+    and the scores written once; ``min(2M, 2m)`` columns of ``m + 1``
+    cells per (head, position), the cells and columns that can reach the
+    output (``csrc/offset_scan.cu``'s header says why)."""
+    nbytes = 4 * ((P + 2 * M) + B * M + B * P)
+    cols = min(2 * M, 2 * m)
+    return bound(nbytes, B * P * cols * (m + 1) * SCAN_OPS_PER_CELL)
+
+
+def replay_bound(off, act, clen, W):
+    """(bound_ms, bound_by, stepped columns) of a replay of ``[B, R]``
+    rows: the band and folds written once, each stepped row's read window
+    and its slot's consensus read once; 20 int32 operations per band cell
+    per column this data steps (active rows, ``clen - off`` columns)."""
+    import torch
+
+    cols = torch.where(act, (clen[:, None] - off).clamp(min=0), 0)
+    steps = int(cols.sum())
+    stepped = int((cols > 0).sum())
+    B, R = off.shape
+    nbytes = (4 * B * R * W + 12 * B * R + 2 * (steps + stepped * W)
+              + 4 * int(clen.sum()) + 5 * B * R + 4 * B)
+    bms, by = bound(nbytes, steps * W * OPS_PER_CELL)
+    return bms, by, steps
+
+
+def phase_late_main():
+    """The late-read deployment through ``ConsensusDWFA`` on ``cuda``:
+    256 reads x 10 kb at 1 % (the single north star's draw), 64 of them
+    cut and added with their offsets, ``min_count=64``, no
+    ``initial_band``.  Three searches: ``cold`` records the inputs of its
+    first three offset scans, its first three activations and every
+    growth replay for ``replay_kernel``; ``timed`` (warm) times the
+    scorer's offset, activation and growth calls on the host; ``warm``
+    runs with nothing wrapped and gives the warm wall, the launches and
+    the device profile.  Returns ``((offset_scan, col_replay,
+    run_extend) launches of the warm search, records)``."""
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, ConsensusDWFA
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+    from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+    import torch
+
+    t0 = time.perf_counter()
+    truth, reads = late_draw()
+    gen_s = time.perf_counter() - t0
+    n_late = sum(off is not None for _r, off in reads)
+    b = CdwfaConfigBuilder().backend("torch").device("cuda")
+    for k, v in LATE_CFG.items():
+        b = getattr(b, k)(v)
+    cfg = b.build()
+
+    records = {"scans": [], "activations": [], "grows": []}
+    seen = {"W": None}
+    host_s = {"offset": 0.0, "activate": 0.0, "grow_e": 0.0}
+    scan0, act0, replay0 = rpk.offset_scan, rpk.activate_row, rpk.replay_rows
+    methods = {name: getattr(TorchScorer, name) for name in
+               ("best_activation_offset", "activate", "_grow_e")}
+
+    def rec_scan(cons_win, heads, m, wc, P, M):
+        if len(records["scans"]) < 3:
+            records["scans"].append(
+                (cons_win.clone(), heads.clone(), m, wc, P, M))
+        return scan0(cons_win, heads, m, wc, P, M)
+
+    def rec_activate(state, slot, read, offset, rd, rl, wc, et):
+        if len(records["activations"]) < 3:
+            records["activations"].append(
+                (_copy_state(state), slot, read, offset, rd, rl, wc, et))
+        return act0(state, slot, read, offset, rd, rl, wc, et)
+
+    def rec_replay(off, act, cons, clen, rd, rl, wc, et, E, W):
+        seen["W"] = W
+        records["grows"].append((off.clone(), act.clone(), cons.clone(),
+                                 clen.clone(), rd, rl, wc, et, E, W))
+        return replay0(off, act, cons, clen, rd, rl, wc, et, E, W)
+
+    def timed_method(key, fn):
+        def call(self, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                host_s[key] += time.perf_counter() - t
+        return call
+
+    def wrap(run):
+        """The cold search records, the timed one times; the warm one
+        runs the scorer and the kernel wrappers as they ship."""
+        rpk.offset_scan, rpk.activate_row, rpk.replay_rows = (
+            (rec_scan, rec_activate, rec_replay) if run == "cold"
+            else (scan0, act0, replay0))
+        for name, key in (("best_activation_offset", "offset"),
+                          ("activate", "activate"), ("_grow_e", "grow_e")):
+            setattr(TorchScorer, name, timed_method(key, methods[name])
+                    if run == "timed" else methods[name])
+
+    walls = {}
+    try:
+        for run in ("cold", "timed", "warm"):
+            wrap(run)
+            eng = ConsensusDWFA(cfg)
+            _add_reads(eng, reads)
+            for fn in (rpk.offset_scan_cuda, rpk.replay_rows_cuda,
+                       rk.run_extend_cuda):
+                fn.launches = 0
+            rpk.replay_rows_cuda.activate_launches = 0
+            rk.run_extend_cuda.placements = {"smem": 0, "global": 0}
+            for fn in (rpk.offset_scan_plain, rpk.replay_rows_plain,
+                       rk.run_extend_plain):
+                fn.calls = 0
+            for key in host_s:
+                host_s[key] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.consensus()
+            torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t0
+            launches = (rpk.offset_scan_cuda.launches,
+                        rpk.replay_rows_cuda.launches,
+                        rk.run_extend_cuda.launches)
+            act_launches = rpk.replay_rows_cuda.activate_launches
+            plain = (rpk.offset_scan_plain.calls, rpk.replay_rows_plain.calls,
+                     rk.run_extend_plain.calls)
+            c = eng.last_search_stats["scorer_counters"]
+            if not res or res[0].sequence != truth:
+                raise AssertionError(f"late_main {run}: consensus != truth")
+            if not (launches[0] == c["offset_scan_calls"] > 0
+                    and launches[1] > 0 and launches[2] > 0
+                    and c["activate_calls"] == n_late
+                    and c["grow_e_events"] > 0 and plain == (0, 0, 0)):
+                raise AssertionError(
+                    f"late_main {run}: launches (offset_scan, col_replay, "
+                    f"run_extend) {launches}, plain calls {plain}, counters "
+                    f"{c}")
+            if run == "timed":
+                timed_host = dict(host_s)
+        final_W = seen["W"]
+        device_ms, by_name = _device_ms(eng.consensus)
+    finally:
+        wrap("warm")
+    st = eng.last_search_stats
+    c = st["scorer_counters"]
+    # col_replay_kernel<activate, shared columns>
+    grow_ms = sum(ms for name, ms in by_name.items()
+                  if "col_replay_kernel<false," in name)
+    act_ms = sum(ms for name, ms in by_name.items()
+                 if "col_replay_kernel<true," in name)
+    line = dict(
+        reads=len(reads), late_reads=n_late, length=len(truth),
+        gen_s=round(gen_s, 3), cold_s=round(walls["cold"], 3),
+        timed_s=round(walls["timed"], 3), warm_s=round(walls["warm"], 3),
+        pops=st["nodes_explored"] + st["nodes_ignored"],
+        run_calls=c["run_calls"], run_steps=c["run_steps"],
+        run_stops={k: v for k, v in c.items() if k.startswith("run_stop_")},
+        offset_scan_launches=launches[0], col_replay_launches=launches[1],
+        col_replay_activate_launches=act_launches,
+        run_kernel_launches=launches[2], plain_calls=list(plain),
+        activate_calls=c["activate_calls"],
+        offset_scan_calls=c["offset_scan_calls"],
+        grow_e_events=c["grow_e_events"], replayed_cols=c["replayed_cols"],
+        final_W=final_W,
+        run_kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
+        host_s={k: round(v, 4) for k, v in timed_host.items()},
+        activation_wall_share=round(
+            (timed_host["offset"] + timed_host["activate"]) / walls["timed"],
+            4),
+        growth_wall_share=round(timed_host["grow_e"] / walls["timed"], 4),
+        scores_sum=sum(res[0].scores), profiled_device_ms=device_ms,
+        device_ms_by_kernel=dict(
+            run_extend=round(_kernel_ms(by_name, "run_extend_kernel"), 3),
+            offset_scan=round(_kernel_ms(by_name, "offset_scan_kernel"), 3),
+            col_replay_grow=round(grow_ms, 3),
+            col_replay_activate=round(act_ms, 3)),
+        top_device_ms=dict(list(by_name.items())[:6]),
+        device_busy_share=(
+            None if device_ms is None
+            else round(device_ms / 1e3 / walls["warm"], 4)
+        ),
+    )
+    print("late_main", json.dumps(line), flush=True)
+    return launches, records
+
+
+def _scan_inputs(seed, P, M, m, wc=-2, real=None, wild=0):
+    """A window of ``real`` (default all) random symbols padded with -2
+    and a head of ``m`` random symbols padded with -3, ``wild`` of each
+    replaced by the wildcard ``wc``; on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    win = np.full(P + 2 * M, -2, dtype=np.int32)
+    n = P + 2 * M if real is None else real
+    win[:n] = rng.integers(0, 4, n)
+    head = np.full((1, M), -3, dtype=np.int32)
+    # the head matches the window at one position, with a few edits
+    at = int(rng.integers(0, max(1, n - m)))
+    seg = win[at:at + m].copy()
+    head[0, :len(seg)] = seg
+    flip = rng.choice(m, size=max(1, m // 20), replace=False)
+    head[0, flip] = rng.integers(0, 4, len(flip))
+    if wild:
+        win[rng.choice(n, size=wild, replace=False)] = wc
+        head[0, rng.choice(m, size=wild, replace=False)] = wc
+    dev = torch.device("cuda")
+    return torch.from_numpy(win).to(dev), torch.from_numpy(head).to(dev)
+
+
+def _replay_store(seed, B, R, length, E, clens, late=(), inactive=(),
+                  C=None):
+    """A branch store for the replay cases, on the card: ``R`` reads of
+    ``generate_test(4, length, R, 1 %)``, slot ``b`` holding the truth
+    (slot 1 with every 50th symbol shifted) up to ``clens[b]``; ``late``
+    ``(read, offset)`` rows anchored at ``offset`` with the read cut
+    there, ``inactive`` ``(slot, read)`` rows off.  Returns ``(state,
+    reads, rlen)``."""
+    import numpy as np
+    import torch
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    truth, reads = generate_test(4, length, R, 0.01, seed=seed)
+    reads = list(reads)
+    off = np.zeros((B, R), dtype=np.int32)
+    for r, o in late:
+        reads[r] = reads[r][o:]
+        off[:, r] = o
+    L = 256
+    while L < max(map(len, reads)):
+        L *= 2
+    rd = np.full((R, L), -1, dtype=np.int16)
+    for i, r in enumerate(reads):
+        rd[i, :len(r)] = np.frombuffer(r, dtype=np.uint8)
+    rlen = np.array([len(r) for r in reads], dtype=np.int32)
+    C = C or max(512, 1 << (length + 64 - 1).bit_length())
+    cons = np.zeros((B, C), dtype=np.int32)
+    t = np.frombuffer(truth, dtype=np.uint8).astype(np.int32)
+    for b in range(B):
+        row = t.copy()
+        if b == 1:
+            row[::50] = (row[::50] + 1) % 4
+        cons[b, :len(row)] = row
+    act = np.ones((B, R), dtype=bool)
+    for b, r in inactive:
+        act[b, r] = False
+    W = 2 * E + 2
+    dev = torch.device("cuda")
+    state = dict(
+        D=torch.full((B, R, W), 1 << 20, dtype=torch.int32, device=dev),
+        e=torch.zeros((B, R), dtype=torch.int32, device=dev),
+        rmin=torch.full((B, R), 1 << 20, dtype=torch.int32, device=dev),
+        er=torch.full((B, R), 1 << 20, dtype=torch.int32, device=dev),
+        off=torch.from_numpy(off).to(dev), act=torch.from_numpy(act).to(dev),
+        cons=torch.from_numpy(cons).to(dev),
+        clen=torch.tensor(list(clens), dtype=torch.int32, device=dev),
+    )
+    return (state, torch.from_numpy(rd).to(dev),
+            torch.from_numpy(rlen).to(dev))
+
+
+def _same(a, b):
+    """Max absolute difference of two int tensors (or tuples of them)."""
+    if isinstance(a, (tuple, list)):
+        return max(_same(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _scan_case(label, cons_win, heads, m, wc, P, M, reps=20):
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+
+    got = rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M)
+    plan = rpk.offset_scan_cuda.last_plan
+    held = []
+    p_ms = _time_cuda(lambda: held.append(
+        rpk.offset_scan_plain(cons_win, heads, m, wc, P, M)), 1)
+    err = _same(got, held[0])
+    if err:
+        raise AssertionError(f"{label}: offset_scan kernel != plain ({err})")
+    k_ms = _time_cuda(
+        lambda: rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M), reps)
+    bms, by = scan_bound(heads.shape[0], P, M, m)
+    line = dict(case=label, B=heads.shape[0], P=P, M=M, m=m, wc=wc,
+                warps=plan.warps, blocks=plan.blocks, cells=plan.cells,
+                column=plan.column,
+                smem_bytes=plan.smem_bytes, kernel_ms=round(k_ms, 4),
+                plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by,
+                best=int(held[0].min()))
+    print("replay_kernel", json.dumps(line), flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by), err
+
+
+def _grow_case(label, state, rd, rl, wc, et, E, reps=3):
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+
+    W = 2 * E + 2
+    args = (state["off"], state["act"], state["cons"], state["clen"], rd, rl,
+            wc, et, E, W)
+    got = rpk.replay_rows_cuda(*args)
+    plan = rpk.replay_rows_cuda.last_plan
+    held = []
+    p_ms = _time_cuda(lambda: held.append(rpk.replay_rows_plain(*args)), 1)
+    err = _same(got, held[0])
+    if err:
+        raise AssertionError(f"{label}: col_replay kernel != plain ({err})")
+    k_ms = _time_cuda(lambda: rpk.replay_rows_cuda(*args), reps)
+    bms, by, steps = replay_bound(state["off"], state["act"], state["clen"],
+                                  W)
+    B, R = state["off"].shape
+    line = dict(case=label, mode="grow", B=B, R=R, W=W,
+                clen_max=int(state["clen"].max()), stepped_cols=steps,
+                warps=plan.warps, blocks=plan.blocks, band=plan.band,
+                smem_bytes=plan.smem_bytes, kernel_ms=round(k_ms, 4),
+                plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by)
+    print("replay_kernel", json.dumps(line), flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by), err
+
+
+def _activate_case(label, state, rd, rl, slot, read, offset, wc, et,
+                   want_ovf, reps=5):
+    """One row caught up by the kernel and by the twin on copies of
+    ``state``; both stores and both overflow flags must be equal, the
+    flag ``want_ovf`` (any, when ``None``), and an overflow must leave
+    the store as it was."""
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    import torch
+
+    st_k, st_p = _copy_state(state), _copy_state(state)
+    ovf_k = rpk.activate_row_cuda(st_k, slot, read, offset, rd, rl, wc, et)
+    plan = rpk.replay_rows_cuda.last_plan
+    held = []
+    p_ms = _time_cuda(lambda: held.append(rpk.activate_row_plain(
+        st_p, slot, read, offset, rd, rl, wc, et)), 1)
+    if ovf_k != held[0] or want_ovf not in (None, ovf_k):
+        raise AssertionError(
+            f"{label}: overflow kernel {ovf_k}, plain {held[0]}, expected "
+            f"{want_ovf}")
+    err = max(_same(st_k[k], st_p[k]) for k in state)
+    if ovf_k:
+        err = max(err, max(_same(st_k[k], state[k]) for k in state))
+    if err:
+        raise AssertionError(f"{label}: col_replay kernel != plain ({err})")
+    k_ms = _time_cuda(lambda: rpk.activate_row_cuda(
+        st_k, slot, read, offset, rd, rl, wc, et), reps)
+    W = state["D"].shape[2]
+    cols = max(0, int(state["clen"][slot]) - offset)
+    one = lambda t: t[slot:slot + 1, read:read + 1]  # noqa: E731
+    bms, by, _ = replay_bound(
+        torch.full_like(one(state["off"]), offset),
+        torch.ones_like(one(state["act"])), state["clen"][slot:slot + 1], W)
+    line = dict(case=label, mode="activate", W=W, cols=cols, overflow=ovf_k,
+                band=plan.band, kernel_ms=round(k_ms, 4),
+                plain_ms=round(p_ms, 3),
+                bound_ms=bms, bound_by=by)
+    print("replay_kernel", json.dumps(line), flush=True)
+    return err
+
+
+def phase_replay_kernel(small_only: bool, records=None):
+    """Both new kernels against their plain twins on the card, every
+    output compared bitwise: the offset scan on the default window (and
+    with the whole head compared), one position, a wide window with the
+    wildcard, heads too long for the register column (in shared memory,
+    and at M=32768 in device memory) and the deployment's first three
+    calls; the column
+    replay catching one row up over 50, 100, 5,000 and no columns (the
+    offset at the branch's end, and past it), an overflow at E=8 that
+    commits nothing, one row at W=32770 (columns in device memory) and
+    the deployment's first three activations, and growth replays of the
+    whole store (16 x 256 rows to W=34; W=258 at clen 6,000 with mixed
+    anchors, inactive rows and free slots; W=2050; W=32770) and the
+    deployment's own.  Returns the kernel table's numbers of both
+    kernels (from the deployment's calls when ``late_main`` ran) and the
+    max error of each."""
+    records = records or {"scans": [], "activations": [], "grows": []}
+    err_scan = err_rep = 0
+    scan_t = rep_t = None
+    # -- offset scan
+    cases = [("scan/default_window", 64, 64, 50, -2, 100, 0),
+             ("scan/one_position", 1, 64, 40, -2, None, 0)]
+    if not small_only:
+        cases += [("scan/whole_head", 64, 64, 64, -2, 100, 0),
+                  ("scan/wide_wildcard", 128, 256, 200, 4, 500, 6),
+                  # too long a head for the register column: the column
+                  # in shared memory, then in device memory
+                  ("scan/long_head", 2, 2048, 1500, -2, 4000, 0),
+                  ("scan/global_column", 1, 32768, 1100, -2, 3000, 0)]
+    for k, (label, P, M, m, wc, real, wild) in enumerate(cases):
+        win, head = _scan_inputs(10 + k, P, M, m, wc, real, wild)
+        t, e = _scan_case(label, win, head, m, wc, P, M)
+        err_scan = max(err_scan, e)
+        scan_t = scan_t or t
+    for k, (win, head, m, wc, P, M) in enumerate(records["scans"]):
+        t, e = _scan_case(f"scan/deployment_{k}", win, head, m, wc, P, M)
+        err_scan = max(err_scan, e)
+        if k == 0:
+            scan_t = t
+    # -- column replay, activation mode
+    # read r cut where it is activated: 50, 100 and 5,000 columns behind
+    # the branch's 5,600
+    rows = ((3, 50), (7, 100)) + (() if small_only else ((11, 5000),))
+    st, rd, rl = _replay_store(20, 4, 16, 6000, 128, (5600, 5600, 0, 0),
+                               late=[(r, 5600 - cols) for r, cols in rows])
+    for r, cols in rows:
+        err_rep = max(err_rep, _activate_case(
+            f"activate/{cols}_cols", st, rd, rl, 0, r, 5600 - cols, -2,
+            False, False))
+    # no column to catch up: the offset at the branch's end, and past it
+    for label, r, offset in (("activate/0_cols", 1, 5600),
+                             ("activate/past_end", 2, 5700)):
+        err_rep = max(err_rep, _activate_case(label, st, rd, rl, 0, r,
+                                              offset, -2, False, False))
+    # slot 1's consensus differs from the read every 50th symbol
+    st, rd, rl = _replay_store(21, 4, 16, 2000, 8, (1500, 1500, 0, 0),
+                               late=((5, 200),))
+    err_rep = max(err_rep, _activate_case(
+        "activate/overflow_E8", st, rd, rl, 1, 5, 200, -2, False, True))
+    if not small_only:
+        # E = 16384: the row's two columns only fit device memory
+        st, rd, rl = _replay_store(25, 2, 4, 700, 16384, (600, 0),
+                                   late=((1, 500),))
+        err_rep = max(err_rep, _activate_case(
+            "activate/global_band", st, rd, rl, 0, 1, 500, -2, False,
+            False))
+    for k, (st, slot, read, offset, rd, rl, wc, et) in enumerate(
+            records["activations"]):
+        err_rep = max(err_rep, _activate_case(
+            f"activate/deployment_{k}", st, rd, rl, slot, read, offset, wc,
+            et, None))
+    # -- column replay, growth mode
+    grows = [("grow/B16_R256_W34_clen300",
+              dict(seed=22, B=16, R=256, length=400, E=16,
+                   clens=[300] * 16))]
+    if not small_only:
+        grows += [
+            ("grow/W258_clen6000_mixed",
+             dict(seed=23, B=16, R=64, length=6200, E=128,
+                  clens=[6000, 5000, 4000, 0, 6000, 300] + [0] * 10,
+                  late=[(r, 100 * r) for r in range(3, 64, 4)],
+                  inactive=[(b, r) for b in range(16) for r in (1, 30)])),
+            ("grow/W2050", dict(seed=24, B=4, R=16, length=700, E=1024,
+                                clens=[600, 400, 0, 600])),
+            ("grow/W32770_global", dict(seed=26, B=2, R=8, length=700,
+                                        E=16384, clens=[600, 0],
+                                        late=((3, 200),))),
+        ]
+    for label, spec in grows:
+        st, rd, rl = _replay_store(**spec)
+        t, e = _grow_case(label, st, rd, rl, -2, False, spec["E"])
+        err_rep = max(err_rep, e)
+        if label == "grow/W258_clen6000_mixed" or rep_t is None:
+            rep_t = t
+    for k, (off, act, cons, clen, rd, rl, wc, et, E, W) in enumerate(
+            records["grows"]):
+        st = dict(off=off, act=act, cons=cons, clen=clen)
+        t, e = _grow_case(f"grow/deployment_{k}", st, rd, rl, wc, et, E)
+        err_rep = max(err_rep, e)
+        rep_t = t  # the deployment's last (widest) growth
+    return (scan_t, err_scan), (rep_t, err_rep)
+
+
+def phase_late_oracle():
+    """The ``"python"`` oracle and ``"torch"`` on ``cuda`` give identical
+    results, scores included, with late reads and the default band: the
+    single engine on 16 reads x 1 kb at 2 % (every 4th read cut at
+    100-500), the dual engine on the same shape with 2 SNPs, and the
+    ``length_gap_001`` fixture."""
+    from waffle_con_tpu_torch import (
+        CdwfaConfigBuilder,
+        ConsensusCost,
+        ConsensusDWFA,
+        DualConsensusDWFA,
+    )
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    from waffle_con_tpu_torch.utils.fixtures import load_dual_fixture
+
+    truth, single = late_draw(16, 1000, 0.02, (100, 500), seed=1)
+    t1, t2, dual = late_dual_draw()
+    gap, _ = load_dual_fixture("length_gap_001", False,
+                               ConsensusCost.L2_DISTANCE)
+    cases = [
+        ("single", ConsensusDWFA, single, dict(min_count=4)),
+        ("dual", DualConsensusDWFA, dual, dict(min_count=4)),
+        ("length_gap_001", DualConsensusDWFA, [(r, None) for r in gap],
+         dict(wildcard=ord("*"), min_count=2, dual_max_ed_delta=5,
+              max_queue_size=1000,
+              consensus_cost=ConsensusCost.L2_DISTANCE)),
+    ]
+    seen = {}
+    for name, engine, reads, fields in cases:
+        got = {}
+        l0 = (rpk.offset_scan_cuda.launches, rpk.replay_rows_cuda.launches)
+        for be in ("python", "torch"):
+            b = CdwfaConfigBuilder().backend(be).device("cuda")
+            for k, v in fields.items():
+                b = getattr(b, k)(v)
+            eng = engine(b.build())
+            _add_reads(eng, reads)
+            t0 = time.perf_counter()
+            res = eng.consensus()
+            got[be + "_s"] = round(time.perf_counter() - t0, 3)
+            got[be] = (_dual_key(res) if engine is DualConsensusDWFA
+                       else [(c.sequence, list(c.scores)) for c in res])
+        if got["python"] != got["torch"]:
+            raise AssertionError(f"late_oracle: {name}: python and torch "
+                                 "results differ")
+        c = eng.last_search_stats["scorer_counters"]
+        first = got["torch"][0]
+        if name == "single":
+            found = first[0] == truth
+        elif name == "dual":
+            found = {first[0][0], first[1] and first[1][0]} == {t1, t2}
+        else:
+            found = None
+        seen[name] = dict(
+            results=len(got["torch"]), truth=found,
+            activate_calls=c["activate_calls"],
+            offset_scan_calls=c["offset_scan_calls"],
+            grow_e_events=c["grow_e_events"],
+            offset_scan_launches=rpk.offset_scan_cuda.launches - l0[0],
+            col_replay_launches=rpk.replay_rows_cuda.launches - l0[1],
+            python_s=got["python_s"], torch_s=got["torch_s"])
+    print("late_oracle", json.dumps(dict(cases=seen, identical=True)),
+          flush=True)
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -1302,7 +1933,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
-                "priority_main,priority_oracle",
+                "priority_main,priority_oracle,replay_kernel,late_main,"
+                "late_oracle",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -1352,6 +1984,14 @@ def main(argv=None) -> int:
     timed("dual_oracle", phase_dual_oracle)
     prio_launches = timed("priority_main", phase_priority_main) or (None, None)
     timed("priority_oracle", phase_priority_oracle)
+    # late_main runs first: replay_kernel also holds the deployment's own
+    # recorded calls
+    late_launches, late_records = (
+        timed("late_main", phase_late_main) or ((None,) * 3, None))
+    scan_check, replay_check = (
+        timed("replay_kernel", phase_replay_kernel, opts.small, late_records)
+        or (None, None))
+    timed("late_oracle", phase_late_oracle)
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
                    run_check, dict(main=run_launches,
@@ -1361,6 +2001,10 @@ def main(argv=None) -> int:
                    "pallas_run.py:976", dual_check,
                    dict(dual_main=dual_launches[0],
                         priority_main=prio_launches[1])),
+        kernel_row("offset_scan", "offset_scan.cu", "jax_scorer.py:2637",
+                   scan_check, dict(late_main=late_launches[0])),
+        kernel_row("col_replay", "col_replay.cu", "jax_scorer.py:773,2688",
+                   replay_check, dict(late_main=late_launches[1])),
     ]
 
     print("phase_seconds", json.dumps(phase_s), flush=True)

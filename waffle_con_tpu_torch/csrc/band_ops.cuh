@@ -1,6 +1,7 @@
 // Band operations of the run kernels (csrc/run_extend.cu,
-// csrc/run_extend_dual.cu): one read's tip histogram and one read's DP
-// column step, each done by one warp over the read's [W] band row.
+// csrc/run_extend_dual.cu) and the column replay (csrc/col_replay.cu):
+// one read's tip histogram and one read's DP column step, each done by
+// one warp over the read's [W] band row.
 //
 // The band is the branch store's [R, W] int32 layout: cell t of read r at
 // consensus length j faces read position i = j - off[r] - E + t.  A
@@ -84,13 +85,15 @@ __device__ __forceinline__ int tip_histogram_win(const int32_t* Dr,
 // tile.  Pass 1 writes each cell's base (diagonal, deletion, validity)
 // into Dn; pass 2 turns it into the new cell.
 //
-// It also takes the tip histogram of the new column (cells with
-// D <= e_new facing a real read base) into `hist`, its size into *split:
-// pass 2 keeps each lane's least cell facing a read base, and only the
-// lanes whose least cell is within e_new (a few, around the alignment's
-// tip) walk their run a third time.  Returns the read's new (e, rmin,
-// er) folds, the same in every lane.
-template <class Win>
+// With kVotes it also takes the tip histogram of the new column (cells
+// with D <= e_new facing a real read base) into `hist`, its size into
+// *split: pass 2 keeps each lane's least cell facing a read base, and
+// only the lanes whose least cell is within e_new (a few, around the
+// alignment's tip) walk their run a third time.  Without it (a replay,
+// which needs no vote) `hist` and `split` are not touched and the caller
+// orders the warp's accesses to Dn (__syncwarp) before the next column.
+// Returns the read's new (e, rmin, er) folds, the same in every lane.
+template <class Win, bool kVotes = true>
 __device__ __forceinline__ Folds3 column_step_runs(
     const int32_t* __restrict__ Do, int32_t* __restrict__ Dn,
     const Win& win, int W, int rl, int i0, int sym, int wc, int et,
@@ -139,6 +142,7 @@ __device__ __forceinline__ Folds3 column_step_runs(
   const int e_n = et ? e_cap : e_unc;
   const int er_n =
       f.er < kInf ? f.er : (rmin_n <= e_n ? max(f.e, rmin_n) : kInf);
+  if constexpr (!kVotes) return Folds3{e_n, rmin_n, er_n};
   int n = 0;
   if (vmin <= e_n) {
     for (int t = ta; t < tb; ++t) {

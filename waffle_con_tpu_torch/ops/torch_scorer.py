@@ -14,11 +14,16 @@ package's module docstring; the parity tests hold this port to it.
 The column primitives (:func:`init_col`, :func:`col_step`,
 :func:`stats_core`, :func:`finalized`) are plain torch ops over any
 number of leading branch dimensions.  The branch life-cycle calls
-(root, clone, push, stats, activate, finalize, band growth) are built
-from them.  The run loops — the hot path — are the CUDA kernels of
+(root, clone, push, stats, finalize) are built from them.  The run
+loops — the hot path — are the CUDA kernels of
 :mod:`waffle_con_tpu_torch.ops.run_kernel` (one branch) and
 :mod:`waffle_con_tpu_torch.ops.run_dual_kernel` (the two branches of a
 dual node) on a CUDA device, and their plain torch twins on the CPU.
+Late reads and band growth (the activation-offset search, activation's
+catch-up and the replay of every branch at a grown band) go through
+:mod:`waffle_con_tpu_torch.ops.replay_kernel`: CUDA kernels on a CUDA
+device, and the plain twins :func:`offset_scan` and :func:`replay_rows`
+on the CPU.
 
 Geometry follows ``JaxScorer`` so scorer-level outputs and stop codes
 match, not only final sequences: reads padded to a power of two (at
@@ -35,7 +40,11 @@ import numpy as np
 import torch
 
 from waffle_con_tpu_torch.config import CdwfaConfig
-from waffle_con_tpu_torch.ops.scorer import BranchStats, WavefrontScorer
+from waffle_con_tpu_torch.ops.scorer import (
+    BranchStats,
+    WavefrontScorer,
+    find_activation_offset,
+)
 
 #: band "infinity" (unreachable cell)
 INF = 1 << 20
@@ -172,6 +181,71 @@ def finalized(e, rmin, act, E: int):
     return torch.where(act, fin.clamp(max=INF), 0).to(torch.int32), ovf
 
 
+def offset_scan(cons_win, heads, m: int, wc: int, P: int, M: int):
+    """Activation-offset scores of every window position: ``ed[b, p] =
+    min_j Lev(heads[b][:m], cons_win[p : p + j])`` for ``p < P``, the
+    prefix mode of ``wfa_ed_config(require_both_end=False)`` as one dense
+    DP over ``j = 1 .. 2M`` (a longer consensus prefix costs more than
+    the empty one).  ``cons_win`` is ``[P + 2M]`` int32 dense ids padded
+    with a sentinel, ``heads`` ``[B, M]`` int32 padded with another; the
+    sentinels never match, the wildcard ``wc`` (or -2) matches on either
+    side.  Returns ``[B, P]`` int32.  The twin of ``waffle_con_tpu``'s
+    ``_j_offset_scan``."""
+    dev = heads.device
+    B = heads.shape[0]
+    Wn = cons_win.shape[0]
+    i = torch.arange(M + 1, dtype=torch.int32, device=dev)
+    pidx = torch.arange(P, dtype=torch.int32, device=dev)
+    col = i.expand(B, P, M + 1)
+    best = torch.full((B, P), min(3 * M + 5, m), dtype=torch.int32,
+                      device=dev)
+    head = heads[:, None, :]
+    for j in range(1, 2 * M + 1):
+        cj = cons_win[(pidx + j - 1).clamp(0, Wn - 1).long()][None, :, None]
+        match = head == cj
+        if wc >= 0:
+            match = match | (head == wc) | (cj == wc)
+        tmp = torch.minimum(col[..., :-1] + (~match).to(torch.int32),
+                            col[..., 1:] + 1)
+        full = torch.cat(
+            [torch.full((B, P, 1), j, dtype=torch.int32, device=dev), tmp], -1)
+        # insertion chain new[i] = min_{k <= i} full[k] + (i - k)
+        col = (torch.cummin(full - i, dim=-1).values + i).to(torch.int32)
+        best = torch.minimum(best, col[..., m])
+    return best
+
+
+def replay_rows(off, act, cons, clen, reads, rlen, wc: int, et: bool,
+                E: int, W: int):
+    """Every ``(slot, read)`` row's band rebuilt at half-width ``E``
+    (``W`` cells): ``init_col`` at the row's own ``off``, then one column
+    step per consensus symbol ``cons[slot, j]`` for ``off <= j <
+    clen[slot]``, on active rows only (inactive rows keep ``init_col``'s
+    values).  ``off``/``act`` ``[B, R]``, ``cons`` ``[B, C]``, ``clen``
+    ``[B]``, ``reads`` ``[R, L]``, ``rlen`` ``[R]``.  Returns ``(D [B, R,
+    W], e, rmin, er)``.  A row depends only on its own column, its read
+    and its slot's consensus, so this is both ``waffle_con_tpu``'s
+    ``_j_replay`` (every row, after band growth) and ``_j_activate``'s
+    catch-up (one row)."""
+    D, e, rmin, er = init_col(off, act, rlen, E, W)
+    maxlen = int(clen.max())
+    # columns before every active row's anchor step nothing
+    j0 = int(torch.where(act, off, maxlen).min())
+    C = cons.shape[1]
+    for j in range(j0, maxlen):
+        sym = cons[:, min(j, C - 1)]
+        Dn, en, rminn, ern = col_step(
+            D, e, rmin, er, off, act, rlen,
+            gather_window(reads, j, off, E, W), j + 1, sym, wc, et, E,
+        )
+        stepm = act & (off <= j) & (j < clen[:, None])
+        D = torch.where(stepm[..., None], Dn, D)
+        e = torch.where(stepm, en, e)
+        rmin = torch.where(stepm, rminn, rmin)
+        er = torch.where(stepm, ern, er)
+    return D.contiguous(), e, rmin, er
+
+
 # ======================================================================
 
 
@@ -240,6 +314,7 @@ class TorchScorer(WavefrontScorer):
             "finalize_calls": 0,
             "grow_e_events": 0,
             "replayed_cols": 0,
+            "offset_scan_calls": 0,
         }
 
     # -- geometry ------------------------------------------------------
@@ -267,29 +342,19 @@ class TorchScorer(WavefrontScorer):
         """Double the band half-width and rebuild every branch's band at
         the new width by replaying its recorded consensus from each
         read's anchor (a band is a window, so it cannot be re-padded in
-        place)."""
+        place): one column-replay launch over every (slot, read) row on
+        a CUDA device."""
+        from waffle_con_tpu_torch.ops import replay_kernel
+
         self._E *= 2
         st = self._state
-        W, E = self._W, self._E
-        off, act, cons, clen = st["off"], st["act"], st["cons"], st["clen"]
-        D, e, rmin, er = init_col(off, act, self._rlen, E, W)
-        maxlen = int(clen.max())
         self.counters["grow_e_events"] += 1
-        self.counters["replayed_cols"] += maxlen
-        C = cons.shape[1]
-        for j in range(maxlen):
-            sym = cons[:, min(j, C - 1)]
-            Dn, en, rminn, ern = col_step(
-                D, e, rmin, er, off, act, self._rlen,
-                gather_window(self._reads, j, off, E, W), j + 1, sym,
-                self._wc, self._et, E,
-            )
-            stepm = act & (off <= j) & (j < clen[:, None])
-            D = torch.where(stepm[..., None], Dn, D)
-            e = torch.where(stepm, en, e)
-            rmin = torch.where(stepm, rminn, rmin)
-            er = torch.where(stepm, ern, er)
-        st.update(D=D.contiguous(), e=e, rmin=rmin, er=er)
+        self.counters["replayed_cols"] += int(st["clen"].max())
+        D, e, rmin, er = replay_kernel.replay_rows(
+            st["off"], st["act"], st["cons"], st["clen"], self._reads,
+            self._rlen, self._wc, self._et, self._E, self._W,
+        )
+        st.update(D=D, e=e, rmin=rmin, er=er)
 
     def _grow_slots(self) -> None:
         old_b = self._B
@@ -501,43 +566,73 @@ class TorchScorer(WavefrontScorer):
         )
         return self._stats_np(*(x.cpu().numpy() for x in (eds, occ, split, reached)))
 
+    def best_activation_offset(
+        self,
+        consensus: bytes,
+        seq_index: int,
+        offset_window: int,
+        offset_compare_length: int,
+        wildcard,
+    ) -> int:
+        """Device-batched activation-offset search (one offset scan
+        scoring the whole window) with the host loop's exact
+        first-best/midpoint-incumbent tie semantics; tiny problems fall
+        back to the host WFA loop."""
+        from waffle_con_tpu_torch.ops import replay_kernel
+
+        seq = self.reads[seq_index]
+        cmp_len = min(offset_compare_length, len(seq))
+        con_len = len(consensus)
+        start = max(0, con_len - (offset_window + cmp_len))
+        end = max(0, con_len - cmp_len)
+        n_pos = end - start
+        if n_pos <= 1 or cmp_len * n_pos < 512:
+            return find_activation_offset(
+                consensus, seq, offset_window, offset_compare_length,
+                wildcard,
+            )
+        M = _next_pow2(cmp_len)
+        P = _next_pow2(n_pos)
+        # window (sentinel -2) and head (sentinel -3) in one upload
+        buf = np.full(P + 3 * M, -2, dtype=np.int32)
+        tail = consensus[start : min(con_len, start + P + 2 * M)]
+        buf[: len(tail)] = [self.sym_id[b] for b in tail]
+        buf[P + 2 * M :] = -3
+        buf[P + 2 * M : P + 2 * M + cmp_len] = [
+            self.sym_id[b] for b in seq[:cmp_len]
+        ]
+        self.counters["offset_scan_calls"] += 1
+        dev = torch.from_numpy(buf).to(self.device)
+        eds = replay_kernel.offset_scan(
+            dev[: P + 2 * M], dev[P + 2 * M :].view(1, M), cmp_len, self._wc,
+            P, M,
+        )[0].cpu().numpy()
+        best_offset = max(0, con_len - (cmp_len + offset_window // 2))
+        min_ed = int(eds[best_offset - start])
+        for p in range(n_pos):
+            if int(eds[p]) < min_ed:
+                min_ed = int(eds[p])
+                best_offset = start + p
+        return best_offset
+
     def activate(
         self, h: int, read_index: int, offset: int, consensus: bytes
     ) -> None:
         """Track ``read_index`` from consensus offset ``offset``: a fresh
         column at ``j == offset``, caught up through the branch's recorded
-        consensus (band overflow grows the band and retries)."""
+        consensus in one column-replay launch on a CUDA device (band
+        overflow commits nothing, grows the band and retries)."""
+        from waffle_con_tpu_torch.ops import replay_kernel
+
         self.counters["activate_calls"] += 1
         slot = self._slot_of[h]
         self._off_host[slot, read_index] = offset
         self._act_host[slot, read_index] = True
-        st = self._state
-        clen = int(st["clen"][slot])
-        syms = st["cons"][slot, offset:clen].tolist()
-        dev = self.device
-        off1 = torch.full((1,), offset, dtype=torch.int32, device=dev)
-        act1 = torch.ones((1,), dtype=torch.bool, device=dev)
-        rlen1 = self._rlen[read_index:read_index + 1]
-        reads1 = self._reads[read_index:read_index + 1]
-        while True:
-            E, W = self._E, self._W
-            D, e, rmin, er = init_col(off1, act1, rlen1, E, W)
-            for j, sym in zip(range(offset, clen), syms):
-                D, e, rmin, er = col_step(
-                    D, e, rmin, er, off1, act1, rlen1,
-                    gather_window(reads1, j, off1, E, W), j + 1, sym,
-                    self._wc, self._et, E,
-                )
-            if int(e[0]) >= E:
-                self._grow_e()
-                continue
-            st["D"][slot, read_index] = D[0]
-            st["e"][slot, read_index] = e[0]
-            st["rmin"][slot, read_index] = rmin[0]
-            st["er"][slot, read_index] = er[0]
-            st["off"][slot, read_index] = offset
-            st["act"][slot, read_index] = True
-            return
+        while replay_kernel.activate_row(
+            self._state, slot, read_index, offset, self._reads, self._rlen,
+            self._wc, self._et,
+        ):
+            self._grow_e()
 
     def deactivate(self, h: int, read_index: int) -> None:
         self.deactivate_many([(h, read_index)])
