@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases kernel --small   # build + quick check
     python3 chip_smoke.py --phases replay_kernel,late_main,late_oracle
+    python3 chip_smoke.py --phases arena_kernel --small  # arena build + check
+    python3 chip_smoke.py --phases dual_main --profile [--arena off]
 
 Phases, one line each (every failure exits non-zero):
 
@@ -96,6 +98,27 @@ Phases, one line each (every failure exits non-zero):
     100-500 on the single engine, the same shape with 2 SNPs on the dual
     engine, and the ``length_gap_001`` fixture.
 
+13. arena_kernel: the K-node pop arena (``csrc/arena.cu``, one CTA)
+    against its plain twin on the card, every field of the packed output
+    and every store row some node owns compared bitwise: the first three
+    arena calls of ``dual_main``'s cold search and the first of
+    ``priority_main``'s (a group's call through its ``SubsetScorer``),
+    recorded as they ran, and the calls of nine small searches chosen to
+    reach every stop code 1-5, a discard on the device, creation in both
+    modes, a full creation pool (``stop_diag`` without flag 8), mixed
+    offsets, weighted, ``mc_dyn`` and L2 votes, and W = 514 and 2050
+    (the phase fails when one is not reached); each line gives the plan,
+    the kernel's time (CUDA events around the launch), the twin's and
+    the bound.
+
+``main``, ``dual_main``, ``priority_main`` and ``late_main`` also give
+the arena's launches, plan and counters (calls, events, stop codes,
+discards, creations); ``dual_main`` and ``priority_main`` fail when the
+arena never launched, and every path fails when a plain twin ran.
+``--arena off`` switches the engines' arena off (the previous slice's
+path) for comparisons, ``--profile`` adds a ``cProfile`` of one more
+warm ``dual_main`` search.
+
 Both run-kernel phases also hold their kernel on a priority-engine
 group's shape (``subset/`` cases): the reads outside the group inactive
 from the root, interleaved across the CTAs or filling whole CTAs.
@@ -152,6 +175,62 @@ def bound(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_int32_ops_s() * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+#: arena launches of each main path's warm search (path -> count)
+ARENA_LAUNCHES = {}
+#: the arena calls recorded by the main paths' cold searches
+ARENA_RECORDS = {}
+
+
+#: ``--arena off``: the engines' arena fast path switched off (the path
+#: of the previous slice), for comparison runs
+ARENA_OFF = False
+#: ``--profile``: ``dual_main`` adds a host profile of one more warm search
+PROFILE = False
+
+
+def host_profile(fn, top=15):
+    """``cProfile`` of ``fn()``: its wall and the ``top`` functions by
+    own time as ``[function, calls, own s, cumulative s]``."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return dict(wall_s=round(wall, 3), top=[
+        [f"{path.rsplit('/', 1)[-1]}:{line}({name})", calls, round(tt, 3),
+         round(ct, 3)]
+        for (path, line, name), (_cc, calls, tt, ct, _callers) in rows
+    ])
+
+
+def reset_arena_counts():
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    ak.arena_cuda.launches = 0
+    ak.arena_cuda.placements = {"smem": 0, "global": 0}
+    ak.arena_plain.calls = 0
+
+
+def arena_plan():
+    """The last arena launch's plan and the launches by band placement."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    plan = ak.arena_cuda.last_plan
+    return dict(plan=None if plan is None else plan._asdict(),
+                placements=dict(ak.arena_cuda.placements))
+
+
+def arena_counts():
+    """(arena kernel launches, twin calls) since the last reset."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    return ak.arena_cuda.launches, ak.arena_plain.calls
 
 
 # ---------------------------------------------------------------------
@@ -518,6 +597,7 @@ def phase_main():
         rk.run_extend_cuda.launches = 0
         rk.run_extend_cuda.placements = {"smem": 0, "global": 0}
         rk.run_extend_plain.calls = 0
+        reset_arena_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = eng.consensus()
@@ -525,9 +605,13 @@ def phase_main():
         walls.append(time.perf_counter() - t0)
         launches = rk.run_extend_cuda.launches
         placements = dict(rk.run_extend_cuda.placements)
-        plain_calls = rk.run_extend_plain.calls
+        arena_launches, arena_plain = arena_counts()
+        plain_calls = rk.run_extend_plain.calls + arena_plain
         if not res or res[0].sequence != truth:
             raise AssertionError(f"{run}: consensus != truth")
+        if (arena_launches
+                != eng.last_search_stats["scorer_counters"]["arena_calls"]):
+            raise AssertionError(f"{run}: {arena_launches} arena launches")
         if launches <= 0 or plain_calls != 0:
             raise AssertionError(
                 f"{run}: run kernel launches {launches}, plain calls "
@@ -547,6 +631,7 @@ def phase_main():
         steps_per_s=round(c["run_steps"] / walls[1], 1),
         push_calls=c["push_calls"], clone_push_calls=c["clone_push_calls"],
         grow_e_events=c["grow_e_events"], scores_sum=sum(res[0].scores),
+        arena_kernel_launches=arena_launches, **arena_counters(c),
         profiled_device_ms=device_ms,
         device_busy_share=(
             None if device_ms is None
@@ -554,6 +639,7 @@ def phase_main():
         ),
     )
     print("main", json.dumps(line), flush=True)
+    ARENA_LAUNCHES["main"] = arena_launches
     return launches
 
 
@@ -1021,10 +1107,12 @@ def phase_dual_main():
     cfg = (CdwfaConfigBuilder().backend("torch").device("cuda")
            .min_count(16).initial_band(116).build())
     walls = []
+    recorder = ArenaRecorder(3)
     for run in ("cold", "warm"):
         eng = DualConsensusDWFA(cfg)
         for r in reads:
             eng.add_sequence(r)
+        reset_arena_counts()
         rdk.run_extend_dual_cuda.launches = 0
         rdk.run_extend_dual_cuda.placements = {"smem": 0, "global": 0}
         rdk.run_extend_dual_plain.calls = 0
@@ -1033,24 +1121,34 @@ def phase_dual_main():
         rk.run_extend_plain.calls = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = eng.consensus()
+        if run == "cold":
+            with recorder:
+                res = eng.consensus()
+        else:
+            res = eng.consensus()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launches = (rdk.run_extend_dual_cuda.launches,
-                    rk.run_extend_cuda.launches)
+                    rk.run_extend_cuda.launches) + arena_counts()[:1]
         placements = dict(rk.run_extend_cuda.placements)
         dual_placements = dict(rdk.run_extend_dual_cuda.placements)
         plain_calls = (rdk.run_extend_dual_plain.calls,
-                       rk.run_extend_plain.calls)
+                       rk.run_extend_plain.calls) + arena_counts()[1:]
         if not res or not res[0].is_dual() or {
             res[0].consensus1.sequence, res[0].consensus2.sequence
         } != {truth, h2}:
             raise AssertionError(f"{run}: haplotypes not recovered")
-        # the path runs both kernels: the single one up to the split
-        if min(launches) <= 0 or plain_calls != (0, 0):
+        # the path runs the single kernel up to the split and the arena
+        # after it (the dual kernel where a dual node has no competitor);
+        # no plain twin runs
+        c = eng.last_search_stats["scorer_counters"]
+        if (launches[1] <= 0 or plain_calls != (0, 0, 0)
+                or launches != (c["run_dual_calls"], c["run_calls"],
+                                c.get("arena_calls", 0))
+                or (launches[2] <= 0 and not ARENA_OFF)):
             raise AssertionError(
-                f"{run}: kernel launches (dual, single) {launches}, plain "
-                f"calls {plain_calls}"
+                f"{run}: kernel launches (dual, single, arena) {launches}, "
+                f"plain calls {plain_calls}"
             )
     device_ms, by_name = _device_ms(eng.consensus)
     # the profiled search is the same deterministic search: same launches
@@ -1061,8 +1159,11 @@ def phase_dual_main():
              launches[0]),
             ("run_kernel_device_ms_per_launch", "run_extend_kernel",
              launches[1]),
+            ("arena_kernel_device_ms_per_launch", "arena_kernel",
+             launches[2]),
         )
     }
+    profile = host_profile(eng.consensus) if PROFILE else None
     st = eng.last_search_stats
     c = st["scorer_counters"]
     steps = c["run_dual_steps"] + c["run_steps"]
@@ -1080,6 +1181,8 @@ def phase_dual_main():
         run_dual_calls=c["run_dual_calls"], run_dual_steps=c["run_dual_steps"],
         run_calls=c["run_calls"], run_steps=c["run_steps"],
         dual_kernel_launches=launches[0], run_kernel_launches=launches[1],
+        arena_kernel_launches=launches[2], arena_kernel_plan=arena_plan(),
+        **arena_counters(c),
         dual_kernel_plan=_dual_plan_fields(rdk.run_extend_dual_cuda.last_plan),
         dual_kernel_band_placements=dual_placements,
         run_kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
@@ -1098,8 +1201,14 @@ def phase_dual_main():
             None if device_ms is None
             else round(device_ms / 1e3 / walls[1], 4)
         ),
+        host_ms_per_pop=round(
+            (walls[1] - (device_ms or 0) / 1e3) * 1e3
+            / max(st["nodes_explored"] + st["nodes_ignored"], 1), 4),
+        host_profile=profile,
     )
     print("dual_main", json.dumps(line), flush=True)
+    ARENA_LAUNCHES["dual_main"] = launches[2]
+    ARENA_RECORDS["dual_main"] = recorder.calls
     return launches
 
 
@@ -1187,6 +1296,7 @@ def phase_priority_main():
         return sc
 
     walls = []
+    recorder = ArenaRecorder(1)
     pc.make_scorer = recording
     try:
         for run in ("cold", "warm"):
@@ -1200,14 +1310,19 @@ def phase_priority_main():
             rk.run_extend_plain.calls = 0
             rdk.run_extend_dual_cuda.launches = 0
             rdk.run_extend_dual_plain.calls = 0
+            reset_arena_counts()
             t0 = time.perf_counter()
-            res = eng.consensus()
+            if run == "cold":
+                with recorder:
+                    res = eng.consensus()
+            else:
+                res = eng.consensus()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             launches = (rk.run_extend_cuda.launches,
-                        rdk.run_extend_dual_cuda.launches)
+                        rdk.run_extend_dual_cuda.launches) + arena_counts()[:1]
             plain_calls = (rk.run_extend_plain.calls,
-                           rdk.run_extend_dual_plain.calls)
+                           rdk.run_extend_dual_plain.calls) + arena_counts()[1:]
             st = eng.last_search_stats
             c = st["scorer_counters"]
             got = _priority_key(res)
@@ -1218,12 +1333,14 @@ def phase_priority_main():
             if st["scorer_constructions"] != 2:
                 raise AssertionError(
                     f"{run}: {st['scorer_constructions']} scorers built")
-            if (min(launches) <= 0 or plain_calls != (0, 0)
-                    or launches != (c["run_calls"], c["run_dual_calls"])):
+            counted = (c["run_calls"], c["run_dual_calls"],
+                       c.get("arena_calls", 0))
+            if (launches[0] <= 0 or plain_calls != (0, 0, 0)
+                    or launches != counted
+                    or (launches[2] <= 0 and not ARENA_OFF)):
                 raise AssertionError(
-                    f"{run}: kernel launches (run, dual) {launches}, counted "
-                    f"{(c['run_calls'], c['run_dual_calls'])}, plain calls "
-                    f"{plain_calls}")
+                    f"{run}: kernel launches (run, dual, arena) {launches}, "
+                    f"counted {counted}, plain calls {plain_calls}")
             alive = [lv for lv in built if lv["ref"]() is not None]
             if alive:
                 raise AssertionError(f"{run}: {len(alive)} level scorers "
@@ -1239,6 +1356,8 @@ def phase_priority_main():
              run_steps=g["scorer_counters"]["run_steps"],
              dual_launches=g["scorer_counters"]["run_dual_calls"],
              dual_steps=g["scorer_counters"]["run_dual_steps"],
+             arena_launches=g["scorer_counters"].get("arena_calls", 0),
+             arena_steps=g["scorer_counters"].get("arena_steps", 0),
              grow_e_events=g["scorer_counters"]["grow_e_events"],
              live_handles=g["live_handles"])
         for g in st["groups"]
@@ -1258,6 +1377,8 @@ def phase_priority_main():
         pops=st["nodes_explored"] + st["nodes_ignored"],
         run_launches=launches[0], run_steps=c["run_steps"],
         dual_launches=launches[1], dual_steps=c["run_dual_steps"],
+        arena_launches=launches[2], arena_kernel_plan=arena_plan(),
+        **arena_counters(c),
         plain_calls=list(plain_calls), grow_e_events=c["grow_e_events"],
         groups=groups, levels=levels,
         live_handles=[g["live_handles"] for g in groups],
@@ -1266,6 +1387,7 @@ def phase_priority_main():
         run_kernel_device_ms=round(_kernel_ms(by_name, "run_extend_kernel"), 3),
         dual_kernel_device_ms=round(
             _kernel_ms(by_name, "run_extend_dual_kernel"), 3),
+        arena_kernel_device_ms=round(_kernel_ms(by_name, "arena_kernel"), 3),
         top_device_ms=dict(list(by_name.items())[:6]),
         device_busy_share=(
             None if device_ms is None
@@ -1273,6 +1395,8 @@ def phase_priority_main():
         ),
     )
     print("priority_main", json.dumps(line), flush=True)
+    ARENA_LAUNCHES["priority_main"] = launches[2]
+    ARENA_RECORDS["priority_main"] = recorder.calls
     return launches
 
 
@@ -1495,6 +1619,7 @@ def phase_late_main():
             for fn in (rpk.offset_scan_plain, rpk.replay_rows_plain,
                        rk.run_extend_plain):
                 fn.calls = 0
+            reset_arena_counts()
             for key in host_s:
                 host_s[key] = 0.0
             torch.cuda.synchronize()
@@ -1507,7 +1632,8 @@ def phase_late_main():
                         rk.run_extend_cuda.launches)
             act_launches = rpk.replay_rows_cuda.activate_launches
             plain = (rpk.offset_scan_plain.calls, rpk.replay_rows_plain.calls,
-                     rk.run_extend_plain.calls)
+                     rk.run_extend_plain.calls + arena_counts()[1])
+            arena_launches = arena_counts()[0]
             c = eng.last_search_stats["scorer_counters"]
             if not res or res[0].sequence != truth:
                 raise AssertionError(f"late_main {run}: consensus != truth")
@@ -1542,6 +1668,7 @@ def phase_late_main():
         offset_scan_launches=launches[0], col_replay_launches=launches[1],
         col_replay_activate_launches=act_launches,
         run_kernel_launches=launches[2], plain_calls=list(plain),
+        arena_kernel_launches=arena_launches, **arena_counters(c),
         activate_calls=c["activate_calls"],
         offset_scan_calls=c["offset_scan_calls"],
         grow_e_events=c["grow_e_events"], replayed_cols=c["replayed_cols"],
@@ -1565,6 +1692,7 @@ def phase_late_main():
         ),
     )
     print("late_main", json.dumps(line), flush=True)
+    ARENA_LAUNCHES["late_main"] = arena_launches
     return launches, records
 
 
@@ -1911,6 +2039,300 @@ def phase_late_oracle():
           flush=True)
 
 
+# ---------------------------------------------------------------------
+# phase 13: the K-node pop arena
+
+
+class ArenaRecorder:
+    """Records the inputs (a copy of the branch store included) and the
+    packed output of the first ``limit`` arena calls while active:
+    ``arena_kernel.arena`` is wrapped, nothing else changes."""
+
+    def __init__(self, limit):
+        self.limit = limit
+        self.calls = []
+
+    def __enter__(self):
+        from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+        self._orig = ak.arena
+
+        def rec(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
+                imb_tab, args):
+            keep = len(self.calls) < self.limit
+            if keep:
+                import numpy as np
+
+                state0 = _copy_state(state)
+                inputs = (reads, rlen, list(slots), list(kinds),
+                          np.array(lc), np.array(pc), np.array(tr),
+                          np.array(mc_tab), np.array(imb_tab), args)
+            out = self._orig(state, reads, rlen, slots, kinds, lc, pc, tr,
+                             mc_tab, imb_tab, args)
+            if keep:
+                self.calls.append(dict(state=state0, inputs=inputs,
+                                       out=out.clone()))
+            return out
+
+        ak.arena = rec
+        return self
+
+    def __exit__(self, *exc):
+        from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+        ak.arena = self._orig
+
+
+def arena_counters(c):
+    """The arena's scorer counters of a search (its stop codes, the
+    split-absorption diagnostics of its code-1 stops folded into one)."""
+    out = {k: v for k, v in c.items()
+           if k.startswith("arena_") and not k.startswith("arena_s1_")}
+    out["arena_s1_diag"] = {k[len("arena_s1_"):]: v for k, v in c.items()
+                            if k.startswith("arena_s1_")}
+    return out
+
+
+def _arena_features(rec):
+    """What one recorded arena call exercises (from its live output)."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    st = rec["state"]
+    (_rd, _rl, slots, kinds, *_rest, args) = rec["inputs"]
+    K = len(kinds)
+    R, W = st["D"].shape[1:]
+    res = ak.unpack(rec["out"].cpu().numpy(), K, R, args.a_real,
+                    args.max_steps)
+    feats = {f"code{res.code}", f"W{W}"}
+    if any(K <= v < 2 * K for v in res.hist[:res.nsteps]):
+        feats.add("discard")
+    if res.cre_count:
+        feats.add(f"create_mode{args.create_mode}")
+    if res.code == 1 and res.stop_diag // 64 >= 2 and not res.stop_diag & 8:
+        feats.add("pool_exhausted")
+    if args.weighted:
+        feats.add("weighted")
+    if args.mc_dyn:
+        feats.add("mc_dyn")
+    if args.l2:
+        feats.add("l2")
+    for n in range(args.n_live):
+        for f in ((2 * n, 2 * n + 1) if kinds[n] == 1 else (2 * n,)):
+            off = st["off"][slots[f]][st["act"][slots[f]]]
+            if off.numel() and int(off.max()) != int(off.min()):
+                feats.add("mixed_offsets")
+    return feats, res
+
+
+ARENA_FEATURES = ("code1", "code2", "code3", "code4", "code5", "discard",
+                  "create_mode1", "create_mode2", "pool_exhausted",
+                  "mixed_offsets", "weighted", "mc_dyn", "l2", "W514",
+                  "W2050")
+
+
+def _dual_workload(seq_len=200, per_hap=6, er=0.01):
+    """``tests/test_arena_creation.py``'s dual draw: two haplotypes 2 SNPs
+    apart, ``per_hap`` reads each."""
+    import numpy as np
+    from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
+
+    truth, reads1 = generate_test(4, seq_len, per_hap, er, seed=1)
+    h2 = bytearray(truth)
+    h2[seq_len // 3] = (h2[seq_len // 3] + 1) % 4
+    h2[2 * seq_len // 3] = (h2[2 * seq_len // 3] + 2) % 4
+    reads2 = [corrupt(bytes(h2), er, np.random.default_rng(50 + i))
+              for i in range(per_hap)]
+    return [(r, None) for r in list(reads1) + reads2]
+
+
+def arena_draws():
+    """Small searches whose arena calls reach every stop code, discards,
+    both creation modes, a full creation pool, mixed offsets, weighted,
+    ``mc_dyn`` and L2 votes, and W = 514 and 2050: ``(label, engine,
+    reads, config fields, creation pool size or None)``."""
+    from waffle_con_tpu_torch import ConsensusCost
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    ties = [(r, None) for r in generate_test(4, 400, 8, 0.03, seed=3)[1]]
+    dual = _dual_workload()
+    _t1, _t2, late = late_dual_draw(n=6)
+    return [
+        ("single_ties", "ConsensusDWFA", ties, dict(min_count=2), None),
+        ("dual_split", "DualConsensusDWFA", dual, dict(min_count=3), None),
+        ("dual_pool2", "DualConsensusDWFA", dual, dict(min_count=3), 2),
+        ("dual_weighted", "DualConsensusDWFA", dual,
+         dict(min_count=3, weighted_by_ed=True), None),
+        ("dual_mc_dyn", "DualConsensusDWFA", dual,
+         dict(min_count=2, min_af=0.3), None),
+        ("dual_l2", "DualConsensusDWFA", dual,
+         dict(min_count=3, consensus_cost=ConsensusCost.L2_DISTANCE), None),
+        ("dual_late", "DualConsensusDWFA", late, dict(min_count=3), None),
+        ("dual_W514", "DualConsensusDWFA", dual,
+         dict(min_count=3, initial_band=216), None),
+        ("dual_W2050", "DualConsensusDWFA", dual,
+         dict(min_count=3, initial_band=1000), None),
+    ]
+
+
+def record_arena_draws(device, per_draw=200):
+    """Run every draw of :func:`arena_draws` on ``device``, recording its
+    arena calls; returns ``[(label, [record, ...]), ...]``."""
+    import waffle_con_tpu_torch as T
+    from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+
+    out = []
+    pool0 = TorchScorer.ARENA_POOL
+    for label, engine, reads, fields, pool in arena_draws():
+        b = T.CdwfaConfigBuilder().backend("torch").device(device)
+        for k, v in fields.items():
+            b = getattr(b, k)(v)
+        eng = getattr(T, engine)(b.build())
+        _add_reads(eng, reads)
+        TorchScorer.ARENA_POOL = pool or pool0
+        try:
+            with ArenaRecorder(per_draw) as rec:
+                eng.consensus()
+        finally:
+            TorchScorer.ARENA_POOL = pool0
+        out.append((label, rec.calls))
+    return out
+
+
+def select_arena_cases(recorded):
+    """The first call of each draw and every call that exercises a
+    feature no earlier selected call did.  Returns ``[(label, record,
+    features)]`` and the features covered."""
+    seen, cases = set(), []
+    for label, calls in recorded:
+        for i, rec in enumerate(calls):
+            feats, _res = _arena_features(rec)
+            if i == 0 or feats - seen:
+                cases.append((f"{label}/{i}", rec, sorted(feats)))
+                seen |= feats
+    return cases, seen
+
+
+def arena_bound(stepped_rows, W, in_words, out_words):
+    """(bound_ms, bound_by) of one arena call: each stepped row (a
+    commit's or a child's side of one read) read and written once at
+    ``W`` cells of 20 int32 operations, the packed input and output
+    moved once."""
+    nbytes = 2 * 4 * stepped_rows * W + 4 * (in_words + out_words)
+    return bound(nbytes, stepped_rows * W * OPS_PER_CELL)
+
+
+def _arena_real_rows(res, slots, args):
+    """Store slots of the sides some node owns after the call."""
+    out = []
+    for f in range(2 * len(res.kinds)):
+        n = f // 2
+        if n < args.n_live + res.cre_count and (f % 2 == 0
+                                                or res.kinds[n] == 1):
+            out.append(slots[f])
+    return out
+
+
+def arena_case(label, rec, feats, device="cuda", reps=3):
+    """One recorded call through the kernel and the twin on copies of its
+    store: the packed outputs (and the live run's), and every row some
+    node owns, must be equal.  Prints the case's line and returns its
+    timing and error."""
+    import numpy as np
+    import torch
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    kern = ak.arena_cuda if device == "cuda" else ak.arena_plain
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    (rd, rl, slots, kinds, lc, pc, tr, mc_tab, imb_tab, args) = rec["inputs"]
+    call = (rd, rl, slots, kinds, lc, pc, tr, mc_tab, imb_tab, args)
+    st_k, st_p = _copy_state(rec["state"]), _copy_state(rec["state"])
+    out_k = kern(st_k, *call)
+    sync()
+    t0 = time.perf_counter()
+    out_p = ak.arena_plain(st_p, *call)
+    sync()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    stepped = ak.arena_plain.stepped_rows
+    err = max(_same(out_k, out_p), _same(out_k, rec["out"]))
+    K = len(kinds)
+    R, W = st_k["D"].shape[1:]
+    res = ak.unpack(out_k.cpu().numpy(), K, R, args.a_real, args.max_steps)
+    for slot in _arena_real_rows(res, slots, args):
+        for name in ("D", "e", "rmin", "er", "off", "act", "clen"):
+            err = max(err, _same(st_k[name][slot], st_p[name][slot]))
+        n = int(st_k["clen"][slot])
+        err = max(err, _same(st_k["cons"][slot, :n], st_p["cons"][slot, :n]))
+    if err:
+        raise AssertionError(f"{label}: arena kernel != plain ({err})")
+    # kernel time: CUDA events around the launch alone, each on a fresh
+    # copy of the recorded store (a launch steps its rows in place)
+    k_ms = None
+    if device == "cuda":
+        total = 0.0
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        for _ in range(reps):
+            st = _copy_state(rec["state"])
+            torch.cuda.synchronize()
+            start.record()
+            kern(st, *call)
+            stop.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(stop)
+        k_ms = total / reps
+    lay_in = ak.arena_in_layout(K, lc.shape[1], len(mc_tab), len(imb_tab))
+    bms, by = arena_bound(stepped, W, lay_in["imb_tab"][1], out_k.numel())
+    plan = ak.plan_arena(K, R, W, args.a_real, lc.shape[1],
+                         st_k["cons"].shape[1])
+    line = dict(
+        case=label, K=K, R=R, W=W, A=args.a_real, n_live=args.n_live,
+        create_mode=args.create_mode, nsteps=res.nsteps, code=res.code,
+        creations=res.cre_count, stepped_rows=stepped,
+        features=feats, threads=plan.threads, band=plan.band,
+        smem_bytes=plan.smem_bytes,
+        kernel_ms=None if k_ms is None else round(k_ms, 4),
+        plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by,
+        max_abs_err=err, events_per_ms=(
+            None if not k_ms else round(res.nsteps / k_ms, 2)),
+    )
+    print("arena_kernel", json.dumps(line), flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by), err
+
+
+def phase_arena_kernel(small_only, records=None, device="cuda"):
+    """The arena kernel against its plain twin on the card, every output
+    and every owned row of the store bitwise: the first three arena calls
+    of ``dual_main`` and the first of ``priority_main`` (a group's call
+    through its ``SubsetScorer``) when those phases ran, and the calls of
+    small searches chosen to reach every stop code, discards on the
+    device, creation in both modes, a full creation pool, mixed offsets,
+    weighted, ``mc_dyn`` and L2 votes, and W = 514 and 2050.  Fails when
+    a feature is not reached.  Returns the kernel table's timing (from
+    ``dual_main``'s first call when recorded) and the largest error."""
+    records = records or {}
+    cases = []
+    for path in ("dual_main", "priority_main"):
+        for i, rec in enumerate(records.get(path, [])):
+            cases.append((f"{path}/{i}", rec, sorted(_arena_features(rec)[0])))
+    main_cases = len(cases)
+    picked, seen = select_arena_cases(
+        record_arena_draws(device, per_draw=8 if small_only else 200))
+    missing = [] if small_only else sorted(set(ARENA_FEATURES) - seen)
+    if missing:
+        raise AssertionError(f"arena_kernel: features not reached {missing}")
+    cases += picked
+    worst, table = 0, None
+    for i, (label, rec, feats) in enumerate(cases):
+        timing, err = arena_case(label, rec, feats, device)
+        worst = max(worst, err)
+        if table is None and (i < main_cases or not main_cases):
+            table = timing
+    print("arena_kernel", json.dumps(dict(
+        cases=len(cases), recorded_main_calls=main_cases,
+        features=sorted(seen), identical=True)), flush=True)
+    return table, worst
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -1934,12 +2356,19 @@ def main(argv=None) -> int:
         "--phases",
         default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
                 "priority_main,priority_oracle,replay_kernel,late_main,"
-                "late_oracle",
+                "late_oracle,arena_kernel",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
+    ap.add_argument("--arena", choices=("on", "off"), default="on",
+                    help="off: the engines' arena fast path switched off "
+                         "(the previous slice's path), for comparisons")
+    ap.add_argument("--profile", action="store_true",
+                    help="dual_main adds a host profile (cProfile)")
     opts = ap.parse_args(argv)
     phases = opts.phases.split(",")
+    global ARENA_OFF, PROFILE
+    ARENA_OFF, PROFILE = opts.arena == "off", opts.profile
     try:
         import torch
     except ImportError:
@@ -1952,6 +2381,10 @@ def main(argv=None) -> int:
         return fail(f"waffle_con_tpu_torch not importable: {exc}")
 
     smi = smi_line()
+    if ARENA_OFF:
+        from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+
+        TorchScorer.run_arena = None
     t0 = time.perf_counter()
     cuda_build.build(verbose=True)
     build_s = time.perf_counter() - t0
@@ -1980,9 +2413,9 @@ def main(argv=None) -> int:
     run_launches = timed("main", phase_main)
     timed("oracle", phase_oracle)
     dual_check = timed("dual_kernel", phase_dual_kernel, opts.small)
-    dual_launches = timed("dual_main", phase_dual_main) or (None, None)
+    dual_launches = timed("dual_main", phase_dual_main) or (None,) * 3
     timed("dual_oracle", phase_dual_oracle)
-    prio_launches = timed("priority_main", phase_priority_main) or (None, None)
+    prio_launches = timed("priority_main", phase_priority_main) or (None,) * 3
     timed("priority_oracle", phase_priority_oracle)
     # late_main runs first: replay_kernel also holds the deployment's own
     # recorded calls
@@ -1992,6 +2425,8 @@ def main(argv=None) -> int:
         timed("replay_kernel", phase_replay_kernel, opts.small, late_records)
         or (None, None))
     timed("late_oracle", phase_late_oracle)
+    arena_check = timed("arena_kernel", phase_arena_kernel, opts.small,
+                        ARENA_RECORDS)
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
                    run_check, dict(main=run_launches,
@@ -2005,7 +2440,15 @@ def main(argv=None) -> int:
                    scan_check, dict(late_main=late_launches[0])),
         kernel_row("col_replay", "col_replay.cu", "jax_scorer.py:773,2688",
                    replay_check, dict(late_main=late_launches[1])),
+        kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
+                   {path: ARENA_LAUNCHES.get(path) for path in
+                    ("main", "dual_main", "priority_main", "late_main")}),
     ]
+    # every kernel must have launched on some main path that ran
+    for row in rows:
+        if row["launches_by_path"] and not row["launches"] and not ARENA_OFF:
+            return fail(f"{row['name']}: no launch on the main paths "
+                        f"{row['launches_by_path']}")
 
     print("phase_seconds", json.dumps(phase_s), flush=True)
     print(smi)

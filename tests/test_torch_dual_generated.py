@@ -33,7 +33,10 @@ def test_generated_two_haplotypes(seed, err):
     t1, t2, reads = _two_haplotypes(seed, err)
     want, eng = _check(reads, min_count=2)
     assert {want[0][0][0], want[0][1][0]} == {t1, t2}
-    assert eng.last_search_stats["scorer_counters"]["run_dual_calls"] >= 1
+    # a device fast path for dual nodes ran: the dual run kernel, or the
+    # pop arena, which takes the pops that have queue competitors
+    c = eng.last_search_stats["scorer_counters"]
+    assert c["run_dual_calls"] + c["arena_calls"] >= 1
 
 
 @pytest.mark.parametrize("cfg", [

@@ -30,7 +30,7 @@ _PROBE = textwrap.dedent(
     assert eng.consensus()[0].sequence == truth
 
     from waffle_con_tpu_torch import DualConsensusDWFA
-    from waffle_con_tpu_torch.ops import cuda_build, run_dual_kernel
+    from waffle_con_tpu_torch.ops import arena_kernel, cuda_build, run_dual_kernel
 
     t2 = bytearray(truth)
     t2[30] = (t2[30] + 1) % 4
@@ -45,7 +45,8 @@ _PROBE = textwrap.dedent(
     assert {res[0].consensus1.sequence, res[0].consensus2.sequence} == {
         truth, bytes(t2)
     }
-    assert dual.last_search_stats["scorer_counters"]["run_dual_calls"] >= 1
+    c = dual.last_search_stats["scorer_counters"]
+    assert c["run_dual_calls"] + c["arena_calls"] >= 1
 
     from waffle_con_tpu_torch import MultiConsensus, PriorityConsensusDWFA
     from waffle_con_tpu_torch.models import multi_consensus, priority_consensus

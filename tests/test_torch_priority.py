@@ -247,7 +247,7 @@ def test_dual_engine_reports_the_search_delta():
     alone.consensus()
     assert seen[0] == seen[1] == alone.last_search_stats["scorer_counters"]
     assert shared.counters == {k: 2 * v for k, v in seen[0].items()}
-    assert seen[0]["run_dual_calls"] > 0
+    assert seen[0]["run_dual_calls"] + seen[0]["arena_calls"] > 0
 
 
 def test_injected_scorer_must_hold_the_added_reads():

@@ -30,5 +30,5 @@ def test_draws_match_jax_backend(seeds, err, band):
     assert [(g["level"], g["size"], g["dual"]) for g in st["groups"]] == [
         (0, 12, False), (1, 12, True), (1, 6, False), (1, 6, False)]
     c = st["scorer_counters"]
-    assert c["run_calls"] > 0 and c["run_dual_calls"] > 0
+    assert c["run_calls"] > 0 and c["run_dual_calls"] + c["arena_calls"] > 0
     assert (c["grow_e_events"] > 0) == (band == 16)

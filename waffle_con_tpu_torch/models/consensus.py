@@ -165,6 +165,99 @@ def replay_run_bookkeeping(
     return farthest, last_constraint
 
 
+def replay_arena_history(
+    events, lens, kinds, trackers, far, lcon, cfg, creations=None,
+    on_length=None,
+):
+    """Replay a device arena's committed pop sequence onto the real
+    tracker objects — the one copy of the per-pop bookkeeping both
+    engines' arena paths share (the engines' pop order: constrict every
+    kind, remove, process, insert; the in-hand first pop was constricted
+    and removed before the arena engaged).
+
+    ``events`` is the history from ``run_arena``:
+
+    - ``("commit", n)``: a committed extension pop of node ``n`` (remove,
+      process, insert at length + 1).
+    - ``("discard", n)``: a pop discarded on the device: only its queue
+      removal (the engine's ignored-pop path).
+    - ``("split", n)``: node ``n``'s pop was consumed by child creation:
+      remove and process, no insert (its children's inserts follow).
+    - ``("create", j)``: creation record ``j`` of ``creations`` registers
+      the child at node index ``len(lens)`` and replays its insert; not a
+      pop, so no constriction.
+
+    ``lens``/``kinds`` are mutated in place and grow as children are
+    registered; ``far``/``lcon`` are per kind, matching ``trackers``."""
+    first_pop = True
+    for kind, arg in events:
+        if kind == "create":
+            rec = creations[arg]
+            lens.append(rec["created_len"])
+            kinds.append(rec["kind"])
+            trackers[rec["kind"]].insert(rec["created_len"])
+            continue
+        which = arg
+        k = kinds[which]
+        length = lens[which]
+        if not first_pop:
+            for kk in range(len(trackers)):
+                while (
+                    len(trackers[kk]) > cfg.max_queue_size
+                    or lcon[kk] >= cfg.max_nodes_wo_constraint
+                ) and trackers[kk].threshold() < far[kk]:
+                    trackers[kk].increment_threshold()
+                    lcon[kk] = 0
+            trackers[k].remove(length)
+        first_pop = False
+        if kind == "discard":
+            continue
+        far[k] = max(far[k], length)
+        lcon[k] += 1
+        trackers[k].process(length)
+        if kind == "commit":
+            trackers[k].insert(length + 1)
+            lens[which] += 1
+        if on_length is not None:
+            on_length(length)
+
+
+def requeue_arena_nodes(
+    pqueue, nodes, taken, node_steps, events, cost, on_duplicate,
+    alive=None, n_live=None,
+):
+    """Re-queue arena participants preserving insertion order: extended
+    nodes re-enter in the order of their last arena pop (a later pop is a
+    newer insertion), children created on the device at their creation
+    (or their last pop, if popped later); never-popped competitors keep
+    their original sequence number (FIFO tie order).
+    ``on_duplicate(idx, node)`` handles a key collision (drop the
+    newcomer, undo its replayed tracker insert).  Nodes discarded or
+    consumed by a split on the device (``alive[idx]`` False) are never
+    re-queued: the caller frees them.  ``nodes`` covers the children
+    (indices ``n_live + j`` in creation-record order)."""
+    if n_live is None:
+        n_live = len(nodes)
+    last_pos = {}
+    n_created = 0
+    for i, (kind, arg) in enumerate(events):
+        if kind == "commit":
+            last_pos[arg] = i
+        elif kind == "create":
+            last_pos[n_live + n_created] = i
+            n_created += 1
+    for i, (cand, pri, seq) in enumerate(taken, start=1):
+        if node_steps[i] == 0 and (alive is None or alive[i]):
+            ok = pqueue.push_restored(cand.key(), cand, pri, seq)
+            check_invariant(ok, "arena restore unique")
+    for idx in sorted(last_pos, key=last_pos.get):
+        if alive is not None and not alive[idx]:
+            continue
+        nd = nodes[idx]
+        if not pqueue.push(nd.key(), nd, nd.priority(cost)):
+            on_duplicate(idx, nd)
+
+
 def accept_record(maximum_error, results, total, result, max_return_size):
     """Result acceptance: a strictly better total resets the budget and
     clears the tied set; totals at the budget append up to
@@ -376,6 +469,29 @@ class ConsensusDWFA:
                     if node.prefetch is not None
                     else self._nominate(scorer, node)
                 )
+                # -- arena fast path: resolve the pop competition among
+                # the in-hand node and the next-best queue entries on the
+                # device (see DualConsensusDWFA._arena_attempt).  The
+                # arena absorbs no records, so reached nodes skip it.
+                if (
+                    not reached_now
+                    and (
+                        len(passing_now) == 1
+                        or 2 <= len(passing_now) <= fp.arena_cre_per_event
+                    )
+                    and fp.run_arena is not None
+                ):
+                    arena = self._arena_attempt(
+                        scorer, pqueue, node, maximum_error,
+                        activate_points, cost, tracker,
+                        farthest_consensus, last_constraint,
+                    )
+                    if arena is not None:
+                        (farthest_consensus, last_constraint,
+                         arena_explored, arena_ignored) = arena
+                        nodes_explored += arena_explored
+                        nodes_ignored += arena_ignored
+                        continue
                 best_other = pqueue.peek_priority()
                 other_cost = 2**31 - 1
                 other_len = 0
@@ -583,6 +699,131 @@ class ConsensusDWFA:
         return results
 
     # ------------------------------------------------------------------
+
+    def _arena_attempt(
+        self, scorer, pqueue, node, maximum_error, activate_points, cost,
+        tracker, farthest_consensus, last_constraint,
+    ):
+        """The device pop arena for the single engine (dual twin:
+        ``DualConsensusDWFA._arena_attempt``): the in-hand node plus up to
+        ``ARENA_TAKE_MAX`` next-best queue entries extend on the device
+        under the exact pop and tracker semantics, and clean vote splits
+        become children there (``create_mode=1``: one single child per
+        passing symbol).  Returns ``None`` when not engaged (competitors
+        restored with their original insertion order), else
+        ``(farthest_consensus, last_constraint, explored, ignored)``."""
+        cfg = self.config
+        if pqueue.is_empty():
+            return None  # no competitor: the plain run path is better
+        fp = fast_paths(scorer)
+        taken = []
+        while len(taken) < fp.arena_take_max and not pqueue.is_empty():
+            taken.append(pqueue.pop_with_seq())
+        nodes = [node] + [t[0] for t in taken]
+
+        def restore_all():
+            for cand, pri, seq in taken:
+                pqueue.push_restored(cand.key(), cand, pri, seq)
+
+        step_limit = fp.arena_cap
+        for nd in nodes:
+            nl = len(nd.consensus)
+            next_act = min((l for l in activate_points if l > nl), default=None)
+            if next_act is not None:
+                step_limit = min(step_limit, next_act - nl - 1)
+        if step_limit < 1:
+            restore_all()
+            return None
+
+        rest = pqueue.peek_priority()
+        rest_cost, rest_len = 2**31 - 1, 0
+        if rest is not None:
+            rest_cost, rest_len = -rest[0], rest[1]
+        needed = max(
+            max(len(nd.consensus) for nd in nodes), farthest_consensus
+        ) + fp.arena_cap + 4
+        win_len = 1 << (needed - 1).bit_length()
+        lc, pc = tracker.export_windows(win_len)
+        zeros = np.zeros(win_len, dtype=np.int32)
+        tr_scalars = [
+            [tracker.threshold(), len(tracker), farthest_consensus,
+             last_constraint],
+            [0, 0, 0, 0],  # the single engine has no dual node kind
+        ]
+        me_budget = (
+            int(maximum_error) if maximum_error != math.inf else 2**31 - 1
+        )
+        (events, nsteps, _code, _stop_node, node_steps, appended,
+         sides_stats, _sides_act, alive, creations) = fp.run_arena(
+            [(nd.handle, None, len(nd.consensus), 0) for nd in nodes],
+            me_budget,
+            cfg.min_count,
+            0,
+            0,
+            cost is ConsensusCost.L2_DISTANCE,
+            False,
+            rest_cost,
+            rest_len,
+            cfg.max_queue_size,
+            cfg.max_capacity_per_size,
+            step_limit,
+            cfg.max_nodes_wo_constraint,
+            np.stack([lc, zeros]),
+            np.stack([pc, zeros]),
+            np.asarray(tr_scalars, dtype=np.int32),
+            create_mode=1,
+        )
+        if nsteps == 0:
+            restore_all()
+            return None
+
+        n_live = len(nodes)
+        for i, nd in enumerate(nodes):
+            if node_steps[i] > 0 or not alive[i]:
+                self._drop_prefetch(scorer, nd)
+        lens = [len(nd.consensus) for nd in nodes]
+        far = [farthest_consensus]
+        lcon = [last_constraint]
+        replay_arena_history(
+            events, lens, [0] * len(nodes), [tracker], far, lcon, cfg,
+            creations=creations,
+        )
+        # extensions of the original nodes first (a split-consumed parent
+        # keeps its committed prefix, which its children build on)
+        for i, nd in enumerate(nodes):
+            if node_steps[i]:
+                nd.consensus = nd.consensus + appended[2 * i]
+                nd.stats = sides_stats[2 * i]
+        all_nodes = list(nodes)
+        for j, cre in enumerate(creations):
+            idx = n_live + j
+            parent = all_nodes[cre["parent"]]
+            all_nodes.append(_Node(
+                parent.consensus[: cre["created_len"] - 1]
+                + bytes([cre["sym1"]]) + appended[2 * idx],
+                cre["h1"],
+                list(parent.active),
+                list(parent.offsets),
+                sides_stats[2 * idx],
+            ))
+
+        def on_duplicate(_idx, nd):
+            # converged to an existing key: drop the newcomer and undo its
+            # replayed tracker insert (as the expansion path does)
+            logger.warning("duplicate search node (arena re-queue)")
+            tracker.remove(len(nd.consensus))
+            scorer.free(nd.handle)
+
+        requeue_arena_nodes(
+            pqueue, all_nodes, taken, node_steps, events, cost,
+            on_duplicate, alive=alive, n_live=n_live,
+        )
+        for i, nd in enumerate(all_nodes):
+            if not alive[i]:
+                scorer.free(nd.handle)
+        explored = sum(1 for k, _ in events if k in ("commit", "split"))
+        ignored = sum(1 for k, _ in events if k == "discard")
+        return far[0], lcon[0], explored, ignored
 
     def _nominate(self, scorer: WavefrontScorer, node: _Node) -> List[int]:
         """Passing extension symbols for a node — a pure function of its

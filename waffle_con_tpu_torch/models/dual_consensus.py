@@ -41,7 +41,9 @@ from waffle_con_tpu_torch.models.consensus import (
     accept_record,
     candidates_from_stats,
     check_invariant,
+    replay_arena_history,
     replay_run_bookkeeping,
+    requeue_arena_nodes,
     shift_offsets,
 )
 from waffle_con_tpu_torch.ops.scorer import (
@@ -544,6 +546,8 @@ class DualConsensusDWFA:
                 )
             )
             runnable = False
+            arena_shape = False
+            cre_cap = fp.arena_cre_per_event
             if kernels_ok:
                 specs_now = (
                     node.prefetch[0]
@@ -560,8 +564,49 @@ class DualConsensusDWFA:
                         and (specs_now[0][2] is not None or node.lock2)
                         and (specs_now[0][1] is not None or specs_now[0][2] is not None)
                     )
+                    # split-shaped: an all-extend cross product the arena
+                    # can absorb as children created on the device
+                    arena_shape = runnable or (
+                        2 <= len(specs_now) <= cre_cap
+                        and all(
+                            kind == "dual" and a is not None and b is not None
+                            for kind, a, b in specs_now
+                        )
+                        and self._kernel_exact(scorer, node)
+                    )
                 else:
                     runnable = len(specs_now) == 1 and specs_now[0][0] == "single"
+                    arena_shape = runnable or (
+                        2 <= len(specs_now) <= cre_cap
+                        and self._kernel_exact(scorer, node)
+                    )
+            # -- arena fast path: resolve the pop competition between this
+            # node and the next-best queue entries on the device (most
+            # plain-run stops are "would lose the next pop"); split-shaped
+            # expansions engage too, the arena absorbing clean splits as
+            # children and stopping for host arbitration otherwise.  Falls
+            # back to the single-node run below when not engaged.  The
+            # arena absorbs no records, so reached nodes skip it.
+            if (
+                arena_shape
+                and not node.reached_all_end(cfg.allow_early_termination)
+                and not (node.is_dual and (node.lock1 or node.lock2))
+                and fp.run_arena is not None
+            ):
+                arena = self._arena_attempt(
+                    scorer, pqueue, node, maximum_error, activate_points,
+                    cost, single_tracker, dual_tracker, farthest_single,
+                    farthest_dual, single_last_constraint,
+                    dual_last_constraint, total_active_count,
+                    active_min_count, mc_tab, imb_tab,
+                )
+                if arena is not None:
+                    (farthest_single, farthest_dual, single_last_constraint,
+                     dual_last_constraint, arena_explored,
+                     arena_ignored) = arena
+                    nodes_explored += arena_explored
+                    nodes_ignored += arena_ignored
+                    continue
             if runnable:
                 best_other = pqueue.peek_priority()
                 other_cost = 2**31 - 1
@@ -841,6 +886,225 @@ class DualConsensusDWFA:
         return results
 
     # ==================================================================
+    # arena fast path
+
+    def _arena_attempt(
+        self, scorer, pqueue, node, maximum_error, activate_points, cost,
+        single_tracker, dual_tracker, farthest_single, farthest_dual,
+        single_last_constraint, dual_last_constraint, total_active_count,
+        active_min_count, mc_tab, imb_tab,
+    ):
+        """Engage the device pop arena for the in-hand node plus up to
+        ``ARENA_TAKE_MAX`` of the next-best queue entries.  Returns
+        ``None`` when not engaged (no competitor, an activation point next,
+        or nothing committed: every popped competitor is restored with its
+        original insertion order), else applies the nodes' extensions,
+        materialises the children the device created at vote splits
+        (``create_mode=2``: singles, split pairs, dual cross products),
+        replays the exact per-pop tracker bookkeeping, re-queues the
+        survivors and returns ``(farthest_single, farthest_dual,
+        single_last_constraint, dual_last_constraint, explored,
+        ignored)``."""
+        cfg = self.config
+        if pqueue.is_empty():
+            return None  # no competitor: the plain run path is better
+
+        # the next-best competitors in pop order; the first locked one
+        # becomes the rest-of-queue bound
+        fp = fast_paths(scorer)
+        taken = []
+        while len(taken) < fp.arena_take_max and not pqueue.is_empty():
+            cand, pri, seq = pqueue.pop_with_seq()
+            if cand.is_dual and (cand.lock1 or cand.lock2):
+                pqueue.push_restored(cand.key(), cand, pri, seq)
+                break
+            taken.append((cand, pri, seq))
+        if not taken:
+            return None
+
+        def restore_all():
+            for cand, pri, seq in taken:
+                pqueue.push_restored(cand.key(), cand, pri, seq)
+
+        nodes = [node] + [t[0] for t in taken]
+        step_limit = fp.arena_cap
+        for nd in nodes:
+            nl = nd.max_consensus_length()
+            next_act = min((l for l in activate_points if l > nl), default=None)
+            if next_act is not None:
+                step_limit = min(step_limit, next_act - nl - 1)
+        if step_limit < 1:
+            restore_all()
+            return None
+
+        rest = pqueue.peek_priority()
+        rest_cost, rest_len = 2**31 - 1, 0
+        if rest is not None:
+            rest_cost, rest_len = -rest[0], rest[1]
+        needed = max(
+            max(nd.max_consensus_length() for nd in nodes),
+            farthest_single,
+            farthest_dual,
+        ) + fp.arena_cap + 4
+        win_len = 1 << (needed - 1).bit_length()
+        lc_s, pc_s = single_tracker.export_windows(win_len)
+        lc_d, pc_d = dual_tracker.export_windows(win_len)
+        tr_scalars = [
+            [single_tracker.threshold(), len(single_tracker),
+             farthest_single, single_last_constraint],
+            [dual_tracker.threshold(), len(dual_tracker), farthest_dual,
+             dual_last_constraint],
+        ]
+        me_budget = (
+            int(maximum_error) if maximum_error != math.inf else 2**31 - 1
+        )
+        (events, nsteps, _code, _stop_node, node_steps, appended,
+         sides_stats, sides_act, alive, creations) = fp.run_arena(
+            [
+                (nd.h1, nd.h2 if nd.is_dual else None, len(nd.consensus1),
+                 len(nd.consensus2))
+                for nd in nodes
+            ],
+            me_budget,
+            cfg.min_count,
+            cfg.dual_max_ed_delta,
+            cfg.min_count,  # imb_min fallback (imb_tab is the truth)
+            cost is ConsensusCost.L2_DISTANCE,
+            cfg.weighted_by_ed,
+            rest_cost,
+            rest_len,
+            cfg.max_queue_size,
+            cfg.max_capacity_per_size,
+            step_limit,
+            cfg.max_nodes_wo_constraint,
+            np.stack([lc_s, lc_d]),
+            np.stack([pc_s, pc_d]),
+            np.asarray(tr_scalars, dtype=np.int32),
+            create_mode=2,
+            mc_tab=mc_tab,
+            imb_tab=imb_tab,
+            split_relax=(cfg.min_af == 0.0),
+            mc_dyn=(cfg.min_af != 0.0),
+        )
+        if nsteps == 0:
+            restore_all()
+            return None
+
+        n_live = len(nodes)
+        for i, nd in enumerate(nodes):
+            if node_steps[i] > 0 or not alive[i]:
+                self._drop_prefetch(scorer, nd)
+        # exact tracker replay of the committed pop sequence (lens/kinds
+        # grow as the children created on the device are registered)
+        kinds = [1 if nd.is_dual else 0 for nd in nodes]
+        lens = [nd.max_consensus_length() for nd in nodes]
+        far = [farthest_single, farthest_dual]
+        lcon = [single_last_constraint, dual_last_constraint]
+        trackers = (single_tracker, dual_tracker)
+        replay_arena_history(
+            events, lens, kinds, trackers, far, lcon, cfg,
+            creations=creations,
+            on_length=lambda length: _extend_active_tables(
+                cfg, activate_points, total_active_count, active_min_count,
+                length,
+            ),
+        )
+        committed = sum(1 for k, _ in events if k == "commit")
+        arena_dual = sum(
+            1 for k, a in events if k == "commit" and kinds[a] == 1
+        )
+        c = scorer.counters
+        c["arena_dual_steps"] = c.get("arena_dual_steps", 0) + arena_dual
+        c["arena_single_steps"] = (
+            c.get("arena_single_steps", 0) + committed - arena_dual
+        )
+
+        # extensions of the original nodes first (a split-consumed parent
+        # keeps its committed prefix, which its children build on)
+        for i, nd in enumerate(nodes):
+            if node_steps[i] == 0:
+                continue
+            s1, s2 = 2 * i, 2 * i + 1
+            nd.consensus1 = nd.consensus1 + appended[s1]
+            nd.stats1 = sides_stats[s1]
+            if nd.is_dual:
+                nd.consensus2 = nd.consensus2 + appended[s2]
+                nd.stats2 = sides_stats[s2]
+            a1 = sides_act[s1]
+            a2 = sides_act[s2] if nd.is_dual else None
+            for r in range(len(nd.active1)):
+                if nd.active1[r] and not bool(a1[r]):
+                    nd.active1[r] = False
+                    nd.offsets1[r] = None
+                if a2 is not None and nd.active2[r] and not bool(a2[r]):
+                    nd.active2[r] = False
+                    nd.offsets2[r] = None
+
+        # the children created on the device as search nodes, in creation
+        # order (a child's parent, possibly itself a child, exists first):
+        # the parent side's committed prefix + the pushed symbol + the
+        # child's own arena commits; activity from the device rows, which
+        # include the divergence pruning at creation
+        all_nodes = list(nodes)
+        for j, cre in enumerate(creations):
+            idx = n_live + j
+            parent = all_nodes[cre["parent"]]
+            s1, s2 = 2 * idx, 2 * idx + 1
+            n = len(parent.active1)
+            child = _DualNode()
+            child.is_dual = cre["kind"] == 1
+            child.h1 = cre["h1"]
+            child.consensus1 = (
+                parent.consensus1[: cre["created_len"] - 1]
+                + bytes([cre["sym1"]]) + appended[s1]
+            )
+            child.active1 = [bool(a) for a in sides_act[s1][:n]]
+            child.offsets1 = [
+                parent.offsets1[r] if child.active1[r] else None
+                for r in range(n)
+            ]
+            child.stats1 = sides_stats[s1]
+            if child.is_dual:
+                from_side1 = not parent.is_dual
+                src_off2 = parent.offsets1 if from_side1 else parent.offsets2
+                pre2 = (
+                    parent.consensus1 if from_side1 else parent.consensus2
+                )[: cre["created_len"] - 1]
+                child.h2 = cre["h2"]
+                child.consensus2 = pre2 + bytes([cre["sym2"]]) + appended[s2]
+                child.active2 = [bool(a) for a in sides_act[s2][:n]]
+                child.offsets2 = [
+                    src_off2[r] if child.active2[r] else None
+                    for r in range(n)
+                ]
+                child.stats2 = sides_stats[s2]
+            else:
+                child.consensus2 = parent.consensus2
+                child.active2 = list(parent.active2)
+                child.offsets2 = list(parent.offsets2)
+            all_nodes.append(child)
+
+        def on_duplicate(idx, nd):
+            # two nodes converged to one key: as every insertion path
+            # (_queue_child), drop the newcomer and undo its tracker insert
+            logger.warning("duplicate dual search node (arena re-queue)")
+            trackers[kinds[idx]].remove(nd.max_consensus_length())
+            self._free_node(scorer, nd)
+
+        requeue_arena_nodes(
+            pqueue, all_nodes, taken, node_steps, events, cost,
+            on_duplicate, alive=alive, n_live=n_live,
+        )
+        # dead nodes: discards, split-consumed parents and children that
+        # died after creation
+        for i, nd in enumerate(all_nodes):
+            if not alive[i]:
+                self._free_node(scorer, nd)
+        explored = committed + sum(1 for k, _ in events if k == "split")
+        ignored = sum(1 for k, _ in events if k == "discard")
+        return far[0], far[1], lcon[0], lcon[1], explored, ignored
+
+    # ==================================================================
     # node life-cycle
 
     def _free_node(self, scorer: WavefrontScorer, node: _DualNode) -> None:
@@ -937,8 +1201,8 @@ class DualConsensusDWFA:
         return result, total
 
     def _kernel_exact(self, scorer, nd: _DualNode) -> bool:
-        """Host mirror of the kernels' split-absorption vote safety (the
-        gate of the pop arena, a later slice): with ``min_af == 0`` only
+        """Host mirror of the arena's split-absorption vote safety (its
+        gate in the pop loop): with ``min_af == 0`` only
         the weighted fold is categorically out; otherwise every active
         voting read must be single-tip (the kernels' ``exactable``) and
         no voting read may mix wildcard and non-wildcard tips (that

@@ -325,6 +325,17 @@ def _sliced_run_extend_dual(inner, idx, *args, **kwargs):
     )
 
 
+def _sliced_run_arena(inner, idx, *args, **kwargs):
+    (events, nsteps, code, stop_node, node_steps, appended, sides_stats,
+     sides_act, alive, creations) = inner(*args, **kwargs)
+    return (
+        events, nsteps, code, stop_node, node_steps, appended,
+        [None if s is None else _slice_stats(s, idx) for s in sides_stats],
+        [None if a is None else a[idx] for a in sides_act],
+        alive, creations,
+    )
+
+
 class SubsetScorer(WavefrontScorer):
     """View of a shared base scorer restricted to a subset of its reads.
 
@@ -339,8 +350,8 @@ class SubsetScorer(WavefrontScorer):
     local read indices are mapped to the base's on the way in.
 
     Handles are the base's handles.  ``indices`` must be sorted.  The
-    fast paths (``clone_push_many``, ``run_extend``, ``run_extend_dual``)
-    are ``None`` when the base lacks them, and otherwise hold the base and
+    fast paths (``clone_push_many``, ``run_extend``, ``run_extend_dual``,
+    ``run_arena``) are ``None`` when the base lacks them, and otherwise hold the base and
     the index map but not the view, so the engine's cached
     :func:`fast_paths` snapshot makes no reference cycle: once the last
     view and the caller's reference go, the base and its device tensors
@@ -435,6 +446,27 @@ class SubsetScorer(WavefrontScorer):
     def run_extend_dual(self):
         return self._forward("run_extend_dual", _sliced_run_extend_dual)
 
+    @property
+    def run_arena(self):
+        return self._forward("run_arena", _sliced_run_arena)
+
+    # the arena's sizes are the base's (the view adds no node)
+    @property
+    def ARENA_CAP(self):
+        return self.base.ARENA_CAP
+
+    @property
+    def ARENA_K(self):
+        return self.base.ARENA_K
+
+    @property
+    def ARENA_CRE_PER_EVENT(self):
+        return getattr(self.base, "ARENA_CRE_PER_EVENT", 0)
+
+    @property
+    def ARENA_TAKE_MAX(self):
+        return getattr(self.base, "ARENA_TAKE_MAX", self.base.ARENA_K - 1)
+
 
 class FastPaths:
     """The resolved optional-capability surface of a scorer, snapshotted
@@ -442,12 +474,22 @@ class FastPaths:
     scorer without an attribute (the Python oracle) makes the engine take
     its per-pop expand path instead."""
 
-    __slots__ = ("run_extend", "run_extend_dual", "clone_push_many")
+    __slots__ = (
+        "run_extend", "run_extend_dual", "run_arena", "clone_push_many",
+        "arena_cap", "arena_k", "arena_cre_per_event", "arena_take_max",
+    )
 
     def __init__(self, scorer) -> None:
         self.run_extend = getattr(scorer, "run_extend", None)
         self.run_extend_dual = getattr(scorer, "run_extend_dual", None)
+        self.run_arena = getattr(scorer, "run_arena", None)
         self.clone_push_many = getattr(scorer, "clone_push_many", None)
+        self.arena_cap = getattr(scorer, "ARENA_CAP", 0)
+        self.arena_k = getattr(scorer, "ARENA_K", 1)
+        self.arena_cre_per_event = getattr(scorer, "ARENA_CRE_PER_EVENT", 0)
+        self.arena_take_max = getattr(
+            scorer, "ARENA_TAKE_MAX", self.arena_k - 1
+        )
 
 
 def fast_paths(scorer) -> FastPaths:

@@ -60,6 +60,10 @@ REC_CAP = 256
 #: per-call step cap of the run loop (symbol buffer rows)
 RUN_MS_CAP = 32768
 
+#: children one arena split event may create on the device (more stop
+#: for host expansion); ``ops/arena_kernel.py`` keeps the same value
+CRE_PER_EVENT = 8
+
 
 def _next_pow2(n: int, minimum: int = 1) -> int:
     return max(minimum, 1 << max(0, (n - 1).bit_length()))
@@ -305,6 +309,7 @@ class TorchScorer(WavefrontScorer):
             "push_calls": 0,
             "run_calls": 0,
             "run_steps": 0,
+            "arena_calls": 0,
             "run_dual_calls": 0,
             "run_dual_steps": 0,
             "stats_calls": 0,
@@ -342,19 +347,30 @@ class TorchScorer(WavefrontScorer):
         """Double the band half-width and rebuild every branch's band at
         the new width by replaying its recorded consensus from each
         read's anchor (a band is a window, so it cannot be re-padded in
-        place): one column-replay launch over every (slot, read) row on
-        a CUDA device."""
+        place): one column-replay launch over the (slot, read) rows of
+        every allocated slot on a CUDA device."""
         from waffle_con_tpu_torch.ops import replay_kernel
 
         self._E *= 2
         st = self._state
         self.counters["grow_e_events"] += 1
         self.counters["replayed_cols"] += int(st["clen"].max())
-        D, e, rmin, er = replay_kernel.replay_rows(
-            st["off"], st["act"], st["cons"], st["clen"], self._reads,
-            self._rlen, self._wc, self._et, self._E, self._W,
-        )
-        st.update(D=D, e=e, rmin=rmin, er=er)
+        # only the slots holding a branch are replayed; the others (free
+        # slots, the arena's scratch) restart blank at the new width:
+        # every allocation writes a slot's rows before anything reads them
+        fresh = self._blank_state()
+        used = self._rows(sorted(self._slot_of.values()))
+        if len(used):
+            D, e, rmin, er = replay_kernel.replay_rows(
+                st["off"][used], st["act"][used], st["cons"][used],
+                st["clen"][used], self._reads, self._rlen, self._wc,
+                self._et, self._E, self._W,
+            )
+            for name, val in (("D", D), ("e", e), ("rmin", rmin),
+                              ("er", er)):
+                fresh[name][used] = val
+        st.update(D=fresh["D"], e=fresh["e"], rmin=fresh["rmin"],
+                  er=fresh["er"])
 
     def _grow_slots(self) -> None:
         old_b = self._B
@@ -393,7 +409,8 @@ class TorchScorer(WavefrontScorer):
         return handle, slot
 
     def live_handles(self) -> int:
-        """Branch handles allocated and not yet freed."""
+        """Branch handles allocated and not yet freed (the arena's
+        scratch slots are slots without handles, so they never count)."""
         return len(self._slot_of)
 
     def _rows(self, slots: List[int]):
@@ -896,6 +913,242 @@ class TorchScorer(WavefrontScorer):
         return (
             steps, code, appended(0, lock1), appended(1, lock2),
             stats[0], stats[1], res.act[0][:n], res.act[1][:n], records,
+        )
+
+    # -- the K-node pop arena -------------------------------------------
+
+    #: ceiling of the arena's history (events per call)
+    ARENA_CAP_MAX = 2048
+    #: node capacity of the arena
+    ARENA_K = 64
+    #: competitors the engines hand in at most, reserving node slots for
+    #: the creation pool
+    ARENA_TAKE_MAX = ARENA_K - 1 - 16
+    #: children one split event may create on the device
+    ARENA_CRE_PER_EVENT = CRE_PER_EVENT
+    #: creation pool nodes offered per arena call
+    ARENA_POOL = 36
+
+    @property
+    def ARENA_CAP(self) -> int:
+        """History capacity of one arena call, sized to the read length
+        as ``JaxScorer`` sizes it."""
+        return min(self.ARENA_CAP_MAX, max(512, _next_pow2(self._L)))
+
+    def _scratch_reset(self) -> None:
+        self._scratch_next = 0
+
+    def _scratch_slot(self) -> int:
+        """A slot backing an arena side no node owns (side 2 of a single
+        node, both sides of a padding node): ``2 * ARENA_K`` slots taken
+        from the store at the first use, in ``JaxScorer``'s order, kept
+        for the scorer's life and never given a handle, so
+        :meth:`live_handles` does not count them."""
+        if not hasattr(self, "_scratch"):
+            self._scratch = []
+            for _ in range(2 * self.ARENA_K):
+                if not self._free:
+                    self._grow_slots()
+                self._scratch.append(self._free.pop())
+        slot = self._scratch[self._scratch_next]
+        self._scratch_next += 1
+        return slot
+
+    def run_arena(
+        self,
+        node_specs,
+        me_budget: int,
+        min_count: int,
+        ed_delta: int,
+        imb_min: int,
+        l2: bool,
+        weighted: bool,
+        rest_cost: int,
+        rest_len: int,
+        max_queue_size: int,
+        capacity_per_size: int,
+        step_limit: int,
+        max_nodes_wo_constraint: int,
+        lc: np.ndarray,
+        pc: np.ndarray,
+        tr_scalars: np.ndarray,
+        create_mode: int = 0,
+        mc_tab: np.ndarray | None = None,
+        imb_tab: np.ndarray | None = None,
+        split_relax: bool = True,
+        mc_dyn: bool = False,
+    ):
+        """K-node pop arena (:mod:`~waffle_con_tpu_torch.ops.arena_kernel`)
+        over ``node_specs`` ``[(h1, h2 or None, len1, len2), ...]`` (1 ..
+        ``ARENA_K`` nodes; node 0 the engine's in-hand pop, later nodes
+        in their queue pop order).  ``lc``/``pc`` ``[2, Lw]`` and
+        ``tr_scalars`` ``[2, 4]`` (threshold, total, farthest, last
+        constraint) are the single and dual trackers.  Returns
+        ``(events, nsteps, code, stop_node, per_node_steps,
+        per_side_appended, per_side_stats, per_side_act, alive,
+        creations)`` as ``JaxScorer.run_arena`` does: sides flattened as
+        ``[n0s1, n0s2, n1s1, ...]`` (None where no node owns the side),
+        ``events`` the history as ``("commit", node)`` / ``("discard",
+        node)`` / ``("split", node)`` / ``("create", rec)``, and
+        ``creations[j]`` child ``len(node_specs) + j`` as a dict with
+        ``parent``, ``kind``, ``sym1``/``sym2`` (bytes; ``sym2`` None for
+        a single child), ``created_len`` and fresh handles ``h1``/``h2``.
+        On band overflow (code 5) the band is grown."""
+        from waffle_con_tpu_torch.ops import arena_kernel
+
+        K = self.ARENA_K
+        n_live = len(node_specs)
+        if not 1 <= n_live <= K:
+            raise ValueError("arena takes 1..ARENA_K nodes")
+        kinds = []
+        slots = []
+        live_sides = []
+        self._scratch_reset()
+        for h1, h2, _l1, _l2 in node_specs:
+            kinds.append(1 if h2 is not None else 0)
+            live_sides.append(len(slots))
+            slots.append(self._slot_of[h1])
+            if h2 is not None:
+                live_sides.append(len(slots))
+                slots.append(self._slot_of[h2])
+            else:
+                slots.append(self._scratch_slot())
+        # creation pool: real slot pairs the arena may turn into children
+        n_pool = min(self.ARENA_POOL, K - n_live) if create_mode else 0
+        pool_pairs = [(self._alloc(), self._alloc()) for _ in range(n_pool)]
+        for (_h1p, s1p), (_h2p, s2p) in pool_pairs:
+            kinds.append(-1)
+            slots += [s1p, s2p]
+        for _ in range(K - n_live - n_pool):
+            kinds.append(-1)
+            slots += [self._scratch_slot(), self._scratch_slot()]
+        if len(set(slots)) != 2 * K:
+            raise ValueError("arena requires distinct state slots")
+        step_limit = min(step_limit, self.ARENA_CAP)
+        max_len = max(max(s[2], s[3]) for s in node_specs)
+        while max_len + step_limit + 2 >= self._C:
+            self._grow_cons()
+        if mc_tab is None:
+            mc_tab = np.full(self._R + 1, min_count, dtype=np.int32)
+        mc_tab = _pad_len_table(mc_tab, self._R + 1)
+        if imb_tab is None:
+            imb_tab = np.full(8, imb_min, dtype=np.int32)
+        imb_tab = _pad_len_table(imb_tab, max_len + step_limit + 2)
+        args = arena_kernel.ArenaArgs(
+            me_budget=min(int(me_budget), 2**31 - 1),
+            min_count=int(min_count), delta=int(ed_delta), l2=bool(l2),
+            weighted=bool(weighted),
+            rest_cost=min(int(rest_cost), 2**31 - 1),
+            rest_len=int(rest_len), n_live=n_live,
+            max_queue=int(max_queue_size), cap=int(capacity_per_size),
+            step_limit=int(step_limit),
+            max_nwc=int(max_nodes_wo_constraint),
+            create_mode=int(create_mode), n_pool=n_pool,
+            relax=bool(split_relax), mc_dyn=bool(mc_dyn), wc=self._wc,
+            et=self._et, a_real=self.num_symbols, max_steps=self.ARENA_CAP,
+        )
+        out = arena_kernel.arena(
+            self._state, self._reads, self._rlen, slots, kinds, lc, pc,
+            np.asarray(tr_scalars).reshape(2, 4), mc_tab, imb_tab, args,
+        )
+        res = arena_kernel.fetch(out, K, self._R, self.num_symbols,
+                                 args.max_steps)
+        nsteps, code, cre_count = res.nsteps, res.code, res.cre_count
+        c = self.counters
+        if code == 1:
+            # why the stopping winner's split was not absorbed: its child
+            # count and the gate flags
+            key = f"arena_s1_nc{res.stop_diag // 64}_f{res.stop_diag % 64:02d}"
+            c[key] = c.get(key, 0) + 1
+
+        events = []
+        for v in res.hist[:nsteps]:
+            v = int(v)
+            kind = ("commit", "discard", "split", "create")[min(v // K, 3)]
+            events.append((kind, v - K * min(v // K, 3)))
+
+        # creation records -> children with registered handles; unused
+        # pool pairs (and the side-2 slot of single children) go back
+        creations = []
+        for j in range(cre_count):
+            (h1p, _s1p), (h2p, _s2p) = pool_pairs[j]
+            kind_j = int(res.cre[1, j])
+            creations.append({
+                "parent": int(res.cre[0, j]),
+                "kind": kind_j,
+                "sym1": int(self.symtab[int(res.cre[2, j])]),
+                "sym2": (int(self.symtab[int(res.cre[3, j])])
+                         if kind_j == 1 else None),
+                "created_len": int(res.cre[4, j]),
+                "h1": h1p,
+                "h2": h2p if kind_j == 1 else None,
+            })
+            if kind_j == 0:
+                self.free(h2p)
+        for j in range(cre_count, n_pool):
+            (h1p, _), (h2p, _) = pool_pairs[j]
+            self.free(h1p)
+            self.free(h2p)
+
+        c["arena_calls"] += 1
+        c["arena_steps"] = c.get("arena_steps", 0) + nsteps
+        key = f"arena_stop_{code}"
+        c[key] = c.get(key, 0) + 1
+        n_disc = int(np.count_nonzero(~res.alive[: n_live + cre_count]))
+        if n_disc:
+            c["arena_discards"] = c.get("arena_discards", 0) + n_disc
+        if cre_count:
+            c["arena_creations"] = c.get("arena_creations", 0) + cre_count
+            c["arena_split_events"] = c.get("arena_split_events", 0) + sum(
+                1 for kind, _ in events if kind == "split")
+        # divergence pruning deactivates reads on the device: mirror it
+        for side in live_sides:
+            self._act_host[slots[side]] = res.act[side]
+
+        # per-node (kind, first length of side 1, of side 2), children too
+        eff = [(kinds[i], node_specs[i][2], node_specs[i][3])
+               for i in range(n_live)]
+        for j, cre in enumerate(creations):
+            eff.append((cre["kind"], cre["created_len"], cre["created_len"]))
+            # host mirrors of the consumed pool slots
+            p = cre["parent"]
+            p1s = slots[2 * p]
+            src2 = slots[2 * p + (1 if eff[p][0] == 1 else 0)]
+            c1s = slots[2 * (n_live + j)]
+            self._off_host[c1s] = self._off_host[p1s]
+            self._act_host[c1s] = res.act[2 * (n_live + j)]
+            if cre["kind"] == 1:
+                c2s = slots[2 * (n_live + j) + 1]
+                self._off_host[c2s] = self._off_host[src2]
+                self._act_host[c2s] = res.act[2 * (n_live + j) + 1]
+
+        # each side's appended symbols: its node's commit events in order
+        n_nodes = n_live + cre_count
+        syms = [[] for _ in range(2 * K)]
+        for i, (kind, node) in enumerate(events):
+            if kind == "commit":
+                syms[2 * node].append(res.evsym[i, 0])
+                syms[2 * node + 1].append(res.evsym[i, 1])
+        appended, sides_stats, sides_act = [], [], []
+        n = self.num_reads
+        for f in range(2 * K):
+            node = f // 2
+            if node >= n_nodes or (f % 2 == 1 and eff[node][0] == 0):
+                appended.append(None)
+                sides_stats.append(None)
+                sides_act.append(None)
+                continue
+            ids = np.asarray(syms[f], dtype=np.int64)
+            appended.append(self.symtab[ids].astype(np.uint8).tobytes())
+            sides_stats.append(self._stats_np(
+                res.eds[f], res.occ[f], res.split[f], res.reached[f]))
+            sides_act.append(res.act[f, :n])
+        if code == 5:
+            self._grow_e()
+        return (
+            events, nsteps, code, res.stop_node,
+            [int(s) for s in res.steps], appended, sides_stats, sides_act,
+            [bool(a) for a in res.alive], creations,
         )
 
     # -----------------------------------------------------------------

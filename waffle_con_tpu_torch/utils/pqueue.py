@@ -203,6 +203,19 @@ class PQueueTracker:
                 total += 1
         return max_steps
 
+    def export_windows(self, length: int):
+        """Length-count and processed-count arrays padded or truncated to
+        ``length`` (the pop arena's tracker input; see
+        ``ops/arena_kernel.py``)."""
+        lc = np.zeros(length, dtype=np.int32)
+        pc = np.zeros(length, dtype=np.int32)
+        n = min(length, len(self._length_counts))
+        lc[:n] = self._length_counts[:n]
+        m = min(length, len(self._processed_counts))
+        pc[:m] = self._processed_counts[:m]
+        return lc, pc
+
+
 class SetPriorityQueue:
     """Max-priority queue keyed by hashable identity.
 
@@ -289,15 +302,35 @@ class SetPriorityQueue:
 
     def pop(self) -> Tuple[Any, Any]:
         """Remove and return ``(item, priority)`` of the best entry."""
+        return self.pop_with_seq()[:2]
+
+    def pop_with_seq(self) -> Tuple[Any, Any, int]:
+        """Like :meth:`pop` but also returns the entry's insertion
+        sequence number, so a speculative pop can be undone with
+        :meth:`push_restored` without disturbing FIFO tie order."""
         while self._heap:
-            _neg, _seq, key = heapq.heappop(self._heap)
+            _neg, seq, key = heapq.heappop(self._heap)
             entry = self._live.get(key)
             if entry is None:
                 continue  # stale (already popped)
             priority, item = entry
             del self._live[key]
-            return item, priority
+            return item, priority, seq
         raise IndexError("pop from empty SetPriorityQueue")
+
+    def push_restored(
+        self, key: Hashable, item: Any, priority: Tuple, seq: int
+    ) -> bool:
+        """Re-insert a speculatively popped entry with its ORIGINAL
+        sequence number: ties against entries inserted after the original
+        push still pop this entry first, exactly as if the speculative
+        pop never happened.  Returns False (queue unchanged) when the key
+        is already present."""
+        if key in self._live:
+            return False
+        self._live[key] = (priority, item)
+        heapq.heappush(self._heap, (self._negate(priority), seq, key))
+        return True
 
     @staticmethod
     def _negate(priority: Tuple) -> Tuple:
