@@ -98,18 +98,24 @@ Phases, one line each (every failure exits non-zero):
     100-500 on the single engine, the same shape with 2 SNPs on the dual
     engine, and the ``length_gap_001`` fixture.
 
-13. arena_kernel: the K-node pop arena (``csrc/arena.cu``, one CTA)
-    against its plain twin on the card, every field of the packed output
-    and every store row some node owns compared bitwise: the first three
-    arena calls of ``dual_main``'s cold search and the first of
-    ``priority_main``'s (a group's call through its ``SubsetScorer``),
-    recorded as they ran, and the calls of nine small searches chosen to
-    reach every stop code 1-5, a discard on the device, creation in both
-    modes, a full creation pool (``stop_diag`` without flag 8), mixed
-    offsets, weighted, ``mc_dyn`` and L2 votes, and W = 514 and 2050
-    (the phase fails when one is not reached); each line gives the plan,
-    the kernel's time (CUDA events around the launch), the twin's and
-    the bound.
+13. arena_kernel: the K-node pop arena (``csrc/arena.cu``, one
+    thread-block cluster) against its plain twin on the card, every field
+    of the packed output and every store row some node owns compared
+    bitwise: the first three arena calls of ``dual_main``'s cold search
+    and the first of ``priority_main``'s (a group's call through its
+    ``SubsetScorer``), recorded as they ran, the calls of ten small
+    searches chosen to reach every stop code 1-5, a discard on the
+    device, creation in both modes, a full creation pool (``stop_diag``
+    without flag 8), mixed offsets, weighted, ``mc_dyn`` and L2 votes,
+    W = 514 and 2050 and the largest cluster (16 CTAs), and three of
+    those calls cut to 7, 13 and 33 reads (a one-CTA cluster, odd R); the
+    phase fails when a feature or one of those plans is not reached.
+    Each line gives the plan, the kernel's time (CUDA events around the
+    launch), the twin's and the bound.  The first
+    recorded ``dual_main`` and ``priority_main`` calls also run the
+    kernel's profiled variant: one ``arena_breakdown`` line each, the µs
+    an event of each part (tournament and decisions, row step, commit
+    write-back, record fold, finish).
 
 ``main``, ``dual_main``, ``priority_main`` and ``late_main`` also give
 the arena's launches, plan and counters (calls, events, stop codes,
@@ -2148,8 +2154,9 @@ def _dual_workload(seq_len=200, per_hap=6, er=0.01):
 def arena_draws():
     """Small searches whose arena calls reach every stop code, discards,
     both creation modes, a full creation pool, mixed offsets, weighted,
-    ``mc_dyn`` and L2 votes, and W = 514 and 2050: ``(label, engine,
-    reads, config fields, creation pool size or None)``."""
+    ``mc_dyn`` and L2 votes, W = 514 and 2050, and the largest cluster
+    (80 reads, which the store pads to R = 128: 16 CTAs): ``(label,
+    engine, reads, config fields, creation pool size or None)``."""
     from waffle_con_tpu_torch import ConsensusCost
     from waffle_con_tpu_torch.utils.example_gen import generate_test
 
@@ -2171,6 +2178,8 @@ def arena_draws():
          dict(min_count=3, initial_band=216), None),
         ("dual_W2050", "DualConsensusDWFA", dual,
          dict(min_count=3, initial_band=1000), None),
+        ("dual_80reads", "DualConsensusDWFA", _dual_workload(per_hap=40),
+         dict(min_count=8), None),
     ]
 
 
@@ -2198,6 +2207,24 @@ def record_arena_draws(device, per_draw=200):
     return out
 
 
+def _cut_arena_call(rec, n):
+    """A recorded call on the first ``n`` reads of its store (the scorer
+    pads R to a power of two of at least 16, so a one-CTA cluster and an
+    odd R arise only so), its output from the plain twin."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    (rd, rl, *rest) = rec["inputs"]
+    st, rd, rl = _cut_reads(rec["state"], rd, rl, n)
+    inputs = (rd, rl, *rest)
+    return dict(state=st, inputs=inputs,
+                out=ak.arena_plain(_copy_state(st), *inputs))
+
+
+#: (draw, reads kept) of the cut calls: a one-CTA cluster with an odd R,
+#: an odd R over 2 CTAs, and 8 CTAs of 5 reads whose last owns none
+ARENA_CUTS = (("dual_split", 7), ("dual_split", 13), ("dual_80reads", 33))
+
+
 def select_arena_cases(recorded):
     """The first call of each draw and every call that exercises a
     feature no earlier selected call did.  Returns ``[(label, record,
@@ -2210,6 +2237,18 @@ def select_arena_cases(recorded):
                 cases.append((f"{label}/{i}", rec, sorted(feats)))
                 seen |= feats
     return cases, seen
+
+
+def _arena_call_plan(rec):
+    """``plan_arena``'s plan of one recorded call."""
+    import numpy as np
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    st = rec["state"]
+    (_rd, _rl, _slots, kinds, lc, *_rest, args) = rec["inputs"]
+    return ak.plan_arena(len(kinds), st["D"].shape[1], st["D"].shape[2],
+                         args.a_real, np.asarray(lc).shape[1],
+                         st["cons"].shape[1])
 
 
 def arena_bound(stepped_rows, W, in_words, out_words):
@@ -2282,14 +2321,12 @@ def arena_case(label, rec, feats, device="cuda", reps=3):
         k_ms = total / reps
     lay_in = ak.arena_in_layout(K, lc.shape[1], len(mc_tab), len(imb_tab))
     bms, by = arena_bound(stepped, W, lay_in["imb_tab"][1], out_k.numel())
-    plan = ak.plan_arena(K, R, W, args.a_real, lc.shape[1],
-                         st_k["cons"].shape[1])
+    plan = _arena_call_plan(rec)
     line = dict(
         case=label, K=K, R=R, W=W, A=args.a_real, n_live=args.n_live,
         create_mode=args.create_mode, nsteps=res.nsteps, code=res.code,
         creations=res.cre_count, stepped_rows=stepped,
-        features=feats, threads=plan.threads, band=plan.band,
-        smem_bytes=plan.smem_bytes,
+        features=feats, plan=plan._asdict(),
         kernel_ms=None if k_ms is None else round(k_ms, 4),
         plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by,
         max_abs_err=err, events_per_ms=(
@@ -2299,6 +2336,50 @@ def arena_case(label, rec, feats, device="cuda", reps=3):
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by), err
 
 
+def arena_breakdown(label, rec, reps=3):
+    """The profiled variant of the arena kernel on a recorded call: each
+    part's share of the launch's clock64 total, scaled by the launch's
+    time (CUDA events), in µs an event (``nsteps``, as the searches'
+    ``arena_steps`` count them).  Prints one ``arena_breakdown`` line."""
+    import torch
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    call = rec["inputs"]
+    kinds, args = call[3], call[-1]
+    prof = torch.zeros(len(ak.PROF_FIELDS), dtype=torch.int64, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    ms, cycles = 0.0, None
+    for _ in range(reps):
+        st = _copy_state(rec["state"])
+        torch.cuda.synchronize()
+        start.record()
+        out = ak.arena_cuda(st, *call, profile=prof)
+        stop.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(stop) / reps
+        got = prof.cpu().numpy()
+        cycles = got if cycles is None else cycles + got
+    if _same(out, rec["out"]):
+        raise AssertionError(f"{label}: the profiled arena kernel differs")
+    f = dict(zip(ak.PROF_FIELDS, (int(v) for v in cycles)))
+    nsteps = ak.unpack(out.cpu().numpy(), len(kinds), st["D"].shape[1],
+                       args.a_real, args.max_steps).nsteps
+    # a part's share of the clocks, times the launch's µs, per event
+    us = ms * 1e3 / nsteps / f["total"]
+    parts = {k: f[k] * us for k in ak.PROF_FIELDS[:5]}
+    parts["setup_and_results"] = (f["total"] - sum(
+        f[k] for k in ak.PROF_FIELDS[:5])) * us
+    parts["total"] = ms * 1e3 / nsteps
+    line = dict(
+        case=label, plan=_arena_call_plan(rec)._asdict(), events=nsteps,
+        loop_iterations=f["events"] // reps, ms=round(ms, 4),
+        clock_mhz=round(f["total"] / (ms * reps * 1e3), 1),
+        us_per_event={k: round(v, 3) for k, v in parts.items()})
+    print("arena_breakdown", json.dumps(line), flush=True)
+    return line
+
+
 def phase_arena_kernel(small_only, records=None, device="cuda"):
     """The arena kernel against its plain twin on the card, every output
     and every owned row of the store bitwise: the first three arena calls
@@ -2306,21 +2387,44 @@ def phase_arena_kernel(small_only, records=None, device="cuda"):
     through its ``SubsetScorer``) when those phases ran, and the calls of
     small searches chosen to reach every stop code, discards on the
     device, creation in both modes, a full creation pool, mixed offsets,
-    weighted, ``mc_dyn`` and L2 votes, and W = 514 and 2050.  Fails when
-    a feature is not reached.  Returns the kernel table's timing (from
-    ``dual_main``'s first call when recorded) and the largest error."""
+    weighted, ``mc_dyn`` and L2 votes, and W = 514 and 2050, and
+    ``ARENA_CUTS``' calls on fewer reads.  Fails when a feature is not
+    reached, or no case's plan is a one-CTA cluster, the largest cluster
+    or an odd R.  Returns the kernel table's timing (from ``dual_main``'s
+    first call when recorded) and the largest error."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
     records = records or {}
     cases = []
     for path in ("dual_main", "priority_main"):
         for i, rec in enumerate(records.get(path, [])):
             cases.append((f"{path}/{i}", rec, sorted(_arena_features(rec)[0])))
     main_cases = len(cases)
-    picked, seen = select_arena_cases(
-        record_arena_draws(device, per_draw=8 if small_only else 200))
+    if device == "cuda":
+        for path in ("dual_main", "priority_main"):
+            if records.get(path):
+                arena_breakdown(f"{path}/0", records[path][0])
+    recorded_draws = record_arena_draws(device,
+                                        per_draw=8 if small_only else 200)
+    picked, seen = select_arena_cases(recorded_draws)
     missing = [] if small_only else sorted(set(ARENA_FEATURES) - seen)
     if missing:
         raise AssertionError(f"arena_kernel: features not reached {missing}")
     cases += picked
+    first = {label: calls[0] for label, calls in recorded_draws if calls}
+    for draw, n in ARENA_CUTS:
+        if draw in first:
+            rec = _cut_arena_call(first[draw], n)
+            cases.append((f"{draw}/0/R{n}", rec,
+                          sorted(_arena_features(rec)[0])))
+    # (odd R, cluster) of every case's plan
+    shapes = {(rec["state"]["D"].shape[1] % 2 == 1,
+               _arena_call_plan(rec).cluster) for _l, rec, _f in cases}
+    clusters = {c for _odd, c in shapes}
+    if not ({1, ak.MAX_CLUSTER} <= clusters
+            and any(odd for odd, _c in shapes)):
+        raise AssertionError(f"arena_kernel: plans not reached (odd R, "
+                             f"cluster) {sorted(shapes)}")
     worst, table = 0, None
     for i, (label, rec, feats) in enumerate(cases):
         timing, err = arena_case(label, rec, feats, device)

@@ -15,8 +15,10 @@ call returned must be equal afterwards too.  Scenarios reach each stop
 code 1-5, a discard on the device, creation in both modes (singles,
 split pairs, dual cross products), a full creation pool, weighted and L2
 costs, fractional votes under ``split_relax``, ``mc_dyn`` with a
-non-constant table and a node set with mixed offsets.  ``plan_arena`` is
-checked without JAX.
+non-constant table and a node set with mixed offsets.  ``plan_arena``
+(the cluster plan: every (side, read) row once, both sides of a read in
+one CTA, the placements) and the cluster's rank-order fold of node
+records are checked without JAX.
 """
 
 import math
@@ -288,33 +290,335 @@ def test_mixed_offsets():
 # the launch planner (no JAX)
 
 
+def _arena_owners(plan, R):
+    """``(side, read) -> (rank, warp)`` as the kernel assigns a commit's
+    rows: contiguous blocks of ``reads_per_cta`` reads per CTA; row ``q =
+    side * reads_per_cta + local read`` of a CTA to warp ``q % warps``."""
+    nw = plan.threads // 32
+    owner = {}
+    for rank in range(plan.cluster):
+        r0 = rank * plan.reads_per_cta
+        nloc = max(0, min(plan.reads_per_cta, R - r0))
+        for q in range(2 * plan.reads_per_cta):
+            sd, lr = divmod(q, plan.reads_per_cta)
+            if lr < nloc:
+                assert (sd, r0 + lr) not in owner, "row owned twice"
+                owner[sd, r0 + lr] = (rank, q % nw)
+    return owner
+
+
+def _placement_rule(K, R, W, A, Lw):
+    """The documented rule, written out: the smallest cluster of at most
+    16 rows a CTA, then the first placement that fits, in the order band,
+    trackers, records (shared memory before device memory), the fold
+    round from 8 nodes down."""
+    c = 1
+    while c < 16 and 2 * -(-R // c) > 16:
+        c *= 2
+    rpc = -(-R // c)
+    for band in (True, False):
+        for trk in (True, False):
+            for rec in (True, False):
+                for fold in (8, 4, 2, 1):
+                    smem = arena_kernel._smem_bytes(K, A, rpc, c, fold, W,
+                                                    Lw, band, rec, trk)
+                    if smem <= arena_kernel.SMEM_LIMIT:
+                        return c, rpc, band, rec, trk, fold, smem
+    return None
+
+
 @pytest.mark.parametrize("K,R,W,A", [
     (64, 16, 18, 4), (64, 64, 258, 4), (64, 32, 130, 5), (64, 256, 514, 4),
     (64, 16, 2050, 4), (1, 1, 4, 1), (64, 1024, 514, 128),
+    (64, 8, 18, 4), (64, 7, 18, 4), (64, 9, 66, 4), (64, 13, 258, 4),
+    (64, 33, 258, 4), (64, 65, 258, 4), (64, 128, 258, 4), (64, 64, 258, 128),
+    (32, 100, 1026, 5),
 ])
 def test_plan_arena(K, R, W, A):
     plan = arena_kernel.plan_arena(K, R, W, A, 4096, 8192)
-    warps = min(32, 2 * R)
-    assert plan.threads == 32 * warps
-    base = 16 * K + warps * 5 * A + 3 * A + 128
-    stage = (2 * W + (W + 2) // 2 + 3) & ~3
-    staged = 4 * (base + warps * stage) <= arena_kernel.SMEM_LIMIT
-    assert plan.band == ("smem" if staged else "global")
-    assert plan.smem_bytes == 4 * (base + (warps * stage if staged else 0))
+    nw = plan.threads // 32
+    # every (side, read) row once, both sides of a read in one CTA
+    owner = _arena_owners(plan, R)
+    assert sorted(owner) == [(sd, r) for sd in (0, 1) for r in range(R)]
+    for r in range(R):
+        assert owner[0, r][0] == owner[1, r][0], f"read {r} split over CTAs"
+    assert 1 <= plan.cluster <= 16 and 1 <= nw <= 16
+    assert plan.threads == 32 * min(16, 2 * plan.reads_per_cta)
+    assert plan.rows_per_warp == -(-2 * plan.reads_per_cta // nw)
+    # one row a warp whenever 16 CTAs can hold the rows that way
+    assert (plan.rows_per_warp == 1) == (R <= 128)
     assert plan.smem_bytes <= arena_kernel.SMEM_LIMIT
+    c, rpc, band, rec, trk, fold, smem = _placement_rule(K, R, W, A, 4096)
+    assert (plan.cluster, plan.reads_per_cta, plan.band, plan.records,
+            plan.trackers, plan.fold_nodes, plan.smem_bytes) == (
+        c, rpc, "smem" if band else "global", "smem" if rec else "global",
+        "smem" if trk else "global", fold, smem)
     # the north stars' geometries stage their rows
     if (R, W) in ((16, 18), (64, 258), (32, 130), (256, 514)):
         assert plan.band == "smem"
+
+
+#: (K, R, W, A, Lw) -> (cluster, threads, reads per CTA, rows per warp,
+#: band, records, trackers, fold nodes)
+PLACEMENTS = {
+    # the dual north star: 8 CTAs of 16 warps, everything in shared memory
+    (64, 64, 258, 4, 8192): (8, 512, 8, 1, "smem", "smem", "smem", 8),
+    # the priority north star's level-1 dual group
+    (64, 32, 130, 4, 4096): (4, 512, 8, 1, "smem", "smem", "smem", 8),
+    # W = 514 at the largest cluster: the trackers move out, then the
+    # fold round shrinks to 4 nodes
+    (64, 256, 514, 4, 4096): (16, 512, 16, 2, "smem", "smem", "global", 4),
+    # W = 514 at Lw = 8192: the trackers move to device memory
+    (64, 64, 514, 4, 8192): (8, 512, 8, 1, "smem", "smem", "global", 8),
+    # W = 2050: the rows step in device memory
+    (64, 16, 2050, 4, 4096): (2, 512, 8, 1, "global", "smem", "smem", 8),
+    (64, 16, 2050, 4, 8192): (2, 512, 8, 1, "global", "smem", "smem", 8),
+    # A = 128: the records' vote rows move to device memory
+    (64, 64, 258, 128, 8192): (8, 512, 8, 1, "smem", "global", "global", 2),
+    (64, 1024, 514, 128, 4096): (16, 512, 64, 8, "global", "global",
+                                 "global", 1),
+    # one CTA (R <= 8), an odd R, four CTAs, sixteen
+    (64, 8, 18, 4, 1024): (1, 512, 8, 1, "smem", "smem", "smem", 8),
+    (64, 5, 18, 4, 1024): (1, 320, 5, 1, "smem", "smem", "smem", 8),
+    (64, 13, 258, 4, 1024): (2, 448, 7, 1, "smem", "smem", "smem", 8),
+    (64, 32, 18, 4, 1024): (4, 512, 8, 1, "smem", "smem", "smem", 8),
+    (64, 65, 258, 4, 8192): (16, 320, 5, 1, "smem", "smem", "smem", 8),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLACEMENTS))
+def test_plan_arena_placements(shape):
+    plan = arena_kernel.plan_arena(*shape, 8192)
+    assert tuple(plan)[:-1] == PLACEMENTS[shape]
+    K, R, W, A, Lw = shape
+    assert plan.smem_bytes == arena_kernel._smem_bytes(
+        K, A, plan.reads_per_cta, plan.cluster, plan.fold_nodes, W, Lw,
+        plan.band == "smem", plan.records == "smem",
+        plan.trackers == "smem")
+    assert plan.smem_bytes <= arena_kernel.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("K,R,W,A,Lw,C", [
     (65, 16, 18, 4, 64, 64), (0, 16, 18, 4, 64, 64), (64, 16, 17, 4, 64, 64),
     (64, 16, 2, 4, 64, 64), (64, 16, 18, 129, 64, 64), (64, 0, 18, 4, 64, 64),
     (64, 16, 18, 4, 0, 64), (64, 16, 18, 4, 64, 1),
+    # per-CTA state beyond shared memory even with everything movable moved
+    (64, 10**6, 18, 4, 64, 64), (64, 4096, 18, 128, 64, 64),
 ])
 def test_plan_arena_raises_on_impossible_shape(K, R, W, A, Lw, C):
     with pytest.raises(ValueError):
         arena_kernel.plan_arena(K, R, W, A, Lw, C)
+
+
+def test_scratch_holds_each_cta_copy():
+    plan = arena_kernel.plan_arena(64, 1024, 514, 128, 4096, 8192)
+    assert (plan.band, plan.records, plan.trackers) == ("global",) * 3
+    assert arena_kernel.scratch_words(plan, 64, 1024, 514, 128, 4096) == (
+        2 * 1024 * 514 + 16 * 4 * 64 * 128 + 16 * 4 * 4096)
+    plan = arena_kernel.plan_arena(64, 64, 258, 4, 8192, 8192)
+    assert arena_kernel.scratch_words(plan, 64, 64, 258, 4, 8192) == 1
+
+
+# ---------------------------------------------------------------------
+# the cluster's fold of node records (no JAX)
+
+
+def _cluster_record(dual, sides, clen2, args, mc_tab, imb_tab, rpc):
+    """A node's record as the kernel's cluster takes it: per CTA (blocks
+    of ``rpc`` reads) a partial of ``_node_eval``'s quantities — wrapping
+    cost sum, largest distance, active counts, the reach / finish flags
+    with each "all" as the OR of its negation, non-dyadic splits, both
+    sides' float32 votes summed in read order — folded in rank order, then
+    the nomination on the folded votes (``record_fold`` in
+    ``csrc/arena.cu``)."""
+    f32 = np.float32
+    eds1, occ1, split1, reached1, a1 = sides[0]
+    R, A = occ1.shape
+    if dual:
+        eds2, occ2, split2, reached2, a2 = sides[1]
+    else:
+        eds2 = split2 = np.zeros(R, np.int64)
+        occ2 = np.zeros_like(occ1)
+        reached2 = a2 = np.zeros(R, bool)
+    a1, a2 = np.asarray(a1, bool), np.asarray(a2, bool) & dual
+    r1, r2 = a1 & reached1, a2 & reached2
+    e1, e2 = np.where(a1, eds1, 0), np.where(a2, eds2, 0)
+    parts = []
+    for r0 in range(0, R, rpc):
+        tot, mx, n1, n2 = 0, 0, 0, 0
+        fl = dict.fromkeys(("nall_rr", "any_rr", "nall_f1", "any_f1",
+                            "nall_f2", "any_f2", "any_r1", "nondy1",
+                            "nondy2"), False)
+        cnt = np.zeros((2, A), f32)
+        hv = np.zeros((2, A), bool)
+        for r in range(r0, min(R, r0 + rpc)):
+            c = [int(arena_kernel._wrap32(e * e)) if args.l2 else int(e)
+                 for e in (e1[r], e2[r])]
+            if dual:
+                best = min(c[0] if a1[r] else arena_kernel.BIG,
+                           c[1] if a2[r] else arena_kernel.BIG)
+                tot += best if a1[r] or a2[r] else 0
+            else:
+                tot += c[0] if a1[r] else 0
+            mx = max(mx, int(e1[r]), int(e2[r]))
+            rr = r1[r] or r2[r]
+            fl["nall_rr"] |= not (rr or (not a1[r] and not a2[r]))
+            fl["any_rr"] |= rr
+            fl["nall_f1"] |= a1[r] and not r1[r]
+            fl["any_f1"] |= r1[r]
+            fl["nall_f2"] |= a2[r] and not r2[r]
+            fl["any_f2"] |= r2[r]
+            fl["any_r1"] |= r1[r]
+            n1 += int(a1[r])
+            n2 += int(a2[r])
+            for sd, (act, sp, occ) in enumerate(((a1, split1, occ1),
+                                                 (a2, split2, occ2))):
+                if not act[r]:
+                    continue
+                s = int(sp[r])
+                fl[f"nondy{sd + 1}"] |= s > 0 and (s & (s - 1)) != 0
+                w = f32(1)
+                if args.weighted and dual and a1[r] and a2[r]:
+                    c1f = max(f32(eds1[r]), f32(0.5))
+                    c2f = max(f32(eds2[r]), f32(0.5))
+                    w = f32((c1f if sd else c2f) / f32(c1f + c2f))
+                for k in range(A):
+                    if s > 0 and occ[r, k] > 0:
+                        term = f32(f32(f32(occ[r, k]) / f32(s)) * w)
+                        cnt[sd, k] = f32(cnt[sd, k] + term)
+                        hv[sd, k] = True
+        parts.append((tot, mx, n1, n2, fl, cnt, hv))
+    # the fold, in rank order
+    tot = sum(p[0] for p in parts) % (1 << 32)
+    mx = max(p[1] for p in parts)
+    n1, n2 = sum(p[2] for p in parts), sum(p[3] for p in parts)
+    fl = {k: any(p[4][k] for p in parts) for k in parts[0][4]}
+    cnt = np.zeros((2, A), f32)
+    for p in parts:
+        cnt = (cnt + p[5]).astype(f32)
+    hv = np.logical_or.reduce([p[6] for p in parts])
+    et = bool(args.et)
+    fin1 = not fl["nall_f1"] if et else fl["any_f1"]
+    fin2 = not fl["nall_f2"] if et else fl["any_f2"]
+    if dual:
+        reach = not fl["nall_rr"] if et else fl["any_rr"]
+    else:
+        reach = not fl["nall_f1"] if et else fl["any_r1"]
+    covf = bool(args.l2) and mx > 2048
+    out = dict(total=int(arena_kernel._wrap32(tot)), reach=reach,
+               fin=(fin1, fin2), covf=covf, sym=[0, 0], mc=[0, 0],
+               ex=[False, False], nt=[False, False])
+    dirty = covf
+    eps = f32(arena_kernel.VOTE_EPS)
+    for sd in range(2 if dual else 1):
+        c, h = cnt[sd], hv[sd]
+        if 0 <= args.wc < A and h.sum() > 1:
+            h[args.wc], c[args.wc] = False, f32(0)
+        nvf = f32(0)
+        for k in range(A):
+            nvf = f32(nvf + c[k])
+        nvr = f32(np.rint(nvf))
+        tab_bad = bool(args.mc_dyn) and not abs(f32(nvf - nvr)) < eps
+        exact = not fl[f"nondy{sd + 1}"] and not args.weighted and not tab_bad
+        mc = int(mc_tab[min(max(int(nvr), 0), len(mc_tab) - 1)])
+        maxc = max([c[k] for k in range(A) if h[k]], default=f32(-1))
+        thr = min(f32(mc), maxc)
+        passing = h & (c >= thr)
+        near = bool(abs(f32(maxc - f32(mc))) < eps) or bool(
+            (h & (np.abs(c - thr) < eps)).any())
+        dirty |= ((not exact and near) or int(passing.sum()) != 1
+                  or int(h.sum()) == 0 or tab_bad)
+        if sd == 1:
+            dirty |= fin1 or fin2
+        out["sym"][sd] = int(np.argmax(np.where(passing, c, f32(-1))))
+        out["mc"][sd], out["ex"][sd], out["nt"][sd] = mc, exact, near
+    nlen = max(clen2) if dual else clen2[0]
+    imb_v = int(imb_tab[min(max(nlen, 0), len(imb_tab) - 1)])
+    out.update(dirty=dirty, imb=dual and (n1 < imb_v or n2 < imb_v),
+               cnt=cnt, hv=hv)
+    return out
+
+
+def _gates(cnt, hv, mc):
+    """The creation gates' vote tests of one side (``decide``): the
+    passing symbols and whether every candidate clears ``mc`` by
+    VOTE_EPS."""
+    f32, eps = np.float32, np.float32(arena_kernel.VOTE_EPS)
+    maxc = np.where(hv, cnt, f32(-1)).max()
+    passing = hv & (cnt >= min(f32(mc), maxc))
+    margin = bool(np.where(hv, np.abs(cnt - f32(mc)) > eps, True).all())
+    return passing.tolist(), margin
+
+
+FOLD_SCENARIOS = {
+    "weighted": (lambda t, h2: [(t[:100], h2[:100], ()), (t[:99], h2[:99], ())],
+                 dict(weighted=True)),
+    "l2": (lambda t, h2: [(t[:100], h2[:100], ()), (t[:99], h2[:99], ())],
+           dict(l2=True)),
+    "split_relax": (lambda t, h2: [(t[:60], t[:60], ())],
+                    dict(weighted=True)),
+    "mc_dyn": (lambda t, h2: [(t[:60], None, ()), (t[:59], None, ())],
+               dict(min_count=2, mc_dyn=True, split_relax=False)),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(FOLD_SCENARIOS))
+def test_cluster_fold_takes_the_plain_decisions(scenario, monkeypatch):
+    """Every record ``arena_plain`` takes in the scenario, taken again as
+    the kernel's cluster folds it (per-CTA partials in rank order) at the
+    plan's reads per CTA and at two other splits, gives the same record
+    and the same creation-gate tests; the vote counts agree to float32
+    rounding."""
+    truth, h2, reads = _workload()
+    make_nodes, kw = FOLD_SCENARIOS[scenario]
+    kw = dict(kw)
+    min_count = kw.pop("min_count", 3)
+    if kw.get("mc_dyn"):
+        kw["mc_tab"] = [max(2, math.ceil(0.3 * k))
+                        for k in range(len(reads) + 1)]
+    ts = TorchScorer(reads, CdwfaConfigBuilder().backend("torch")
+                     .device("cpu").min_count(min_count).build())
+    calls = []
+    orig = arena_kernel._node_eval
+
+    def recording(rec, n, dual, sides, clen2, args, mc_tab, imb_tab):
+        orig(rec, n, dual, sides, clen2, args, mc_tab, imb_tab)
+        calls.append((dual, sides, clen2, args, mc_tab, imb_tab, dict(
+            total=int(rec.total[n]), reach=bool(rec.reach[n]),
+            dirty=bool(rec.dirty[n]), sym=rec.sym[n].tolist(),
+            imb=bool(rec.imb[n]), fin=tuple(rec.fin[n].tolist()),
+            covf=bool(rec.covf[n]), ex=rec.ex[n].tolist(),
+            mc=rec.mc[n].tolist(), nt=rec.nt[n].tolist(),
+            cnt=rec.cnt[n].copy(), hv=rec.hv[n].copy())))
+
+    monkeypatch.setattr(arena_kernel, "_node_eval", recording)
+    _run(ts, make_nodes(truth, h2), min_count=min_count, **kw)
+    assert len(calls) >= 5
+    R = ts._state["D"].shape[1]
+    plan = arena_kernel.plan_arena(64, R, ts._state["D"].shape[2],
+                                   ts.num_symbols, LW, ts._C)
+    fractional = 0
+    for dual, sides, clen2, args, mc_tab, imb_tab, want in calls:
+        sides = [s if s is None else tuple(np.asarray(x) for x in s)
+                 for s in sides]
+        fractional += bool((want["cnt"] % 1).any())
+        for rpc in sorted({plan.reads_per_cta, 1, 5}):
+            got = _cluster_record(dual, sides, clen2, args, mc_tab, imb_tab,
+                                  rpc)
+            for key in ("total", "reach", "dirty", "imb", "fin", "covf"):
+                assert got[key] == want[key], (key, rpc)
+            nsides = 2 if dual else 1
+            for key in ("sym", "mc", "ex", "nt"):
+                assert got[key][:nsides] == want[key][:nsides], (key, rpc)
+            assert (got["hv"] == want["hv"]).all()
+            np.testing.assert_allclose(got["cnt"], want["cnt"], rtol=1e-6,
+                                       atol=1e-6)
+            for sd in range(nsides):
+                assert _gates(got["cnt"][sd], got["hv"][sd],
+                              want["mc"][sd]) == _gates(
+                    want["cnt"][sd], want["hv"][sd], want["mc"][sd])
+    if scenario in ("weighted", "split_relax"):
+        assert fractional, "no fractional vote reached"
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

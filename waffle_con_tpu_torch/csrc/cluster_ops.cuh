@@ -1,7 +1,8 @@
 // Cluster routines shared by the run kernels (csrc/run_extend.cu,
-// csrc/run_extend_dual.cu): the layout of a step's partial, the fold of
-// several partials by one warp, and the push of a CTA's partial into
-// every CTA's gather rows over distributed shared memory.
+// csrc/run_extend_dual.cu) and the pop arena (csrc/arena.cu): the layout
+// of a partial, the fold of several partials by one warp, and the push of
+// a CTA's partial into every CTA's gather rows over distributed shared
+// memory.
 //
 // A partial is `Layout::kHead` header words — `kSum` wrapping int32 sums,
 // then `kMax` maxima (of values >= 0), then one word of OR'd flags — then,
@@ -79,6 +80,20 @@ __device__ __forceinline__ void fold(const int* src, int n, int P, int A,
   }
 }
 
+// One warp: store the CTA's partial `part` (P words, 16-byte aligned)
+// at `slot` of every CTA of the cluster (the same offset in each CTA's
+// shared memory) over distributed shared memory.
+__device__ __forceinline__ void push(cg::cluster_group& cl, const int* part,
+                                     int P, int* slot, int csize) {
+  const int lane = threadIdx.x & 31;
+  const int n4 = P / 4;
+  const int4* src = reinterpret_cast<const int4*>(part);
+  for (int i = lane; i < csize * n4; i += 32) {
+    int4* q = reinterpret_cast<int4*>(cl.map_shared_rank(slot, i / n4));
+    q[i % n4] = src[i % n4];
+  }
+}
+
 // One warp: fold the warps' partials wpart[0..nw) in warp order into the
 // CTA's partial `part`, then store it into slot `rank` of every CTA's
 // gather rows `gath` (kMaxCluster slots of P words) over distributed
@@ -99,13 +114,7 @@ __device__ __forceinline__ void cta_fold(cg::cluster_group& cl,
     for (int w = 0; w <= L::kFlags; ++w) part[w] = (int)head[w];
   }
   __syncwarp();
-  const int n4 = P / 4;
-  const int4* src = reinterpret_cast<const int4*>(part);
-  int* slot = gath + (size_t)rank * P;
-  for (int i = lane; i < csize * n4; i += 32) {
-    int4* q = reinterpret_cast<int4*>(cl.map_shared_rank(slot, i / n4));
-    q[i % n4] = src[i % n4];
-  }
+  push(cl, part, P, gath + (size_t)rank * P, csize);
 }
 
 }  // namespace clu

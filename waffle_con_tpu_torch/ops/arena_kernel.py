@@ -22,8 +22,10 @@ Pieces, in the style of :mod:`~waffle_con_tpu_torch.ops.run_kernel`:
   changed: a side's stats are a pure function of its row.
 * :func:`plan_arena` — the kernel's launch geometry from the shape.
 * :func:`arena_cuda` — the wrapper of the hand-written Hopper kernel
-  ``csrc/arena.cu``: one CTA runs the whole loop, the rows stepped in
-  place in the branch store.  Counted in ``arena_cuda.launches``.
+  ``csrc/arena.cu``: one thread-block cluster runs the whole loop, each
+  CTA a block of reads and its own copy of the decisions, the rows
+  stepped in place in the branch store.  Counted in
+  ``arena_cuda.launches``.
 * :func:`arena` — the dispatch rule: CPU tensors take the twin, CUDA
   tensors launch the kernel or raise.
 
@@ -49,6 +51,12 @@ import numpy as np
 import torch
 
 from waffle_con_tpu_torch.ops import cuda_build
+from waffle_con_tpu_torch.ops.run_kernel import (
+    MAX_CLUSTER,
+    MAX_WARPS,
+    SMEM_LIMIT,
+    _ring_len,
+)
 from waffle_con_tpu_torch.ops.torch_scorer import (
     CRE_PER_EVENT,
     VOTE_EPS,
@@ -69,8 +77,6 @@ N_PARAMS = 24
 MAX_K = 64
 #: dense symbols the kernel's decision records take
 MAX_A = 128
-#: shared memory a CTA may use on an H100 (227 KB, the opt-in maximum)
-SMEM_LIMIT = 232448
 
 _F32 = np.float32
 _EPS = _F32(VOTE_EPS)
@@ -675,89 +681,178 @@ arena_plain.stepped_rows = 0
 
 
 class ArenaPlan(NamedTuple):
-    """Launch geometry of one ``arena`` kernel call: one CTA."""
+    """Launch geometry of one ``arena`` kernel call: one thread-block
+    cluster.  The unit of work is a (side, read) row; both sides of a read
+    sit in one CTA, and a row belongs to one warp for the whole call."""
 
-    #: threads of the CTA (32 per warp; a warp steps one row at a time)
+    #: CTAs of the one thread-block cluster
+    cluster: int
+    #: threads of each CTA (32 per warp)
     threads: int
-    #: ``"smem"``: each warp stages its row's column step in shared
-    #: memory; ``"global"``: the step runs on device memory
+    #: reads of each CTA (contiguous blocks; the last CTA may own fewer)
+    reads_per_cta: int
+    #: rows of a commit each warp steps (row ``q = side * reads_per_cta +
+    #: local read`` belongs to warp ``q % warps``)
+    rows_per_warp: int
+    #: ``"smem"``: each row staged in shared memory for its column step,
+    #: the new column kept there until the commit; ``"global"``: the step
+    #: runs on device memory through a scratch row
     band: str
-    #: dynamic shared memory of the CTA, bytes
+    #: where each CTA's copy of the records' vote rows lives (``"smem"``
+    #: or ``"global"``, a per-CTA copy in device memory)
+    records: str
+    #: where each CTA's copy of the trackers ``lc``/``pc`` lives
+    trackers: str
+    #: node records folded per cluster barrier (a split's children, the
+    #: initial records); a commit folds one
+    fold_nodes: int
+    #: dynamic shared memory of each CTA, bytes
     smem_bytes: int
 
 
+#: (side, read) rows a CTA holds at one row per warp
+ROWS_PER_CTA = 16
+#: min-count table entries each CTA keeps in shared memory
+MC_CACHE = 256
+
+
 def _stage_words(W: int) -> int:
-    """Words of a warp's staging area (``stage_words`` in
-    ``csrc/arena.cu``): two ``[W]`` columns and a ``[W + 1]`` int16 read
-    window, rounded up to 4 words."""
-    return (2 * W + (W + 2) // 2 + 3) & ~3
+    """Words of a row's staging area (``stage_words`` in
+    ``csrc/arena.cu``): two ``[W]`` columns and a ring of the read's
+    symbols (``ring_len(W)`` int16 slots), rounded up to 4 words."""
+    return (2 * W + _ring_len(W) // 2 + 3) & ~3
 
 
-def _smem_bytes(K: int, A: int, warps: int, W: int, staged: bool) -> int:
-    """Dynamic shared memory of the CTA (``carve`` in ``csrc/arena.cu``):
-    16 words per node (its record's scalars, its tournament fields and
-    its sides' lengths), a histogram and two sides' vote rows (counts
-    and flags) per warp, the winner's passing symbols and candidate
-    order, 128 words of decision and child specs, and with ``staged``
-    each warp's staging area."""
-    words = 16 * K + warps * 5 * A + 3 * A + 128
-    if staged:
-        words += warps * _stage_words(W)
+def _part_words(A: int) -> int:
+    """Words of one node partial: 8 header words (three sums, a maximum,
+    the flags), then has[A] and counts[A] per side (``clu::Layout<3, 1,
+    2>`` in ``csrc/cluster_ops.cuh``)."""
+    return (8 + 4 * A + 3) & ~3
+
+
+def _smem_bytes(K: int, A: int, rpc: int, csize: int, fold_nodes: int,
+                W: int, Lw: int, band: bool, records: bool,
+                trackers: bool) -> int:
+    """Dynamic shared memory of one CTA (``smem_words`` and ``carve`` in
+    ``csrc/arena.cu``): the CTA's node partials and every CTA's by parity,
+    16 words per node (its record's scalars, tournament fields and sides'
+    lengths), 136 decision words, the winner's passing symbols and
+    candidate order, the row words, tip histograms and vote terms of a
+    fold round, the parameters and slots, the head of the min-count
+    table, 8 words of staging state per commit row; with ``band`` a
+    staging area per commit row, with ``records`` the records' vote rows
+    (float32 counts and has-vote flags, ``[K, 2, A]`` each), with
+    ``trackers`` ``lc`` and ``pc`` (``[2, Lw]`` each)."""
+    P = _part_words(A)
+    words = (fold_nodes * P + 2 * fold_nodes * csize * P + 16 * K + 136
+             + 3 * A + 2 * fold_nodes * rpc * (9 + 2 * A) + N_PARAMS + 2 * K
+             + MC_CACHE + 2 * rpc * 8)
+    if band:
+        words += 2 * rpc * _stage_words(W)
+    if records:
+        words += 4 * K * A
+    if trackers:
+        words += 4 * Lw
     return 4 * words
+
+
+def _place(on_chip: bool) -> str:
+    return "smem" if on_chip else "global"
 
 
 def plan_arena(K: int, R: int, W: int, A: int, Lw: int, C: int) -> ArenaPlan:
     """The arena kernel's launch geometry for ``K`` nodes, ``R`` reads,
     band width ``W``, ``A`` dense symbols, tracker windows of ``Lw``
-    lengths and a consensus capacity of ``C``: one CTA of ``min(32,
-    2R)`` warps, so a dual commit's ``2R`` rows take one pass.  Rows,
-    trackers and decision vote rows stay in device memory; each warp
-    stages the row it steps (both columns and the read window) in shared
-    memory when every warp's share fits (``band`` ``"smem"``: W up to
-    702 at 32 warps, 64 nodes and 4 symbols, so the band widths up to
-    514), else steps it in device memory.  Raises
-    ``ValueError`` on any shape the kernel does not take (``K`` above
-    64, ``A`` above 128, an odd or narrow band, an empty read set or
-    tracker window, a consensus capacity below 2)."""
+    lengths and a consensus capacity of ``C``.  The rule:
+
+    * the smallest cluster (1, 2, 4, 8 or 16 CTAs) whose CTAs hold at most
+      16 (side, read) rows, both sides of a read in one CTA, one row per
+      warp; else 16 CTAs of 16 warps, several rows per warp;
+    * placements, as long as a CTA's shared memory holds them, in this
+      order of need: the band staged (every commit row, both columns and
+      a ring of its read's symbols), the trackers, the records' vote rows,
+      and 8 node records a fold round; short of room the fold round
+      shrinks first (to 1), then the records, the trackers and last the
+      band move to device memory.
+
+    At the dual north star (R=64, W=258, A=4, Lw=8192) that is 8 CTAs of
+    16 warps with everything in shared memory.  Raises ``ValueError`` on
+    any shape the kernel does not take (``K`` above 64, ``A`` above 128,
+    an odd or narrow band, an empty read set or tracker window, a
+    consensus capacity below 2, per-CTA state beyond shared memory)."""
     if not (1 <= K <= MAX_K and R >= 1 and 1 <= A <= MAX_A and W >= 4
             and W % 2 == 0 and Lw >= 1 and C >= 2):
         raise ValueError(
             f"no arena plan for K={K}, R={R}, W={W}, A={A}, Lw={Lw}, C={C}")
-    warps = min(32, max(1, 2 * R))
-    smem = _smem_bytes(K, A, warps, W, True)
-    if smem <= SMEM_LIMIT:
-        return ArenaPlan(32 * warps, "smem", smem)
-    smem = _smem_bytes(K, A, warps, W, False)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"no arena plan for K={K}, A={A}: {smem} bytes of "
-                         f"shared memory (limit {SMEM_LIMIT})")
-    return ArenaPlan(32 * warps, "global", smem)
+    c = 1
+    while c < MAX_CLUSTER and 2 * -(-R // c) > ROWS_PER_CTA:
+        c *= 2
+    rpc = -(-R // c)
+    nw = min(MAX_WARPS, 2 * rpc)
+    rpw = -(-2 * rpc // nw)
+    for band in (True, False):
+        for trackers in (True, False):
+            for records in (True, False):
+                for fold in (8, 4, 2, 1):
+                    smem = _smem_bytes(K, A, rpc, c, fold, W, Lw, band,
+                                       records, trackers)
+                    if smem <= SMEM_LIMIT:
+                        return ArenaPlan(c, 32 * nw, rpc, rpw, _place(band),
+                                         _place(records), _place(trackers),
+                                         fold, smem)
+    raise ValueError(f"no arena plan for K={K}, R={R}, A={A}: {rpc} reads "
+                     f"per CTA need {smem} bytes of shared memory (limit "
+                     f"{SMEM_LIMIT})")
+
+
+def scratch_words(plan: ArenaPlan, K: int, R: int, W: int, A: int,
+                  Lw: int) -> int:
+    """Words of the kernel's device-memory scratch: the commit's new
+    columns ``[2, R, W]`` (band in device memory), then per CTA the
+    records' vote rows ``[4, K, A]`` and the trackers ``[4, Lw]`` where
+    the plan keeps them in device memory (at least one word)."""
+    words = 2 * R * W if plan.band == "global" else 0
+    if plan.records == "global":
+        words += plan.cluster * 4 * K * A
+    if plan.trackers == "global":
+        words += plan.cluster * 4 * Lw
+    return max(words, 1)
 
 
 # ---------------------------------------------------------------------
 # CUDA kernel: bind, launch
 
-_ERRORS = {-1: "the plan does not match the kernel"}
+_ERRORS = {-1: "the plan does not match the kernel",
+           -2: "no cluster of the plan's shape fits on the device"}
 
 
 def _launcher():
     fn = cuda_build.library().arena_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 18 + [
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
+#: the profiled variant's output: clock64 totals of each part of an event
+#: (the tournament and decisions, the row step, the commit write-back, the
+#: record fold, the finish), of the whole launch, and the loop's events
+PROF_FIELDS = ("decide", "step", "write_back", "fold", "finish", "total",
+               "events")
+
+
 def arena_cuda(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
-               imb_tab, args: ArenaArgs):
-    """Launch ``csrc/arena.cu``: one CTA of the geometry
-    :func:`plan_arena` gives runs the whole loop, stepping the rows at
-    ``slots`` in place in the branch store.  Same contract and output as
+               imb_tab, args: ArenaArgs, profile=None):
+    """Launch ``csrc/arena.cu``: one thread-block cluster of the
+    geometry :func:`plan_arena` gives runs the whole loop, stepping the
+    rows at ``slots`` in place in the branch store.  Same contract and output as
     :func:`arena_plain`; the host inputs go up in one packed copy.
     Raises on anything the kernel does not take and when the launch is
     refused; never falls back.  Each launch adds one to
-    ``arena_cuda.launches``."""
+    ``arena_cuda.launches``.  ``profile``, an int64 tensor of
+    ``len(PROF_FIELDS)`` on the device, launches the profiled variant of
+    the same source, which fills it (see :data:`PROF_FIELDS`)."""
     D = state["D"]
     dev = D.device
     if dev.type != "cuda":
@@ -783,6 +878,10 @@ def arena_cuda(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
     if slots.shape != (2 * K,) or len(set(slots.tolist())) != 2 * K or (
             slots.min() < 0 or slots.max() >= B):
         raise ValueError(f"slots: need {2 * K} distinct slots < {B}")
+    if profile is not None and (
+            profile.dtype != torch.int64 or profile.device != dev
+            or profile.shape != (len(PROF_FIELDS),)):
+        raise ValueError(f"profile: need int64 [{len(PROF_FIELDS)}] on {dev}")
     lc = np.asarray(lc)
     Lw = lc.shape[1]
     A = args.a_real
@@ -800,10 +899,7 @@ def arena_cuda(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
     buf = torch.from_numpy(host).to(dev, non_blocking=False)
     lay = arena_out_layout(K, R, A, args.max_steps)
     out = torch.empty(lay["cre_len"][1], dtype=torch.int32, device=dev)
-    # commit scratch: two [R, W] rows, their folds and activity, their
-    # tip histograms and splits; then the records' vote rows (float32
-    # counts and has-vote flags, [K, 2, A] each)
-    scratch = torch.empty(2 * R * W + 10 * R + 2 * R * A + 4 * K * A,
+    scratch = torch.empty(scratch_words(plan, K, R, W, A, Lw),
                           dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     rc = _launcher()(
@@ -812,8 +908,11 @@ def arena_cuda(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
         ptr(state["clen"]), ptr(reads), ptr(rlen), ptr(buf), ptr(out),
         ptr(scratch),
         B, R, W, C, reads.shape[1], A, K, Lw, len(mc_tab), len(imb_tab),
-        args.max_steps, plan.threads, plan.smem_bytes,
-        int(plan.band == "smem"), cuda_build.stream_ptr(dev),
+        args.max_steps, plan.cluster, plan.threads, plan.reads_per_cta,
+        plan.fold_nodes, int(plan.band == "smem"),
+        int(plan.records == "smem"), int(plan.trackers == "smem"),
+        plan.smem_bytes, None if profile is None else ptr(profile),
+        cuda_build.stream_ptr(dev),
     )
     if rc != 0:
         why = _ERRORS.get(rc, f"CUDA error {rc}")
