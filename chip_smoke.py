@@ -75,23 +75,30 @@ Phases, one line each (every failure exits non-zero):
     prints the walls, pops, launches, activations, growth events,
     replayed columns, the final W, the activations' and growths' share
     of the timed wall and the device time by kernel.
-11. replay_kernel: the offset scan (``csrc/offset_scan.cu``) and the
-    column replay (``csrc/col_replay.cu``) against their plain PyTorch
-    twins on the card, every output compared bitwise: scans of the
-    default window (P=64, M=64, m=50), the same with the whole head
-    compared (m=64), one position (P=1), a wide window with the wildcard
-    (P=128, M=256), heads too long for the register column (m=1500,
-    the column in shared memory; m=1100 at M=32768, in device memory),
-    and the deployment's first three;
-    one row caught up over 50, 100, 5,000 and no columns (the offset at
-    the branch's end, and past it), an overflow at E=8 that must commit
-    nothing, one row at W=32770 (its columns in device memory) and the
-    deployment's first three activations; growth replays of 16 x 256
-    rows to W=34 at clen 300, to W=258 at clen 6,000 with mixed
-    anchors, inactive rows and free slots, to W=2050, to W=32770, and
-    every growth of the deployment; each line gives the launch geometry
-    (where the columns live included), the kernel's time (CUDA events
-    around the call), the twin's time and the bound.
+11. replay_kernel: the offset scan (``csrc/offset_scan.cu``, bit
+    vectors) and the column replay (``csrc/col_replay.cu``, cells in
+    registers) against their plain PyTorch twins on the card, every
+    output compared bitwise: scans of the default window (P=64, M=64,
+    m=50, one thread a position), the same with the whole head compared
+    (m=64), one position (P=1), the plan's edges m=65 and m=129 (groups
+    of 2 and 4 lanes), a wide window with the wildcard (P=128, M=256),
+    long heads (m=1500; m=1100 at M=32768: a warp a position; m=2100:
+    the column in shared memory; m=7000: Peq in device memory), and the
+    deployment's first three; one row caught up over 50, 100, 5,000 and
+    no columns (the offset at the branch's end, and past it), an
+    overflow at E=8 that must commit nothing, one row on a CTA (W=2050),
+    on clusters of 4 and 8 CTAs (W=32770, W=65538) and on the
+    device-memory last resort (W=139266), and the deployment's first
+    three activations; growth replays of 16 x 256 rows to W=34 and 16 x
+    128 to W=66 at clen 300 (more rows than the card has warps), to
+    W=258 at clen 6,000 with mixed anchors, inactive rows and free
+    slots, to W=2050 (a CTA a row), W=32770 and W=65538 (a cluster a
+    row), W=139266 (device memory), and every growth of the deployment; each line gives
+    the launch geometry (the placement included), the kernel's time
+    (CUDA events around the call), its device time (events around
+    launches queued behind a spin kernel, the host's launch cost left
+    out),
+    the twin's time and the bound.
 12. late_oracle: the ``"python"`` oracle and ``"torch"`` on ``cuda`` give
     byte-identical results, scores included, with late reads and the
     default band: 16 reads x 1 kb at 2 % with every 4th read cut at
@@ -1457,10 +1464,10 @@ def phase_priority_oracle():
 # ---------------------------------------------------------------------
 # phases 10-12: late reads and band growth
 
-#: int32 operations per DP cell per column of the offset scan: the match
-#: test (3 compares, 2 ors), the substitution and deletion adds 2, their
-#: min 1, and the insertion chain (subtract, min, add) 3
-SCAN_OPS_PER_CELL = 10
+#: int32 operations per 64-bit word per column of the offset scan's bit
+#: vectors: its dozen 64-bit bitwise operations and one add (two int32
+#: operations each), the score's update and the shifts' carries
+SCAN_OPS_PER_WORD = 32
 
 #: the late-read deployment's engine settings: the single north star's
 #: reads and min_count, no initial_band (the band starts at E=8 and
@@ -1515,12 +1522,13 @@ def _add_reads(eng, reads):
 
 def scan_bound(B, P, M, m):
     """(bound_ms, bound_by) of one offset scan: the window and heads read
-    and the scores written once; ``min(2M, 2m)`` columns of ``m + 1``
-    cells per (head, position), the cells and columns that can reach the
-    output (``csrc/offset_scan.cu``'s header says why)."""
+    and the scores written once; ``min(2M, 2m)`` columns (the ones that
+    can reach the output, ``csrc/offset_scan.cu``'s header says why) of
+    ``ceil(m / 64)`` 64-bit words of bit vectors per (head, position)."""
     nbytes = 4 * ((P + 2 * M) + B * M + B * P)
     cols = min(2 * M, 2 * m)
-    return bound(nbytes, B * P * cols * (m + 1) * SCAN_OPS_PER_CELL)
+    words = -(-m // 64)
+    return bound(nbytes, B * P * cols * words * SCAN_OPS_PER_WORD)
 
 
 def replay_bound(off, act, clen, W):
@@ -1573,11 +1581,11 @@ def phase_late_main():
     methods = {name: getattr(TorchScorer, name) for name in
                ("best_activation_offset", "activate", "_grow_e")}
 
-    def rec_scan(cons_win, heads, m, wc, P, M):
+    def rec_scan(cons_win, heads, m, wc, P, M, num_symbols):
         if len(records["scans"]) < 3:
             records["scans"].append(
-                (cons_win.clone(), heads.clone(), m, wc, P, M))
-        return scan0(cons_win, heads, m, wc, P, M)
+                (cons_win.clone(), heads.clone(), m, wc, P, M, num_symbols))
+        return scan0(cons_win, heads, m, wc, P, M, num_symbols)
 
     def rec_activate(state, slot, read, offset, rd, rl, wc, et):
         if len(records["activations"]) < 3:
@@ -1659,11 +1667,11 @@ def phase_late_main():
         wrap("warm")
     st = eng.last_search_stats
     c = st["scorer_counters"]
-    # col_replay_kernel<activate, shared columns>
+    # col_replay_kernel<activate, cells> (col_replay_global_kernel<activate>)
     grow_ms = sum(ms for name, ms in by_name.items()
-                  if "col_replay_kernel<false," in name)
+                  if "col_replay" in name and "<false" in name)
     act_ms = sum(ms for name, ms in by_name.items()
-                 if "col_replay_kernel<true," in name)
+                 if "col_replay" in name and "<true" in name)
     line = dict(
         reads=len(reads), late_reads=n_late, length=len(truth),
         gen_s=round(gen_s, 3), cold_s=round(walls["cold"], 3),
@@ -1787,10 +1795,31 @@ def _same(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def _scan_case(label, cons_win, heads, m, wc, P, M, reps=20):
+def _launch_device_ms(launch, n):
+    """Device ms of one ``launch()`` (a launch that does not synchronise):
+    ``n`` of them queued back to back behind a spin kernel
+    (``torch.cuda._sleep``) that keeps the card busy while the host queues
+    them, timed by CUDA events around the ``n``.  The events around one
+    call time the host's launch too; here it drops out."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000 * n)  # ~0.5 ms of spinning a launch
+    start.record()
+    for _ in range(n):
+        launch()
+    stop.record()
+    torch.cuda.synchronize()
+    return round(start.elapsed_time(stop) / n, 5)
+
+
+def _scan_case(label, cons_win, heads, m, wc, P, M, nsym, reps=20):
     from waffle_con_tpu_torch.ops import replay_kernel as rpk
 
-    got = rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M)
+    got = rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M, nsym)
     plan = rpk.offset_scan_cuda.last_plan
     held = []
     p_ms = _time_cuda(lambda: held.append(
@@ -1799,14 +1828,18 @@ def _scan_case(label, cons_win, heads, m, wc, P, M, reps=20):
     if err:
         raise AssertionError(f"{label}: offset_scan kernel != plain ({err})")
     k_ms = _time_cuda(
-        lambda: rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M), reps)
+        lambda: rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M, nsym),
+        reps)
+    dev_ms = _launch_device_ms(
+        lambda: rpk.offset_scan_cuda(cons_win, heads, m, wc, P, M, nsym),
+        reps)
     bms, by = scan_bound(heads.shape[0], P, M, m)
     line = dict(case=label, B=heads.shape[0], P=P, M=M, m=m, wc=wc,
-                warps=plan.warps, blocks=plan.blocks, cells=plan.cells,
-                column=plan.column,
+                group=plan.group, threads=plan.threads, blocks=plan.blocks,
+                column=plan.column, table=plan.table,
                 smem_bytes=plan.smem_bytes, kernel_ms=round(k_ms, 4),
-                plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by,
-                best=int(held[0].min()))
+                device_ms=dev_ms, plain_ms=round(p_ms, 3), bound_ms=bms,
+                bound_by=by, best=int(held[0].min()))
     print("replay_kernel", json.dumps(line), flush=True)
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by), err
 
@@ -1825,16 +1858,23 @@ def _grow_case(label, state, rd, rl, wc, et, E, reps=3):
     if err:
         raise AssertionError(f"{label}: col_replay kernel != plain ({err})")
     k_ms = _time_cuda(lambda: rpk.replay_rows_cuda(*args), reps)
+    dev_ms = _launch_device_ms(lambda: rpk.replay_rows_cuda(*args), reps)
     bms, by, steps = replay_bound(state["off"], state["act"], state["clen"],
                                   W)
     B, R = state["off"].shape
     line = dict(case=label, mode="grow", B=B, R=R, W=W,
                 clen_max=int(state["clen"].max()), stepped_cols=steps,
-                warps=plan.warps, blocks=plan.blocks, band=plan.band,
-                smem_bytes=plan.smem_bytes, kernel_ms=round(k_ms, 4),
-                plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by)
+                **_replay_plan_fields(plan), kernel_ms=round(k_ms, 4),
+                device_ms=dev_ms, plain_ms=round(p_ms, 3), bound_ms=bms,
+                bound_by=by)
     print("replay_kernel", json.dumps(line), flush=True)
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by), err
+
+
+def _replay_plan_fields(plan):
+    return dict(placement=plan.placement, cells=plan.cells,
+                row_warps=plan.row_warps, ctas=plan.ctas, warps=plan.warps,
+                blocks=plan.blocks, smem_bytes=plan.smem_bytes)
 
 
 def _activate_case(label, state, rd, rl, slot, read, offset, wc, et,
@@ -1863,6 +1903,10 @@ def _activate_case(label, state, rd, rl, slot, read, offset, wc, et,
         raise AssertionError(f"{label}: col_replay kernel != plain ({err})")
     k_ms = _time_cuda(lambda: rpk.activate_row_cuda(
         st_k, slot, read, offset, rd, rl, wc, et), reps)
+    # the launch alone, without the host's read of the overflow word
+    flag = torch.empty(1, dtype=torch.int32, device=rd.device)
+    dev_ms = _launch_device_ms(lambda: rpk._launch_col_replay(
+        1, st_k, None, flag, rd, rl, slot, read, offset, wc, et, plan), reps)
     W = state["D"].shape[2]
     cols = max(0, int(state["clen"][slot]) - offset)
     one = lambda t: t[slot:slot + 1, read:read + 1]  # noqa: E731
@@ -1870,49 +1914,61 @@ def _activate_case(label, state, rd, rl, slot, read, offset, wc, et,
         torch.full_like(one(state["off"]), offset),
         torch.ones_like(one(state["act"])), state["clen"][slot:slot + 1], W)
     line = dict(case=label, mode="activate", W=W, cols=cols, overflow=ovf_k,
-                band=plan.band, kernel_ms=round(k_ms, 4),
-                plain_ms=round(p_ms, 3),
+                **_replay_plan_fields(plan), kernel_ms=round(k_ms, 4),
+                device_ms=dev_ms, plain_ms=round(p_ms, 3),
                 bound_ms=bms, bound_by=by)
     print("replay_kernel", json.dumps(line), flush=True)
     return err
 
 
 def phase_replay_kernel(small_only: bool, records=None):
-    """Both new kernels against their plain twins on the card, every
-    output compared bitwise: the offset scan on the default window (and
-    with the whole head compared), one position, a wide window with the
-    wildcard, heads too long for the register column (in shared memory,
-    and at M=32768 in device memory) and the deployment's first three
-    calls; the column
-    replay catching one row up over 50, 100, 5,000 and no columns (the
-    offset at the branch's end, and past it), an overflow at E=8 that
-    commits nothing, one row at W=32770 (columns in device memory) and
-    the deployment's first three activations, and growth replays of the
-    whole store (16 x 256 rows to W=34; W=258 at clen 6,000 with mixed
-    anchors, inactive rows and free slots; W=2050; W=32770) and the
-    deployment's own.  Returns the kernel table's numbers of both
-    kernels (from the deployment's calls when ``late_main`` ran) and the
-    max error of each."""
+    """Both late-read kernels against their plain twins on the card,
+    every output compared bitwise: the offset scan on the default window
+    (one thread a position), one position, the plan's edges (the whole
+    head at m = 64, groups of 2 and 4 lanes at m = 65 and 129), a wide
+    window with the wildcard, long heads (m = 1,500 and, at M = 32,768,
+    1,100: a warp a position; m = 2,100: the column in shared memory;
+    m = 7,000: Peq in device memory) and the deployment's first three
+    calls; the column replay catching one row up over 50, 100, 5,000 and
+    no columns (the offset at the branch's end, and past it), an overflow
+    at E=8 that commits nothing, one row on a CTA (W=2050), on clusters
+    (W=32770, W=65538) and on the device-memory last resort (W=139266),
+    and the deployment's first three activations, and growth replays of
+    the whole store (16 x 256 rows to W=34 and 16 x 128 to W=66, more
+    rows than warps on the card; W=258 at clen 6,000 with mixed anchors,
+    inactive rows and free slots; W=2050 on CTAs; W=32770 and W=65538 on clusters;
+    W=139266 in device memory) and the deployment's own.  ``small_only``
+    keeps one case of each placement.  Returns the kernel table's numbers
+    of both kernels (from the deployment's calls when ``late_main`` ran)
+    and the max error of each."""
     records = records or {"scans": [], "activations": [], "grows": []}
     err_scan = err_rep = 0
     scan_t = rep_t = None
-    # -- offset scan
-    cases = [("scan/default_window", 64, 64, 50, -2, 100, 0),
-             ("scan/one_position", 1, 64, 40, -2, None, 0)]
+    # -- offset scan (label, P, M, m, wc, real symbols, wildcards, reps)
+    cases = [("scan/default_window", 64, 64, 50, -2, 100, 0, 20),
+             ("scan/one_position", 1, 64, 40, -2, None, 0, 20),
+             # the plan's edges: groups of 2 and 4 lanes a position
+             ("scan/m65", 64, 128, 65, -2, 200, 0, 5),
+             ("scan/m129", 64, 256, 129, 4, 300, 4, 5),
+             # past 2,048 rows: the column in shared memory
+             ("scan/smem_column", 2, 4096, 2100, -2, 4400, 0, 3)]
     if not small_only:
-        cases += [("scan/whole_head", 64, 64, 64, -2, 100, 0),
-                  ("scan/wide_wildcard", 128, 256, 200, 4, 500, 6),
-                  # too long a head for the register column: the column
-                  # in shared memory, then in device memory
-                  ("scan/long_head", 2, 2048, 1500, -2, 4000, 0),
-                  ("scan/global_column", 1, 32768, 1100, -2, 3000, 0)]
-    for k, (label, P, M, m, wc, real, wild) in enumerate(cases):
+        cases += [("scan/whole_head", 64, 64, 64, -2, 100, 0, 20),
+                  ("scan/wide_wildcard", 128, 256, 200, 4, 500, 6, 20),
+                  # long heads: a warp a position, the column in registers
+                  ("scan/long_head", 2, 2048, 1500, -2, 4000, 0, 20),
+                  ("scan/global_column", 1, 32768, 1100, -2, 3000, 0, 20),
+                  # Peq too large for shared memory: in device memory
+                  ("scan/global_table", 2, 8192, 7000, -2, 7500, 0, 2)]
+    for k, (label, P, M, m, wc, real, wild, reps) in enumerate(cases):
         win, head = _scan_inputs(10 + k, P, M, m, wc, real, wild)
-        t, e = _scan_case(label, win, head, m, wc, P, M)
+        # ids 0-3 and the wildcard's 4
+        t, e = _scan_case(label, win, head, m, wc, P, M, 5, reps)
         err_scan = max(err_scan, e)
         scan_t = scan_t or t
-    for k, (win, head, m, wc, P, M) in enumerate(records["scans"]):
-        t, e = _scan_case(f"scan/deployment_{k}", win, head, m, wc, P, M)
+    for k, (win, head, m, wc, P, M, nsym) in enumerate(records["scans"]):
+        t, e = _scan_case(f"scan/deployment_{k}", win, head, m, wc, P, M,
+                          nsym)
         err_scan = max(err_scan, e)
         if k == 0:
             scan_t = t
@@ -1936,13 +1992,20 @@ def phase_replay_kernel(small_only: bool, records=None):
                                late=((5, 200),))
     err_rep = max(err_rep, _activate_case(
         "activate/overflow_E8", st, rd, rl, 1, 5, 200, -2, False, True))
+    # one row over 100 columns on each wide placement: a CTA (E = 1024),
+    # clusters of 4 and 8 CTAs (E = 16384, the first width past one CTA's
+    # shared memory for a row's two columns, and E = 32768) and the
+    # device-memory last resort
+    wide = [("activate/W2050_cta", 1024, 3),
+            ("activate/global_band", 16384, 5)]
     if not small_only:
-        # E = 16384: the row's two columns only fit device memory
-        st, rd, rl = _replay_store(25, 2, 4, 700, 16384, (600, 0),
+        wide += [("activate/W65538_cluster", 32768, 3),
+                 ("activate/W139266_global", 69632, 1)]
+    for label, E, reps in wide:
+        st, rd, rl = _replay_store(25, 2, 4, 700, E, (600, 0),
                                    late=((1, 500),))
         err_rep = max(err_rep, _activate_case(
-            "activate/global_band", st, rd, rl, 0, 1, 500, -2, False,
-            False))
+            label, st, rd, rl, 0, 1, 500, -2, False, False, reps))
     for k, (st, slot, read, offset, rd, rl, wc, et) in enumerate(
             records["activations"]):
         err_rep = max(err_rep, _activate_case(
@@ -1951,23 +2014,33 @@ def phase_replay_kernel(small_only: bool, records=None):
     # -- column replay, growth mode
     grows = [("grow/B16_R256_W34_clen300",
               dict(seed=22, B=16, R=256, length=400, E=16,
-                   clens=[300] * 16))]
+                   clens=[300] * 16)),
+             ("grow/W2050", dict(seed=24, B=4, R=16, length=700, E=1024,
+                                 clens=[600, 400, 0, 600])),
+             ("grow/W32770_global", dict(seed=26, B=2, R=8, length=700,
+                                         E=16384, clens=[600, 0],
+                                         late=((3, 200),)))]
     if not small_only:
         grows += [
+            ("grow/B16_R128_W66_clen300",
+             dict(seed=27, B=16, R=128, length=400, E=32,
+                  clens=[300] * 16)),
             ("grow/W258_clen6000_mixed",
              dict(seed=23, B=16, R=64, length=6200, E=128,
                   clens=[6000, 5000, 4000, 0, 6000, 300] + [0] * 10,
                   late=[(r, 100 * r) for r in range(3, 64, 4)],
                   inactive=[(b, r) for b in range(16) for r in (1, 30)])),
-            ("grow/W2050", dict(seed=24, B=4, R=16, length=700, E=1024,
-                                clens=[600, 400, 0, 600])),
-            ("grow/W32770_global", dict(seed=26, B=2, R=8, length=700,
-                                        E=16384, clens=[600, 0],
-                                        late=((3, 200),))),
+            ("grow/W65538_cluster", dict(seed=28, B=2, R=4, length=400,
+                                         E=32768, clens=[300, 0],
+                                         late=((3, 100),))),
+            ("grow/W139266_global", dict(seed=29, B=1, R=2, length=300,
+                                         E=69632, clens=[60],
+                                         late=((1, 20),))),
         ]
     for label, spec in grows:
         st, rd, rl = _replay_store(**spec)
-        t, e = _grow_case(label, st, rd, rl, -2, False, spec["E"])
+        reps = 3 if spec["E"] <= 16384 else 1
+        t, e = _grow_case(label, st, rd, rl, -2, False, spec["E"], reps)
         err_rep = max(err_rep, e)
         if label == "grow/W258_clen6000_mixed" or rep_t is None:
             rep_t = t

@@ -6,7 +6,9 @@ with exact integer equality; then ``TorchScorer.best_activation_offset``
 against ``JaxScorer.best_activation_offset`` on both sides of the host
 fallback rule, on a repeat consensus where positions tie, and with the
 wildcard, and through a ``SubsetScorer`` view.  The CUDA kernel itself is
-held to the twin on the card (``chip_smoke.py``'s ``replay_kernel``).
+held to the twin on the card (``chip_smoke.py``'s ``replay_kernel``), and
+its bit-vector recurrence to the twin here by the model in
+``test_torch_late_kernel_models.py``.
 """
 
 import numpy as np
@@ -153,41 +155,55 @@ def test_subset_view_maps_the_read_index():
 
 
 @pytest.mark.parametrize("B,P,M,m", [
-    (1, 1, 8, 5), (1, 64, 64, 50), (1, 64, 64, 64), (2, 128, 256, 200),
-    (1, 4, 1024, 1000), (1, 2, 2048, 1500), (1, 8, 8192, 8000),
-    (1, 1, 16384, 300), (1, 8, 32768, 50), (3, 4, 32768, 20000)])
+    (1, 1, 8, 5), (1, 64, 64, 50), (1, 64, 64, 64), (1, 64, 128, 65),
+    (2, 128, 256, 200), (1, 4, 1024, 1000), (1, 2, 2048, 1500),
+    (1, 8, 4096, 2047), (1, 8, 4096, 2048), (1, 8, 4096, 2049),
+    (1, 8, 8192, 8000), (1, 1, 16384, 300), (1, 8, 32768, 50),
+    (3, 4, 32768, 20000), (1, 8, 8, 0)])
 def test_scan_plan(B, P, M, m):
-    """Every (head, position) gets one warp; the column's m + 1 cells sit
-    in registers up to m = 1055, in shared memory beyond, each beside the
-    window segment and the head in shared memory, and a CTA takes as many
-    positions (up to 8) as its shared memory holds; where not even one
-    fits, all of it sits in device memory."""
+    """Up to m = 2048 a position takes the least power-of-two group of
+    lanes with 64 head rows a lane (one thread for m <= 64), its column in
+    registers and Peq in shared memory, CTAs of up to 256 threads; longer
+    heads take one warp a position (up to 8 a CTA), the column in shared
+    memory beside Peq while both fit, else Peq in device memory.  No
+    placement keeps a column in device memory."""
     plan = replay_kernel.plan_offset_scan(B, P, M, m)
     limit = replay_kernel.SMEM_LIMIT
-    reg = m + 1 <= 32 * 33
-    cols = 0 if reg else m + 1
-    smem = lambda w: 4 * (w - 1 + 3 * M + w * cols)  # noqa: E731
-    assert 1 <= plan.warps <= 8 and P % plan.warps == 0
-    assert plan.blocks * plan.warps == B * P
-    if plan.smem_bytes:
-        assert plan.smem_bytes == smem(plan.warps) <= limit
-        assert plan.warps == min(8, P) or smem(2 * plan.warps) > limit
+    rows = replay_kernel.PEQ_ROWS
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.smem_bytes <= limit
+    if m <= 2048:
+        g = plan.group
+        assert g >= 1 and g & (g - 1) == 0 and 64 * g >= m
+        assert g == 1 or 32 * g < m
+        assert plan.column == "registers" and plan.table == "smem"
+        assert plan.nwp == g and plan.smem_bytes == 8 * rows * g
+        assert plan.threads == min(256, max(32, P * g))
+        per = plan.threads // g
+        assert plan.blocks == B * -(-P // per)
     else:
-        assert plan.cells == 0 and plan.warps == min(8, P)
-        assert smem(1) > limit
-    if reg and plan.smem_bytes:
-        assert plan.cells in replay_kernel.SCAN_CELLS
-        assert 32 * plan.cells >= m + 1 > 32 * (plan.cells // 2)
-    else:
-        assert plan.cells == 0
-    assert plan.column == ("registers" if plan.cells else
-                           "smem" if plan.smem_bytes else "global")
+        assert plan.group == 0 and plan.column == "smem"
+        words = -(-m // 64)
+        assert plan.nwp == 32 * -(-words // 32)
+        warps = plan.threads // 32
+        assert 1 <= warps <= min(8, P) and plan.blocks == B * (P // warps)
+        cols = 16 * plan.nwp * warps
+        table = 8 * rows * plan.nwp
+        if plan.table == "smem":
+            assert plan.smem_bytes == table + cols
+            assert warps == min(8, P) or table + 2 * cols > limit
+        else:
+            assert plan.table == "global" and plan.smem_bytes == cols
+            assert table + 16 * plan.nwp > limit
+            assert warps == min(8, P) or 2 * cols > limit
 
 
 @pytest.mark.parametrize("B,P,M,m", [(0, 8, 8, 4), (1, 3, 8, 4),
                                      (1, 8, 6, 4), (1, 8, 8, 9),
-                                     (1, 8, 8, -1)])
+                                     (1, 8, 8, -1), (1, 8, 2**20, 2**20)])
 def test_scan_plan_refuses(B, P, M, m):
+    """Shapes outside the contract, and a head too long for even one
+    warp's column in shared memory."""
     with pytest.raises(ValueError):
         replay_kernel.plan_offset_scan(B, P, M, m)
 
@@ -197,4 +213,15 @@ def test_scan_kernel_refuses_cpu_tensors():
     win = torch.zeros(8 + 16, dtype=torch.int32)
     heads = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
-        replay_kernel.offset_scan_cuda(win, heads, 5, -2, 8, 8)
+        replay_kernel.offset_scan_cuda(win, heads, 5, -2, 8, 8, 4)
+
+
+@pytest.mark.parametrize("num_symbols", [257, 1000])
+def test_scan_kernel_refuses_a_wide_alphabet(num_symbols):
+    """The kernel's match table has a row for each id below 256, so the
+    wrapper refuses a wider alphabet, whose ids would share a row and
+    score wrongly, before it looks at the tensors."""
+    win = torch.zeros(8 + 16, dtype=torch.int32)
+    heads = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="alphabet of"):
+        replay_kernel.offset_scan_cuda(win, heads, 5, -2, 8, 8, num_symbols)

@@ -6,8 +6,10 @@ and the activation twin ``activate_row_plain`` against ``_j_activate``,
 an overflow included; then ``TorchScorer`` against ``JaxScorer`` call by
 call through roots, pushes, activations at several offsets and a forced
 band growth.  Every output and every slot row must be equal exactly.
-The CUDA kernel itself is held to the twin on the card
-(``chip_smoke.py``'s ``replay_kernel``).
+The launch planner ``plan_replay`` is checked here; the CUDA kernel
+itself is held to the twin on the card (``chip_smoke.py``'s
+``replay_kernel``), and its arithmetic to the twin here by the model in
+``test_torch_late_kernel_models.py``.
 """
 
 import jax
@@ -186,26 +188,50 @@ def replay_kernel_scorer(reads):
                        .device("cpu").min_count(2).build())
 
 
-@pytest.mark.parametrize("rows,W", [(1, 18), (1, 2050), (4096, 34),
-                                    (4096, 258), (1024, 2050), (7, 29056),
-                                    (4, 29058), (4096, 32770)])
+@pytest.mark.parametrize("rows,W", [
+    (1, 18), (4096, 34), (1056, 34), (1057, 66), (1, 80), (1, 82),
+    (4096, 258), (1, 544), (1, 546),
+    (1, 2050), (1024, 2050), (3, 4608), (3, 4610), (1, 8704), (1, 8706),
+    (7, 29056), (4, 29058), (4096, 32770), (2, 65538), (1, 139264),
+    (2, 139266)])
 def test_replay_plan(rows, W):
-    """One warp per row, as many rows a CTA (up to 8) as hold both
-    columns of their rows in shared memory; rows whose two columns exceed
-    it (W > 29056, E = 16384 among them) keep their columns in device
-    memory, 8 rows a CTA."""
+    """Each lane holds a run of cells in registers.  A row takes a warp
+    up to W = 544 (warps spread over at least the card's SMs, up to 8 a
+    CTA, however many rows), up to 16 warps of one CTA up to W = 8704, a
+    cluster of up to 16 such CTAs up to W = 139264 (W = 16386 and 32770,
+    E = 8192 and 16384, among them), and only wider rows take the
+    device-memory last resort."""
     plan = replay_kernel.plan_replay(rows, W)
-    limit = replay_kernel.SMEM_LIMIT
-    assert 1 <= plan.warps <= 8
-    assert plan.warps * (plan.blocks - 1) < rows <= plan.warps * plan.blocks
-    if plan.band == "smem":
-        assert plan.smem_bytes == 8 * W * plan.warps <= limit
-        assert plan.warps == 8 or plan.warps == rows or (
-            8 * W * (plan.warps + 1) > limit)
+    cells = replay_kernel.REPLAY_CELLS
+    sms = replay_kernel.SMS
+    if W > 139264:
+        assert plan.placement == "global"
+        assert plan.cells == 0 and plan.smem_bytes == 0
+        assert plan.warps == min(8, rows)
+        assert plan.blocks == -(-rows // plan.warps)
+        return
+    assert plan.cells in cells
+    if W <= 544:
+        assert plan.placement == "warp" and 32 * plan.cells >= W
+        smaller = [c for c in cells if c < plan.cells]
+        assert not smaller or 32 * smaller[-1] < W
+        assert plan.row_warps == plan.ctas == 1 and plan.smem_bytes == 0
+        assert plan.warps == min(8, max(1, -(-rows // sms)))
+        assert plan.blocks == -(-rows // plan.warps)
+        return
+    assert plan.warps == plan.row_warps <= 16
+    assert plan.cells == (9 if W <= 4608 else 17)
+    assert plan.smem_bytes == 2 * 16 * plan.row_warps * plan.ctas
+    assert plan.blocks == rows * plan.ctas
+    span = 32 * plan.cells
+    if W <= 8704:
+        assert plan.placement == "cta" and plan.ctas == 1
+        assert span * plan.row_warps >= W > span * (plan.row_warps - 1)
     else:
-        assert plan.band == "global" and plan.smem_bytes == 0
-        assert 8 * W > limit and plan.warps == min(8, rows)
-    assert (plan.band == "global") == (W > 29056)
+        assert plan.placement == "cluster"
+        assert plan.ctas == -(-W // (span * 16)) and 2 <= plan.ctas <= 16
+        assert plan.row_warps == -(-(-(-W // span)) // plan.ctas)
+        assert span * plan.row_warps * plan.ctas >= W
 
 
 @pytest.mark.parametrize("rows,W", [(0, 18), (4, 17), (4, 2)])

@@ -4,12 +4,14 @@ scan and the column replay.
 Two kernels, each in the style of :mod:`~waffle_con_tpu_torch.ops.run_kernel`:
 
 * the offset scan (``csrc/offset_scan.cu``), which scores every window
-  position of a late read's start in one launch — ``waffle_con_tpu``'s
+  position of a late read's start in one launch, a bit-parallel
+  edit-distance scan (Myers' bit vectors) — ``waffle_con_tpu``'s
   ``_j_offset_scan`` (``ops/jax_scorer.py``).  Plain twin:
   :func:`~waffle_con_tpu_torch.ops.torch_scorer.offset_scan`.
 * the column replay (``csrc/col_replay.cu``), which rebuilds band rows
-  from their anchors by replaying each slot's consensus, one warp per
-  ``(slot, read)`` row.  It serves band growth (every row into fresh
+  from their anchors by replaying each slot's consensus, each row's cells
+  in registers of a warp, a CTA or a thread-block cluster
+  (:func:`plan_replay`).  It serves band growth (every row into fresh
   tensors at the new width, ``_j_replay``) and activation (one row
   caught up over the branch's consensus and committed in place unless
   it overflows the band, ``_j_activate``).  Plain twin:
@@ -34,91 +36,137 @@ from waffle_con_tpu_torch.ops import torch_scorer as ts
 
 #: shared memory a CTA may use on an H100 (227 KB, the opt-in maximum)
 SMEM_LIMIT = 232448
-#: warps (rows, or window positions) of a CTA
-MAX_WARPS = 8
-#: cells per lane of the offset scan's register column, one kernel
-#: instance each: ceil((m + 1) / 32) for compare lengths m < 1,056; longer
-#: heads keep the column in memory (plan ``cells`` 0)
-SCAN_CELLS = (1, 2, 3, 5, 9, 17, 33)
+#: streaming multiprocessors of an H100 SXM
+SMS = 132
+#: rows of Peq, the offset scan's match table: ids 0-255 and one for
+#: every other symbol
+PEQ_ROWS = 257
+#: the offset scan's longest head whose column sits in registers, one
+#: 64-bit word a lane of a warp
+SCAN_REG_ROWS = 2048
+#: cells per lane of the column replay's register runs, one kernel
+#: instance each
+REPLAY_CELLS = (1, 2, 3, 5, 9, 17)
+#: warps of a CTA on one row of the column replay, and CTAs of one row
+ROW_WARPS = 16
+MAX_CLUSTER = 16
 
 
 class ScanPlan(NamedTuple):
     """Launch geometry of one offset scan."""
 
-    #: warps of a CTA, one window position each
-    warps: int
-    #: CTAs: ``B * P / warps``
+    #: lanes per window position, one 64-bit word of the column each, in
+    #: registers; 0: one warp per position, the column in shared memory
+    group: int
+    #: threads of a CTA
+    threads: int
+    #: CTAs: ``B`` times a head's positions over a CTA's
     blocks: int
-    #: cells of the ``m + 1``-cell column each lane holds in registers,
-    #: or 0: the column in shared memory, or in a ``[B * P, m + 1]``
-    #: device-memory scratch when ``smem_bytes`` is 0
-    cells: int
-    #: dynamic shared memory of a CTA (its window segment, its head and,
-    #: for ``cells`` 0, one column a warp), bytes; 0 (with ``cells`` 0)
-    #: for all of them in device memory
+    #: 64-bit words of one row of the match table Peq
+    nwp: int
+    #: dynamic shared memory of a CTA (Peq where it is on chip, then for
+    #: ``group`` 0 two words a row a position), bytes
     smem_bytes: int
+    #: where Peq lives: ``"smem"`` or (long heads) ``"global"``, one
+    #: table a CTA
+    table: str
 
     @property
     def column(self) -> str:
-        """Where the columns live: registers, smem or global."""
-        if self.cells:
-            return "registers"
-        return "smem" if self.smem_bytes else "global"
+        """Where the columns live: registers or smem."""
+        return "registers" if self.group else "smem"
 
 
 def plan_offset_scan(B: int, P: int, M: int, m: int) -> ScanPlan:
     """The offset scan's launch geometry for ``B`` heads, ``P`` window
     positions, heads of ``M`` symbols (``P`` and ``M`` powers of two) and
-    the compare length ``m``: the column's ``m + 1`` cells in registers
-    up to ``m = 1055``, else in shared memory, with the window segment
-    and the head in shared memory too and the most warps, up to 8,
-    whose shared memory fits a CTA; all of it in device memory when not
-    even one warp's does.  Raises ``ValueError`` on any other shape."""
+    the compare length ``m``.  Up to ``m = 2048`` the column sits in
+    registers: the least power-of-two group of lanes with 64 rows a lane
+    takes a position (one thread for ``m <= 64``), CTAs of up to 256
+    threads, Peq in shared memory.  Longer heads take one warp a
+    position, up to 8 a CTA, the column in shared memory beside Peq when
+    both fit, else Peq in device memory.  Raises ``ValueError`` on any
+    other shape."""
     pow2 = lambda n: n >= 1 and n & (n - 1) == 0  # noqa: E731
     if B < 1 or not pow2(P) or not pow2(M) or not 0 <= m <= M:
         raise ValueError(
             f"no offset-scan plan for B={B}, P={P}, M={M}, m={m}")
-    need = -(-(m + 1) // 32)
-    cells = next((c for c in SCAN_CELLS if c >= need), 0)
-    warps = min(MAX_WARPS, P)
-    while warps:
-        smem = 4 * (warps - 1 + 3 * M + (0 if cells else warps * (m + 1)))
-        if smem <= SMEM_LIMIT:
-            return ScanPlan(warps, B * (P // warps), cells, smem)
-        warps //= 2
-    warps = min(MAX_WARPS, P)
-    return ScanPlan(warps, B * (P // warps), 0, 0)
+    words = -(-m // 64)
+    if m <= SCAN_REG_ROWS:
+        group = 1
+        while 64 * group < m:
+            group *= 2
+        threads = min(256, max(32, P * group))
+        per = threads // group
+        return ScanPlan(group, threads, B * -(-P // per), group,
+                        8 * PEQ_ROWS * group, "smem")
+    nwp = 32 * -(-words // 32)
+    table = 8 * PEQ_ROWS * nwp
+    for where, fixed in (("smem", table), ("global", 0)):
+        warps = min(8, P)
+        while warps and fixed + 16 * nwp * warps > SMEM_LIMIT:
+            warps //= 2
+        if warps:
+            return ScanPlan(0, 32 * warps, B * (P // warps), nwp,
+                            fixed + 16 * nwp * warps, where)
+    raise ValueError(f"no offset-scan plan for m={m}: too long a head")
 
 
 class ReplayPlan(NamedTuple):
     """Launch geometry of one column-replay launch."""
 
-    #: warps of a CTA, one row each
+    #: cells of a row each lane holds in registers; 0 for the
+    #: device-memory last resort (one warp a row, columns in device
+    #: memory)
+    cells: int
+    #: warps a row takes in a CTA
+    row_warps: int
+    #: CTAs a row takes: a thread-block cluster when more than one
+    ctas: int
+    #: warps of a CTA
     warps: int
-    #: CTAs: ``ceil(rows / warps)``
+    #: CTAs of the launch
     blocks: int
-    #: dynamic shared memory of a CTA (two band columns a warp), bytes;
-    #: 0 for the columns in device memory
+    #: dynamic shared memory of a CTA (two 16-byte records a warp of a
+    #: multi-warp row), bytes
     smem_bytes: int
-    #: where the columns live: ``"smem"`` or ``"global"``
-    band: str
+
+    @property
+    def placement(self) -> str:
+        """``"warp"`` (a row on one warp), ``"cta"``,
+        ``"cluster"`` or ``"global"``."""
+        if not self.cells:
+            return "global"
+        if self.ctas > 1:
+            return "cluster"
+        return "cta" if self.row_warps > 1 else "warp"
 
 
 def plan_replay(rows: int, W: int) -> ReplayPlan:
     """The column replay's launch geometry for ``rows`` rows of ``W``
-    band cells: up to 8 warps a CTA, as many as hold both columns of
-    their rows in shared memory, or 8 warps with the columns in device
-    memory when one row's two columns exceed a CTA's shared memory
-    (``W > 29056``).  Raises ``ValueError`` on an empty launch or an odd
-    or too narrow band."""
-    per = 8 * W
+    band cells, each lane a run of ``cells`` cells in registers.  A row
+    takes a warp up to W = 544 (at most 17 cells a lane), warps spread
+    over up to 8 a CTA and at least ``SMS`` CTAs.  Wider rows take up to
+    16 warps of one CTA (9 cells a lane up to W = 4608, then 17: W <=
+    8704), then a cluster of up to 16 such CTAs (W <= 139,264), one row a
+    CTA or a cluster.  Wider rows fall back to the device-memory last
+    resort, 8 rows a CTA.  Raises ``ValueError`` on an empty launch or an
+    odd or too narrow band."""
     if rows < 1 or W < 4 or W % 2:
         raise ValueError(f"no replay plan for rows={rows}, W={W}")
-    if per > SMEM_LIMIT:
-        warps = min(MAX_WARPS, rows)
-        return ReplayPlan(warps, -(-rows // warps), 0, "global")
-    warps = max(1, min(MAX_WARPS, SMEM_LIMIT // per, rows))
-    return ReplayPlan(warps, -(-rows // warps), warps * per, "smem")
+    cells = next((c for c in REPLAY_CELLS if 32 * c >= W), None)
+    if cells:
+        warps = min(8, max(1, -(-rows // SMS)))
+        return ReplayPlan(cells, 1, 1, warps, -(-rows // warps), 0)
+    cells = 9 if W <= 32 * ROW_WARPS * 9 else REPLAY_CELLS[-1]
+    need = -(-W // (32 * cells))  # warps
+    ctas = -(-need // ROW_WARPS)
+    if ctas > MAX_CLUSTER:
+        warps = min(8, rows)
+        return ReplayPlan(0, 1, 1, warps, -(-rows // warps), 0)
+    warps = -(-need // ctas)
+    return ReplayPlan(cells, warps, ctas, warps, rows * ctas,
+                      2 * 16 * warps * ctas)
 
 
 # ---------------------------------------------------------------------
@@ -203,14 +251,20 @@ def _raise_on(rc: int, what: str, detail: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {why} ({detail})")
 
 
-def offset_scan_cuda(cons_win, heads, m: int, wc: int, P: int, M: int):
-    """Launch ``csrc/offset_scan.cu``: one warp per (head, window
-    position), the column in registers (in shared memory for compare
-    lengths of 1,056 and more, in device memory where shared memory does
-    not hold the window and the head).  Same contract and output as
-    :func:`offset_scan_plain`; raises on anything the kernel does not
-    take and when the launch is refused, never falls back.  Each launch
-    adds one to ``offset_scan_cuda.launches``."""
+def offset_scan_cuda(cons_win, heads, m: int, wc: int, P: int, M: int,
+                     num_symbols: int):
+    """Launch ``csrc/offset_scan.cu``: a group of lanes (one thread for
+    ``m <= 64``) per (head, window position), the column's bit vectors in
+    registers up to ``m = 2048`` and in shared memory beyond
+    (:func:`plan_offset_scan`).  Same contract and output as
+    :func:`offset_scan_plain` for an alphabet of ``num_symbols`` dense
+    ids, the wildcard among them: its match table has a row for each id
+    below 256, so a wider alphabet is refused.  Raises on anything the
+    kernel does not take and when the launch is refused, never falls
+    back.  Each launch adds one to ``offset_scan_cuda.launches``."""
+    if not 0 <= num_symbols < PEQ_ROWS:
+        raise ValueError(f"offset_scan_cuda: an alphabet of {num_symbols} "
+                         f"symbols; the kernel takes up to {PEQ_ROWS - 1}")
     dev = heads.device
     if dev.type != "cuda":
         raise ValueError("offset_scan_cuda needs tensors on a CUDA device")
@@ -219,13 +273,15 @@ def offset_scan_cuda(cons_win, heads, m: int, wc: int, P: int, M: int):
     _need(heads, torch.int32, dev, "heads", (B, M))
     plan = plan_offset_scan(B, P, M, m)
     out = torch.empty((B, P), dtype=torch.int32, device=dev)
-    scratch = (torch.empty((B * P, m + 1), dtype=torch.int32, device=dev)
-               if plan.column == "global" else None)
+    table = (torch.empty((plan.blocks, PEQ_ROWS, plan.nwp),
+                         dtype=torch.int64, device=dev)
+             if plan.table == "global" else None)
     launch = _bind("offset_scan_launch", [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
-    rc = launch(_ptr(cons_win), _ptr(heads), _ptr(out), _ptr(scratch), B, P,
-                M, m, wc, plan.warps, plan.blocks, plan.cells,
-                plan.smem_bytes, cuda_build.stream_ptr(dev))
+                   + [ctypes.c_int] * 10
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    rc = launch(_ptr(cons_win), _ptr(heads), _ptr(out), _ptr(table), B, P,
+                M, m, wc, num_symbols, plan.group, plan.nwp, plan.threads,
+                plan.blocks, plan.smem_bytes, cuda_build.stream_ptr(dev))
     _raise_on(rc, "offset_scan", f"B={B}, P={P}, M={M}, {plan}")
     offset_scan_cuda.launches += 1
     offset_scan_cuda.last_plan = plan
@@ -235,7 +291,7 @@ def offset_scan_cuda(cons_win, heads, m: int, wc: int, P: int, M: int):
 offset_scan_cuda.launches = 0
 offset_scan_cuda.last_plan = None
 
-_REPLAY_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12
+_REPLAY_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 15
                 + [ctypes.c_longlong, ctypes.c_void_p])
 
 
@@ -248,7 +304,7 @@ def _launch_col_replay(mode: int, st, outs, flag, reads, rlen, slot, read,
     ``replay_rows_cuda.activate_launches``)."""
     B, R, W = outs[0].shape if mode == 0 else st["D"].shape
     C = st["cons"].shape[1]
-    scratch = (None if plan.smem_bytes else torch.empty(
+    scratch = (None if plan.cells else torch.empty(
         (2 if mode else B * R, W), dtype=torch.int32, device=reads.device))
     launch = _bind("col_replay_launch", _REPLAY_ARGS)
     targets = (st["D"], st["e"], st["rmin"], st["er"]) if mode else (None,) * 4
@@ -257,7 +313,8 @@ def _launch_col_replay(mode: int, st, outs, flag, reads, rlen, slot, read,
         _ptr(st["cons"]), _ptr(st["clen"]), _ptr(reads), _ptr(rlen),
         *map(_ptr, outs if outs else (None,) * 4), _ptr(flag), _ptr(scratch),
         B, R, W, C, reads.shape[1], slot, read, offset, wc, int(et),
-        plan.warps, plan.blocks, plan.smem_bytes,
+        plan.cells, plan.row_warps, plan.ctas, plan.warps,
+        plan.blocks, plan.smem_bytes,
         cuda_build.stream_ptr(reads.device),
     )
     _raise_on(rc, "col_replay", f"mode={mode}, B={B}, R={R}, W={W}, {plan}")
@@ -283,10 +340,10 @@ def _check_store(st, reads, rlen, dev, with_band: bool):
 def replay_rows_cuda(off, act, cons, clen, reads, rlen, wc: int, et: bool,
                      E: int, W: int):
     """Launch ``csrc/col_replay.cu`` over every ``(slot, read)`` row into
-    fresh ``[B, R, W]`` tensors: one warp per row, its two columns in
-    shared memory (in device memory for ``W > 29056``).  Same contract and
-    outputs as :func:`replay_rows_plain`; raises on anything the kernel
-    does not take, never falls back."""
+    fresh ``[B, R, W]`` tensors, each row's cells in registers of a warp,
+    a CTA or a cluster (:func:`plan_replay`).  Same contract and outputs
+    as :func:`replay_rows_plain`; raises on anything the kernel does not
+    take, never falls back."""
     dev = off.device
     if dev.type != "cuda":
         raise ValueError("replay_rows_cuda needs tensors on a CUDA device")
@@ -312,9 +369,9 @@ replay_rows_cuda.last_plan = None
 def activate_row_cuda(state, slot: int, read: int, offset: int, reads, rlen,
                       wc: int, et: bool) -> bool:
     """Launch ``csrc/col_replay.cu`` on row ``(slot, read)`` of the branch
-    store: one warp restarts it at ``offset``, catches it up over the
-    slot's consensus on the device and commits it in place unless it
-    overflows the band.  Same contract as :func:`activate_row_plain`; the
+    store: the row is restarted at ``offset``, caught up over the slot's
+    consensus on the device and committed in place unless it overflows
+    the band.  Same contract as :func:`activate_row_plain`; the
     host reads one overflow word."""
     dev = state["D"].device
     if dev.type != "cuda":
@@ -340,11 +397,13 @@ def _kind(t) -> str:
     return kind
 
 
-def offset_scan(cons_win, heads, m: int, wc: int, P: int, M: int):
+def offset_scan(cons_win, heads, m: int, wc: int, P: int, M: int,
+                num_symbols: int):
     """Dispatch rule: CPU tensors take :func:`offset_scan_plain`, CUDA
-    tensors launch :func:`offset_scan_cuda`."""
+    tensors launch :func:`offset_scan_cuda` (for an alphabet of
+    ``num_symbols`` ids)."""
     if _kind(heads) == "cuda":
-        return offset_scan_cuda(cons_win, heads, m, wc, P, M)
+        return offset_scan_cuda(cons_win, heads, m, wc, P, M, num_symbols)
     return offset_scan_plain(cons_win, heads, m, wc, P, M)
 
 

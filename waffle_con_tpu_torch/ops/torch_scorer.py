@@ -622,7 +622,7 @@ class TorchScorer(WavefrontScorer):
         dev = torch.from_numpy(buf).to(self.device)
         eds = replay_kernel.offset_scan(
             dev[: P + 2 * M], dev[P + 2 * M :].view(1, M), cmp_len, self._wc,
-            P, M,
+            P, M, self.num_symbols,
         )[0].cpu().numpy()
         best_offset = max(0, con_len - (cmp_len + offset_window // 2))
         min_ed = int(eds[best_offset - start])
