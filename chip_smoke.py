@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases replay_kernel,late_main,late_oracle
     python3 chip_smoke.py --phases arena_kernel --small  # arena build + check
     python3 chip_smoke.py --phases dual_main --profile [--arena off]
+    python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,native_baseline
 
 Phases, one line each (every failure exits non-zero):
 
@@ -124,6 +125,28 @@ Phases, one line each (every failure exits non-zero):
     an event of each part (tournament and decisions, row step, commit
     write-back, record fold, finish).
 
+14. native_baseline (run after ``late_main``, whichever order the phases
+    are named in): the port's C++ engines (``waffle_con_tpu_torch/native``,
+    built here with ``g++``: build seconds, ``g++ --version``, the host's
+    CPU model and core count) run twice on each deployment the main
+    phases ran (``main``, ``dual_main``, ``priority_main``, ``late_main``:
+    the same draws and configs; the late deployment with its offsets and
+    no band), on the card's host; each result must equal that phase's
+    ``"torch"`` result on ``cuda`` byte for byte (sequences and scores;
+    both haplotypes and the read assignment; every chain and the group
+    indices).  The port's ``"torch"`` search on ``cuda`` runs as many
+    warm times as the C++ engine, alternating with it.  One line per
+    deployment: ``cpp_s`` and ``torch_warm_s`` (each run's wall) and
+    ``cpp_over_torch`` (the faster C++ run over the faster warm search).
+    Then 16 x 1 kb at 2 % through the single and the dual engine on
+    ``backend("native")`` against ``"torch"`` on ``cuda``.
+
+The JAX package's megastep (``_j_run_mega``, an XLA loop under a per-call
+step budget) is the run kernel itself here: one launch runs to the first
+event, under the caller's ``max_steps``.  ``kernel`` holds a launch capped
+at 100 steps (``north_star/step_cap``, code 4) bitwise against the plain
+loop.
+
 ``main``, ``dual_main``, ``priority_main`` and ``late_main`` also give
 the arena's launches, plan and counters (calls, events, stop codes,
 discards, creations); ``dual_main`` and ``priority_main`` fail when the
@@ -194,6 +217,9 @@ def bound(nbytes: float, ops: float):
 ARENA_LAUNCHES = {}
 #: the arena calls recorded by the main paths' cold searches
 ARENA_RECORDS = {}
+#: each deployment's inputs, config, ``"torch"`` result (as plain data)
+#: and warm wall, kept by its main phase for ``native_baseline``
+BASELINE = {}
 
 
 #: ``--arena off``: the engines' arena fast path switched off (the path
@@ -384,7 +410,8 @@ def kernel_cases(small_only: bool):
     State spec keys: ``prefix_len``, ``late`` (read, offset) pairs,
     ``inactive`` reads, ``inactive_cta`` (the reads of that CTA of the
     launch plan left inactive), ``reads`` (cut the store to that many
-    reads), ``force_truth`` and ``engine_steps``."""
+    reads), ``force_truth``, ``engine_steps`` and ``want_code`` (the
+    stop code the launch must end with, after ``max_steps`` steps)."""
     from waffle_con_tpu_torch.utils.example_gen import generate_test
 
     def small(seed, err):
@@ -432,14 +459,20 @@ def kernel_cases(small_only: bool):
         # search (forced first symbol, the engine's step bound)
         ("main_launch", ns, {}, dict(max_steps=2 * 10000 + 256),
          dict(force_truth=True)),
+        # the root pop's launch under a step cap (the JAX megastep's
+        # per-call budget), which must stop with code 4 exactly where
+        # the plain loop does
+        ("step_cap", ns, {}, dict(max_steps=100),
+         dict(force_truth=True, want_code=4)),
         # north-star width (R=256, W=514) with short reads, so the run
         # reaches the read ends
         ("records", _truncated(
             lambda: generate_test(4, 400, 256, 0.01, seed=3)), {},
          dict(max_steps=600), {}),
     ]:
-        cases.append(("north_star/" + label, make, {**ns_cfg, **cfg},
-                      dict(min_count=64, **kw), state))
+        cases.append((label if "/" in label else "north_star/" + label,
+                      make, {**ns_cfg, **cfg}, dict(min_count=64, **kw),
+                      state))
     # the cluster's edges: a read count that does not fill the CTAs, a
     # CTA whose reads are all inactive, the band after growth, the band
     # in device memory, records reached in several CTAs
@@ -559,6 +592,11 @@ def phase_kernel(small_only: bool):
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"{label}: kernel != plain (max err {err})")
+        if "want_code" in spec and (code, steps) != (spec["want_code"],
+                                                     args.max_steps):
+            raise AssertionError(
+                f"{label}: stopped with code {code} after {steps} steps, "
+                f"want code {spec['want_code']} after {args.max_steps}")
         line = dict(case=label, reads=R, W=sc._W, steps=steps, code=code,
                     records=nrec, cluster=plan.cluster,
                     ctas_threads=plan.threads, band=plan.band)
@@ -568,16 +606,18 @@ def phase_kernel(small_only: bool):
             k_ms = _time_cuda(
                 lambda: rk.run_extend_cuda(next(it), slot, rd, rl, args), 3)
             per = max(steps, 1)
+            # the band read and written once, each read's window read
+            # once; 20 int32 operations a band cell a step
+            nbytes = 2 * R * sc._W * 4 + R * (steps + sc._W) * 2
+            bound_ms, bound_by = bound(nbytes,
+                                       steps * R * sc._W * OPS_PER_CELL)
             line.update(kernel_ms=round(k_ms, 4), plain_ms=round(p_ms, 3),
                         kernel_us_per_step=round(1000 * k_ms / per, 3),
-                        plain_us_per_step=round(1000 * p_ms / per, 2))
+                        plain_us_per_step=round(1000 * p_ms / per, 2),
+                        bound_ms=bound_ms, bound_by=bound_by)
             if label == "north_star/main_launch" or (
                 small_only and timing is None
             ):
-                R, W = sc._R, sc._W
-                nbytes = 2 * R * W * 4 + R * (steps + W) * 2
-                ops = steps * R * W * OPS_PER_CELL
-                bound_ms, bound_by = bound(nbytes, ops)
                 timing = dict(
                     ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                     bound_by=bound_by, steps=steps,
@@ -630,15 +670,19 @@ def phase_main():
                 f"{run}: run kernel launches {launches}, plain calls "
                 f"{plain_calls}"
             )
-    device_ms, _ = _device_ms(eng.consensus)
+    want = [(c.sequence, list(c.scores)) for c in res]
+    BASELINE["single"] = dict(reads=reads, offsets=None, config=cfg,
+                              want=want, torch_warm_s=walls[1])
     st = eng.last_search_stats
-    c = st["scorer_counters"]
+    c = dict(st["scorer_counters"])
+    device_ms, _ = _device_ms(eng.consensus)
     line = dict(
         reads=len(reads), length=len(truth), gen_s=round(gen_s, 3),
         cold_s=round(walls[0], 3), warm_s=round(walls[1], 3),
         pops=st["nodes_explored"] + st["nodes_ignored"],
         nodes_explored=st["nodes_explored"], run_calls=c["run_calls"],
-        run_steps=c["run_steps"], kernel_launches=launches,
+        run_steps=c["run_steps"], run_stops=_run_stops(c),
+        kernel_launches=launches,
         kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
         band_placements=placements, plain_calls=plain_calls,
         steps_per_s=round(c["run_steps"] / walls[1], 1),
@@ -654,6 +698,10 @@ def phase_main():
     print("main", json.dumps(line), flush=True)
     ARENA_LAUNCHES["main"] = arena_launches
     return launches
+
+
+def _run_stops(c):
+    return {k: v for k, v in sorted(c.items()) if k.startswith("run_stop_")}
 
 
 def _plan_fields(plan):
@@ -1220,6 +1268,8 @@ def phase_dual_main():
         host_profile=profile,
     )
     print("dual_main", json.dumps(line), flush=True)
+    BASELINE["dual"] = dict(reads=reads, config=cfg, want=_dual_key(res),
+                            torch_warm_s=walls[1])
     ARENA_LAUNCHES["dual_main"] = launches[2]
     ARENA_RECORDS["dual_main"] = recorder.calls
     return launches
@@ -1408,6 +1458,8 @@ def phase_priority_main():
         ),
     )
     print("priority_main", json.dumps(line), flush=True)
+    BASELINE["priority"] = dict(chains=chains, config=cfg, want=got,
+                                torch_warm_s=walls[1])
     ARENA_LAUNCHES["priority_main"] = launches[2]
     ARENA_RECORDS["priority_main"] = recorder.calls
     return launches
@@ -1678,7 +1730,7 @@ def phase_late_main():
         timed_s=round(walls["timed"], 3), warm_s=round(walls["warm"], 3),
         pops=st["nodes_explored"] + st["nodes_ignored"],
         run_calls=c["run_calls"], run_steps=c["run_steps"],
-        run_stops={k: v for k, v in c.items() if k.startswith("run_stop_")},
+        run_stops=_run_stops(c),
         offset_scan_launches=launches[0], col_replay_launches=launches[1],
         col_replay_activate_launches=act_launches,
         run_kernel_launches=launches[2], plain_calls=list(plain),
@@ -1706,6 +1758,10 @@ def phase_late_main():
         ),
     )
     print("late_main", json.dumps(line), flush=True)
+    BASELINE["late"] = dict(
+        reads=[r for r, _off in reads], offsets=[off for _r, off in reads],
+        config=cfg, want=[(r.sequence, list(r.scores)) for r in res],
+        torch_warm_s=walls["warm"])
     ARENA_LAUNCHES["late_main"] = arena_launches
     return launches, records
 
@@ -2510,6 +2566,177 @@ def phase_arena_kernel(small_only, records=None, device="cuda"):
     return table, worst
 
 
+# ---------------------------------------------------------------------
+# phase 14: the C++ engines on the card's host
+
+
+def _host_cpu():
+    """The host CPU's model and ``os.cpu_count()``.  The model is the
+    ``model name`` of ``/proc/cpuinfo``, else ``lscpu``'s ``Model name``,
+    else the machine type and the vendor, family and model numbers
+    ``/proc/cpuinfo`` gives; an empty or ``unknown`` name counts as
+    missing (a virtual machine may report its model so)."""
+    import os
+    import platform
+
+    def known(val):
+        return val if val and val.strip().lower() != "unknown" else None
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as fh:
+            for ln in fh:
+                key, _, val = ln.partition(":")
+                if known(val):
+                    fields.setdefault(key.strip(), val.strip())
+    except OSError:
+        pass
+    model = fields.get("model name")
+    if not model:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+        except (OSError, subprocess.SubprocessError):
+            out = ""
+        for ln in out.splitlines():
+            key, _, val = ln.partition(":")
+            if key.strip() == "Model name" and known(val):
+                model = val.strip()
+                break
+    if not model:
+        model = " ".join(filter(None, (
+            platform.machine(), fields.get("vendor_id"),
+            fields.get("cpu family") and "family " + fields["cpu family"],
+            fields.get("model") and "model " + fields["model"])))
+    return model or "unknown", os.cpu_count()
+
+
+def _gxx_version():
+    out = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.splitlines()[0]
+
+
+def _torch_run(name, spec):
+    """One warm ``"torch"`` search of a deployment on ``cuda``, as its
+    main phase runs it (engine built and fed untimed): ``(result as plain
+    data, seconds)``."""
+    import torch
+    from waffle_con_tpu_torch import (
+        ConsensusDWFA, DualConsensusDWFA, PriorityConsensusDWFA)
+
+    if name == "priority":
+        eng = PriorityConsensusDWFA(spec["config"])
+        for chain in spec["chains"]:
+            eng.add_sequence_chain(chain)
+    else:
+        eng = (DualConsensusDWFA if name == "dual"
+               else ConsensusDWFA)(spec["config"])
+        _add_reads(eng, zip(spec["reads"],
+                            spec.get("offsets") or [None] * len(spec["reads"])))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.consensus()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if name == "dual":
+        got = _dual_key(res)
+    elif name == "priority":
+        got = _priority_key(res)
+    else:
+        got = [(c.sequence, list(c.scores)) for c in res]
+    return got, wall
+
+
+def _cpp_run(name, spec):
+    """One C++ engine run of a deployment: ``(result as plain data,
+    seconds)``."""
+    from waffle_con_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if name == "dual":
+        got = _dual_key(native.native_dual_consensus(
+            spec["reads"], config=spec["config"]))
+    elif name == "priority":
+        got = _priority_key(native.native_priority_consensus(
+            spec["chains"], config=spec["config"]))
+    else:
+        got = [(seq, list(sc)) for seq, sc in native.native_consensus(
+            spec["reads"], spec["offsets"], spec["config"])]
+    return got, time.perf_counter() - t0
+
+
+def phase_native_baseline(runs=2):
+    """The port's C++ engines (``waffle_con_tpu_torch/native``, built here
+    with ``g++``) on the deployments the main phases ran, ``runs`` times
+    each, on the card's host, alternating with as many warm ``"torch"``
+    searches on ``cuda``: every result must equal the main phase's
+    ``"torch"`` result byte for byte.  One line per deployment with both
+    sides' walls and the ratio of their minima; then a 16 x 1 kb
+    draw at 2 % (single, and dual with 2 SNPs) through the port's engines
+    on ``backend("native")`` against ``"torch"`` on ``cuda``."""
+    import platform
+
+    from waffle_con_tpu_torch import (
+        CdwfaConfigBuilder, ConsensusDWFA, DualConsensusDWFA)
+    from waffle_con_tpu_torch import native
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    if not BASELINE:
+        raise AssertionError("native_baseline needs main, dual_main, "
+                             "priority_main or late_main before it")
+    gxx = _gxx_version()
+    t0 = time.perf_counter()
+    native.build(rebuild=True)
+    build_s = time.perf_counter() - t0
+    model, cores = _host_cpu()
+    print("native_build", json.dumps(dict(
+        build_s=round(build_s, 3), gxx=gxx, cpu_model=model,
+        cpu_count=cores, machine=platform.machine(),
+        library=native.library_path().name)), flush=True)
+    for name in ("single", "dual", "priority", "late"):
+        spec = BASELINE.get(name)
+        if spec is None:
+            continue
+        walls = {"cpp": [], "torch": []}
+        for _ in range(runs):
+            for side, run in (("torch", _torch_run), ("cpp", _cpp_run)):
+                got, wall = run(name, spec)
+                if got != spec["want"]:
+                    raise AssertionError(
+                        f"native_baseline {name}: the {side} result "
+                        "differs from the main phase's torch result")
+                walls[side].append(wall)
+        print("native_baseline", json.dumps(dict(
+            deployment=name, cpp_s=walls["cpp"],
+            torch_warm_s=walls["torch"],
+            main_phase_warm_s=spec["torch_warm_s"],
+            cpp_over_torch=min(walls["cpp"]) / min(walls["torch"]),
+            identical=True, cpu_model=model, cpu_count=cores)), flush=True)
+
+    _truth, reads = generate_test(4, 1000, 16, 0.02, seed=1)
+    _t1, _t2, dual_reads = _small_dual(61, 0.02, n=8, length=1000,
+                                       snps=((300, 1), (700, 2)))
+    out = {}
+    for engine, rd, key in (
+            (ConsensusDWFA, reads, lambda r: [(c.sequence, list(c.scores))
+                                              for c in r]),
+            (DualConsensusDWFA, dual_reads, _dual_key)):
+        got = []
+        for be in ("native", "torch"):
+            eng = engine(CdwfaConfigBuilder().backend(be).device("cuda")
+                         .min_count(4).build())
+            for r in rd:
+                eng.add_sequence(r)
+            got.append(key(eng.consensus()))
+        if got[0] != got[1]:
+            raise AssertionError(f"native_baseline: {engine.__name__} on "
+                                 "native and torch differ")
+        out[engine.__name__] = len(got[0])
+    print("native_engines", json.dumps(dict(
+        draws="16 x 1 kb at 2 %", results=out, identical=True)), flush=True)
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -2533,7 +2760,7 @@ def main(argv=None) -> int:
         "--phases",
         default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
                 "priority_main,priority_oracle,replay_kernel,late_main,"
-                "late_oracle,arena_kernel",
+                "late_oracle,arena_kernel,native_baseline",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -2598,6 +2825,7 @@ def main(argv=None) -> int:
     # recorded calls
     late_launches, late_records = (
         timed("late_main", phase_late_main) or ((None,) * 3, None))
+    timed("native_baseline", phase_native_baseline)
     scan_check, replay_check = (
         timed("replay_kernel", phase_replay_kernel, opts.small, late_records)
         or (None, None))

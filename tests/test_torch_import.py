@@ -1,6 +1,8 @@
 """The port stands alone: it imports without JAX and without the JAX
 package, runs a single, a dual and a priority search on the CPU (the
-fixtures read by its own loader), and refuses to fall back to the CPU
+fixtures read by its own loader), imports its C++ engines (``native``,
+built from its own copy of the source) and runs a search on
+``"native"``, and refuses to fall back to the CPU
 when a CUDA device is asked for and absent."""
 
 import os
@@ -65,6 +67,14 @@ _PROBE = textwrap.dedent(
     assert got.sequence_indices == expected.sequence_indices
     assert prio.last_search_stats["scorer_constructions"] == 2
     assert MultiConsensus([], []).consensuses == []
+
+    from waffle_con_tpu_torch import native
+
+    assert native.native_consensus(reads)[0][0] == truth
+    eng = T.ConsensusDWFA(T.CdwfaConfigBuilder().backend("native").build())
+    for r in reads:
+        eng.add_sequence(r)
+    assert eng.consensus()[0].sequence == truth
     loaded = sorted(m for m in sys.modules
                     if m == "waffle_con_tpu" or m.startswith("waffle_con_tpu."))
     assert not loaded, loaded

@@ -11,8 +11,12 @@ library only; ``waffle_con_tpu`` (the JAX package beside it) is its
 reference, reached by the tests alone.
 
 * ``ops``    — the DWFA oracle, the scorer seam, the torch branch store
-  and the CUDA run kernels with their plain PyTorch twins.
+  and the CUDA kernels with their plain PyTorch twins.
 * ``models`` — the single-, dual- and priority-consensus engines.
+* ``native`` — the C++ engine suite (a copy of the JAX package's),
+  built with ``g++`` on first use: ``backend="native"`` and the host
+  baseline ``native_consensus`` / ``native_dual_consensus`` /
+  ``native_priority_consensus``.
 * ``utils``  — the priority-queue tracker, synthetic data generation and
   the JSON scenario fixtures' loaders.
 """

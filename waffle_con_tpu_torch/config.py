@@ -2,9 +2,11 @@
 
 Same knobs and defaults as ``waffle_con_tpu.config`` for every field the
 single- and dual-consensus searches read, plus the port's own scorer selection:
-``backend`` is ``"python"`` (the :class:`~waffle_con_tpu_torch.ops.dwfa.DWFALite`
-oracle) or ``"torch"`` (the device branch store), and ``device`` names
-the torch device the ``"torch"`` scorer lives on.
+``backend`` is ``"torch"`` (the device branch store), ``"native"`` (the
+C++ branch store on the host, :mod:`waffle_con_tpu_torch.native`) or
+``"python"`` (the :class:`~waffle_con_tpu_torch.ops.dwfa.DWFALite`
+oracle), and ``device`` names the torch device the ``"torch"`` scorer
+lives on; the two host engines ignore it.
 
 Typical usage::
 
@@ -79,11 +81,12 @@ class CdwfaConfig:
     offset_window: int = 50
     #: Number of bases compared when scoring candidate start points.
     offset_compare_length: int = 50
-    #: Scorer backend: "torch" (device branch store) or "python" (the
-    #: pure-Python oracle).
+    #: Scorer backend: "torch" (device branch store), "native" (the C++
+    #: branch store on the host) or "python" (the pure-Python oracle).
     backend: str = "torch"
-    #: Torch device of the "torch" backend.  "cuda" never drops to the
-    #: CPU: the scorer raises when no CUDA device is present.
+    #: Torch device of the "torch" backend ("native" and "python" run on
+    #: the host whatever it says).  "cuda" never drops to the CPU: the
+    #: scorer raises when no CUDA device is present.
     device: str = "cuda"
     #: Seed the band half-width from the caller's error model instead of
     #: growing it from a small default (rounded up to a power of two).
@@ -96,7 +99,7 @@ class CdwfaConfig:
     def __post_init__(self) -> None:
         if self.wildcard is not None and not 0 <= self.wildcard <= 255:
             raise ValueError("wildcard must be a byte value (0..=255)")
-        if self.backend not in ("python", "torch"):
+        if self.backend not in ("python", "native", "torch"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.prefetch_width < 1:
             raise ValueError("prefetch_width must be >= 1")

@@ -15,9 +15,11 @@ Implementations:
 * ``TorchScorer`` (:mod:`waffle_con_tpu_torch.ops.torch_scorer`) — all
   branches and reads batched in torch tensors on one device, with the
   run loop as a hand-written CUDA kernel.
-* :class:`SubsetScorer` (here) — a view of either, restricted to the reads
-  of one priority-engine worklist group, so that one scorer per chain
-  level serves every group at that level.
+* ``NativeScorer`` (:mod:`waffle_con_tpu_torch.native`) — the C++ branch
+  store, one incremental DWFA per (branch, read) on the host.
+* :class:`SubsetScorer` (here) — a view of any of them, restricted to the
+  reads of one priority-engine worklist group, so that one scorer per
+  chain level serves every group at that level.
 
 All implementations agree exactly: integer edit distances and integer
 tip-vote counts (the engine does the fractional-vote arithmetic host-side
@@ -511,6 +513,10 @@ def construct_backend(
         from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
 
         return TorchScorer(reads, config)
+    if backend == "native":
+        from waffle_con_tpu_torch.native import NativeScorer
+
+        return NativeScorer(reads, config)
     raise ValueError(f"unknown backend {backend!r}")
 
 
