@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases arena_kernel --small  # arena build + check
     python3 chip_smoke.py --phases dual_main --profile [--arena off]
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,native_baseline
+    python3 chip_smoke.py --phases gang_kernel,gang_main,plan_gate
 
 Phases, one line each (every failure exits non-zero):
 
@@ -43,7 +44,10 @@ Phases, one line each (every failure exits non-zero):
    haplotypes 3 SNPs apart, ``min_count=16``, ``initial_band=116`` —
    through ``DualConsensusDWFA`` on ``cuda``; both haplotypes must come
    back, the dual kernel must have taken every dual run (its launch
-   counter > 0, neither plain loop called).
+   counter > 0, neither plain loop called).  ``speculator_cost`` times
+   three more warm searches with the frontier speculator and three with a
+   stand-in that never gangs, alternating: the speculation layer's host
+   µs a pop.
 7. dual_oracle: 16 reads x 1 kb, 2 SNPs, 2 %: the dual engine's
    ``"python"`` oracle and ``"torch"`` on ``cuda`` give byte-identical
    results, scores included.
@@ -141,6 +145,40 @@ Phases, one line each (every failure exits non-zero):
     Then 16 x 1 kb at 2 % through the single and the dual engine on
     ``backend("native")`` against ``"torch"`` on ``cuda``.
 
+15. plan_gate: a shape a kernel's launch planner refuses is "not
+    engaged", never an exception mid-search: a single draw of 8 reads x
+    600 symbols over 129 symbols, two haplotypes, and a dual draw of 256
+    reads x 320 symbols over 256 symbols, two haplotypes, on ``cuda``
+    (the arena takes at most 128 symbols, so it is refused on both and
+    the pops take the run kernels; ``plan_run_dual`` takes R=256 at
+    A=256 on 8 warps a CTA), each equal to the ``"python"`` oracle and the
+    C++ engine; each line prints the refusal counters
+    (``plan_refused_arena``, ``_run``, ``_run_dual``, ``_ragged``), and
+    the run kernels' must stay 0.  The main phases print the same
+    counters and fail unless all four are 0.
+16. gang_kernel: the frontier-gang kernel (``csrc/run_ragged.cu``, one
+    thread-block cluster per member) against its plain twin on the card
+    and against a solo ``run_extend`` launch of each member from the same
+    state, every deposit compared bitwise: 2, 4 and 8 branches of the
+    single north star's store (R=256, W=514; truth prefixes, forced right
+    and wrong first symbols, unforced), 4 of the dual north star's
+    (R=64, W=258) and 4 of the priority north star's level 1 (R=32,
+    W=130), 4 at the run kernel's device-memory band (R=1024, W=514, one
+    of them out of step with its slot), and small cases for the step cap
+    (code 4), band overflow (code 5), a lost pop and budget (code 3), L2
+    and the wildcard.  Each line
+    gives the plan, the clusters that fit on the card at once, ms a
+    launch and µs a step of the longest member, the summed time of the
+    members' solo launches, the twin's time and the bound.
+17. gang_main (after ``native_baseline``): every deployment the main
+    phases ran, at the default (adaptive) frontier width, at
+    ``frontier_width=8`` and at 1, byte-equal to each other and to the C++
+    engine, then the low-coverage draw (16 reads x 5 kb at 2 %,
+    ``min_count=4``) and the JAX package's gang test draws (8 x 300 bp at
+    2 %; 2 x 5 x 250 bp at 4 %): one line per search with the gang
+    counters, gang launches, the warm wall and the device ms.  The phase
+    fails when no search launched the gang kernel.
+
 The JAX package's megastep (``_j_run_mega``, an XLA loop under a per-call
 step budget) is the run kernel itself here: one launch runs to the first
 event, under the caller's ``max_steps``.  ``kernel`` holds a launch capped
@@ -215,6 +253,8 @@ def bound(nbytes: float, ops: float):
 
 #: arena launches of each main path's warm search (path -> count)
 ARENA_LAUNCHES = {}
+#: frontier-gang launches of each main path's warm search (path -> count)
+GANG_LAUNCHES = {}
 #: the arena calls recorded by the main paths' cold searches
 ARENA_RECORDS = {}
 #: each deployment's inputs, config, ``"torch"`` result (as plain data)
@@ -249,11 +289,15 @@ def host_profile(fn, top=15):
 
 
 def reset_arena_counts():
+    """Zero the arena's and the frontier gang's launch and twin counts."""
     from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
 
     ak.arena_cuda.launches = 0
     ak.arena_cuda.placements = {"smem": 0, "global": 0}
     ak.arena_plain.calls = 0
+    rgk.run_ragged_cuda.launches = 0
+    rgk.run_ragged_plain.calls = 0
 
 
 def arena_plan():
@@ -266,10 +310,53 @@ def arena_plan():
 
 
 def arena_counts():
-    """(arena kernel launches, twin calls) since the last reset."""
+    """(arena kernel launches, twin calls of the arena and the gang) since
+    the last reset."""
     from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
 
-    return ak.arena_cuda.launches, ak.arena_plain.calls
+    return (ak.arena_cuda.launches,
+            ak.arena_plain.calls + rgk.run_ragged_plain.calls)
+
+
+def gang_launches():
+    """Frontier-gang kernel launches since the last reset."""
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
+
+    return rgk.run_ragged_cuda.launches
+
+
+GANG_KEYS = ("gang_groups", "gang_members", "run_gang_injected",
+             "run_gang_mispredict", "gang_skip_members", "gang_skip_capacity",
+             "gang_skip_pending", "gang_skip_desync")
+
+
+def gang_counters(c):
+    """The frontier gang's counters of a search (0 where absent)."""
+    return {k: c.get(k, 0) for k in GANG_KEYS}
+
+
+#: the launch planners' refusals: a shape a planner refuses takes the
+#: engines' host path (the arena: not engaged)
+PLAN_KEYS = ("plan_refused_arena", "plan_refused_run",
+             "plan_refused_run_dual", "plan_refused_ragged")
+
+
+def plan_refusals(where, c):
+    """The planners' refusal counters of a search.  Raises when any moved:
+    every shape of the tracked deployments is one the kernels take, so a
+    refusal there would have sent the search off the kernels."""
+    got = {k: c.get(k, 0) for k in PLAN_KEYS}
+    if any(got.values()):
+        raise AssertionError(f"{where}: the launch planners refused "
+                             f"shapes {got}")
+    return got
+
+
+def kernel_runs(c):
+    """``run_extend`` calls that launched the run kernel: the calls minus
+    those a gang deposit answered."""
+    return c["run_calls"] - c.get("run_gang_injected", 0)
 
 
 # ---------------------------------------------------------------------
@@ -323,27 +410,44 @@ def _compare(R, A, slot, args, st_k, st_p, outs_k, outs_p):
 
     rk_, rs_k, rf_k = rk.fetch(*outs_k, R, A, args.max_steps)
     rp_, rs_p, rf_p = rk.fetch(*outs_p, R, A, args.max_steps)
-    err = 0
-    for name in rk.RunResult._fields:
-        a, b = getattr(rk_, name), getattr(rp_, name)
-        if hasattr(a, "shape"):
-            if a.shape != b.shape:
-                raise AssertionError(f"{name}: shape {a.shape} vs {b.shape}")
-            if a.size:
-                err = max(err, int(abs(a.astype("int64") - b.astype("int64")).max()))
-        elif a != b:
-            raise AssertionError(f"{name}: {a} vs {b}")
+    err = _result_err(rk_, rp_)
     if rk_.rec_count:
         err = max(err, int(abs(rs_k - rs_p).max()), int(abs(rf_k - rf_p).max()))
-    clen = int(st_k["clen"][slot])
-    for name in ("D", "e", "rmin", "er", "clen"):
-        d = (st_k[name][slot].long() - st_p[name][slot].long()).abs().max()
-        err = max(err, int(d))
-    d = (st_k["cons"][slot, :clen].long() - st_p["cons"][slot, :clen].long())
-    if d.numel():
-        err = max(err, int(d.abs().max()))
+    err = max(err, _rows_err(st_k, slot, st_p, slot))
     torch.cuda.synchronize()
     return err, rk_.steps, rk_.code, rk_.rec_count
+
+
+def _result_err(a, b):
+    """Max abs difference of two ``RunResult``s (raises on a scalar or
+    shape that differs)."""
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    err = 0
+    for name in rk.RunResult._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if hasattr(x, "shape"):
+            if x.shape != y.shape:
+                raise AssertionError(f"{name}: shape {x.shape} vs {y.shape}")
+            if x.size:
+                err = max(err, int(abs(x.astype("int64")
+                                       - y.astype("int64")).max()))
+        elif x != y:
+            raise AssertionError(f"{name}: {x} vs {y}")
+    return err
+
+
+def _rows_err(x, i, y, j):
+    """Max abs difference of branch ``i`` of ``x`` and branch ``j`` of
+    ``y`` (branch stores or gang deposits): band rows, folds, length and
+    the consensus up to it."""
+    err = 0
+    for name in ("D", "e", "rmin", "er", "clen"):
+        err = max(err, int((x[name][i].long() - y[name][j].long())
+                           .abs().max()))
+    n = int(x["clen"][i])
+    d = x["cons"][i, :n].long() - y["cons"][j, :n].long()
+    return max(err, int(d.abs().max())) if d.numel() else err
 
 
 def _run_args(sc, consensus_len, **kw):
@@ -548,11 +652,13 @@ def _dual_north_star_h1():
 def phase_kernel(small_only: bool):
     """Kernel vs plain on the card.  Returns the kernel table's numbers
     (from the main path's own launch, or the first small case with
-    ``small_only``) and the max error over every compared output."""
+    ``small_only``), the max error over every compared output, and the
+    numbers of the step-capped launch (the megastep's row; None with
+    ``small_only``)."""
     from waffle_con_tpu_torch.ops import run_kernel as rk
 
     max_err = 0
-    timing = None
+    timing = cap_timing = None
     cache = {}
     for label, make, cfg, kw, spec in kernel_cases(small_only):
         if make not in cache:
@@ -615,16 +721,17 @@ def phase_kernel(small_only: bool):
                         kernel_us_per_step=round(1000 * k_ms / per, 3),
                         plain_us_per_step=round(1000 * p_ms / per, 2),
                         bound_ms=bound_ms, bound_by=bound_by)
+            numbers = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, steps=steps)
             if label == "north_star/main_launch" or (
                 small_only and timing is None
             ):
-                timing = dict(
-                    ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, steps=steps,
-                )
+                timing = numbers
+            if label == "north_star/step_cap":
+                cap_timing = numbers
         print("kernel", json.dumps(line), flush=True)
         del sc, st0, st_k, st_p
-    return timing, max_err
+    return timing, max_err, cap_timing
 
 
 # ---------------------------------------------------------------------
@@ -659,16 +766,20 @@ def phase_main():
         launches = rk.run_extend_cuda.launches
         placements = dict(rk.run_extend_cuda.placements)
         arena_launches, arena_plain = arena_counts()
+        ragged_launches = gang_launches()
         plain_calls = rk.run_extend_plain.calls + arena_plain
         if not res or res[0].sequence != truth:
             raise AssertionError(f"{run}: consensus != truth")
         if (arena_launches
                 != eng.last_search_stats["scorer_counters"]["arena_calls"]):
             raise AssertionError(f"{run}: {arena_launches} arena launches")
-        if launches <= 0 or plain_calls != 0:
+        c = eng.last_search_stats["scorer_counters"]
+        plan_refusals(f"main {run}", c)
+        if (launches <= 0 or plain_calls != 0 or launches != kernel_runs(c)
+                or ragged_launches != c.get("gang_groups", 0)):
             raise AssertionError(
-                f"{run}: run kernel launches {launches}, plain calls "
-                f"{plain_calls}"
+                f"{run}: run kernel launches {launches}, gang launches "
+                f"{ragged_launches}, plain calls {plain_calls}"
             )
     want = [(c.sequence, list(c.scores)) for c in res]
     BASELINE["single"] = dict(reads=reads, offsets=None, config=cfg,
@@ -689,6 +800,8 @@ def phase_main():
         push_calls=c["push_calls"], clone_push_calls=c["clone_push_calls"],
         grow_e_events=c["grow_e_events"], scores_sum=sum(res[0].scores),
         arena_kernel_launches=arena_launches, **arena_counters(c),
+        gang_kernel_launches=ragged_launches, **gang_counters(c),
+        **plan_refusals("main", c),
         profiled_device_ms=device_ms,
         device_busy_share=(
             None if device_ms is None
@@ -697,6 +810,7 @@ def phase_main():
     )
     print("main", json.dumps(line), flush=True)
     ARENA_LAUNCHES["main"] = arena_launches
+    GANG_LAUNCHES["main"] = ragged_launches
     return launches
 
 
@@ -1040,6 +1154,17 @@ def dual_kernel_cases(small_only: bool):
     ]:
         cases.append(("cluster/" + label, make, {**ns_cfg, **cfg},
                       dict(min_count=16, **kw), dict(min_count=16, **spec)))
+    # plan_gate's dual draw (256 reads over 256 symbols): 16 warps' tip
+    # histograms and partials overflow a CTA, so the plan halves the warps
+    # (8 a CTA, both sides of two reads a warp), the band in device memory
+    # at W=234 and on chip at W=66; split sides past the first SNP
+    wide = lambda: _alphabet_draw(  # noqa: E731
+        256, 256, 320, 0.01, 5, snps=((110, 1), (220, 7)))
+    for label, band in [("wide_alphabet", 116), ("wide_alphabet_smem", 32)]:
+        cases.append(("cluster/" + label, wide,
+                      dict(min_count=32, initial_band=band),
+                      dict(min_count=32, max_steps=300),
+                      dict(min_count=32, prefix=(115, 115))))
     # a priority-engine group on its level's shared store: every other
     # read inactive from the root in both slots, split sides driven past
     # the first SNP, at the priority north star's level-1 geometry (R=32,
@@ -1096,6 +1221,10 @@ def phase_dual_kernel(small_only: bool):
             call(rdk.run_extend_dual_plain, st_p)), 1)
         err, steps, code, nrec = _dual_compare(R, A, slots, args, st_k, st_p,
                                                outs_k, held[0])
+        if label.startswith("cluster/wide_alphabet") and (
+                plan.threads != 256 or plan.band != (
+                    "smem" if label.endswith("_smem") else "global")):
+            raise AssertionError(f"{label}: plan {plan}, want 8 warps")
         max_err = max(max_err, err)
         if err:
             raise AssertionError(f"{label}: dual kernel != plain (max err {err})")
@@ -1156,6 +1285,58 @@ def _dual_key(results):
              list(d.scores1), list(d.scores2)) for d in results]
 
 
+class _NoSpeculator:
+    """Stands in for the engines' ``FrontierSpeculator`` when timing the
+    speculation layer: never gangs, does no per-pop work."""
+
+    def __init__(self, scorer, config=None):
+        pass
+
+    def width(self, queue_depth, gap):
+        return 1
+
+    def pending(self, h):
+        return False
+
+
+def speculator_cost(module, make_engine, reads, reps=3):
+    """Host cost of the engines' speculation layer: warm searches with the
+    module's ``FrontierSpeculator`` and with :class:`_NoSpeculator` in its
+    place, alternating (with, without, ...).  Returns each
+    one's walls, the pops (the same search either way) and the
+    difference of the minima in µs a pop."""
+    import torch
+
+    real = module.FrontierSpeculator
+    walls = {"with": [], "without": []}
+    pops, keys = None, set()
+    try:
+        for k in range(2 * reps):
+            which = ("with", "without")[k % 2]
+            module.FrontierSpeculator = real if which == "with" else (
+                _NoSpeculator)
+            eng = make_engine()
+            for r in reads:
+                eng.add_sequence(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.consensus()
+            torch.cuda.synchronize()
+            walls[which].append(round(time.perf_counter() - t0, 4))
+            st = eng.last_search_stats
+            pops = st["nodes_explored"] + st["nodes_ignored"]
+            keys.add(repr(_dual_key(res)))
+    finally:
+        module.FrontierSpeculator = real
+    if len(keys) != 1:
+        raise AssertionError("speculator_cost: results differ with and "
+                             "without the speculator")
+    return dict(
+        pops=pops, with_s=walls["with"], without_s=walls["without"],
+        us_per_pop=round(
+            1e6 * (min(walls["with"]) - min(walls["without"])) / pops, 3))
+
+
 def phase_dual_main():
     from waffle_con_tpu_torch import CdwfaConfigBuilder, DualConsensusDWFA
     from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
@@ -1191,6 +1372,7 @@ def phase_dual_main():
         walls.append(time.perf_counter() - t0)
         launches = (rdk.run_extend_dual_cuda.launches,
                     rk.run_extend_cuda.launches) + arena_counts()[:1]
+        ragged_launches = gang_launches()
         placements = dict(rk.run_extend_cuda.placements)
         dual_placements = dict(rdk.run_extend_dual_cuda.placements)
         plain_calls = (rdk.run_extend_dual_plain.calls,
@@ -1203,9 +1385,11 @@ def phase_dual_main():
         # after it (the dual kernel where a dual node has no competitor);
         # no plain twin runs
         c = eng.last_search_stats["scorer_counters"]
+        plan_refusals(f"dual_main {run}", c)
         if (launches[1] <= 0 or plain_calls != (0, 0, 0)
-                or launches != (c["run_dual_calls"], c["run_calls"],
+                or launches != (c["run_dual_calls"], kernel_runs(c),
                                 c.get("arena_calls", 0))
+                or ragged_launches != c.get("gang_groups", 0)
                 or (launches[2] <= 0 and not ARENA_OFF)):
             raise AssertionError(
                 f"{run}: kernel launches (dual, single, arena) {launches}, "
@@ -1228,6 +1412,8 @@ def phase_dual_main():
     st = eng.last_search_stats
     c = st["scorer_counters"]
     steps = c["run_dual_steps"] + c["run_steps"]
+    from waffle_con_tpu_torch.models import dual_consensus as dc
+    spec_cost = speculator_cost(dc, lambda: DualConsensusDWFA(cfg), reads)
     # the least time of the search's mean dual launch (its band width as
     # the scorer starts it; every row of both sides stepped)
     W = _scorer(reads, min_count=16, initial_band=116)._W
@@ -1244,6 +1430,8 @@ def phase_dual_main():
         dual_kernel_launches=launches[0], run_kernel_launches=launches[1],
         arena_kernel_launches=launches[2], arena_kernel_plan=arena_plan(),
         **arena_counters(c),
+        gang_kernel_launches=ragged_launches, **gang_counters(c),
+        **plan_refusals("dual_main", c),
         dual_kernel_plan=_dual_plan_fields(rdk.run_extend_dual_cuda.last_plan),
         dual_kernel_band_placements=dual_placements,
         run_kernel_plan=_plan_fields(rk.run_extend_cuda.last_plan),
@@ -1265,12 +1453,14 @@ def phase_dual_main():
         host_ms_per_pop=round(
             (walls[1] - (device_ms or 0) / 1e3) * 1e3
             / max(st["nodes_explored"] + st["nodes_ignored"], 1), 4),
+        speculator_cost=spec_cost,
         host_profile=profile,
     )
     print("dual_main", json.dumps(line), flush=True)
     BASELINE["dual"] = dict(reads=reads, config=cfg, want=_dual_key(res),
                             torch_warm_s=walls[1])
     ARENA_LAUNCHES["dual_main"] = launches[2]
+    GANG_LAUNCHES["dual_main"] = ragged_launches
     ARENA_RECORDS["dual_main"] = recorder.calls
     return launches
 
@@ -1384,6 +1574,7 @@ def phase_priority_main():
             walls.append(time.perf_counter() - t0)
             launches = (rk.run_extend_cuda.launches,
                         rdk.run_extend_dual_cuda.launches) + arena_counts()[:1]
+            ragged_launches = gang_launches()
             plain_calls = (rk.run_extend_plain.calls,
                            rdk.run_extend_dual_plain.calls) + arena_counts()[1:]
             st = eng.last_search_stats
@@ -1396,10 +1587,12 @@ def phase_priority_main():
             if st["scorer_constructions"] != 2:
                 raise AssertionError(
                     f"{run}: {st['scorer_constructions']} scorers built")
-            counted = (c["run_calls"], c["run_dual_calls"],
+            plan_refusals(f"priority_main {run}", c)
+            counted = (kernel_runs(c), c["run_dual_calls"],
                        c.get("arena_calls", 0))
             if (launches[0] <= 0 or plain_calls != (0, 0, 0)
                     or launches != counted
+                    or ragged_launches != c.get("gang_groups", 0)
                     or (launches[2] <= 0 and not ARENA_OFF)):
                 raise AssertionError(
                     f"{run}: kernel launches (run, dual, arena) {launches}, "
@@ -1442,6 +1635,8 @@ def phase_priority_main():
         dual_launches=launches[1], dual_steps=c["run_dual_steps"],
         arena_launches=launches[2], arena_kernel_plan=arena_plan(),
         **arena_counters(c),
+        gang_kernel_launches=ragged_launches, **gang_counters(c),
+        **plan_refusals("priority_main", c),
         plain_calls=list(plain_calls), grow_e_events=c["grow_e_events"],
         groups=groups, levels=levels,
         live_handles=[g["live_handles"] for g in groups],
@@ -1461,6 +1656,7 @@ def phase_priority_main():
     BASELINE["priority"] = dict(chains=chains, config=cfg, want=got,
                                 torch_warm_s=walls[1])
     ARENA_LAUNCHES["priority_main"] = launches[2]
+    GANG_LAUNCHES["priority_main"] = ragged_launches
     ARENA_RECORDS["priority_main"] = recorder.calls
     return launches
 
@@ -1700,13 +1896,16 @@ def phase_late_main():
             plain = (rpk.offset_scan_plain.calls, rpk.replay_rows_plain.calls,
                      rk.run_extend_plain.calls + arena_counts()[1])
             arena_launches = arena_counts()[0]
+            ragged_launches = gang_launches()
             c = eng.last_search_stats["scorer_counters"]
+            plan_refusals(f"late_main {run}", c)
             if not res or res[0].sequence != truth:
                 raise AssertionError(f"late_main {run}: consensus != truth")
             if not (launches[0] == c["offset_scan_calls"] > 0
                     and launches[1] > 0 and launches[2] > 0
                     and c["activate_calls"] == n_late
-                    and c["grow_e_events"] > 0 and plain == (0, 0, 0)):
+                    and c["grow_e_events"] > 0 and plain == (0, 0, 0)
+                    and ragged_launches == c.get("gang_groups", 0)):
                 raise AssertionError(
                     f"late_main {run}: launches (offset_scan, col_replay, "
                     f"run_extend) {launches}, plain calls {plain}, counters "
@@ -1735,6 +1934,8 @@ def phase_late_main():
         col_replay_activate_launches=act_launches,
         run_kernel_launches=launches[2], plain_calls=list(plain),
         arena_kernel_launches=arena_launches, **arena_counters(c),
+        gang_kernel_launches=ragged_launches, **gang_counters(c),
+        **plan_refusals("late_main", c),
         activate_calls=c["activate_calls"],
         offset_scan_calls=c["offset_scan_calls"],
         grow_e_events=c["grow_e_events"], replayed_cols=c["replayed_cols"],
@@ -1763,6 +1964,7 @@ def phase_late_main():
         config=cfg, want=[(r.sequence, list(r.scores)) for r in res],
         torch_warm_s=walls["warm"])
     ARENA_LAUNCHES["late_main"] = arena_launches
+    GANG_LAUNCHES["late_main"] = ragged_launches
     return launches, records
 
 
@@ -2639,6 +2841,7 @@ def _torch_run(name, spec):
     res = eng.consensus()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _torch_run.last_engine = eng
     if name == "dual":
         got = _dual_key(res)
     elif name == "priority":
@@ -2646,6 +2849,10 @@ def _torch_run(name, spec):
     else:
         got = [(c.sequence, list(c.scores)) for c in res]
     return got, wall
+
+
+#: the engine of the last ``_torch_run`` (its counters)
+_torch_run.last_engine = None
 
 
 def _cpp_run(name, spec):
@@ -2707,6 +2914,9 @@ def phase_native_baseline(runs=2):
                         f"native_baseline {name}: the {side} result "
                         "differs from the main phase's torch result")
                 walls[side].append(wall)
+                if side == "cpp":
+                    spec["cpp"] = got
+        _torch_run.last_engine = None
         print("native_baseline", json.dumps(dict(
             deployment=name, cpp_s=walls["cpp"],
             torch_warm_s=walls["torch"],
@@ -2737,21 +2947,490 @@ def phase_native_baseline(runs=2):
         draws="16 x 1 kb at 2 %", results=out, identical=True)), flush=True)
 
 
+# ---------------------------------------------------------------------
+# phases 15-17: the planners' refusals and the frontier gang
+
+
+def _alphabet_draw(A, n, length, err, seed, snps=()):
+    """``n`` reads over ``A`` symbols, every symbol in the truth (its
+    first ``A`` bases are a permutation of them); with ``snps`` (position,
+    shift) pairs, the second half of the reads come from a second
+    haplotype.  Returns ``(truth, h2 or None, reads)``."""
+    import numpy as np
+    from waffle_con_tpu_torch.utils.example_gen import corrupt
+
+    rng = np.random.default_rng(seed)
+    truth = np.concatenate([
+        rng.permutation(A), rng.integers(0, A, size=length - A),
+    ]).astype(np.uint8).tobytes()
+    h2 = None
+    if snps:
+        arr = bytearray(truth)
+        for pos, shift in snps:
+            arr[pos] = (arr[pos] + shift) % A
+        h2 = bytes(arr)
+    reads = [corrupt(h2 if h2 is not None and i >= n // 2 else truth, err,
+                     rng, A) for i in range(n)]
+    return truth, h2, reads
+
+
+def phase_plan_gate():
+    """Shapes the arena's planner refuses leave the arena not engaged: a
+    single draw of 8 reads over 129 symbols, half of them from a haplotype
+    2 SNPs away, and a dual draw of 256 reads over 256 symbols (the arena
+    takes at most 128 symbols) on ``cuda``, each equal to the ``"python"``
+    oracle and to the C++ engine.  The arena's refusals must have moved,
+    the run kernels' planners must have taken every shape (the dual one
+    R=256 at A=256 on fewer warps), every run must have launched its
+    kernel and no plain twin may run."""
+    from waffle_con_tpu_torch import (
+        CdwfaConfigBuilder, ConsensusDWFA, DualConsensusDWFA, native)
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    cases = [
+        # two haplotypes, so the search branches and the arena has
+        # competitors to take
+        ("single_A129", ConsensusDWFA,
+         _alphabet_draw(129, 8, 600, 0.01, 3, snps=((200, 1), (400, 5))),
+         3, "plan_refused_arena"),
+        ("dual_A256_R256", DualConsensusDWFA,
+         _alphabet_draw(256, 256, 320, 0.01, 5, snps=((110, 1), (220, 7))),
+         32, "plan_refused_arena"),
+    ]
+    for label, engine, (truth, h2, reads), mc, must in cases:
+        key = _dual_key if engine is DualConsensusDWFA else (
+            lambda r: [(c.sequence, list(c.scores)) for c in r])
+        got, counters, walls = {}, None, {}
+        for be in ("python", "torch"):
+            eng = engine(CdwfaConfigBuilder().backend(be).device("cuda")
+                         .min_count(mc).build())
+            for r in reads:
+                eng.add_sequence(r)
+            reset_arena_counts()
+            rk.run_extend_cuda.launches = rk.run_extend_plain.calls = 0
+            rdk.run_extend_dual_cuda.launches = 0
+            rdk.run_extend_dual_plain.calls = 0
+            t0 = time.perf_counter()
+            got[be] = key(eng.consensus())
+            walls[be] = round(time.perf_counter() - t0, 3)
+            if be == "torch":
+                counters = eng.last_search_stats["scorer_counters"]
+                plain = (arena_counts()[1] + rk.run_extend_plain.calls
+                         + rdk.run_extend_dual_plain.calls)
+                launches = dict(
+                    run=rk.run_extend_cuda.launches,
+                    run_dual=rdk.run_extend_dual_cuda.launches,
+                    arena=arena_counts()[0], gang=gang_launches())
+        cfg = CdwfaConfigBuilder().min_count(mc).build()
+        t0 = time.perf_counter()
+        if engine is DualConsensusDWFA:
+            got["cpp"] = _dual_key(native.native_dual_consensus(
+                reads, config=cfg))
+        else:
+            got["cpp"] = [(s, list(sc)) for s, sc in native.native_consensus(
+                reads, None, cfg)]
+        walls["cpp"] = round(time.perf_counter() - t0, 3)
+        refused = {k: counters.get(k, 0) for k in PLAN_KEYS}
+        line = dict(case=label, reads=len(reads),
+                    symbols=len(set(b"".join(reads))), walls_s=walls,
+                    identical=got["torch"] == got["python"] == got["cpp"],
+                    **refused, run_calls=counters["run_calls"],
+                    run_dual_calls=counters["run_dual_calls"],
+                    arena_calls=counters.get("arena_calls", 0),
+                    push_calls=counters["push_calls"],
+                    clone_push_calls=counters["clone_push_calls"],
+                    kernel_launches=launches, **gang_counters(counters),
+                    plain_calls=plain,
+                    dual_kernel_plan=(
+                        _dual_plan_fields(rdk.run_extend_dual_cuda.last_plan)
+                        if launches["run_dual"] else None))
+        print("plan_gate", json.dumps(line), flush=True)
+        if not line["identical"]:
+            raise AssertionError(f"plan_gate {label}: torch, python and C++ "
+                                 "results differ")
+        if refused[must] <= 0 or plain:
+            raise AssertionError(f"plan_gate {label}: {must} did not move, "
+                                 f"or a plain twin ran ({plain})")
+        ran = (launches["run"] + launches["run_dual"],
+               kernel_runs(counters) + counters["run_dual_calls"])
+        if (refused["plan_refused_run"] or refused["plan_refused_run_dual"]
+                or ran[0] != ran[1] or ran[0] <= 0):
+            raise AssertionError(f"plan_gate {label}: the run kernels' "
+                                 f"planners refused, or launches {ran[0]} != "
+                                 f"runs {ran[1]}")
+        if launches["gang"] != counters.get("gang_groups", 0):
+            raise AssertionError(f"plan_gate {label}: gang launches "
+                                 f"{launches['gang']}, counted "
+                                 f"{counters.get('gang_groups', 0)}")
+        if (engine is DualConsensusDWFA) != (launches["run_dual"] > 0):
+            raise AssertionError(f"plan_gate {label}: dual kernel launches "
+                                 f"{launches['run_dual']}")
+        if engine is DualConsensusDWFA and {
+                got["torch"][0][0][0], got["torch"][0][1][0]} != {truth, h2}:
+            raise AssertionError(f"plan_gate {label}: haplotypes not "
+                                 "recovered")
+
+
+def gang_bound(R, W, steps):
+    """(bound_ms, bound_by) of a gang launch: every member's band read and
+    written once and its reads' windows read once (bytes), 20 int32
+    operations a band cell a step over all members' steps."""
+    nbytes = sum(2 * R * W * 4 + R * (s + W) * 2 for s in steps)
+    return bound(nbytes, sum(steps) * R * W * OPS_PER_CELL)
+
+
+def _gang_compare(R, A, MS, dep_k, dep_p, g):
+    """Bitwise comparison of member ``g``'s deposit from two gang runs;
+    returns (max_abs_err, RunResult of the first)."""
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    ok, op = dep_k["out"][g].cpu().numpy(), dep_p["out"][g].cpu().numpy()
+    rk_, rp_ = rk.unpack(ok, R, A, MS), rk.unpack(op, R, A, MS)
+    return max(_result_err(rk_, rp_), _rows_err(dep_k, g, dep_p, g)), rk_
+
+
+def _solo_err(sc, st0, slot, params_g, call, dep, g, R, A, MS):
+    """Member ``g`` run alone by the run kernel from the same state and
+    arguments (records off): returns (max_abs_err against its deposit,
+    the solo launch's ms)."""
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    _slot, _len0, me, oc, ol, ms, fs = (int(v) for v in params_g)
+    args = rk.RunArgs(me_budget=me, other_cost=oc, other_len=ol,
+                      min_count=call.min_count, l2=call.l2, max_steps=ms,
+                      first_sym=fs, allow_records=False, wc=call.wc,
+                      et=call.et, a_real=A)
+    st = _copy_state(st0)
+    out, _rs, _rf = rk.run_extend_cuda(st, slot, sc._reads, sc._rlen, args)
+    res = rk.unpack(out.cpu().numpy(), R, A, ms)
+    dres = rk.unpack(dep["out"][g].cpu().numpy(), R, A, MS)
+    err = max(_result_err(res, dres), _rows_err(st, slot, dep, g))
+    it = iter([_copy_state(st0) for _ in range(3)])
+    solo_ms = _time_cuda(lambda: rk.run_extend_cuda(
+        next(it), slot, sc._reads, sc._rlen, args), 3)
+    return err, solo_ms
+
+
+def _wild_reads(make, wc, every=20):
+    """Every ``every``-th base of every read replaced by the wildcard."""
+    def make2():
+        truth, reads = make()
+        return truth, [bytes(wc if k % every == every - 1 else b
+                             for k, b in enumerate(r)) for r in reads]
+    return make2
+
+
+def gang_kernel_cases(small_only: bool):
+    """(label, make-reads, scorer config, call overrides, members) cases.
+    A member is ``(prefix_len, first, overrides)``: the branch is the
+    truth's first ``prefix_len`` symbols, ``first`` "truth" (forced: the
+    truth's next symbol), "wrong" (forced: another symbol) or None
+    (unforced), ``overrides`` of the call arguments (``max_steps``,
+    ``me_budget``, ``other_cost``, ``other_len``, and ``len0_shift``: a
+    consensus length the slot does not hold, so the member must run
+    nothing, code -1).  Every case must reach the stop codes named in
+    ``want_codes``."""
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    def small(seed, err, n=10, length=120):
+        return lambda: generate_test(4, length, n, err, seed=seed)
+
+    ms = dict(max_steps=60)
+    cases = [
+        ("small/g2", small(1, 0.02), {}, {},
+         [(5, "truth", ms), (9, None, ms)], ()),
+        ("small/step_cap", small(2, 0.0), {}, {},
+         [(3, "truth", dict(max_steps=20)), (4, None, dict(max_steps=25)),
+          (6, "wrong", dict(max_steps=30))], (4,)),
+        ("small/overflow", _one_random_read(small(5, 0.0)), {}, {},
+         [(0, None, dict(max_steps=100)), (2, "truth", dict(max_steps=100))],
+         (5,)),
+        ("small/l2", small(4, 0.05), dict(allow_early_termination=True),
+         dict(l2=True), [(4, "truth", ms), (7, None, ms), (11, None, ms)],
+         ()),
+        ("small/wildcard", _wild_reads(small(8, 0.02), 9), dict(wildcard=9),
+         {}, [(5, "truth", ms), (8, None, ms), (10, "wrong", ms)], ()),
+        ("small/lose_pop", small(3, 0.02), {}, {},
+         [(5, None, dict(max_steps=60, other_cost=3, other_len=3)),
+          (7, "truth", dict(max_steps=60, me_budget=0))], (3,)),
+        ("small/desync", small(6, 0.02), {}, {},
+         [(4, None, ms), (8, "truth", dict(max_steps=60, len0_shift=1))],
+         (-1,)),
+    ]
+    if small_only:
+        return cases
+    ns = lambda: generate_test(4, 10000, 256, 0.01, seed=0)  # noqa: E731
+    ns_cfg = dict(min_count=64, initial_band=216)
+    cap = dict(max_steps=300)
+    # 8 branches that each run the whole 300 steps (7 clusters of 16 CTAs
+    # fit on the card at once), and a wrong forced symbol (code 1)
+    eight = [(20 + 7 * k, ("truth", None)[k % 2], cap) for k in range(8)]
+    wrong = [(90, "wrong", cap)]
+    cases += [
+        ("north_star/g2", ns, ns_cfg, {}, eight[:2], ()),
+        ("north_star/g4", ns, ns_cfg, {}, eight[:3] + wrong, (1, 4)),
+        ("north_star/g8", ns, ns_cfg, {}, eight, (4,)),
+        ("dual_north_star/g4", _dual_north_star_h1,
+         dict(min_count=16, initial_band=116), {},
+         [(30 + 11 * k, ("truth", None)[k % 2], cap) for k in range(4)], ()),
+        ("priority_level1/g4", _priority_level1, PRIORITY_CFG, {},
+         [(40 + 9 * k, ("truth", None)[k % 2], cap) for k in range(4)], ()),
+        # the kernel phase's cluster/global_band geometry: R=1024, W=514,
+        # so each member's band lives in device memory (its rows copied
+        # into the deposit, then stepped there with the member's scratch);
+        # the last member out of step with its slot
+        ("global_band/g4",
+         lambda: generate_test(4, 2000, 1024, 0.01, seed=4),
+         dict(min_count=256, initial_band=216), {},
+         [(20 + 7 * k, ("truth", None)[k % 2], dict(max_steps=100))
+          for k in range(3)]
+         + [(41, "truth", dict(max_steps=100, len0_shift=1))], (-1,)),
+    ]
+    return cases
+
+
+def phase_gang_kernel(small_only: bool):
+    """The frontier-gang kernel (``csrc/run_ragged.cu``, one thread-block
+    cluster per member) against its plain twin on the card and against a
+    solo run-kernel launch of each member from the same state: every
+    deposit compared bitwise.  Returns the kernel table's numbers (the
+    north star's 8-member launch, or the first case with
+    ``small_only``), the max error, and the co-resident clusters of that
+    plan."""
+    import numpy as np
+    import torch
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
+
+    max_err = 0
+    timing = None
+    cache = {}
+    codes_seen = set()
+    for label, make, cfg, call_kw, members, want_codes in gang_kernel_cases(
+            small_only):
+        if make not in cache:
+            cache[make] = make()
+        truth, reads = cache[make]
+        sc = _scorer(reads, **cfg)
+        # the branches: the truth's (distinct) prefixes, each a clone of
+        # one root pushed symbol by symbol
+        prefixes = [p for p, _f, _o in members]
+        assert len(set(prefixes)) == len(prefixes), label
+        h = sc.root(np.ones(sc.num_reads, dtype=bool))
+        at = {}
+        for k in range(max(prefixes) + 1):
+            if k in prefixes:
+                at[k] = sc.clone(h)
+            if k < max(prefixes):
+                sc.push(h, truth[: k + 1])
+        rows = []
+        for p, first, over in members:
+            fs = -1
+            if first == "truth":
+                fs = sc.sym_id[truth[p]]
+            elif first == "wrong":
+                fs = (sc.sym_id[truth[p]] + 1) % sc.num_symbols
+            kw = dict(dict(max_steps=200, me_budget=2**31 - 1,
+                           other_cost=2**31 - 1, other_len=0,
+                           len0_shift=0), **over)
+            rows.append((sc._slot_of[at[p]], p + kw["len0_shift"],
+                         kw["me_budget"],
+                         kw["other_cost"], kw["other_len"], kw["max_steps"],
+                         fs))
+        params = np.asarray(rows, dtype=np.int32)
+        call = rgk.GangCall(
+            min_count=cfg.get("min_count", 3), l2=call_kw.get("l2", False),
+            wc=sc._wc, et=sc._et, a_real=sc.num_symbols)
+        R, A, W, G = sc._R, sc.num_symbols, sc._W, len(rows)
+        MS = int(params[:, 5].max())
+        st0 = _copy_state(sc._state)
+        dep_k = rgk.run_ragged_cuda(st0, params, sc._reads, sc._rlen, call)
+        plan = rgk.run_ragged_cuda.last_plan
+        if label.startswith("global_band/") and plan.run.band != "global":
+            raise AssertionError(f"{label}: band {plan.run.band}, want the "
+                                 "device-memory band")
+        held = []
+        p_ms = _time_cuda(lambda: held.append(rgk.run_ragged_plain(
+            st0, params, sc._reads, sc._rlen, call)), 1)
+        dep_p = held[0]
+        steps, codes, solo_ms = [], [], 0.0
+        for g in range(G):
+            if int(dep_k["out"][g, 1]) == -1:
+                # out of step with its slot: nothing ran, nothing to hold
+                # but the code and the slot's length
+                got = dep_k["out"][g, :5].tolist()
+                want = dep_p["out"][g, :5].tolist()
+                if got != want:
+                    raise AssertionError(f"{label} member {g}: {got} vs "
+                                         f"{want}")
+                steps.append(0)
+                codes.append(-1)
+                continue
+            err, res = _gang_compare(R, A, MS, dep_k, dep_p, g)
+            serr, s_ms = _solo_err(sc, st0, int(params[g, 0]), params[g],
+                                   call, dep_k, g, R, A, MS)
+            solo_ms += s_ms
+            max_err = max(max_err, err, serr)
+            if err or serr:
+                raise AssertionError(
+                    f"{label} member {g}: kernel != plain (max err {err}) "
+                    f"or != solo launch ({serr})")
+            steps.append(res.steps)
+            codes.append(res.code)
+        codes_seen |= set(codes)
+        if not set(want_codes) <= set(codes):
+            raise AssertionError(f"{label}: stop codes {codes}, want "
+                                 f"{want_codes} among them")
+        k_ms = _time_cuda(lambda: rgk.run_ragged_cuda(
+            st0, params, sc._reads, sc._rlen, call), 3)
+        torch.cuda.synchronize()
+        bound_ms, bound_by = gang_bound(R, W, steps)
+        longest = max(max(steps), 1)
+        line = dict(
+            case=label, members=G, reads=R, W=W, A=A, steps=steps,
+            codes=codes, cluster=plan.run.cluster,
+            ctas_threads=plan.run.threads, band=plan.run.band,
+            smem_bytes=plan.run.smem_bytes,
+            coresident_clusters=rgk.max_clusters(plan),
+            kernel_ms=round(k_ms, 4),
+            kernel_us_per_step=round(1000 * k_ms / longest, 3),
+            solo_sum_ms=round(solo_ms, 4), plain_ms=round(p_ms, 3),
+            bound_ms=bound_ms, bound_by=bound_by)
+        print("gang_kernel", json.dumps(line), flush=True)
+        if label == "north_star/g8" or (small_only and timing is None):
+            timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, solo_ms=solo_ms,
+                          coresident_clusters=line["coresident_clusters"])
+        del sc, st0, dep_k, dep_p
+    if not {4, 5, 3} <= codes_seen:
+        raise AssertionError(f"gang_kernel: stop codes {codes_seen}")
+    return timing, max_err
+
+
+def low_coverage_draw():
+    """A PGx gene sampled at low depth: 16 reads x 5 kb at 2 %,
+    ``min_count=4``."""
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    return generate_test(4, 5000, 16, 0.02, seed=52300)
+
+
+def _gang_test_draws():
+    """The JAX package's frontier-gang test draws (``tests/
+    test_frontier_gang.py``): 8 reads x 300 bp at 2 % (single engine,
+    ``min_count=2``) and two haplotypes of 5 reads x 250 bp at 4 % (dual
+    engine, ``min_count=2``)."""
+    import numpy as np
+    from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
+
+    _, noisy = generate_test(4, 300, 8, 0.02, seed=52300)
+    rng = np.random.default_rng(61250)
+    truth, reads1 = generate_test(4, 250, 5, 0.04, seed=61251)
+    h2 = bytearray(truth)
+    for pos in rng.choice(250, size=3, replace=False):
+        h2[pos] = (h2[pos] + 1 + int(rng.integers(3))) % 4
+    dual = list(reads1) + [
+        corrupt(bytes(h2), 0.04, np.random.default_rng(61252 + i))
+        for i in range(5)]
+    return noisy, dual
+
+
+def phase_gang_main():
+    """Every deployment the main phases ran, at the default (adaptive)
+    frontier width, at ``frontier_width=8`` and at ``frontier_width=1``,
+    each byte-equal to the others and to the C++ engine's result
+    (``native_baseline``'s, or the C++ engine run here); then the
+    low-coverage draw and the JAX package's gang test draws the same way.
+    One line per search: the gang counters, the gang kernel's launches,
+    the warm wall and the device ms.  Fails when a plain twin ran, when a
+    gang launch was not counted as a gang, or when no search of the phase
+    launched the gang kernel.  Returns the gang kernel's launches."""
+    import dataclasses
+
+    import torch
+    from waffle_con_tpu_torch import CdwfaConfigBuilder
+
+    specs = {name: dict(BASELINE[name]) for name in
+             ("single", "dual", "priority", "late") if name in BASELINE}
+    truth, reads = low_coverage_draw()
+    specs["low_coverage"] = dict(
+        reads=reads, offsets=None, config=CdwfaConfigBuilder().backend(
+            "torch").device("cuda").min_count(4).build())
+    noisy, dual = _gang_test_draws()
+    specs["gang_test_single"] = dict(
+        reads=noisy, offsets=None, config=CdwfaConfigBuilder().backend(
+            "torch").device("cuda").min_count(2).build())
+    specs["gang_test_dual"] = dict(
+        reads=dual, config=CdwfaConfigBuilder().backend("torch")
+        .device("cuda").min_count(2).build())
+    total = 0
+    for name, spec in specs.items():
+        kind = ("dual" if name in ("dual", "gang_test_dual") else
+                "priority" if name == "priority" else "single")
+        cpp = spec.get("cpp")
+        if cpp is None:
+            cpp, _s = _cpp_run(kind, spec)
+        results = {}
+        for width in (None, 8, 1):
+            run = dict(spec, config=dataclasses.replace(
+                spec["config"], frontier_width=width))
+            reset_arena_counts()
+            got, wall = _torch_run(kind, run)
+            launches = gang_launches()
+            plain = arena_counts()[1]
+            eng = _torch_run.last_engine
+            c = eng.last_search_stats["scorer_counters"]
+            if plain or launches != c.get("gang_groups", 0):
+                raise AssertionError(
+                    f"gang_main {name} width {width}: gang launches "
+                    f"{launches}, counted {c.get('gang_groups', 0)}, plain "
+                    f"calls {plain}")
+            total += launches
+            results[width] = got
+            device_ms = None
+            if width != 1:
+                device_ms, _by = _device_ms(eng.consensus)
+            st = eng.last_search_stats
+            print("gang_main", json.dumps(dict(
+                deployment=name, frontier_width=width,
+                gang_kernel_launches=launches, **gang_counters(c),
+                **plan_refusals(f"gang_main {name} width {width}", c),
+                run_calls=c["run_calls"], arena_calls=c.get("arena_calls", 0),
+                pops=st["nodes_explored"] + st["nodes_ignored"],
+                warm_s=round(wall, 4), profiled_device_ms=device_ms,
+                equal_to_cpp=got == cpp)), flush=True)
+            del eng
+            _torch_run.last_engine = None
+        if not results[None] == results[8] == results[1] == cpp:
+            raise AssertionError(f"gang_main {name}: results differ across "
+                                 "frontier widths or from the C++ engine")
+    torch.cuda.synchronize()
+    if total <= 0:
+        raise AssertionError("gang_main: no search launched the gang kernel")
+    return total
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
-    (``launches``: path -> count, ``None`` where the phase did not run)."""
+    (``launches``: path -> count, ``None`` where the phase did not run).
+    A timing's other numbers (the gang's summed solo launches, its
+    co-resident clusters) ride along."""
     timing, max_err = check or (None, None)
-    timing = timing or {}
+    timing = dict(timing or {})
     ran = {path: n for path, n in launches.items() if n is not None}
-    return dict(
+    row = dict(
         name=name, route="cuda", source="waffle_con_tpu_torch/csrc/" + source,
         replaces="waffle_con_tpu/ops/" + replaces,
         launches=sum(ran.values()) if ran else None, launches_by_path=ran,
-        max_abs_err=max_err, ms=timing.get("ms"),
-        plain_ms=timing.get("plain_ms"), bound_ms=timing.get("bound_ms"),
-        bound_by=timing.get("bound_by"), library_ms=None,
+        max_abs_err=max_err, ms=timing.pop("ms", None),
+        plain_ms=timing.pop("plain_ms", None),
+        bound_ms=timing.pop("bound_ms", None),
+        bound_by=timing.pop("bound_by", None), library_ms=None,
     )
+    timing.pop("steps", None)
+    row.update(timing)
+    return row
 
 
 def main(argv=None) -> int:
@@ -2760,7 +3439,8 @@ def main(argv=None) -> int:
         "--phases",
         default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
                 "priority_main,priority_oracle,replay_kernel,late_main,"
-                "late_oracle,arena_kernel,native_baseline",
+                "late_oracle,arena_kernel,native_baseline,plan_gate,"
+                "gang_kernel,gang_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -2813,7 +3493,11 @@ def main(argv=None) -> int:
         phase_s[phase] = round(time.perf_counter() - t0, 2)
         return out
 
-    run_check = timed("kernel", phase_kernel, opts.small)
+    run_check, cap_check = (None, None)
+    kernel_out = timed("kernel", phase_kernel, opts.small)
+    if kernel_out is not None:
+        run_check = kernel_out[:2]
+        cap_check = (kernel_out[2], kernel_out[1])
     run_launches = timed("main", phase_main)
     timed("oracle", phase_oracle)
     dual_check = timed("dual_kernel", phase_dual_kernel, opts.small)
@@ -2832,11 +3516,14 @@ def main(argv=None) -> int:
     timed("late_oracle", phase_late_oracle)
     arena_check = timed("arena_kernel", phase_arena_kernel, opts.small,
                         ARENA_RECORDS)
+    timed("plan_gate", phase_plan_gate)
+    gang_check = timed("gang_kernel", phase_gang_kernel, opts.small)
+    gang_main_launches = timed("gang_main", phase_gang_main)
+    run_paths = dict(main=run_launches, dual_main=dual_launches[1],
+                     priority_main=prio_launches[0])
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
-                   run_check, dict(main=run_launches,
-                                   dual_main=dual_launches[1],
-                                   priority_main=prio_launches[0])),
+                   run_check, run_paths),
         kernel_row("run_extend_dual", "run_extend_dual.cu",
                    "pallas_run.py:976", dual_check,
                    dict(dual_main=dual_launches[0],
@@ -2848,10 +3535,24 @@ def main(argv=None) -> int:
         kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
                    {path: ARENA_LAUNCHES.get(path) for path in
                     ("main", "dual_main", "priority_main", "late_main")}),
+        # the megastep is the run kernel under a step cap: its launches
+        # are the run kernel's, its numbers the capped launch's
+        kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",
+                   cap_check, run_paths),
+        kernel_row("run_ragged", "run_ragged.cu", "ragged.py:595",
+                   gang_check,
+                   dict({path: GANG_LAUNCHES.get(path) for path in
+                         ("main", "dual_main", "priority_main",
+                          "late_main")}, gang_main=gang_main_launches)),
     ]
-    # every kernel must have launched on some main path that ran
+    # every kernel must have launched on some main path that ran (the
+    # gang's path is gang_main: on the other paths it engages only where
+    # their frontier is flat, and they report how often)
     for row in rows:
-        if row["launches_by_path"] and not row["launches"] and not ARENA_OFF:
+        by = row["launches_by_path"]
+        if row["name"] == "run_ragged":
+            by = {k: v for k, v in by.items() if k == "gang_main"}
+        if by and not sum(by.values()) and not ARENA_OFF:
             return fail(f"{row['name']}: no launch on the main paths "
                         f"{row['launches_by_path']}")
 

@@ -2,11 +2,11 @@
 (``device="cpu"``, so the arena runs as its plain twin) against the JAX
 package's ``"jax"``, byte for byte (sequences, scores, order, read
 assignment), with the arena counters and the ``run_calls``,
-``run_dual_calls`` and ``clone_push_calls`` counters equal too (JAX's
-speculative-block keys ``arena_iters`` / ``arena_spec_events`` excepted,
-and on the near-tie draws the code-1 stop diagnostics compared by their
-total: see ``_fold_diag``).  JAX runs with its frontier speculator off,
-which the port does not have yet.
+``run_dual_calls``, ``clone_push_calls`` and frontier-gang counters equal
+too (JAX's speculative-block keys ``arena_iters`` / ``arena_spec_events``
+excepted, and on the near-tie draws the code-1 stop diagnostics compared
+by their total: see ``_fold_diag``).  Both run at the default (adaptive)
+frontier width.
 Draws: ``tests/test_arena_creation.py``'s dual workload and tie-heavy
 single draw (the arena must create children there, as JAX's own test
 asserts), ``tests/test_vote_eps.py``'s near-tie dual draws, the
@@ -26,7 +26,9 @@ from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
 from waffle_con_tpu_torch.utils.fixtures import load_priority_fixture
 
 SPECULATIVE_KEYS = ("arena_iters", "arena_spec_events")
-OTHER_KEYS = ("run_calls", "run_dual_calls", "clone_push_calls")
+OTHER_KEYS = ("run_calls", "run_dual_calls", "clone_push_calls",
+              "gang_groups", "gang_members", "run_gang_injected",
+              "run_gang_mispredict")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,12 +82,11 @@ def _counters(eng):
 
 
 def _builder(pkg, backend):
-    """A config builder of ``pkg``'s ``backend``: the port on the CPU;
-    JAX with its frontier speculator off (``frontier_width`` 1), the path
-    the port implements — the speculator changes which fast path takes a
-    pop, never a result, so only the counters would differ."""
+    """A config builder of ``pkg``'s ``backend``: the port on the CPU, JAX
+    as it is; both at the default (adaptive) frontier width, so the
+    counters include the gang's effect on which fast path takes a pop."""
     b = pkg.CdwfaConfigBuilder().backend(backend)
-    return b.device("cpu") if pkg is T else b.frontier_width(1)
+    return b.device("cpu") if pkg is T else b
 
 
 def _fold_diag(c):

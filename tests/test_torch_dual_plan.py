@@ -105,8 +105,30 @@ def test_plan_placement_rule(R, W):
         assert on_chip == (fits and plan.rows_per_warp <= 32)
 
 
+@pytest.mark.parametrize("R,W,A", [
+    (256, 258, 256), (256, 66, 256), (1024, 258, 256), (14848, 258, 256)])
+def test_plan_halves_the_warps_where_sixteen_overflow(R, W, A):
+    """R = 256 at A = 256: 16 warps' histograms and partials overflow a
+    CTA's shared memory, so the plan halves the warps until it fits; every
+    row is still owned once, both sides of a read in one CTA, and a warp
+    feeds at most 32 symbol rings when the band is on chip."""
+    plan = plan_run_dual(R, W, A)
+    nw = plan.threads // 32
+    owner = _owners(plan, R)
+    assert sorted(owner) == [(sd, r) for sd in (0, 1) for r in range(R)]
+    assert all(owner[0, r][0] == owner[1, r][0] for r in range(R))
+    assert plan.cluster == MAX_CLUSTER and plan.rows_per_warp % 2 == 0
+    assert nw < min(MAX_WARPS, plan.reads_per_cta)
+    assert plan.smem_bytes == run_dual_kernel._smem_bytes(
+        plan.reads_per_cta, nw, W, A, plan.band == "smem") <= SMEM_LIMIT
+    assert plan.band == "global" or plan.rows_per_warp <= 32
+    assert run_dual_kernel._smem_bytes(plan.reads_per_cta, 2 * nw, W, A,
+                                       False) > SMEM_LIMIT
+
+
 @pytest.mark.parametrize("R,W,A", [(0, 18, 4), (16, 17, 4), (16, 18, 0),
-                                   (16, 2, 4), (10**6, 514, 4)])
+                                   (16, 2, 4), (10**6, 514, 4),
+                                   (16384, 258, 256)])
 def test_plan_raises_on_impossible_shape(R, W, A):
     with pytest.raises(ValueError):
         plan_run_dual(R, W, A)

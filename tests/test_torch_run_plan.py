@@ -64,7 +64,8 @@ def test_plan_placement_rule(R, W):
     plan = plan_run(R, W, A)
     nw = plan.threads // 32
     fits = run_kernel._smem_bytes(plan.reads_per_cta, nw, W, A, True)
-    assert (plan.band == "smem") == (fits <= SMEM_LIMIT)
+    assert (plan.band == "smem") == (fits <= SMEM_LIMIT
+                                     and plan.reads_per_warp <= 32)
     assert plan.smem_bytes == run_kernel._smem_bytes(
         plan.reads_per_cta, nw, W, A, plan.band == "smem")
     expect = {(1024, 514): "global", (4096, 514): "global"}
@@ -79,6 +80,26 @@ def test_plan_placement_rule(R, W):
     # the north star and the dual north star spread over several CTAs
     if (R, W) in ((256, 514), (64, 258)):
         assert plan.cluster > 1 and plan.band == "smem"
+
+
+@pytest.mark.parametrize("R,W,A", [
+    (48000, 258, 256), (48000, 18, 256), (40000, 258, 256), (8208, 4, 4)])
+def test_plan_halves_the_warps_where_sixteen_overflow(R, W, A):
+    """Where 16 warps' histograms and partials overflow a CTA's shared
+    memory (a wide alphabet, many reads) the plan halves the warps until
+    it fits; every read is still owned once, and a warp feeds at most 32
+    symbol rings when the band is on chip."""
+    plan = plan_run(R, W, A)
+    nw = plan.threads // 32
+    assert sorted(_owners(plan, R)) == list(range(R))
+    assert plan.cluster == MAX_CLUSTER
+    assert plan.smem_bytes == run_kernel._smem_bytes(
+        plan.reads_per_cta, nw, W, A, plan.band == "smem") <= SMEM_LIMIT
+    assert plan.band == "global" or plan.reads_per_warp <= 32
+    full = min(MAX_WARPS, plan.reads_per_cta)
+    if nw < full:
+        assert run_kernel._smem_bytes(plan.reads_per_cta, 2 * nw, W, A,
+                                      False) > SMEM_LIMIT
 
 
 @pytest.mark.parametrize("R,W,A", [(0, 18, 4), (16, 17, 4), (16, 18, 0),

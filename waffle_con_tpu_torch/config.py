@@ -95,6 +95,12 @@ class CdwfaConfig:
     #: children of the popped node and of the next best queued nodes are
     #: cloned and pushed in one call and consumed when those nodes pop.
     prefetch_width: int = 16
+    #: Frontier-gang width M: alongside each engaged run, advance the
+    #: next-best M - 1 queued branches through one gang launch, their
+    #: results kept as deposits their own pops may consume (byte-identical
+    #: to M = 1 by construction).  ``None`` is the adaptive width; 1 turns
+    #: the gang off.
+    frontier_width: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.wildcard is not None and not 0 <= self.wildcard <= 255:
@@ -103,6 +109,8 @@ class CdwfaConfig:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.prefetch_width < 1:
             raise ValueError("prefetch_width must be >= 1")
+        if self.frontier_width is not None and self.frontier_width < 1:
+            raise ValueError("frontier_width must be >= 1")
         if self.initial_band is not None and self.initial_band < 1:
             raise ValueError("initial_band must be >= 1")
 

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from waffle_con_tpu_torch.config import CdwfaConfig, ConsensusCost
+from waffle_con_tpu_torch.models.frontier import FrontierSpeculator, GangMember
 from waffle_con_tpu_torch.ops.scorer import (
     BranchStats,
     WavefrontScorer,
@@ -421,6 +422,7 @@ class ConsensusDWFA:
         tracker.insert(0)
         pqueue.push(root.key(), root, root.priority(cost))
         fp = fast_paths(scorer)
+        speculator = FrontierSpeculator(scorer, cfg)
 
         while not pqueue.is_empty():
             peak_queue_size = max(peak_queue_size, len(pqueue))
@@ -433,6 +435,15 @@ class ConsensusDWFA:
                 last_constraint = 0
 
             node, priority = pqueue.pop()
+            next_prio = pqueue.peek_priority()
+            # the gang width of this pop: the policy sees every pop's
+            # frontier (depth, best-vs-next gap), so cooldowns run in real
+            # pops; gangs only launch on the run path below
+            gang_w = speculator.width(
+                len(pqueue),
+                (-next_prio[0]) - (-priority[0])
+                if next_prio is not None else None,
+            )
             top_cost = -priority[0]
             top_len = len(node.consensus)
             tracker.remove(top_len)
@@ -480,6 +491,9 @@ class ConsensusDWFA:
                         or 2 <= len(passing_now) <= fp.arena_cre_per_event
                     )
                     and fp.run_arena is not None
+                    # a pending gang deposit is this pop's run already
+                    # paid for; the arena would drop it unspent
+                    and not speculator.pending(node.handle)
                 ):
                     arena = self._arena_attempt(
                         scorer, pqueue, node, maximum_error,
@@ -532,12 +546,25 @@ class ConsensusDWFA:
                         cfg.max_nodes_wo_constraint,
                         max_steps,
                     )
-                if max_steps >= 1:
+                # a shape the run kernel's planner refuses takes the
+                # expand path below, the same exact search
+                if max_steps >= 1 and fp.run_takes():
                     me_budget = (
                         int(maximum_error)
                         if maximum_error != math.inf
                         else 2**31 - 1
                     )
+                    # frontier-parallel speculation: alongside this run,
+                    # advance the next-best queued branches in one gang
+                    # launch; their results wait as consume-once deposits
+                    # for their own pops
+                    if gang_w > 1:
+                        self._gang_attempt(
+                            speculator, scorer, pqueue, node, gang_w,
+                            me_budget, other_cost, other_len, max_steps,
+                            force_sym, maximum_error,
+                            cost is ConsensusCost.L2_DISTANCE,
+                        )
                     steps, _code, appended, run_stats, records = run_extend(
                         node.handle,
                         node.consensus,
@@ -639,7 +666,10 @@ class ConsensusDWFA:
                 peers = [
                     n
                     for n, _p in pqueue.peek_top(cfg.prefetch_width - 1)
+                    # a pending gang deposit is consumed by a forced pop;
+                    # prefetching the peer would unforce it
                     if n.prefetch is None
+                    and not speculator.pending(n.handle)
                 ]
                 self._prefetch_expansions(
                     scorer, [node] + peers, in_place_first=True
@@ -750,6 +780,9 @@ class ConsensusDWFA:
              last_constraint],
             [0, 0, 0, 0],  # the single engine has no dual node kind
         ]
+        if not fp.arena_takes(win_len):
+            restore_all()
+            return None  # the arena kernel's planner refuses the shape
         me_budget = (
             int(maximum_error) if maximum_error != math.inf else 2**31 - 1
         )
@@ -824,6 +857,65 @@ class ConsensusDWFA:
         explored = sum(1 for k, _ in events if k in ("commit", "split"))
         ignored = sum(1 for k, _ in events if k == "discard")
         return far[0], lcon[0], explored, ignored
+
+    def _gang_attempt(
+        self,
+        speculator: FrontierSpeculator,
+        scorer: WavefrontScorer,
+        pqueue: SetPriorityQueue,
+        node: _Node,
+        gang_w: int,
+        me_budget: int,
+        other_cost: int,
+        other_len: int,
+        max_steps: int,
+        force_sym: int,
+        maximum_error: float,
+        l2: bool,
+    ) -> None:
+        """Frontier-parallel speculation: gang the in-hand node's run with
+        the next-best queued branches in one launch.
+
+        The in-hand member carries its real call arguments (its deposit is
+        consumed by the ``run_extend`` right after).  Peers are chosen so
+        that their own pop will make the forced call the speculation
+        assumes: not prefetched, not reached, exactly one passing symbol
+        (the same ``_nominate`` the pop evaluates, so the forced symbol
+        matches).  Their competitor (cost, length) is predicted from the
+        entry peeked behind them; a misprediction is caught when the
+        deposit is validated, so peer choice only tunes how often deposits
+        are used."""
+        cfg = self.config
+        members: List[GangMember] = []
+        if not speculator.pending(node.handle):
+            members.append(GangMember(
+                node.handle, node.consensus, me_budget, other_cost,
+                other_len, max_steps, force_sym,
+            ))
+        peeked = pqueue.peek_top(gang_w)
+        for i, (pn, pprio) in enumerate(peeked):
+            if len(members) >= gang_w:
+                break
+            if -pprio[0] > maximum_error:
+                continue  # its pop will be ignored, not run
+            if pn.prefetch is not None or speculator.pending(pn.handle):
+                continue
+            if self._reached_end(pn, cfg.allow_early_termination):
+                continue  # a reached pop is never forced
+            passing = self._nominate(scorer, pn)
+            if len(passing) != 1:
+                continue
+            if i + 1 < len(peeked):
+                nxt = peeked[i + 1][1]
+                poc, pol = -nxt[0], nxt[1]
+            else:
+                poc, pol = 2**31 - 1, 0
+            members.append(GangMember(
+                pn.handle, pn.consensus, me_budget, poc, pol,
+                max_steps, int(scorer.sym_id[passing[0]]),
+            ))
+        if len(members) >= 2:
+            speculator.gang(members, cfg.min_count, l2)
 
     def _nominate(self, scorer: WavefrontScorer, node: _Node) -> List[int]:
         """Passing extension symbols for a node — a pure function of its

@@ -46,6 +46,7 @@ from waffle_con_tpu_torch.models.consensus import (
     requeue_arena_nodes,
     shift_offsets,
 )
+from waffle_con_tpu_torch.models.frontier import FrontierSpeculator, GangMember
 from waffle_con_tpu_torch.ops.scorer import (
     WavefrontScorer,
     fast_paths,
@@ -457,6 +458,7 @@ class DualConsensusDWFA:
 
         pops = 0
         fp = fast_paths(scorer)
+        speculator = FrontierSpeculator(scorer, cfg)
         while not pqueue.is_empty():
             peak_queue_size = max(peak_queue_size, len(pqueue))
             while (
@@ -480,6 +482,14 @@ class DualConsensusDWFA:
                     "best_cost=%d", pops, len(pqueue), farthest_single,
                     farthest_dual, -priority[0],
                 )
+            next_prio = pqueue.peek_priority()
+            # the gang width of this pop (pure policy, byte-safe): see the
+            # single engine
+            gang_w = speculator.width(
+                len(pqueue),
+                (-next_prio[0]) - (-priority[0])
+                if next_prio is not None else None,
+            )
             top_cost = -priority[0]
             top_len = node.max_consensus_length()
 
@@ -592,6 +602,9 @@ class DualConsensusDWFA:
                 and not node.reached_all_end(cfg.allow_early_termination)
                 and not (node.is_dual and (node.lock1 or node.lock2))
                 and fp.run_arena is not None
+                # a pending gang deposit is this pop's run already paid
+                # for; the arena would drop it unspent
+                and not speculator.pending(node.h1)
             ):
                 arena = self._arena_attempt(
                     scorer, pqueue, node, maximum_error, activate_points,
@@ -634,7 +647,12 @@ class DualConsensusDWFA:
                             cfg.max_nodes_wo_constraint,
                             max_steps,
                         )
-                    if max_steps >= 1:
+                    # a shape the kernel's planner refuses takes the host
+                    # path below, the same exact search
+                    if max_steps >= 1 and (
+                        fp.run_dual_takes() if node.is_dual
+                        else fp.run_takes()
+                    ):
                         me_budget = (
                             int(maximum_error)
                             if maximum_error != math.inf
@@ -706,6 +724,17 @@ class DualConsensusDWFA:
                                         rec_result, cfg.max_return_size,
                                     )
                         else:
+                            # frontier-parallel speculation over the
+                            # non-dual branches of the frontier (dual
+                            # nodes need the paired kernel, so only
+                            # single-side members gang)
+                            if gang_w > 1:
+                                self._gang_attempt(
+                                    speculator, scorer, pqueue, node,
+                                    gang_w, me_budget, other_cost,
+                                    other_len, max_steps, maximum_error,
+                                    l2,
+                                )
                             (steps, _code, app1, stats1,
                              run_records) = fp.run_extend(
                                 node.h1,
@@ -955,6 +984,9 @@ class DualConsensusDWFA:
             [dual_tracker.threshold(), len(dual_tracker), farthest_dual,
              dual_last_constraint],
         ]
+        if not fp.arena_takes(win_len):
+            restore_all()
+            return None  # the arena kernel's planner refuses the shape
         me_budget = (
             int(maximum_error) if maximum_error != math.inf else 2**31 - 1
         )
@@ -1249,6 +1281,62 @@ class DualConsensusDWFA:
             logger.warning("duplicate dual search node")
             tracker.remove(child.max_consensus_length())
             self._free_node(scorer, child)
+
+    def _gang_attempt(
+        self,
+        speculator: FrontierSpeculator,
+        scorer: WavefrontScorer,
+        pqueue: SetPriorityQueue,
+        node: _DualNode,
+        gang_w: int,
+        me_budget: int,
+        other_cost: int,
+        other_len: int,
+        max_steps: int,
+        maximum_error: float,
+        l2: bool,
+    ) -> None:
+        """Frontier-parallel speculation for the dual engine: gang the
+        in-hand non-dual node's run with the next-best queued non-dual
+        branches in one launch (dual nodes step two linked branches,
+        which the single-branch gang cannot express; they keep their
+        paired kernel).
+
+        The dual engine never forces a first symbol, so peers speculate
+        unforced: their deposit commits steps only while the state wins
+        the (predicted) pop, the engage rule their own pop applies (see
+        ``ConsensusDWFA._gang_attempt`` for how deposits are validated)."""
+        cfg = self.config
+        members: List[GangMember] = []
+        if not speculator.pending(node.h1):
+            members.append(GangMember(
+                node.h1, node.consensus1, me_budget, other_cost,
+                other_len, max_steps, -1,
+            ))
+        peeked = pqueue.peek_top(gang_w)
+        for i, (pn, pprio) in enumerate(peeked):
+            if len(members) >= gang_w:
+                break
+            if pn.is_dual or -pprio[0] > maximum_error:
+                continue
+            if speculator.pending(pn.h1):
+                continue
+            specs = (
+                pn.prefetch[0] if pn.prefetch is not None
+                else self._build_specs(scorer, pn)
+            )
+            if not (len(specs) == 1 and specs[0][0] == "single"):
+                continue
+            if i + 1 < len(peeked):
+                nxt = peeked[i + 1][1]
+                poc, pol = -nxt[0], nxt[1]
+            else:
+                poc, pol = 2**31 - 1, 0
+            members.append(GangMember(
+                pn.h1, pn.consensus1, me_budget, poc, pol, max_steps, -1,
+            ))
+        if len(members) >= 2:
+            speculator.gang(members, cfg.min_count, l2)
 
     def _build_specs(
         self, scorer, node: _DualNode

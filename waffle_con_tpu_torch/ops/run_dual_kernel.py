@@ -436,11 +436,15 @@ def plan_run_dual(R: int, W: int, A: int) -> DualRunPlan:
     * else 16 CTAs of up to 16 warps, both sides of several reads per
       warp, with the band on chip when the CTA's share fits in shared
       memory (and a warp's rows are at most 32, one symbol ring fed per
-      lane), and in device memory when it does not.
+      lane), and in device memory when it does not;
+    * where even that overflows a CTA's shared memory (the per-warp
+      histograms and partials grow with ``A``: R=256 at A=256), half the
+      warps, then half again, each warp taking more reads.
 
     Raises ``ValueError`` on a shape no plan takes (an empty read set, a
     band narrower than 4 cells or odd, no symbol, or per-read state that
-    exceeds a CTA's shared memory even with the band off chip)."""
+    exceeds a CTA's shared memory even on one warp with the band off
+    chip)."""
     if R < 1 or A < 1 or W < 4 or W % 2:
         raise ValueError(f"no dual run plan for R={R}, W={W}, A={A}")
     c = 1
@@ -453,11 +457,14 @@ def plan_run_dual(R: int, W: int, A: int) -> DualRunPlan:
         c *= 2
     rpc = -(-R // MAX_CLUSTER)
     nw = min(MAX_WARPS, rpc)
-    rpw = 2 * -(-rpc // nw)
-    for band in ("smem", "global"):
-        smem = _smem_bytes(rpc, nw, W, A, band == "smem")
-        if smem <= SMEM_LIMIT and (band == "global" or rpw <= 32):
-            return DualRunPlan(MAX_CLUSTER, 32 * nw, rpc, rpw, band, smem)
+    while nw >= 1:
+        rpw = 2 * -(-rpc // nw)
+        for band in ("smem", "global"):
+            smem = _smem_bytes(rpc, nw, W, A, band == "smem")
+            if smem <= SMEM_LIMIT and (band == "global" or rpw <= 32):
+                return DualRunPlan(MAX_CLUSTER, 32 * nw, rpc, rpw, band,
+                                   smem)
+        nw //= 2
     raise ValueError(
         f"no dual run plan for R={R}, W={W}, A={A}: {rpc} reads per CTA "
         f"need {smem} bytes of shared memory (limit {SMEM_LIMIT})"

@@ -157,12 +157,17 @@ def plan_run(R: int, W: int, A: int) -> RunPlan:
     * the smallest cluster (1, 2, 4, 8 or 16 CTAs) whose CTAs own at most
       16 reads each, one read per warp, with the band on chip;
     * else 16 CTAs of up to 16 warps, several reads per warp, with the
-      band on chip when the CTA's share fits in shared memory, and in
-      device memory when it does not.
+      band on chip when the CTA's share fits in shared memory (and a warp
+      feeds at most 32 symbol rings, one a lane), and in device memory
+      when it does not;
+    * where even that overflows a CTA's shared memory (the per-warp
+      histograms and partials grow with ``A``), half the warps, then half
+      again, each warp taking more reads.
 
     Raises ``ValueError`` on a shape no plan takes (an empty read set, a
     band narrower than 4 cells or odd, no symbol, or per-read state
-    that exceeds a CTA's shared memory even with the band off chip)."""
+    that exceeds a CTA's shared memory even on one warp with the band off
+    chip)."""
     if R < 1 or A < 1 or W < 4 or W % 2:
         raise ValueError(f"no run plan for R={R}, W={W}, A={A}")
 
@@ -178,10 +183,13 @@ def plan_run(R: int, W: int, A: int) -> RunPlan:
         c *= 2
     rpc = -(-R // MAX_CLUSTER)
     nw = min(MAX_WARPS, rpc)
-    for band in ("smem", "global"):
-        plan = make(MAX_CLUSTER, rpc, nw, band)
-        if plan.smem_bytes <= SMEM_LIMIT:
-            return plan
+    while nw >= 1:
+        for band in ("smem", "global"):
+            plan = make(MAX_CLUSTER, rpc, nw, band)
+            if plan.smem_bytes <= SMEM_LIMIT and (
+                    band == "global" or plan.reads_per_warp <= 32):
+                return plan
+        nw //= 2
     raise ValueError(
         f"no run plan for R={R}, W={W}, A={A}: {rpc} reads per CTA need "
         f"{plan.smem_bytes} bytes of shared memory (limit {SMEM_LIMIT})"

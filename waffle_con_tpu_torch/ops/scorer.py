@@ -452,6 +452,25 @@ class SubsetScorer(WavefrontScorer):
     def run_arena(self):
         return self._forward("run_arena", _sliced_run_arena)
 
+    # the launch planners' answers and the gang probe are the base's: the
+    # view launches the base's kernels at the base's shape, with its
+    # handles
+    @property
+    def run_takes(self):
+        return getattr(self.base, "run_takes", None)
+
+    @property
+    def run_dual_takes(self):
+        return getattr(self.base, "run_dual_takes", None)
+
+    @property
+    def arena_takes(self):
+        return getattr(self.base, "arena_takes", None)
+
+    def ragged_run_probe(self, h: int):
+        inner = getattr(self.base, "ragged_run_probe", None)
+        return inner(h) if inner is not None else None
+
     # the arena's sizes are the base's (the view adds no node)
     @property
     def ARENA_CAP(self):
@@ -470,21 +489,34 @@ class SubsetScorer(WavefrontScorer):
         return getattr(self.base, "ARENA_TAKE_MAX", self.base.ARENA_K - 1)
 
 
+def _takes_any(*_shape) -> bool:
+    return True
+
+
 class FastPaths:
     """The resolved optional-capability surface of a scorer, snapshotted
     once so the engine's per-pop feature tests do not re-probe it.  A
     scorer without an attribute (the Python oracle) makes the engine take
-    its per-pop expand path instead."""
+    its per-pop expand path instead.  ``run_takes``, ``run_dual_takes``
+    and ``arena_takes`` ask the kernels' launch planners, at the store's
+    shape of the moment, whether a launch would be taken; a refusal means
+    the engine takes its host path for that pop (scorers without planners
+    take every shape)."""
 
     __slots__ = (
         "run_extend", "run_extend_dual", "run_arena", "clone_push_many",
         "arena_cap", "arena_k", "arena_cre_per_event", "arena_take_max",
+        "run_takes", "run_dual_takes", "arena_takes",
     )
 
     def __init__(self, scorer) -> None:
         self.run_extend = getattr(scorer, "run_extend", None)
         self.run_extend_dual = getattr(scorer, "run_extend_dual", None)
         self.run_arena = getattr(scorer, "run_arena", None)
+        self.run_takes = getattr(scorer, "run_takes", None) or _takes_any
+        self.run_dual_takes = (
+            getattr(scorer, "run_dual_takes", None) or _takes_any)
+        self.arena_takes = getattr(scorer, "arena_takes", None) or _takes_any
         self.clone_push_many = getattr(scorer, "clone_push_many", None)
         self.arena_cap = getattr(scorer, "ARENA_CAP", 0)
         self.arena_k = getattr(scorer, "ARENA_K", 1)

@@ -24,6 +24,17 @@ catch-up and the replay of every branch at a grown band) go through
 :mod:`waffle_con_tpu_torch.ops.replay_kernel`: CUDA kernels on a CUDA
 device, and the plain twins :func:`offset_scan` and :func:`replay_rows`
 on the CPU.
+The frontier gang (:mod:`waffle_con_tpu_torch.ops.ragged`) runs several
+branches' runs in one launch and keeps each result as a deposit that
+:meth:`TorchScorer.run_extend` consumes when the branch's own pop makes a
+call that validates it.
+
+Each CUDA kernel has a launch planner that refuses shapes it does not
+take; :meth:`TorchScorer.run_takes`, :meth:`~TorchScorer.run_dual_takes`
+and :meth:`~TorchScorer.arena_takes` give its answer for the store's
+current shape (counting each refusal as ``plan_refused_<kernel>``), so
+the engines take their exact host path instead of a kernel that would
+refuse the launch.  The plain twins take every shape.
 
 Geometry follows ``JaxScorer`` so scorer-level outputs and stop codes
 match, not only final sequences: reads padded to a power of two (at
@@ -63,6 +74,19 @@ RUN_MS_CAP = 32768
 #: children one arena split event may create on the device (more stop
 #: for host expansion); ``ops/arena_kernel.py`` keeps the same value
 CRE_PER_EVENT = 8
+
+
+def planner_refuses(device, planner, *shape) -> bool:
+    """Whether the kernel that runs on ``device`` refuses ``shape``: a
+    CUDA kernel refuses what its launch planner raises ``ValueError`` on;
+    the plain twins, which run on the CPU, take every shape."""
+    if torch.device(device).type != "cuda":
+        return False
+    try:
+        planner(*shape)
+    except ValueError:
+        return True
+    return False
 
 
 def _next_pow2(n: int, minimum: int = 1) -> int:
@@ -305,6 +329,8 @@ class TorchScorer(WavefrontScorer):
         self._free: List[int] = list(range(self._B))
         self._next_handle = 0
         self._slot_of = {}
+        #: the frontier gang's deposits (``ops/ragged.py``), made lazily
+        self._frontier_gang = None
         self.counters = {
             "push_calls": 0,
             "run_calls": 0,
@@ -351,6 +377,7 @@ class TorchScorer(WavefrontScorer):
         every allocated slot on a CUDA device."""
         from waffle_con_tpu_torch.ops import replay_kernel
 
+        self._spec_drop()
         self._E *= 2
         st = self._state
         self.counters["grow_e_events"] += 1
@@ -391,6 +418,7 @@ class TorchScorer(WavefrontScorer):
         self._act_host = grow(self._act_host, False)
 
     def _grow_cons(self) -> None:
+        self._spec_drop()
         cons = self._state["cons"]
         self._C *= 2
         pad = torch.zeros(
@@ -456,6 +484,7 @@ class TorchScorer(WavefrontScorer):
         return [a[0] for a in alloc]
 
     def free(self, h: int) -> None:
+        self._spec_drop(h)
         slot = self._slot_of.pop(h, None)
         if slot is not None:
             self._free.append(slot)
@@ -470,6 +499,8 @@ class TorchScorer(WavefrontScorer):
         if not specs:
             return []
         self.counters["push_calls"] += 1
+        for h, _c in specs:
+            self._spec_drop(h)
         for _, consensus in specs:
             while len(consensus) >= self._C - 1:
                 self._grow_cons()
@@ -498,6 +529,7 @@ class TorchScorer(WavefrontScorer):
         for src_h, consensus, in_place in specs:
             src = self._slot_of[src_h]
             if in_place:
+                self._spec_drop(src_h)
                 handle, dst = src_h, src
             else:
                 handle, dst = self._alloc()
@@ -642,6 +674,7 @@ class TorchScorer(WavefrontScorer):
         from waffle_con_tpu_torch.ops import replay_kernel
 
         self.counters["activate_calls"] += 1
+        self._spec_drop(h)
         slot = self._slot_of[h]
         self._off_host[slot, read_index] = offset
         self._act_host[slot, read_index] = True
@@ -657,6 +690,8 @@ class TorchScorer(WavefrontScorer):
     def deactivate_many(self, pairs) -> None:
         if not pairs:
             return
+        for h, _r in pairs:
+            self._spec_drop(h)
         slots = [self._slot_of[h] for h, _ in pairs]
         ridx = [r for _, r in pairs]
         self._act_host[slots, ridx] = False
@@ -795,39 +830,165 @@ class TorchScorer(WavefrontScorer):
         -1) force-pushes the host's already-nominated child as step 0.
         On band overflow (code 5) the band is grown so the caller can
         simply continue."""
-        from waffle_con_tpu_torch.ops import run_kernel
+        from waffle_con_tpu_torch.ops import ragged, run_kernel
 
-        slot = self._slot_of[h]
-        args = self.run_args(
-            len(consensus), me_budget, other_cost, other_len, min_count, l2,
-            max_steps, first_sym, allow_records,
+        inj = ragged.take_injected(self, h)
+        # a frontier-gang deposit: the slot was not advanced at gang time,
+        # so a deposit that does not validate against the real call is
+        # dropped and the run below starts from the slot as it was
+        used = inj is not None and self._spec_consume(
+            inj, h, consensus, me_budget, other_cost, other_len, min_count,
+            l2, max_steps, first_sym,
         )
-        max_steps = args.max_steps
-        out, rec_steps, rec_fins = run_kernel.run_extend(
-            self._state, slot, self._reads, self._rlen, args
-        )
-        res, rsteps, rfins = run_kernel.fetch(
-            out, rec_steps, rec_fins, self._R, self.num_symbols, max_steps
-        )
+        if inj is not None:
+            key = "run_gang_injected" if used else "run_gang_mispredict"
+            self.counters[key] = self.counters.get(key, 0) + 1
+        if used:
+            steps, code, syms = inj.steps, inj.code, inj.ids[: inj.steps]
+            stats, records = self._stats_np(*inj.stats), []
+        else:
+            args = self.run_args(
+                len(consensus), me_budget, other_cost, other_len, min_count,
+                l2, max_steps, first_sym, allow_records,
+            )
+            out, rec_steps, rec_fins = run_kernel.run_extend(
+                self._state, self._slot_of[h], self._reads, self._rlen, args
+            )
+            res, rsteps, rfins = run_kernel.fetch(
+                out, rec_steps, rec_fins, self._R, self.num_symbols,
+                args.max_steps,
+            )
+            steps, code, syms = res.steps, res.code, res.syms
+            n = self.num_reads
+            records = [
+                (int(rsteps[i]), rfins[i, :n].astype(np.int64))
+                for i in range(res.rec_count)
+            ]
+            stats = self._stats_np(
+                res.eds, res.occ, res.split, res.reached,
+                None if res.fin_ovf else res.fin,
+            )
         self.counters["run_calls"] += 1
-        self.counters["run_steps"] += res.steps
-        key = f"run_stop_{res.code}"
+        self.counters["run_steps"] += steps
+        key = f"run_stop_{code}"
         self.counters[key] = self.counters.get(key, 0) + 1
         appended = b""
-        if res.steps:
-            appended = self.symtab[res.syms].astype(np.uint8).tobytes()
-        if res.code == 5:
+        if steps:
+            appended = self.symtab[syms].astype(np.uint8).tobytes()
+        if code == 5:
             self._grow_e()
-        n = self.num_reads
-        records = [
-            (int(rsteps[i]), rfins[i, :n].astype(np.int64))
-            for i in range(res.rec_count)
-        ]
-        stats = self._stats_np(
-            res.eds, res.occ, res.split, res.reached,
-            None if res.fin_ovf else res.fin,
-        )
-        return res.steps, res.code, appended, stats, records
+        return steps, code, appended, stats, records
+
+    # -- the frontier gang's deposits -------------------------------------
+
+    def ragged_run_probe(self, h: int):
+        """``(self, h)`` when branch ``h`` of this store can join a frontier
+        gang, else None (no such branch)."""
+        if h not in self._slot_of:
+            return None
+        return (self, h)
+
+    def _spec_drop(self, h: int | None = None) -> None:
+        """Invalidate pending gang deposits: branch ``h``'s when its slot
+        is about to change outside the speculated run, or every one when
+        the geometry grows (the held rows have the old geometry).  Slot
+        growth copies every slot as it is, so it keeps them."""
+        gang = self._frontier_gang
+        if gang is not None:
+            if h is None:
+                gang.drop_all()
+            else:
+                gang.drop(h)
+
+    def _spec_consume(self, inj, h: int, consensus: bytes, me_budget: int,
+                      other_cost: int, other_len: int, min_count: int,
+                      l2: bool, max_steps: int, first_sym: int) -> bool:
+        """Validate a speculative gang deposit against the real
+        ``run_extend`` arguments; on success copy its post-run rows into
+        the slot and return True.
+
+        Inside the run only the vote decisions, pure functions of the band
+        state and the search constants, choose what commits; the per-call
+        arguments (budget, the competing pop, the step cap) only decide
+        where the run stops, and stopping earlier than the real call would
+        is exact (the engine re-pops and goes on).  So the deposit is
+        usable when the real call would have committed at least its
+        steps: the same consensus length, forced symbol, ``min_count`` and
+        cost model, ``steps <= max_steps``, and, past a forced first step
+        (which only band overflow refuses), either the speculated (budget,
+        other cost, other length) equal to the real ones (a budget may
+        also differ when every state fit the real one) or a final cost
+        within the real budget that still wins the real competitor's pop:
+        costs never fall over a run, so that bounds every check the real
+        call would have made.  Records need no check: the gang stops at a
+        reached state, an early stop."""
+        if inj.len0 != len(consensus):
+            return False
+        if inj.first_sym != int(first_sym):
+            return False
+        if inj.min_count != int(min_count) or inj.l2 != bool(l2):
+            return False
+        if inj.steps > int(max_steps):
+            return False
+        a = 1 if inj.first_sym >= 0 else 0
+        if inj.steps > a:
+            me = min(int(me_budget), 2**31 - 1)
+            oc = min(int(other_cost), 2**31 - 1)
+            args_equal = (
+                inj.other_cost == oc
+                and inj.other_len == int(other_len)
+                and (inj.me_budget == me or inj.final_cost <= me)
+            )
+            if not args_equal:
+                if inj.final_cost > me:
+                    return False
+                if not (inj.final_cost < oc or (
+                        inj.final_cost == oc
+                        and inj.len0 + a > int(other_len))):
+                    return False
+        dep, g = inj.post
+        slot = self._slot_of[h]
+        st = self._state
+        for name in ("D", "e", "rmin", "er"):
+            st[name][slot] = dep[name][g]
+        end = inj.len0 + inj.steps
+        st["cons"][slot, inj.len0:end] = dep["cons"][g, inj.len0:end]
+        st["clen"][slot] = end
+        return True
+
+    # -- launch planners' answers --------------------------------------
+
+    def _takes(self, kind: str, planner, *shape) -> bool:
+        """Whether the kernel ``kind`` takes ``shape`` on this store's
+        device (a refusal counts ``plan_refused_<kind>``)."""
+        if not planner_refuses(self.device, planner, *shape):
+            return True
+        key = f"plan_refused_{kind}"
+        self.counters[key] = self.counters.get(key, 0) + 1
+        return False
+
+    def run_takes(self) -> bool:
+        """Whether :meth:`run_extend` may launch at the store's shape."""
+        from waffle_con_tpu_torch.ops.run_kernel import plan_run
+
+        return self._takes("run", plan_run, self._R, self._W,
+                           self.num_symbols)
+
+    def run_dual_takes(self) -> bool:
+        """Whether :meth:`run_extend_dual` may launch at the store's
+        shape."""
+        from waffle_con_tpu_torch.ops.run_dual_kernel import plan_run_dual
+
+        return self._takes("run_dual", plan_run_dual, self._R, self._W,
+                           self.num_symbols)
+
+    def arena_takes(self, Lw: int) -> bool:
+        """Whether :meth:`run_arena` may launch at the store's shape with
+        tracker windows of ``Lw`` lengths."""
+        from waffle_con_tpu_torch.ops.arena_kernel import plan_arena
+
+        return self._takes("arena", plan_arena, self.ARENA_K, self._R,
+                           self._W, self.num_symbols, Lw, self._C)
 
     def run_extend_dual(
         self,
@@ -863,6 +1024,8 @@ class TorchScorer(WavefrontScorer):
         caller can simply continue."""
         from waffle_con_tpu_torch.ops import run_dual_kernel
 
+        self._spec_drop(h1)
+        self._spec_drop(h2)
         s1 = self._slot_of[h1]
         s2 = self._slot_of[h2]
         args, mc_t, imb_t = self.dual_run_args(
@@ -1000,6 +1163,10 @@ class TorchScorer(WavefrontScorer):
         n_live = len(node_specs)
         if not 1 <= n_live <= K:
             raise ValueError("arena takes 1..ARENA_K nodes")
+        for h1, h2, _l1, _l2 in node_specs:
+            self._spec_drop(h1)
+            if h2 is not None:
+                self._spec_drop(h2)
         kinds = []
         slots = []
         live_sides = []
