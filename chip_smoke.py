@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases dual_main --profile [--arena off]
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,native_baseline
     python3 chip_smoke.py --phases gang_kernel,gang_main,plan_gate
+    python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,checkpoint_main,obs_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -178,6 +179,31 @@ Phases, one line each (every failure exits non-zero):
     2 %; 2 x 5 x 250 bp at 4 %): one line per search with the gang
     counters, gang launches, the warm wall and the device ms.  The phase
     fails when no search launched the gang kernel.
+
+18. checkpoint_main (after the main phases): every tracked deployment
+    they ran, snapshotted at half its polls and resumed on ``cuda``: an
+    uninterrupted search under a ``CheckpointController`` gives the poll
+    count, a second one is preempted there (``SearchPreempted``), the
+    checkpoint goes through ``to_json`` / ``from_json`` and resumes; the
+    resumed result must equal the uninterrupted one and the C++
+    engine's, byte for byte, no plain twin may run and no planner may
+    refuse.  One line per deployment: checkpoint bytes, restored nodes,
+    the restore's seconds split into root, replay (``push_many`` calls)
+    and activate (column-replay launches, timed between synchronisations),
+    the resumed search's wall and its launches by kernel.  Then a
+    ``"python"`` checkpoint of a small dual draw resumes on ``cuda`` to the
+    same result, and a tampered body and a corrupted read are refused.
+19. obs_main: the dual and priority north stars warm with the
+    observability plane on (metrics, tracer with the ``torch.profiler``
+    bridge, audit capture) and off, alternating off, on, on, off: the
+    results and every kernel's launch count must be identical; each line
+    gives the wall, the Chrome trace's spans, metric series and audit
+    records.  One more search with the plane on under ``torch.profiler``
+    counts the kernel launches inside the ``search`` range (all must be)
+    and inside ``dispatch:*`` ranges.  On a small dual draw the ``cuda``
+    search's audit log ``diff_logs`` identical to the ``"python"``
+    search's and the lockstep shadow is clean; a seeded ``flip_vote`` on
+    a small single draw aborts the shadow exactly once.
 
 The JAX package's megastep (``_j_run_mega``, an XLA loop under a per-call
 step budget) is the run kernel itself here: one launch runs to the first
@@ -3410,6 +3436,542 @@ def phase_gang_main():
     return total
 
 
+# ---------------------------------------------------------------------
+# phases 18-19: search checkpoints and the observability plane
+
+
+def reset_launch_counts():
+    """Zero every kernel wrapper's launch count and every plain twin's
+    call count."""
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    reset_arena_counts()
+    rk.run_extend_cuda.launches = 0
+    rk.run_extend_plain.calls = 0
+    rdk.run_extend_dual_cuda.launches = 0
+    rdk.run_extend_dual_plain.calls = 0
+    rpk.offset_scan_cuda.launches = 0
+    rpk.offset_scan_plain.calls = 0
+    rpk.replay_rows_cuda.launches = 0
+    rpk.replay_rows_cuda.activate_launches = 0
+    rpk.replay_rows_plain.calls = 0
+
+
+def launch_counts():
+    """Launches of each kernel and calls of the plain twins (``plain``)
+    since the last :func:`reset_launch_counts`."""
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    arena_launches, arena_plain = arena_counts()
+    return dict(
+        run_extend=rk.run_extend_cuda.launches,
+        run_extend_dual=rdk.run_extend_dual_cuda.launches,
+        arena=arena_launches, run_ragged=gang_launches(),
+        offset_scan=rpk.offset_scan_cuda.launches,
+        col_replay=rpk.replay_rows_cuda.launches,
+        col_replay_activate=rpk.replay_rows_cuda.activate_launches,
+        plain=(rk.run_extend_plain.calls + rdk.run_extend_dual_plain.calls
+               + rpk.offset_scan_plain.calls + rpk.replay_rows_plain.calls
+               + arena_plain),
+    )
+
+
+class RestoreTimer:
+    """Times a checkpoint restore on the card, split by scorer call:
+    while an engine's ``_restore_search`` runs, ``root``, ``push_many``
+    (the column replay), ``activate`` (one column-replay launch a read)
+    and ``stats`` of the branch store are timed between two
+    ``torch.cuda.synchronize()`` calls.  Used as a context manager around
+    a resumed search."""
+
+    OPS = ("root", "push_many", "activate", "stats")
+
+    def __init__(self):
+        self.seconds = {op: 0.0 for op in self.OPS}
+        self.calls = {op: 0 for op in self.OPS}
+        self.activate_launches = 0
+        self.restore_s = 0.0
+        self._active = False
+        self._saved = []
+
+    def _timed(self, op, fn):
+        import torch
+        from waffle_con_tpu_torch.ops import replay_kernel as rpk
+
+        timer = self
+
+        def wrapper(*args, **kwargs):
+            if not timer._active:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            before = rpk.replay_rows_cuda.activate_launches
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timer.seconds[op] += time.perf_counter() - t0
+            timer.calls[op] += 1
+            timer.activate_launches += (
+                rpk.replay_rows_cuda.activate_launches - before)
+            return out
+
+        return wrapper
+
+    def _restoring(self, fn):
+        import torch
+
+        timer = self
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer._active = True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                timer._active = False
+                timer.restore_s += time.perf_counter() - t0
+
+        return wrapper
+
+    def __enter__(self):
+        from waffle_con_tpu_torch import ConsensusDWFA, DualConsensusDWFA
+        from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+
+        for cls, names, wrap in (
+                (TorchScorer, self.OPS, self._timed),
+                (ConsensusDWFA, ("_restore_search",), None),
+                (DualConsensusDWFA, ("_restore_search",), None)):
+            for name in names:
+                fn = cls.__dict__[name]
+                self._saved.append((cls, name, fn))
+                setattr(cls, name, wrap(name, fn) if wrap is not None
+                        else self._restoring(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self._saved.clear()
+        return False
+
+    def split(self):
+        return dict(
+            restore_s=round(self.restore_s, 4),
+            root_s=round(self.seconds["root"], 4),
+            root_calls=self.calls["root"],
+            replay_s=round(self.seconds["push_many"], 4),
+            push_many_calls=self.calls["push_many"],
+            activate_s=round(self.seconds["activate"], 4),
+            activate_calls=self.calls["activate"],
+            col_replay_launches=self.activate_launches,
+            stats_s=round(self.seconds["stats"], 4),
+            stats_calls=self.calls["stats"],
+        )
+
+
+def _engine_for(kind, spec, config=None):
+    """A fed engine of a deployment (``kind``: single, dual or priority)."""
+    from waffle_con_tpu_torch import (
+        ConsensusDWFA, DualConsensusDWFA, PriorityConsensusDWFA)
+
+    config = config or spec["config"]
+    if kind == "priority":
+        eng = PriorityConsensusDWFA(config)
+        for chain in spec["chains"]:
+            eng.add_sequence_chain(chain)
+        return eng
+    eng = (DualConsensusDWFA if kind == "dual" else ConsensusDWFA)(config)
+    _add_reads(eng, zip(spec["reads"],
+                        spec.get("offsets") or [None] * len(spec["reads"])))
+    return eng
+
+
+def _result_key(kind, res):
+    if kind == "dual":
+        return _dual_key(res)
+    if kind == "priority":
+        return _priority_key(res)
+    return [(c.sequence, list(c.scores)) for c in res]
+
+
+def _preempted(make, at):
+    """The checkpoint of ``make()``'s search preempted at poll ``at``."""
+    from waffle_con_tpu_torch.models import checkpoint as ck
+
+    ctrl = ck.CheckpointController(snapshot_at_pops={at}, preempt=True)
+    try:
+        with ck.installed(ctrl):
+            make().consensus()
+    except ck.SearchPreempted as stop:
+        return stop.checkpoint
+    raise AssertionError(f"the search was not preempted at poll {at}")
+
+
+CKPT_LAUNCHES = {}
+
+
+def phase_checkpoint_main():
+    """Every tracked deployment the main phases ran, snapshotted half way
+    and resumed on ``cuda``: an uninterrupted search gives the poll count
+    (a ``CheckpointController`` that never snapshots), a second one is
+    preempted at half the polls (``SearchPreempted``), its checkpoint goes
+    through ``to_json`` / ``from_json`` and resumes on ``cuda``.  The
+    resumed result must equal the uninterrupted one and the C++ engine's,
+    byte for byte.  One line per deployment: checkpoint bytes, restored
+    nodes, the restore's seconds split into root, replay (``push_many``
+    calls) and activate (column-replay launches), the resumed search's
+    wall and its launches by kernel, and the planners' refusals (must be
+    0).  Then a ``"python"`` checkpoint of a small dual draw resumes on
+    ``cuda`` to the same result, and a tampered checkpoint is refused.
+    Returns the resumed searches' launches by kernel."""
+    import json as _json
+
+    import torch
+    from waffle_con_tpu_torch.models import checkpoint as ck
+
+    if not BASELINE:
+        raise AssertionError("checkpoint_main needs main, dual_main, "
+                             "priority_main or late_main before it")
+    totals = {}
+    for name in ("single", "dual", "priority", "late"):
+        spec = BASELINE.get(name)
+        if spec is None:
+            continue
+        kind = name if name in ("dual", "priority") else "single"
+        cpp = spec.get("cpp")
+        if cpp is None:
+            cpp, _s = _cpp_run(name, spec)
+        ctrl = ck.CheckpointController()
+        eng = _engine_for(kind, spec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ck.installed(ctrl):
+            got = _result_key(kind, eng.consensus())
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        if got != spec["want"] or got != cpp:
+            raise AssertionError(f"checkpoint_main {name}: the uninterrupted "
+                                 "search differs from the main phase's")
+        polls = ctrl.polls
+        at = polls // 2
+        checkpoint = _preempted(lambda: _engine_for(kind, spec), at)
+        text = checkpoint.to_json()
+        state = checkpoint.body["state"]
+        nodes = len((state["inner"] if kind == "priority" else state)
+                    ["entries"])
+        resumed = ck.resume_engine(ck.SearchCheckpoint.from_json(text))
+        reset_launch_counts()
+        with RestoreTimer() as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = resumed.consensus()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+        c = resumed.last_search_stats["scorer_counters"]
+        refused = plan_refusals(f"checkpoint_main {name}", c)
+        got = _result_key(kind, res)
+        if got != spec["want"] or got != cpp:
+            raise AssertionError(f"checkpoint_main {name}: the resumed "
+                                 "search differs from the uninterrupted one "
+                                 "or from the C++ engine")
+        if launches["plain"]:
+            raise AssertionError(f"checkpoint_main {name}: a plain twin ran "
+                                 f"{launches}")
+        # an activation that overflows the band commits nothing, grows it
+        # and launches again: at least one launch an activation
+        if timer.activate_launches < timer.calls["activate"]:
+            raise AssertionError(f"checkpoint_main {name}: {timer.calls} "
+                                 "activations but "
+                                 f"{timer.activate_launches} launches")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        print("checkpoint_main", _json.dumps(dict(
+            deployment=name, polls=polls, preempted_at_poll=at,
+            pops_at_checkpoint=int((state["inner"] if kind == "priority"
+                                    else state)["pops"]),
+            checkpoint_bytes=len(text.encode("utf-8")),
+            restored_nodes=nodes,
+            consensus_bases=sum(
+                len(ck.unb64(e[k])) for e in (
+                    state["inner"] if kind == "priority" else state)
+                ["entries"]
+                for k in ("consensus", "consensus1", "consensus2")
+                if k in e),
+            **timer.split(), resumed_wall_s=round(wall, 4),
+            grow_e_events=c.get("grow_e_events", 0),
+            uninterrupted_s=round(full_s, 4), kernel_launches=launches,
+            **refused, identical_to_uninterrupted=True,
+            identical_to_cpp=True,
+        )), flush=True)
+
+    # a checkpoint of the python oracle resumes on the branch store
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, DualConsensusDWFA
+
+    _t1, _t2, reads = _small_dual(31, 0.02)
+
+    def small(backend):
+        eng = DualConsensusDWFA(CdwfaConfigBuilder().backend(backend)
+                                .device("cuda").min_count(3).build())
+        for r in reads:
+            eng.add_sequence(r)
+        return eng
+
+    want = _dual_key(small("python").consensus())
+    ctrl = ck.CheckpointController()
+    with ck.installed(ctrl):
+        small("python").consensus()
+    checkpoint = _preempted(lambda: small("python"), ctrl.polls // 2)
+    body = _json.loads(_json.dumps(checkpoint.body))
+    body["config"]["backend"] = "torch"
+    body["config"]["device"] = "cuda"
+    moved = ck.SearchCheckpoint("dual", body)
+    got = _dual_key(ck.resume_engine(
+        ck.SearchCheckpoint.from_json(moved.to_json())).consensus())
+    if got != want or _dual_key(small("torch").consensus()) != want:
+        raise AssertionError("checkpoint_main: a python checkpoint resumed "
+                             "on cuda differs from the python search")
+    # a tampered body fails its CRC; a corrupted read behind a valid CRC
+    # fails the restored nodes' priority check on the card
+    wire = _json.loads(moved.to_json())
+    wire["body"]["state"]["pops"] += 1
+    rejected = []
+    try:
+        ck.SearchCheckpoint.from_wire(wire)
+    except ck.CheckpointRejected as exc:
+        rejected.append(str(exc))
+    bad = _json.loads(_json.dumps(body))
+    bad["reads"] = [ck.b64(bytes((b + 1) % 4 for b in ck.unb64(r)))
+                    for r in bad["reads"]]
+    try:
+        ck.resume_engine(ck.SearchCheckpoint("dual", bad)).consensus()
+    except ck.CheckpointRejected as exc:
+        rejected.append(str(exc))
+    if len(rejected) != 2:
+        raise AssertionError(f"checkpoint_main: tampered checkpoints not "
+                             f"refused ({rejected})")
+    print("checkpoint_checks", _json.dumps(dict(
+        python_checkpoint_polls=ctrl.polls,
+        python_resumed_on_cuda_identical=True, rejected=rejected)),
+        flush=True)
+    CKPT_LAUNCHES.update(totals)
+    return totals
+
+
+def _launches_enclosed(prof):
+    """Kernel launches in a ``torch.profiler`` trace (the runtime's
+    ``cudaLaunchKernel*`` calls) and how many lie inside a ``search`` and
+    inside a ``dispatch:*`` ``record_function`` range (the search runs on
+    one thread, so ranges and launches are matched by time alone; the
+    ranges' copies on the device's timeline are left out)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    ranges = {"search": [], "dispatch": []}
+    launches = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        tr = e.time_range
+        if e.name == "search":
+            ranges["search"].append((tr.start, tr.end))
+        elif e.name.startswith("dispatch:"):
+            ranges["dispatch"].append((tr.start, tr.end))
+        elif e.name.startswith("cudaLaunchKernel"):
+            launches.append((tr.start, tr.end))
+    dispatch_ranges = len(ranges["dispatch"])
+    for kind, spans in ranges.items():
+        # nested ranges (a priority search's inner dual searches) merge
+        # into the one that encloses them
+        merged = []
+        for start, end in sorted(spans):
+            if merged and start <= merged[-1][1]:
+                merged[-1] = (merged[-1][0], max(merged[-1][1], end))
+            else:
+                merged.append((start, end))
+        ranges[kind] = merged
+
+    def inside(kind, start, end):
+        spans = ranges[kind]
+        i = bisect.bisect_right(spans, (start, float("inf"))) - 1
+        return i >= 0 and spans[i][0] <= start and end <= spans[i][1]
+
+    return dict(
+        kernel_launches=len(launches),
+        in_search_range=sum(inside("search", *ln) for ln in launches),
+        in_dispatch_range=sum(inside("dispatch", *ln) for ln in launches),
+        dispatch_ranges=dispatch_ranges,
+    )
+
+
+def phase_obs_main():
+    """The dual and priority north stars warm with the observability plane
+    on (metrics, the tracer with its ``torch.profiler`` bridge, an audit
+    capture) and off, alternating (off, on, on, off): results and every
+    kernel's launch count must be identical; one line per search with
+    its wall, and for the plane on the Chrome trace's span count, metric
+    series and audit records.  One more search with the plane on runs
+    under ``torch.profiler``: the kernel launches inside a ``search`` and
+    inside a ``dispatch:*`` ``record_function`` range.  Then a small dual
+    draw: the audit log of the ``cuda`` search (strict alignment: no
+    arena) ``diff_logs`` identical to the ``"python"`` search's, the
+    lockstep shadow on it clean, and a
+    seeded ``flip_vote`` on a small single draw aborts the shadow exactly
+    once."""
+    import contextlib
+    import json as _json
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from waffle_con_tpu_torch import (
+        CdwfaConfigBuilder, ConsensusDWFA, DualConsensusDWFA)
+    from waffle_con_tpu_torch.obs import audit as obs_audit
+    from waffle_con_tpu_torch.obs import metrics as obs_metrics
+    from waffle_con_tpu_torch.obs import trace as obs_trace
+    from waffle_con_tpu_torch.runtime import faults
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    tracer = obs_trace.get_tracer()
+
+    def plane(on):
+        obs_metrics.enable_metrics(on)
+        obs_metrics.registry().reset()
+        tracer.enable(on)
+        tracer.enable_profiler_bridge(on)
+        tracer.clear()
+
+    def search(kind, spec, on):
+        plane(on)
+        try:
+            eng = _engine_for(kind, spec)
+            reset_launch_counts()
+            records = 0
+            with (obs_audit.capture() if on
+                  else contextlib.nullcontext([])) as sinks:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = _result_key(kind, eng.consensus())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                records = sum(len(s.records) for s in sinks)
+            spans = len(tracer.chrome_events())
+            series = sum(len(f["series"]) for f in
+                         obs_metrics.registry().snapshot().values())
+            return got, wall, launch_counts(), spans, series, records, eng
+        finally:
+            plane(False)
+
+    for name in ("dual", "priority"):
+        spec = BASELINE.get(name)
+        if spec is None:
+            continue
+        walls = {"off": [], "on": []}
+        counts = []
+        for on in (False, True, True, False):
+            got, wall, launches, spans, series, records, eng = search(
+                name, spec, on)
+            plan_refusals(f"obs_main {name}",
+                          eng.last_search_stats["scorer_counters"])
+            if got != spec["want"]:
+                raise AssertionError(f"obs_main {name}: the result with the "
+                                     f"plane {'on' if on else 'off'} differs")
+            counts.append(launches)
+            walls["on" if on else "off"].append(round(wall, 4))
+            print("obs_search", _json.dumps(dict(
+                deployment=name, plane="on" if on else "off",
+                wall_s=round(wall, 4), kernel_launches=launches,
+                chrome_spans=spans, metric_series=series,
+                audit_records=records)), flush=True)
+        if any(c != counts[0] for c in counts) or counts[0]["plain"]:
+            raise AssertionError(f"obs_main {name}: launch counts differ "
+                                 f"with the plane on and off: {counts}")
+        plane(True)
+        try:
+            eng = _engine_for(name, spec)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.consensus()
+                torch.cuda.synchronize()
+        finally:
+            plane(False)
+        enclosed = _launches_enclosed(prof)
+        if (not enclosed["kernel_launches"]
+                or enclosed["in_search_range"] != enclosed["kernel_launches"]):
+            raise AssertionError(f"obs_main {name}: kernel launches outside "
+                                 f"the search range {enclosed}")
+        print("obs_main", _json.dumps(dict(
+            deployment=name, wall_off_s=walls["off"], wall_on_s=walls["on"],
+            on_over_off=round(min(walls["on"]) / min(walls["off"]), 4),
+            identical_results=True, identical_launches=True,
+            profiler=enclosed)), flush=True)
+
+    # the audit plane on a small dual draw and a small single draw
+    _t1, _t2, reads = _small_dual(47, 0.02)
+
+    def small(engine, backend, rd, min_count):
+        eng = engine(CdwfaConfigBuilder().backend(backend).device("cuda")
+                     .min_count(min_count).build())
+        for r in rd:
+            eng.add_sequence(r)
+        return eng
+
+    # strict alignment keeps the cuda search off the arena, so each of
+    # its pops is a decision the python log holds too
+    with obs_audit.capture(strict_align=True) as sinks:
+        small(DualConsensusDWFA, "torch", reads, 3).consensus()
+        small(DualConsensusDWFA, "python", reads, 3).consensus()
+    cuda_log, py_log = sinks[0].records, sinks[1].records
+    if (obs_audit.diff_logs(cuda_log, py_log) is not None
+            or obs_audit.diff_logs(py_log, cuda_log) is not None):
+        raise AssertionError("obs_main: the cuda and python audit logs "
+                             "diverge")
+    keys = [{key for rec in log for key, _v in obs_audit.expand_units(rec)}
+            for log in (cuda_log, py_log)]
+    obs_audit.reset_stats()
+    with obs_audit.shadow_override("python"):
+        small(DualConsensusDWFA, "torch", reads, 3).consensus()
+    clean = obs_audit.stats_snapshot()
+    if clean["divergences"] or not clean["shadow_pops"]:
+        raise AssertionError(f"obs_main: the shadow is not clean {clean}")
+    _truth, single_reads = generate_test(4, 300, 8, 0.02, seed=19)
+    with obs_audit.capture(strict_align=True) as sinks:
+        small(ConsensusDWFA, "torch", single_reads, 2).consensus()
+    forced = [r for r in sinks[0].records
+              if r["kind"] == "run" and r.get("forced")]
+    if not forced:
+        raise AssertionError("obs_main: no forced run to flip")
+    plan = faults.install(faults.FaultPlan()).add(
+        "flip_vote", backend="torch", op="vote", at=forced[0]["len"],
+        count=1)
+    obs_audit.reset_stats()
+    detail = None
+    try:
+        with obs_audit.shadow_override("python"):
+            small(ConsensusDWFA, "torch", single_reads, 2).consensus()
+    except obs_audit.ParityDivergence as exc:
+        detail = exc.detail
+    finally:
+        faults.clear()
+    flipped = obs_audit.stats_snapshot()
+    if (detail is None or flipped["divergences"] != 1
+            or plan.specs[0].fired != 1):
+        raise AssertionError(f"obs_main: the seeded flip_vote did not abort "
+                             f"the shadow once {flipped}")
+    print("obs_audit", _json.dumps(dict(
+        dual_draw="6 + 6 reads x 140 bp at 2 %, 2 SNPs",
+        cuda_records=len(cuda_log), python_records=len(py_log),
+        decisions_compared=len(keys[0] & keys[1]),
+        diff_logs_identical=True, shadow_clean=clean,
+        flip_vote_at_len=forced[0]["len"], flip_divergence_key=detail["key"],
+        flip_stats=flipped)), flush=True)
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -3440,7 +4002,7 @@ def main(argv=None) -> int:
         default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
                 "priority_main,priority_oracle,replay_kernel,late_main,"
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
-                "gang_kernel,gang_main",
+                "gang_kernel,gang_main,checkpoint_main,obs_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -3519,22 +4081,29 @@ def main(argv=None) -> int:
     timed("plan_gate", phase_plan_gate)
     gang_check = timed("gang_kernel", phase_gang_kernel, opts.small)
     gang_main_launches = timed("gang_main", phase_gang_main)
+    ckpt = timed("checkpoint_main", phase_checkpoint_main) or {}
+    timed("obs_main", phase_obs_main)
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
-                     priority_main=prio_launches[0])
+                     priority_main=prio_launches[0],
+                     checkpoint_main=ckpt.get("run_extend"))
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
                    run_check, run_paths),
         kernel_row("run_extend_dual", "run_extend_dual.cu",
                    "pallas_run.py:976", dual_check,
                    dict(dual_main=dual_launches[0],
-                        priority_main=prio_launches[1])),
+                        priority_main=prio_launches[1],
+                        checkpoint_main=ckpt.get("run_extend_dual"))),
         kernel_row("offset_scan", "offset_scan.cu", "jax_scorer.py:2637",
-                   scan_check, dict(late_main=late_launches[0])),
+                   scan_check, dict(late_main=late_launches[0],
+                                    checkpoint_main=ckpt.get("offset_scan"))),
         kernel_row("col_replay", "col_replay.cu", "jax_scorer.py:773,2688",
-                   replay_check, dict(late_main=late_launches[1])),
+                   replay_check, dict(late_main=late_launches[1],
+                                      checkpoint_main=ckpt.get("col_replay"))),
         kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
-                   {path: ARENA_LAUNCHES.get(path) for path in
-                    ("main", "dual_main", "priority_main", "late_main")}),
+                   dict({path: ARENA_LAUNCHES.get(path) for path in
+                         ("main", "dual_main", "priority_main", "late_main")},
+                        checkpoint_main=ckpt.get("arena"))),
         # the megastep is the run kernel under a step cap: its launches
         # are the run kernel's, its numbers the capped launch's
         kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",

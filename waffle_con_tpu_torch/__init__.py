@@ -12,7 +12,16 @@ reference, reached by the tests alone.
 
 * ``ops``    — the DWFA oracle, the scorer seam, the torch branch store
   and the CUDA kernels with their plain PyTorch twins.
-* ``models`` — the single-, dual- and priority-consensus engines.
+* ``models`` — the single-, dual- and priority-consensus engines, and
+  search checkpoints (``models/checkpoint.py``: snapshot, preempt and
+  resume a search; a resumed search rebuilds its branches through the
+  column-replay kernel and runs on the same kernels).
+* ``obs``    — observability, off by default and switched on in code:
+  span tracer (Chrome trace, ``torch.profiler`` bridge), metrics
+  registry (Prometheus text), per-search reports, the decision audit
+  and its lockstep shadow against the python oracle.
+* ``runtime`` — the ``flip_vote`` fault the audit plane is tested
+  against.
 * ``native`` — the C++ engine suite (a copy of the JAX package's),
   built with ``g++`` on first use: ``backend="native"`` and the host
   baseline ``native_consensus`` / ``native_dual_consensus`` /
@@ -22,6 +31,13 @@ reference, reached by the tests alone.
 """
 
 from waffle_con_tpu_torch.config import CdwfaConfig, CdwfaConfigBuilder, ConsensusCost
+from waffle_con_tpu_torch.models.checkpoint import (
+    CheckpointController,
+    CheckpointRejected,
+    SearchCheckpoint,
+    SearchPreempted,
+    resume_engine,
+)
 from waffle_con_tpu_torch.models.consensus import Consensus, ConsensusDWFA
 from waffle_con_tpu_torch.models.dual_consensus import DualConsensus, DualConsensusDWFA
 from waffle_con_tpu_torch.models.multi_consensus import MultiConsensus
@@ -29,8 +45,15 @@ from waffle_con_tpu_torch.models.priority_consensus import (
     PriorityConsensus,
     PriorityConsensusDWFA,
 )
+from waffle_con_tpu_torch.obs.report import SearchReport
 
 __all__ = [
+    "CheckpointController",
+    "CheckpointRejected",
+    "SearchCheckpoint",
+    "SearchPreempted",
+    "SearchReport",
+    "resume_engine",
     "CdwfaConfig",
     "CdwfaConfigBuilder",
     "ConsensusCost",

@@ -101,6 +101,9 @@ class CdwfaConfig:
     #: to M = 1 by construction).  ``None`` is the adaptive width; 1 turns
     #: the gang off.
     frontier_width: Optional[int] = None
+    #: Log each search's one-line summary (the ``SearchReport``
+    #: ``summary_line``) at INFO instead of DEBUG.
+    log_search_summary: bool = False
 
     def __post_init__(self) -> None:
         if self.wildcard is not None and not 0 <= self.wildcard <= 255:

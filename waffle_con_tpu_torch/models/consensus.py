@@ -29,13 +29,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from waffle_con_tpu_torch.config import CdwfaConfig, ConsensusCost
+from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
 from waffle_con_tpu_torch.models.frontier import FrontierSpeculator, GangMember
+from waffle_con_tpu_torch.obs import audit as obs_audit
+from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs.instrument import FrontierSampler
+from waffle_con_tpu_torch.obs.report import run_reported_search as _reported_search
 from waffle_con_tpu_torch.ops.scorer import (
     BranchStats,
     WavefrontScorer,
     fast_paths,
     make_scorer,
 )
+from waffle_con_tpu_torch.runtime import faults as faults_mod
 from waffle_con_tpu_torch.utils.pqueue import PQueueTracker, SetPriorityQueue
 
 logger = logging.getLogger(__name__)
@@ -44,7 +50,7 @@ logger = logging.getLogger(__name__)
 #: bookkeeping simulation; long clean stretches simply re-engage next pop.
 RUN_SIM_CAP = 65536
 
-#: Queue pops between search-progress debug lines of the dual engine.
+#: Queue pops between search-progress debug lines.
 PROGRESS_LOG_INTERVAL = 1000
 
 
@@ -337,6 +343,27 @@ class _Node:
         return (-self.total_cost(cost), len(self.consensus))
 
 
+def _replay_consensus(scorer, specs) -> None:
+    """Advance freshly rooted branches to their nodes' consensuses by
+    replaying every column through the ordinary ``push_many`` seam,
+    batched across nodes per column (the checkpoint restore).
+
+    The branch store keeps a branch-internal consensus buffer that
+    ``activate`` replays when catching a late read's wavefront up — a
+    fresh root's buffer is empty, so a restore must fill it *before*
+    activating the node's reads.  No reads are tracked during the
+    replay, so the pushes only extend the buffer; the ``activate``
+    catch-up that follows (one column-replay launch a read on a CUDA
+    device) then walks the same per-column step the live search used.
+    ``specs`` is ``[(handle, consensus), ...]``."""
+    longest = max((len(consensus) for _h, consensus in specs), default=0)
+    for col in range(longest):
+        scorer.push_many([
+            (handle, consensus[: col + 1])
+            for handle, consensus in specs if len(consensus) > col
+        ])
+
+
 class ConsensusDWFA:
     """Generates the single best consensus (or the tied set) for the added
     sequences."""
@@ -373,9 +400,16 @@ class ConsensusDWFA:
     def consensus(self) -> List[Consensus]:
         """Run the least-cost-first search and return every tied-best
         consensus, lexicographically sorted.  Search-shape counters land
-        in ``self.last_search_stats``."""
+        in ``self.last_search_stats``, the structured
+        :class:`~waffle_con_tpu_torch.obs.report.SearchReport` in
+        ``self.last_search_report``."""
+        return _reported_search(self, "single", self._consensus_impl)
+
+    def _consensus_impl(self) -> List[Consensus]:
         cfg = self.config
         cost = cfg.consensus_cost
+        restore = getattr(self, "_restore_state", None)
+        self._restore_state = None
         maximum_error = math.inf
         nodes_explored = 0
         nodes_ignored = 0
@@ -410,21 +444,54 @@ class ConsensusDWFA:
         pqueue = SetPriorityQueue()
 
         results: List[Consensus] = []
-        active = [o is None for o in offsets]
-        root_handle = scorer.root(np.array(active, dtype=bool))
-        root = _Node(
-            b"",
-            root_handle,
-            active,
-            [0 if a else None for a in active],
-            scorer.stats(root_handle, b""),
-        )
-        tracker.insert(0)
-        pqueue.push(root.key(), root, root.priority(cost))
+        pops = 0
+        if restore is None:
+            active = [o is None for o in offsets]
+            root_handle = scorer.root(np.array(active, dtype=bool))
+            root = _Node(
+                b"",
+                root_handle,
+                active,
+                [0 if a else None for a in active],
+                scorer.stats(root_handle, b""),
+            )
+            tracker.insert(0)
+            pqueue.push(root.key(), root, root.priority(cost))
+        else:
+            (maximum_error, nodes_explored, nodes_ignored, peak_queue_size,
+             farthest_consensus, last_constraint, pops, results) = (
+                self._restore_search(restore, scorer, pqueue, tracker, cost)
+            )
         fp = fast_paths(scorer)
+        frontier = FrontierSampler("single")
         speculator = FrontierSpeculator(scorer, cfg)
+        #: decision audit sink (``None`` when no capture is installed —
+        #: the zero-overhead decision, made once per search)
+        audit = obs_audit.search_sink("single")
+
+        ctrl = ckpt_mod.current_controller()
+
+        def _ckpt_body() -> Dict:
+            # a closure over the loop locals: reads their values at
+            # snapshot time, always at the top-of-pop-loop boundary
+            return self._checkpoint_body(
+                pqueue, tracker,
+                maximum_error=maximum_error,
+                nodes_explored=nodes_explored,
+                nodes_ignored=nodes_ignored,
+                peak_queue_size=peak_queue_size,
+                farthest_consensus=farthest_consensus,
+                last_constraint=last_constraint,
+                pops=pops,
+                results=results,
+            )
 
         while not pqueue.is_empty():
+            if ctrl is not None:
+                try:
+                    ctrl.poll(pops, _ckpt_body)
+                finally:
+                    self._last_checkpoint = ctrl.last_checkpoint
             peak_queue_size = max(peak_queue_size, len(pqueue))
 
             while (
@@ -435,6 +502,17 @@ class ConsensusDWFA:
                 last_constraint = 0
 
             node, priority = pqueue.pop()
+            pops += 1
+            if pops % PROGRESS_LOG_INTERVAL == 0:
+                logger.debug(
+                    "search progress: %d pops, queue=%d, farthest=%d, "
+                    "best_cost=%d", pops, len(pqueue), farthest_consensus,
+                    -priority[0],
+                )
+                if obs_metrics.metrics_enabled():
+                    obs_metrics.registry().gauge(
+                        "waffle_search_queue_depth", engine="single"
+                    ).set(len(pqueue))
             next_prio = pqueue.peek_priority()
             # the gang width of this pop: the policy sees every pop's
             # frontier (depth, best-vs-next gap), so cooldowns run in real
@@ -444,9 +522,23 @@ class ConsensusDWFA:
                 (-next_prio[0]) - (-priority[0])
                 if next_prio is not None else None,
             )
+            if frontier.due(pops):
+                frontier.sample(
+                    pops, len(pqueue), len(tracker), -priority[0],
+                    -next_prio[0] if next_prio is not None else None,
+                    len(node.consensus), farthest_consensus,
+                    counters=scorer.counters, gang_width=gang_w,
+                )
             top_cost = -priority[0]
             top_len = len(node.consensus)
             tracker.remove(top_len)
+            if audit is not None:
+                # node identity digests: host bytes/flags the engine
+                # already holds (nothing is read from the device)
+                a_dig = obs_audit.crc_bytes(node.consensus)
+                a_act = obs_audit.active_digest(
+                    i for i, a in enumerate(node.active) if a
+                )
 
             if (
                 top_cost > maximum_error
@@ -454,6 +546,11 @@ class ConsensusDWFA:
                 or tracker.at_capacity(top_len)
             ):
                 nodes_ignored += 1
+                if audit is not None:
+                    audit.emit({
+                        "kind": "ignored", "pop": pops, "len": top_len,
+                        "dig": a_dig, "act": a_act, "prio": top_cost,
+                    })
                 self._drop_prefetch(scorer, node)
                 scorer.free(node.handle)
                 continue
@@ -491,6 +588,11 @@ class ConsensusDWFA:
                         or 2 <= len(passing_now) <= fp.arena_cre_per_event
                     )
                     and fp.run_arena is not None
+                    # under the lockstep shadow the arena's opaque subtree
+                    # absorption would hide per-pop decisions from the
+                    # comparator; strict alignment skips it (the arena is
+                    # a pure fast path)
+                    and not (audit is not None and audit.strict_align)
                     # a pending gang deposit is this pop's run already
                     # paid for; the arena would drop it unspent
                     and not speculator.pending(node.handle)
@@ -505,6 +607,14 @@ class ConsensusDWFA:
                          arena_explored, arena_ignored) = arena
                         nodes_explored += arena_explored
                         nodes_ignored += arena_ignored
+                        if audit is not None:
+                            audit.emit({
+                                "kind": "arena", "pop": pops,
+                                "len": top_len, "dig": a_dig,
+                                "act": a_act, "prio": top_cost,
+                                "explored": arena_explored,
+                                "ignored": arena_ignored,
+                            })
                         continue
                 best_other = pqueue.peek_priority()
                 other_cost = 2**31 - 1
@@ -512,6 +622,21 @@ class ConsensusDWFA:
                 if best_other is not None:
                     other_cost = -best_other[0]
                     other_len = best_other[1]
+                if (
+                    len(passing_now) == 1
+                    and not reached_now
+                    and len(scorer.symtab) > 1
+                    and faults_mod.maybe_flip_vote(cfg.backend, top_len)
+                ):
+                    # injected wrong *decision* (the ``flip_vote`` fault):
+                    # silently commit a different alphabet symbol than
+                    # the nomination voted for — invisible to every
+                    # result check, catchable only by the audit plane
+                    self._drop_prefetch(scorer, node)
+                    wrong = (
+                        scorer.sym_id[passing_now[0]] + 1
+                    ) % len(scorer.symtab)
+                    passing_now = [int(scorer.symtab[wrong])]
                 # -- forced-child fold: with exactly one passing symbol
                 # and no prefetched children, the expand path's outcome
                 # is fully known host-side (one child = consensus + sym),
@@ -610,6 +735,19 @@ class ConsensusDWFA:
                     # or not steps committed, so adopt it either way — its
                     # fin field saves the finalize call at a reached pop
                     node.stats = run_stats
+                    if audit is not None and steps > 0:
+                        audit.emit({
+                            "kind": "run", "pop": pops, "len": top_len,
+                            "dig": a_dig, "act": a_act, "prio": top_cost,
+                            "via": "run",
+                            "code": int(_code),
+                            "forced": force_sym >= 0,
+                            "syms": obs_audit.b64(appended),
+                            "finals": [int(rj) for rj, _ in records],
+                            "tail": obs_audit.tail(
+                                node.consensus + appended
+                            ),
+                        })
                     if steps > 0:
                         # the branch advanced past the prefetched children
                         self._drop_prefetch(scorer, node)
@@ -658,6 +796,12 @@ class ConsensusDWFA:
                     Consensus(node.consensus, cost, fin_scores),
                     cfg.max_return_size,
                 )
+                if audit is not None:
+                    audit.emit({
+                        "kind": "final", "pop": pops, "len": top_len,
+                        "dig": a_dig, "act": a_act,
+                        "score": sum(fin_scores),
+                    })
 
             # -- nominate + expand: the popped node's children and the
             # next best queued nodes' children go through ONE batched
@@ -676,6 +820,13 @@ class ConsensusDWFA:
                 )
             passing, expansion = node.prefetch
             node.prefetch = None
+            if audit is not None:
+                audit.emit({
+                    "kind": "branch", "pop": pops, "len": top_len,
+                    "dig": a_dig, "act": a_act, "prio": top_cost,
+                    "syms": obs_audit.b64(bytes(sorted(passing))),
+                    "tail": obs_audit.tail(node.consensus),
+                })
 
             new_nodes: List[_Node] = []
             if not passing:
@@ -727,6 +878,194 @@ class ConsensusDWFA:
             "backend": cfg.backend,
         }
         return results
+
+    # -- checkpoint / resume -------------------------------------------
+
+    def snapshot(self) -> Optional["ckpt_mod.SearchCheckpoint"]:
+        """The most recent :class:`SearchCheckpoint` built for this
+        engine's search (by the installed
+        :class:`~waffle_con_tpu_torch.models.checkpoint.CheckpointController`),
+        or ``None`` — survives a preempted/expired search."""
+        return getattr(self, "_last_checkpoint", None)
+
+    def _checkpoint_body(
+        self, pqueue, tracker, *, maximum_error, nodes_explored,
+        nodes_ignored, peak_queue_size, farthest_consensus,
+        last_constraint, pops, results,
+    ) -> Dict:
+        """JSON checkpoint body at a pop boundary.  Only host-level node
+        identity travels (consensus bytes, active sets, offsets) — never
+        scorer handles or device tensors; prefetch caches, frontier-gang
+        deposits and the arena's scratch slots are deliberately absent
+        (dropping them is byte-safe: they are pure caches / consume-once
+        speculation)."""
+        entries = []
+        for _key, nd, pri, seq in pqueue.export_entries():
+            entries.append({
+                "consensus": ckpt_mod.b64(nd.consensus),
+                "active": [1 if a else 0 for a in nd.active],
+                "offsets": [o if o is None else int(o)
+                            for o in nd.offsets],
+                "priority": [int(p) for p in pri],
+                "seq": int(seq),
+            })
+        return {
+            "kind": "single",
+            "config": ckpt_mod.encode_config_dict(self.config),
+            "reads": [ckpt_mod.b64(s) for s in self.sequences],
+            "offsets": [o if o is None else int(o) for o in self.offsets],
+            "state": {
+                "entries": entries,
+                "queue_seq": pqueue.export_seq(),
+                "tracker": tracker.export_state(),
+                "maximum_error": (None if maximum_error == math.inf
+                                  else int(maximum_error)),
+                "nodes_explored": int(nodes_explored),
+                "nodes_ignored": int(nodes_ignored),
+                "peak_queue_size": int(peak_queue_size),
+                "farthest_consensus": int(farthest_consensus),
+                "last_constraint": int(last_constraint),
+                "pops": int(pops),
+                "results": [
+                    {"sequence": ckpt_mod.b64(c.sequence),
+                     "scores": [int(s) for s in c.scores]}
+                    for c in results
+                ],
+            },
+        }
+
+    def _restore_search(self, restore, scorer, pqueue, tracker, cost):
+        """Rebuild the mid-search state captured by
+        :meth:`_checkpoint_body` and return the loop-local tuple.
+
+        Each branch is rebuilt through the ordinary scorer seam — fresh
+        ``root``, the node's consensus replayed column by column through
+        ``push_many`` (see :func:`_replay_consensus`), then one
+        ``activate`` per active read (a column-replay launch on a CUDA
+        device) — which is bit-identical on any backend because active wavefront state is a deterministic
+        function of ``(read, consensus, offset)`` and ``activate``'s
+        catch-up walks the same per-column step the live search used
+        (late activation behind the frontier is an ordinary mid-search
+        event).  The stored priorities double as an integrity check: a
+        rebuilt node whose priority disagrees with the checkpoint means
+        the checkpoint does not belong to these reads/config, and the
+        restore is rejected rather than silently corrupting the
+        search."""
+        st = restore["state"]
+        cost_local = cost
+        extra = int(restore.get("extra", 0))
+        n_total = len(self.sequences)
+        n_base = n_total - extra
+        try:
+            if not extra:
+                tracker.restore_state(st["tracker"])
+            results = [
+                Consensus(ckpt_mod.unb64(r["sequence"]), cost_local,
+                          [int(s) for s in r["scores"]])
+                for r in st["results"]
+            ]
+            maximum_error = (math.inf if st["maximum_error"] is None
+                             else int(st["maximum_error"]))
+            staged = []
+            for entry in st["entries"]:
+                consensus = ckpt_mod.unb64(entry["consensus"])
+                active = [bool(a) for a in entry["active"]]
+                offs = [o if o is None else int(o)
+                        for o in entry["offsets"]]
+                if len(active) != n_base or len(offs) != n_base:
+                    raise ckpt_mod.CheckpointRejected(
+                        "node read-count mismatch vs checkpoint reads"
+                    )
+                # incremental reads join every live branch at offset 0
+                active += [True] * extra
+                offs += [0] * extra
+                handle = scorer.root(np.zeros(n_total, dtype=bool))
+                staged.append((entry, consensus, active, offs, handle))
+            _replay_consensus(
+                scorer, [(handle, consensus)
+                         for _e, consensus, _a, _o, handle in staged]
+            )
+            for entry, consensus, active, offs, handle in staged:
+                for read_index, is_active in enumerate(active):
+                    if is_active:
+                        scorer.activate(
+                            handle, read_index, offs[read_index], consensus
+                        )
+                node = _Node(
+                    consensus, handle, active, offs,
+                    scorer.stats(handle, consensus),
+                )
+                prio = node.priority(cost_local)
+                if not extra and tuple(int(p) for p in prio) != tuple(
+                    int(p) for p in entry["priority"]
+                ):
+                    raise ckpt_mod.CheckpointRejected(
+                        "restored node priority mismatch — checkpoint "
+                        "does not match its reads/config"
+                    )
+                if extra:
+                    tracker.insert(len(consensus))
+                pqueue.push_restored(
+                    node.key(), node, prio, int(entry["seq"])
+                )
+            pqueue.restore_seq(int(st["queue_seq"]))
+            if extra:
+                # the wider read set invalidates the accepted results
+                # and the cost bound; the search re-derives both
+                results = []
+                maximum_error = math.inf
+            return (
+                maximum_error,
+                int(st["nodes_explored"]),
+                int(st["nodes_ignored"]),
+                int(st["peak_queue_size"]),
+                int(st["farthest_consensus"]),
+                int(st["last_constraint"]),
+                int(st["pops"]),
+                results,
+            )
+        except ckpt_mod.CheckpointError:
+            raise
+        except (KeyError, TypeError, ValueError, IndexError) as exc:
+            raise ckpt_mod.CheckpointRejected(
+                f"malformed single-engine checkpoint state: {exc}"
+            ) from None
+
+    @classmethod
+    def resume(
+        cls, checkpoint, extra_reads: Sequence[bytes] = ()
+    ) -> "ConsensusDWFA":
+        """An engine primed to continue ``checkpoint`` (a
+        :class:`SearchCheckpoint` or its wire-dict form); run
+        :meth:`consensus` on it to finish the search.  ``extra_reads``
+        join every live branch initially-active at offset 0 —
+        incremental (streaming) resume; with no extras the resumed
+        search is byte-identical to the uninterrupted one."""
+        body = ckpt_mod.resume_body(checkpoint, "single")
+        try:
+            config = ckpt_mod.decode_config_dict(body["config"])
+            reads = [ckpt_mod.unb64(r) for r in body["reads"]]
+            offsets = [o if o is None else int(o)
+                       for o in body["offsets"]]
+            state = body["state"]
+            if not isinstance(state, dict) or len(reads) != len(offsets):
+                raise ckpt_mod.CheckpointRejected(
+                    "malformed single-engine checkpoint body"
+                )
+        except ckpt_mod.CheckpointError:
+            raise
+        except (KeyError, TypeError, ValueError) as exc:
+            raise ckpt_mod.CheckpointRejected(
+                f"malformed single-engine checkpoint body: {exc}"
+            ) from None
+        engine = cls(config)
+        for read, offset in zip(reads, offsets):
+            engine.add_sequence_offset(read, offset)
+        extras = [bytes(r) for r in extra_reads]
+        for read in extras:
+            engine.add_sequence(read)
+        engine._restore_state = {"state": state, "extra": len(extras)}
+        return engine
 
     # ------------------------------------------------------------------
 

@@ -33,11 +33,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from waffle_con_tpu_torch.config import CdwfaConfig, ConsensusCost
+from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
 from waffle_con_tpu_torch.models.consensus import (
     PROGRESS_LOG_INTERVAL,
     RUN_SIM_CAP,
     Consensus,
     EngineError,
+    _replay_consensus,
     accept_record,
     candidates_from_stats,
     check_invariant,
@@ -47,6 +49,10 @@ from waffle_con_tpu_torch.models.consensus import (
     shift_offsets,
 )
 from waffle_con_tpu_torch.models.frontier import FrontierSpeculator, GangMember
+from waffle_con_tpu_torch.obs import audit as obs_audit
+from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs.instrument import FrontierSampler
+from waffle_con_tpu_torch.obs.report import run_reported_search as _reported_search
 from waffle_con_tpu_torch.ops.scorer import (
     WavefrontScorer,
     fast_paths,
@@ -366,12 +372,16 @@ class DualConsensusDWFA:
     def consensus(self) -> List[DualConsensus]:
         """Run the search; returns every tied-best result (sorted), or a
         single empty-consensus fallback when no candidate survives.
-        Search-shape counters land in ``self.last_search_stats``."""
-        return self._consensus_impl()
+        Search-shape counters land in ``self.last_search_stats``, the
+        structured :class:`~waffle_con_tpu_torch.obs.report.SearchReport`
+        in ``self.last_search_report``."""
+        return _reported_search(self, "dual", self._consensus_impl)
 
     def _consensus_impl(self) -> List[DualConsensus]:
         cfg = self.config
         cost = cfg.consensus_cost
+        restore = getattr(self, "_restore_state", None)
+        self._restore_state = None
         n_seqs = len(self.sequences)
         maximum_error = math.inf
         farthest_single = 0
@@ -414,15 +424,16 @@ class DualConsensusDWFA:
         dual_tracker = PQueueTracker(initial_size, cfg.max_capacity_per_size)
         pqueue = SetPriorityQueue()
 
-        root = _DualNode()
-        root.active1 = [o is None for o in offsets]
-        root.active2 = [False] * n_seqs
-        root.offsets1 = [0 if a else None for a in root.active1]
-        root.offsets2 = [None] * n_seqs
-        root.h1 = scorer.root(np.array(root.active1, dtype=bool))
-        root.stats1 = scorer.stats(root.h1, b"")
-        single_tracker.insert(root.max_consensus_length())
-        pqueue.push(root.key(), root, root.priority(cost))
+        if restore is None:
+            root = _DualNode()
+            root.active1 = [o is None for o in offsets]
+            root.active2 = [False] * n_seqs
+            root.offsets1 = [0 if a else None for a in root.active1]
+            root.offsets2 = [None] * n_seqs
+            root.h1 = scorer.root(np.array(root.active1, dtype=bool))
+            root.stats1 = scorer.stats(root.h1, b"")
+            single_tracker.insert(root.max_consensus_length())
+            pqueue.push(root.key(), root, root.priority(cost))
 
         results: List[DualConsensus] = []
 
@@ -457,9 +468,50 @@ class DualConsensusDWFA:
             )
 
         pops = 0
+        if restore is not None:
+            (maximum_error, farthest_single, farthest_dual,
+             single_last_constraint, dual_last_constraint,
+             nodes_explored, nodes_ignored, peak_queue_size, pops,
+             results, total_active_count, active_min_count) = (
+                self._restore_search(
+                    restore, scorer, pqueue, single_tracker, dual_tracker,
+                    cost, total_active_count, active_min_count,
+                )
+            )
         fp = fast_paths(scorer)
+        frontier = FrontierSampler("dual")
         speculator = FrontierSpeculator(scorer, cfg)
+        #: decision audit sink (``None`` when no capture is installed —
+        #: the zero-overhead decision, made once per search)
+        audit = obs_audit.search_sink("dual")
+
+        ctrl = ckpt_mod.current_controller()
+
+        def _ckpt_body() -> Dict:
+            # a closure over the loop locals: reads their values at
+            # snapshot time, always at the top-of-pop-loop boundary
+            return self._checkpoint_body(
+                pqueue, single_tracker, dual_tracker,
+                maximum_error=maximum_error,
+                farthest_single=farthest_single,
+                farthest_dual=farthest_dual,
+                single_last_constraint=single_last_constraint,
+                dual_last_constraint=dual_last_constraint,
+                nodes_explored=nodes_explored,
+                nodes_ignored=nodes_ignored,
+                peak_queue_size=peak_queue_size,
+                pops=pops,
+                results=results,
+                total_active_count=total_active_count,
+                active_min_count=active_min_count,
+            )
+
         while not pqueue.is_empty():
+            if ctrl is not None:
+                try:
+                    ctrl.poll(pops, _ckpt_body)
+                finally:
+                    self._last_checkpoint = ctrl.last_checkpoint
             peak_queue_size = max(peak_queue_size, len(pqueue))
             while (
                 len(single_tracker) > cfg.max_queue_size
@@ -482,6 +534,10 @@ class DualConsensusDWFA:
                     "best_cost=%d", pops, len(pqueue), farthest_single,
                     farthest_dual, -priority[0],
                 )
+                if obs_metrics.metrics_enabled():
+                    obs_metrics.registry().gauge(
+                        "waffle_search_queue_depth", engine="dual"
+                    ).set(len(pqueue))
             next_prio = pqueue.peek_priority()
             # the gang width of this pop (pure policy, byte-safe): see the
             # single engine
@@ -490,6 +546,16 @@ class DualConsensusDWFA:
                 (-next_prio[0]) - (-priority[0])
                 if next_prio is not None else None,
             )
+            if frontier.due(pops):
+                frontier.sample(
+                    pops, len(pqueue),
+                    len(single_tracker) + len(dual_tracker),
+                    -priority[0],
+                    -next_prio[0] if next_prio is not None else None,
+                    node.max_consensus_length(),
+                    max(farthest_single, farthest_dual),
+                    counters=scorer.counters, gang_width=gang_w,
+                )
             top_cost = -priority[0]
             top_len = node.max_consensus_length()
 
@@ -502,6 +568,24 @@ class DualConsensusDWFA:
                 threshold_cutoff = single_tracker.threshold()
                 at_capacity = single_tracker.at_capacity(top_len)
 
+            if audit is not None:
+                # node identity digests: host bytes/flags the engine
+                # already holds (nothing is read from the device)
+                a_cls = "d" if node.is_dual else "p"
+                a_l1 = len(node.consensus1)
+                a_l2 = len(node.consensus2) if node.is_dual else None
+                a_d1 = obs_audit.crc_bytes(node.consensus1)
+                a_d2 = (
+                    obs_audit.crc_bytes(node.consensus2)
+                    if node.is_dual else None
+                )
+                _acts = [[i for i, a in enumerate(node.active1) if a]]
+                if node.is_dual:
+                    _acts.append(
+                        [i for i, a in enumerate(node.active2) if a]
+                    )
+                a_act = obs_audit.active_digest(*_acts)
+
             check_invariant(top_len < len(active_min_count), "active_min_count covers popped length")
             if (
                 top_cost > maximum_error
@@ -510,6 +594,12 @@ class DualConsensusDWFA:
                 or node.is_dual_imbalanced(active_min_count[top_len])
             ):
                 nodes_ignored += 1
+                if audit is not None:
+                    audit.emit({
+                        "kind": "ignored", "pop": pops, "cls": a_cls,
+                        "l1": a_l1, "l2": a_l2, "d1": a_d1, "d2": a_d2,
+                        "act": a_act, "prio": top_cost,
+                    })
                 self._free_node(scorer, node)
                 continue
 
@@ -602,6 +692,11 @@ class DualConsensusDWFA:
                 and not node.reached_all_end(cfg.allow_early_termination)
                 and not (node.is_dual and (node.lock1 or node.lock2))
                 and fp.run_arena is not None
+                # under the lockstep shadow the arena's opaque subtree
+                # absorption would hide per-pop decisions from the
+                # comparator; strict alignment skips it (the arena is a
+                # pure fast path)
+                and not (audit is not None and audit.strict_align)
                 # a pending gang deposit is this pop's run already paid
                 # for; the arena would drop it unspent
                 and not speculator.pending(node.h1)
@@ -619,6 +714,14 @@ class DualConsensusDWFA:
                      arena_ignored) = arena
                     nodes_explored += arena_explored
                     nodes_ignored += arena_ignored
+                    if audit is not None:
+                        audit.emit({
+                            "kind": "arena", "pop": pops, "cls": a_cls,
+                            "l1": a_l1, "l2": a_l2, "d1": a_d1,
+                            "d2": a_d2, "act": a_act, "prio": top_cost,
+                            "explored": arena_explored,
+                            "ignored": arena_ignored,
+                        })
                     continue
             if runnable:
                 best_other = pqueue.peek_priority()
@@ -767,6 +870,21 @@ class DualConsensusDWFA:
                                     maximum_error, results, rec_total,
                                     rec_result, cfg.max_return_size,
                                 )
+                        if audit is not None and steps > 0:
+                            audit.emit({
+                                "kind": "run", "pop": pops, "cls": a_cls,
+                                "l1": a_l1, "l2": a_l2, "d1": a_d1,
+                                "d2": a_d2, "act": a_act,
+                                "prio": top_cost, "code": int(_code),
+                                "s1": obs_audit.b64(app1),
+                                "s2": (
+                                    obs_audit.b64(app2)
+                                    if node.is_dual else None
+                                ),
+                                "tail": obs_audit.tail(
+                                    node.consensus1 + app1
+                                ),
+                            })
                         if steps > 0:
                             # the branches advanced past the prefetched children
                             self._drop_prefetch(scorer, node)
@@ -851,6 +969,13 @@ class DualConsensusDWFA:
                     )
                 else:
                     logger.debug("Finalized node is imbalanced, ignoring.")
+                if audit is not None:
+                    audit.emit({
+                        "kind": "final", "pop": pops, "cls": a_cls,
+                        "l1": a_l1, "l2": a_l2, "d1": a_d1, "d2": a_d2,
+                        "act": a_act, "score": int(fin_total),
+                        "imbalanced": imbalanced,
+                    })
 
             # -- maintain the dynamic active-count tables -------------
             _extend_active_tables(
@@ -867,6 +992,17 @@ class DualConsensusDWFA:
                 single_tracker,
                 dual_tracker,
                 cost,
+                audit=audit,
+                audit_ctx=(
+                    {
+                        "kind": "branch", "pop": pops, "cls": a_cls,
+                        "l1": a_l1, "l2": a_l2, "d1": a_d1, "d2": a_d2,
+                        "act": a_act, "prio": top_cost,
+                        "tail": obs_audit.tail(node.consensus1),
+                    }
+                    if audit is not None
+                    else None
+                ),
             )
             self._free_node(scorer, node)
 
@@ -913,6 +1049,269 @@ class DualConsensusDWFA:
             "backend": cfg.backend,
         }
         return results
+
+    # ==================================================================
+    # checkpoint / resume
+
+    def snapshot(self) -> Optional["ckpt_mod.SearchCheckpoint"]:
+        """The most recent :class:`SearchCheckpoint` built for this
+        engine's search (by the installed
+        :class:`~waffle_con_tpu_torch.models.checkpoint.CheckpointController`),
+        or ``None`` — survives a preempted/expired search."""
+        return getattr(self, "_last_checkpoint", None)
+
+    @staticmethod
+    def _encode_dual_result(d: DualConsensus) -> Dict:
+        def enc(c):
+            return None if c is None else {
+                "sequence": ckpt_mod.b64(c.sequence),
+                "scores": [int(s) for s in c.scores],
+            }
+
+        return {
+            "consensus1": enc(d.consensus1),
+            "consensus2": enc(d.consensus2),
+            "is_consensus1": [1 if b else 0 for b in d.is_consensus1],
+            "scores1": [None if s is None else int(s) for s in d.scores1],
+            "scores2": [None if s is None else int(s) for s in d.scores2],
+        }
+
+    @staticmethod
+    def _decode_dual_result(obj: Dict, cost: ConsensusCost) -> DualConsensus:
+        def dec(c):
+            return None if c is None else Consensus(
+                ckpt_mod.unb64(c["sequence"]), cost,
+                [int(s) for s in c["scores"]],
+            )
+
+        return DualConsensus(
+            dec(obj["consensus1"]),
+            dec(obj["consensus2"]),
+            [bool(b) for b in obj["is_consensus1"]],
+            [None if s is None else int(s) for s in obj["scores1"]],
+            [None if s is None else int(s) for s in obj["scores2"]],
+        )
+
+    def _checkpoint_body(
+        self, pqueue, single_tracker, dual_tracker, *, maximum_error,
+        farthest_single, farthest_dual, single_last_constraint,
+        dual_last_constraint, nodes_explored, nodes_ignored,
+        peak_queue_size, pops, results, total_active_count,
+        active_min_count,
+    ) -> Dict:
+        """JSON checkpoint body at a pop boundary (single-engine twin:
+        :meth:`ConsensusDWFA._checkpoint_body`).  Node identity is the
+        host-level tuple per side — consensus bytes, active sets,
+        offsets, split locks; wavefronts rebuild through the dispatch
+        seam on resume.  The ``mc_tab``/``imb_tab`` device tables are
+        pure functions of config + activation schedule and are never
+        serialized."""
+        entries = []
+        for _key, nd, pri, seq in pqueue.export_entries():
+            entries.append({
+                "is_dual": 1 if nd.is_dual else 0,
+                "lock1": 1 if nd.lock1 else 0,
+                "lock2": 1 if nd.lock2 else 0,
+                "consensus1": ckpt_mod.b64(nd.consensus1),
+                "consensus2": ckpt_mod.b64(nd.consensus2),
+                "active1": [1 if a else 0 for a in nd.active1],
+                "active2": [1 if a else 0 for a in nd.active2],
+                "offsets1": [o if o is None else int(o)
+                             for o in nd.offsets1],
+                "offsets2": [o if o is None else int(o)
+                             for o in nd.offsets2],
+                "priority": [int(p) for p in pri],
+                "seq": int(seq),
+            })
+        return {
+            "kind": "dual",
+            "config": ckpt_mod.encode_config_dict(self.config),
+            "reads": [ckpt_mod.b64(s) for s in self.sequences],
+            "offsets": [o if o is None else int(o) for o in self.offsets],
+            "state": {
+                "entries": entries,
+                "queue_seq": pqueue.export_seq(),
+                "single_tracker": single_tracker.export_state(),
+                "dual_tracker": dual_tracker.export_state(),
+                "maximum_error": (None if maximum_error == math.inf
+                                  else int(maximum_error)),
+                "farthest_single": int(farthest_single),
+                "farthest_dual": int(farthest_dual),
+                "single_last_constraint": int(single_last_constraint),
+                "dual_last_constraint": int(dual_last_constraint),
+                "nodes_explored": int(nodes_explored),
+                "nodes_ignored": int(nodes_ignored),
+                "peak_queue_size": int(peak_queue_size),
+                "pops": int(pops),
+                "total_active_count": [int(n) for n in total_active_count],
+                "active_min_count": [int(n) for n in active_min_count],
+                "results": [self._encode_dual_result(d) for d in results],
+            },
+        }
+
+    def _restore_search(
+        self, restore, scorer, pqueue, single_tracker, dual_tracker,
+        cost, total_active_count, active_min_count,
+    ):
+        """Rebuild the mid-search state captured by
+        :meth:`_checkpoint_body`; returns the loop-local tuple.  Each
+        side of each node rebuilds through the scorer seam — fresh
+        root, the side's consensus replayed through ``push_many`` (see
+        :func:`~waffle_con_tpu_torch.models.consensus._replay_consensus`:
+        the branch store needs its consensus buffer filled before
+        ``activate`` can catch a wavefront up), then one activate per
+        tracked read — bit-identical on any backend; stored priorities
+        double as the integrity check."""
+        st = restore["state"]
+        extra = int(restore.get("extra", 0))
+        n_total = len(self.sequences)
+        n_base = n_total - extra
+        try:
+            if not extra:
+                single_tracker.restore_state(st["single_tracker"])
+                dual_tracker.restore_state(st["dual_tracker"])
+                total_active_count = [
+                    int(n) for n in st["total_active_count"]
+                ]
+                active_min_count = [
+                    int(n) for n in st["active_min_count"]
+                ]
+            results = [
+                self._decode_dual_result(r, cost) for r in st["results"]
+            ]
+            maximum_error = (math.inf if st["maximum_error"] is None
+                             else int(st["maximum_error"]))
+            staged = []
+            replay_specs = []
+            for entry in st["entries"]:
+                node = _DualNode()
+                node.is_dual = bool(entry["is_dual"])
+                node.lock1 = bool(entry["lock1"])
+                node.lock2 = bool(entry["lock2"])
+                node.consensus1 = ckpt_mod.unb64(entry["consensus1"])
+                node.consensus2 = ckpt_mod.unb64(entry["consensus2"])
+                node.active1 = [bool(a) for a in entry["active1"]]
+                node.active2 = [bool(a) for a in entry["active2"]]
+                node.offsets1 = [o if o is None else int(o)
+                                 for o in entry["offsets1"]]
+                node.offsets2 = [o if o is None else int(o)
+                                 for o in entry["offsets2"]]
+                if (len(node.active1) != n_base
+                        or len(node.active2) != n_base
+                        or len(node.offsets1) != n_base
+                        or len(node.offsets2) != n_base):
+                    raise ckpt_mod.CheckpointRejected(
+                        "node read-count mismatch vs checkpoint reads"
+                    )
+                # incremental reads join side 1 at offset 0 (pop-0 only)
+                node.active1 += [True] * extra
+                node.active2 += [False] * extra
+                node.offsets1 += [0] * extra
+                node.offsets2 += [None] * extra
+                node.h1 = scorer.root(np.zeros(n_total, dtype=bool))
+                replay_specs.append((node.h1, node.consensus1))
+                if node.is_dual:
+                    node.h2 = scorer.root(np.zeros(n_total, dtype=bool))
+                    replay_specs.append((node.h2, node.consensus2))
+                staged.append((entry, node))
+            _replay_consensus(scorer, replay_specs)
+            for entry, node in staged:
+                for r, is_active in enumerate(node.active1):
+                    if is_active:
+                        scorer.activate(
+                            node.h1, r, node.offsets1[r], node.consensus1
+                        )
+                node.stats1 = scorer.stats(node.h1, node.consensus1)
+                if node.is_dual:
+                    for r, is_active in enumerate(node.active2):
+                        if is_active:
+                            scorer.activate(
+                                node.h2, r, node.offsets2[r],
+                                node.consensus2,
+                            )
+                    node.stats2 = scorer.stats(node.h2, node.consensus2)
+                prio = node.priority(cost)
+                if not extra and tuple(int(p) for p in prio) != tuple(
+                    int(p) for p in entry["priority"]
+                ):
+                    raise ckpt_mod.CheckpointRejected(
+                        "restored node priority mismatch — checkpoint "
+                        "does not match its reads/config"
+                    )
+                if extra:
+                    tracker = (dual_tracker if node.is_dual
+                               else single_tracker)
+                    tracker.insert(node.max_consensus_length())
+                pqueue.push_restored(
+                    node.key(), node, prio, int(entry["seq"])
+                )
+            pqueue.restore_seq(int(st["queue_seq"]))
+            if extra:
+                # the wider read set invalidates accepted results and
+                # the cost bound; the search re-derives both
+                results = []
+                maximum_error = math.inf
+            return (
+                maximum_error,
+                int(st["farthest_single"]),
+                int(st["farthest_dual"]),
+                int(st["single_last_constraint"]),
+                int(st["dual_last_constraint"]),
+                int(st["nodes_explored"]),
+                int(st["nodes_ignored"]),
+                int(st["peak_queue_size"]),
+                int(st["pops"]),
+                results,
+                total_active_count,
+                active_min_count,
+            )
+        except ckpt_mod.CheckpointError:
+            raise
+        except (KeyError, TypeError, ValueError, IndexError) as exc:
+            raise ckpt_mod.CheckpointRejected(
+                f"malformed dual-engine checkpoint state: {exc}"
+            ) from None
+
+    @classmethod
+    def resume(
+        cls, checkpoint, extra_reads=()
+    ) -> "DualConsensusDWFA":
+        """An engine primed to continue ``checkpoint`` (a
+        :class:`SearchCheckpoint` or its wire-dict form); run
+        :meth:`consensus` on it to finish the search byte-identically.
+        ``extra_reads`` are only accepted on a pop-0 checkpoint (before
+        any split decisions the new reads never voted on)."""
+        body = ckpt_mod.resume_body(checkpoint, "dual")
+        try:
+            config = ckpt_mod.decode_config_dict(body["config"])
+            reads = [ckpt_mod.unb64(r) for r in body["reads"]]
+            offsets = [o if o is None else int(o)
+                       for o in body["offsets"]]
+            state = body["state"]
+            if not isinstance(state, dict) or len(reads) != len(offsets):
+                raise ckpt_mod.CheckpointRejected(
+                    "malformed dual-engine checkpoint body"
+                )
+        except ckpt_mod.CheckpointError:
+            raise
+        except (KeyError, TypeError, ValueError) as exc:
+            raise ckpt_mod.CheckpointRejected(
+                f"malformed dual-engine checkpoint body: {exc}"
+            ) from None
+        extras = [bytes(r) for r in extra_reads]
+        if extras and int(state.get("pops", -1)) != 0:
+            raise ckpt_mod.CheckpointRejected(
+                "extra_reads require a pop-0 dual checkpoint (later "
+                "snapshots hold split decisions the new reads never "
+                "voted on)"
+            )
+        engine = cls(config)
+        for read, offset in zip(reads, offsets):
+            engine.add_sequence_offset(read, offset)
+        for read in extras:
+            engine.add_sequence(read)
+        engine._restore_state = {"state": state, "extra": len(extras)}
+        return engine
 
     # ==================================================================
     # arena fast path
@@ -1580,6 +1979,8 @@ class DualConsensusDWFA:
         single_tracker,
         dual_tracker,
         cost,
+        audit=None,
+        audit_ctx=None,
     ) -> None:
         cfg = self.config
 
@@ -1592,6 +1993,17 @@ class DualConsensusDWFA:
             self._materialize_expansions(scorer, [node] + peers)
         specs, children = node.prefetch
         node.prefetch = None
+        if audit is not None and audit_ctx is not None:
+            record = dict(audit_ctx)
+            record["specs"] = [
+                [
+                    kind,
+                    None if a is None else int(a),
+                    None if b is None else int(b),
+                ]
+                for kind, a, b in specs
+            ]
+            audit.emit(record)
 
         # -- finishing (pop time): activations, batched pruning, queueing
         deactivations: List[Tuple[int, int]] = []

@@ -28,9 +28,10 @@ Example::
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional, Set, Tuple
 
 from waffle_con_tpu_torch.config import CdwfaConfig, ConsensusCost
+from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
 from waffle_con_tpu_torch.models.consensus import (
     PROGRESS_LOG_INTERVAL,
     Consensus,
@@ -38,6 +39,9 @@ from waffle_con_tpu_torch.models.consensus import (
     check_invariant,
 )
 from waffle_con_tpu_torch.models.dual_consensus import DualConsensusDWFA
+from waffle_con_tpu_torch.obs import audit as obs_audit
+from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs.report import run_reported_search as _reported_search
 from waffle_con_tpu_torch.ops.scorer import (
     SubsetScorer,
     WavefrontScorer,
@@ -125,21 +129,28 @@ class PriorityConsensusDWFA:
 
     def consensus(self) -> PriorityConsensus:
         """Run the worklist; search-shape counters, summed over the inner
-        dual-engine group solves, land in ``self.last_search_stats``."""
-        return self._consensus_impl()
+        dual-engine group solves, land in ``self.last_search_stats``, the
+        aggregated :class:`~waffle_con_tpu_torch.obs.report.SearchReport`
+        in ``self.last_search_report``."""
+        return _reported_search(self, "priority", self._consensus_impl)
 
     def _consensus_impl(self) -> PriorityConsensus:
+        restore = getattr(self, "_restore_state", None)
+        self._restore_state = None
         max_split_level = len(self.sequences[0])
         to_split: List[List[bool]] = []
         split_levels: List[int] = []
         consensus_chains: List[List[Consensus]] = []
 
-        # one initial group per distinct seed (deterministic order)
-        initial_group_keys: Set[Optional[int]] = set(self.seed_groups)
-        for igk in sorted(initial_group_keys, key=lambda k: (k is not None, k)):
-            to_split.append([sg == igk for sg in self.seed_groups])
-            split_levels.append(0)
-            consensus_chains.append([])
+        if restore is None:
+            # one initial group per distinct seed (deterministic order)
+            initial_group_keys: Set[Optional[int]] = set(self.seed_groups)
+            for igk in sorted(
+                initial_group_keys, key=lambda k: (k is not None, k)
+            ):
+                to_split.append([sg == igk for sg in self.seed_groups])
+                split_levels.append(0)
+                consensus_chains.append([])
 
         consensuses: List[List[Consensus]] = []
         assignments: List[List[bool]] = []
@@ -155,17 +166,104 @@ class PriorityConsensusDWFA:
         total_ignored = 0
         peak_queue_size = 0
         share_scorer = self.config.backend == "torch"
+        groups_solved = 0
+        pending: Optional[Tuple] = None
+        if restore is not None:
+            (to_split, split_levels, consensus_chains, consensuses,
+             assignments, merged_counters, scorer_constructions,
+             total_explored, total_ignored, peak_queue_size,
+             groups_solved, pending) = self._restore_worklist(restore)
 
-        while to_split:
-            include_set = to_split.pop()
-            current_split_level = split_levels.pop()
-            current_chain = consensus_chains.pop()
-            if (len(groups) + 1) % PROGRESS_LOG_INTERVAL == 0:
+        ctrl = ckpt_mod.current_controller()
+        #: decision audit sink (``None`` when no capture is installed);
+        #: the worklist emits one ``group`` marker per group solve — the
+        #: inner dual searches record their own per-pop streams
+        audit = obs_audit.search_sink("priority")
+        include_set: List[bool] = []
+        current_split_level = 0
+        current_chain: List[Consensus] = []
+
+        def _wrap_body(inner_body: Dict) -> Dict:
+            # a closure over the worklist locals, called by the
+            # controller while the inner dual solve is mid-search: the
+            # popped (in-flight) group travels as ``current`` with the
+            # inner dual state embedded, the rest of the worklist and
+            # the accumulators as they are
+            enc = self._encode_consensus
+            return {
+                "kind": "priority",
+                "config": ckpt_mod.encode_config_dict(self.config),
+                "chains": [[ckpt_mod.b64(s) for s in chain]
+                           for chain in self.sequences],
+                "offsets": [[o if o is None else int(o) for o in chain]
+                            for chain in self.offsets],
+                "seed_groups": [
+                    sg if sg is None else int(sg)
+                    for sg in self.seed_groups
+                ],
+                "state": {
+                    "to_split": [[1 if x else 0 for x in row]
+                                 for row in to_split],
+                    "split_levels": [int(l) for l in split_levels],
+                    "consensus_chains": [[enc(c) for c in chain]
+                                         for chain in consensus_chains],
+                    "consensuses": [[enc(c) for c in chain]
+                                    for chain in consensuses],
+                    "assignments": [[1 if x else 0 for x in row]
+                                    for row in assignments],
+                    "merged_counters": {str(k): int(v) for k, v
+                                        in merged_counters.items()},
+                    "scorer_constructions": int(scorer_constructions),
+                    "total_explored": int(total_explored),
+                    "total_ignored": int(total_ignored),
+                    "peak_queue_size": int(peak_queue_size),
+                    "groups_solved": int(groups_solved),
+                    "current": {
+                        "include_set": [1 if x else 0
+                                        for x in include_set],
+                        "split_level": int(current_split_level),
+                        "chain": [enc(c) for c in current_chain],
+                    },
+                    "inner": inner_body["state"],
+                },
+            }
+
+        while to_split or pending is not None:
+            if pending is not None:
+                # the group in flight when the checkpoint was taken;
+                # groups_solved already counted it at the original pop
+                (include_set, current_split_level, current_chain,
+                 inner_state) = pending
+                pending = None
+            else:
+                include_set = to_split.pop()
+                current_split_level = split_levels.pop()
+                current_chain = consensus_chains.pop()
+                inner_state = None
+                groups_solved += 1
+            if groups_solved % PROGRESS_LOG_INTERVAL == 0:
                 logger.debug(
                     "search progress: %d groups solved, worklist=%d, "
-                    "level=%d", len(groups) + 1, len(to_split),
+                    "level=%d", groups_solved, len(to_split),
                     current_split_level,
                 )
+                if obs_metrics.metrics_enabled():
+                    obs_metrics.registry().gauge(
+                        "waffle_search_queue_depth", engine="priority"
+                    ).set(len(to_split))
+
+            if audit is not None:
+                # one marker per group solve: the worklist's decision
+                # unit (the inner dual search emits its own per-pop
+                # records through its own sink)
+                audit.emit({
+                    "kind": "group", "pop": groups_solved,
+                    "level": current_split_level,
+                    "include": obs_audit.active_digest(
+                        i for i, inc in enumerate(include_set) if inc
+                    ),
+                    "size": sum(1 for inc in include_set if inc),
+                })
 
             injected = None
             base = None
@@ -195,7 +293,16 @@ class PriorityConsensusDWFA:
                         offset_chain[current_split_level],
                     )
 
-            dc_result = dc_dwfa.consensus()
+            if inner_state is not None:
+                dc_dwfa._restore_state = {"state": inner_state, "extra": 0}
+            if ctrl is not None:
+                ctrl.push_wrapper(_wrap_body)
+            try:
+                dc_result = dc_dwfa.consensus()
+            finally:
+                if ctrl is not None:
+                    ctrl.pop_wrapper()
+                    self._last_checkpoint = ctrl.last_checkpoint
             inner_stats = dc_dwfa.last_search_stats
             for k, v in inner_stats["scorer_counters"].items():
                 merged_counters[k] = merged_counters.get(k, 0) + v
@@ -264,7 +371,8 @@ class PriorityConsensusDWFA:
         #: merged per-group scorer-counter deltas; scorer_constructions is
         #: the per-consensus() count the sharing keeps to one per level;
         #: search-shape numbers are summed (peak: max) over the group
-        #: solves, and ``groups`` holds one record per solve in order
+        #: solves, and ``groups`` holds one record per solve of this call
+        #: in order (a resumed search: the solves after the checkpoint)
         self.last_search_stats = {
             "scorer_counters": merged_counters,
             "scorer_constructions": scorer_constructions,
@@ -290,3 +398,116 @@ class PriorityConsensusDWFA:
                 sorted_cons.append(consensuses[old_index])
             return PriorityConsensus(sorted_cons, indices)
         return PriorityConsensus(consensuses, [0] * len(self.sequences))
+
+    # -- checkpoint / resume -------------------------------------------
+
+    def snapshot(self) -> Optional["ckpt_mod.SearchCheckpoint"]:
+        """The most recent :class:`SearchCheckpoint` built for this
+        engine's search (by the installed
+        :class:`~waffle_con_tpu_torch.models.checkpoint.CheckpointController`),
+        or ``None`` — survives a preempted/expired search."""
+        return getattr(self, "_last_checkpoint", None)
+
+    @staticmethod
+    def _encode_consensus(c: Consensus) -> Dict:
+        return {
+            "sequence": ckpt_mod.b64(c.sequence),
+            "scores": [int(s) for s in c.scores],
+        }
+
+    def _decode_consensus(self, obj: Dict) -> Consensus:
+        return Consensus(
+            ckpt_mod.unb64(obj["sequence"]),
+            self.config.consensus_cost,
+            [int(s) for s in obj["scores"]],
+        )
+
+    def _restore_worklist(self, restore):
+        """Rebuild the worklist state captured by the checkpoint
+        wrapper in :meth:`_consensus_impl`; the in-flight group comes
+        back as ``pending`` with its embedded inner dual state, which
+        the loop re-enters through
+        :meth:`DualConsensusDWFA._restore_search`."""
+        st = restore["state"]
+        dec = self._decode_consensus
+        try:
+            cur = st["current"]
+            pending = (
+                [bool(x) for x in cur["include_set"]],
+                int(cur["split_level"]),
+                [dec(c) for c in cur["chain"]],
+                st["inner"],
+            )
+            if (len(pending[0]) != len(self.sequences)
+                    or not isinstance(st["inner"], dict)):
+                raise ckpt_mod.CheckpointRejected(
+                    "worklist group size mismatch vs checkpoint chains"
+                )
+            return (
+                [[bool(x) for x in row] for row in st["to_split"]],
+                [int(l) for l in st["split_levels"]],
+                [[dec(c) for c in chain]
+                 for chain in st["consensus_chains"]],
+                [[dec(c) for c in chain] for chain in st["consensuses"]],
+                [[bool(x) for x in row] for row in st["assignments"]],
+                {str(k): int(v)
+                 for k, v in st["merged_counters"].items()},
+                int(st["scorer_constructions"]),
+                int(st["total_explored"]),
+                int(st["total_ignored"]),
+                int(st["peak_queue_size"]),
+                int(st["groups_solved"]),
+                pending,
+            )
+        except ckpt_mod.CheckpointError:
+            raise
+        except (KeyError, TypeError, ValueError, AttributeError) as exc:
+            raise ckpt_mod.CheckpointRejected(
+                f"malformed priority-engine checkpoint state: {exc}"
+            ) from None
+
+    @classmethod
+    def resume(
+        cls, checkpoint, extra_reads=()
+    ) -> "PriorityConsensusDWFA":
+        """An engine primed to continue ``checkpoint`` (a
+        :class:`SearchCheckpoint` or its wire-dict form); run
+        :meth:`consensus` on it to finish the search byte-identically.
+        ``extra_reads`` must be empty: chain levels fix the read set
+        (stream new reads through the single/dual engines instead)."""
+        if tuple(extra_reads):
+            raise ckpt_mod.CheckpointRejected(
+                "extra_reads are not supported for the priority engine "
+                "(sequence chains fix the read set at every level)"
+            )
+        body = ckpt_mod.resume_body(checkpoint, "priority")
+        try:
+            config = ckpt_mod.decode_config_dict(body["config"])
+            chains = [[ckpt_mod.unb64(s) for s in chain]
+                      for chain in body["chains"]]
+            offsets = [[o if o is None else int(o) for o in chain]
+                       for chain in body["offsets"]]
+            seed_groups = [sg if sg is None else int(sg)
+                           for sg in body["seed_groups"]]
+            state = body["state"]
+            if (not isinstance(state, dict)
+                    or len(chains) != len(offsets)
+                    or len(chains) != len(seed_groups)):
+                raise ckpt_mod.CheckpointRejected(
+                    "malformed priority-engine checkpoint body"
+                )
+        except ckpt_mod.CheckpointError:
+            raise
+        except (KeyError, TypeError, ValueError) as exc:
+            raise ckpt_mod.CheckpointRejected(
+                f"malformed priority-engine checkpoint body: {exc}"
+            ) from None
+        engine = cls(config)
+        for chain, offset_chain, seed_group in zip(
+            chains, offsets, seed_groups
+        ):
+            engine.add_seeded_sequence_chain(
+                chain, offset_chain, seed_group
+            )
+        engine._restore_state = {"state": state}
+        return engine

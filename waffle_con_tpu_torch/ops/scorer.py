@@ -538,18 +538,27 @@ def fast_paths(scorer) -> FastPaths:
 def construct_backend(
     reads: Sequence[bytes], config: CdwfaConfig, backend: str
 ) -> WavefrontScorer:
-    """Instantiate one concrete backend scorer."""
+    """Instantiate one concrete backend scorer.  The one place every
+    scorer is born, so it is also where the observability proxies are
+    installed: a ``TimedScorer`` when metrics or tracing is on, an
+    ``AuditScorerTap`` when an audit capture is (both transparent to
+    :class:`FastPaths`: a wrapped scorer launches the same kernels)."""
     if backend == "python":
-        return PythonScorer(reads, config)
-    if backend == "torch":
+        scorer = PythonScorer(reads, config)
+    elif backend == "torch":
         from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
 
-        return TorchScorer(reads, config)
-    if backend == "native":
+        scorer = TorchScorer(reads, config)
+    elif backend == "native":
         from waffle_con_tpu_torch.native import NativeScorer
 
-        return NativeScorer(reads, config)
-    raise ValueError(f"unknown backend {backend!r}")
+        scorer = NativeScorer(reads, config)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    from waffle_con_tpu_torch.obs.audit import maybe_tap
+    from waffle_con_tpu_torch.obs.instrument import maybe_instrument
+
+    return maybe_tap(maybe_instrument(scorer, backend), backend)
 
 
 def make_scorer(reads: Sequence[bytes], config: CdwfaConfig) -> WavefrontScorer:

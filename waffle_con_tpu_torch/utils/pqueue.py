@@ -215,6 +215,37 @@ class PQueueTracker:
         pc[:m] = self._processed_counts[:m]
         return lc, pc
 
+    # -- checkpoint seam (models/checkpoint.py) ------------------------
+
+    def export_state(self) -> dict:
+        """JSON-serializable full state for a search checkpoint."""
+        return {
+            "length_counts": list(self._length_counts),
+            "total_count": self._total_count,
+            "threshold": self._threshold,
+            "processed_counts": list(self._processed_counts),
+            "capacity_per_size": self._capacity_per_size,
+        }
+
+    def restore_state(self, state: dict) -> None:
+        """Overwrite this tracker with an :meth:`export_state` snapshot.
+
+        The capacity must match the one this tracker was constructed
+        with (it comes from the same config), so a checkpoint can never
+        bring in different beam semantics."""
+        if int(state["capacity_per_size"]) != self._capacity_per_size:
+            raise ValueError(
+                "tracker capacity mismatch: checkpoint "
+                f"{state['capacity_per_size']} vs config "
+                f"{self._capacity_per_size}"
+            )
+        self._length_counts = [int(v) for v in state["length_counts"]]
+        self._total_count = int(state["total_count"])
+        self._threshold = int(state["threshold"])
+        self._processed_counts = [
+            int(v) for v in state["processed_counts"]
+        ]
+
 
 class SetPriorityQueue:
     """Max-priority queue keyed by hashable identity.
@@ -331,6 +362,34 @@ class SetPriorityQueue:
         self._live[key] = (priority, item)
         heapq.heappush(self._heap, (self._negate(priority), seq, key))
         return True
+
+    # -- checkpoint seam (models/checkpoint.py) ------------------------
+
+    def export_entries(self) -> List[Tuple[Hashable, Any, Tuple, int]]:
+        """Every live entry as ``(key, item, priority, seq)`` in exact
+        pop order (priority first, insertion sequence breaking ties).
+
+        Re-inserting each entry into a fresh queue with
+        :meth:`push_restored` (then :meth:`restore_seq`) reproduces this
+        queue's pop order, FIFO tie order included."""
+        out: List[Tuple[Hashable, Any, Tuple, int]] = []
+        seen = set()
+        for _neg, seq, key in sorted(self._heap):
+            if key in seen or key not in self._live:
+                continue  # stale entry from a speculative pop/re-push
+            seen.add(key)
+            priority, item = self._live[key]
+            out.append((key, item, priority, seq))
+        return out
+
+    def export_seq(self) -> int:
+        """The insertion-sequence counter (monotonic push count)."""
+        return self._seq
+
+    def restore_seq(self, seq: int) -> None:
+        """Advance the insertion-sequence counter to at least ``seq`` so
+        future pushes tie-break after every restored entry."""
+        self._seq = max(self._seq, int(seq))
 
     @staticmethod
     def _negate(priority: Tuple) -> Tuple:
