@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,native_baseline
     python3 chip_smoke.py --phases gang_kernel,gang_main,plan_gate
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,checkpoint_main,obs_main
+    python3 chip_smoke.py --phases branch_kernel --small  # branch step build + check
+    python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,plan_gate,branch_kernel,checkpoint_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -205,6 +207,28 @@ Phases, one line each (every failure exits non-zero):
     search's and the lockstep shadow is clean; a seeded ``flip_vote`` on
     a small single draw aborts the shadow exactly once.
 
+20. branch_kernel (run before ``checkpoint_main``): the branch store's
+    life-cycle calls (``csrc/branch_step.cu``: root, copy, advance,
+    stats, finalize, deactivate) against their plain twins on the card,
+    every output and every store field compared bitwise: pushes at the
+    single north star's restore shape (R=256, W=514, every read active
+    and none), the dual restore's largest batch (92 slots in place, R=64,
+    W=258), an expansion and a cycle of rows each writing the slot the
+    next one reads (gather before scatter), a batch with a row that
+    overflows the band at E=8 (nothing may commit), ``plan_gate``'s
+    alphabet (A=256, R=256, 12 clones pushed, the wildcard), W=2050 and
+    W=139266, copies without stats, root, stats, finalize and
+    deactivate.  Each line gives the plan, the kernel's ms a call (CUDA
+    events around it, the host's launches and its copy of the result
+    included), the device ms a call (``torch.profiler``: every device
+    activity, and the kernels alone), the twin's ms and the bound.  The
+    branch step is what every search roots, pushes, clones, deactivates
+    and reads stats through, so every main path counts its launches
+    (``main``, ``dual_main``, ``priority_main``, ``late_main``,
+    ``plan_gate``, ``checkpoint_main``) and fails if its twins ran;
+    ``checkpoint_main``'s restore split gives the time inside the
+    branch-step calls and the host's ``_stats_batch``.
+
 The JAX package's megastep (``_j_run_mega``, an XLA loop under a per-call
 step budget) is the run kernel itself here: one launch runs to the first
 event, under the caller's ``max_steps``.  ``kernel`` holds a launch capped
@@ -225,8 +249,10 @@ from the root, interleaved across the CTAs or filling whole CTAs.
 ``late_main`` runs before ``replay_kernel``, which also holds the
 deployment's own recorded calls (scans, activations and growths).
 
-The last three lines are the card's name and power limit, the kernel
-table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
+After the device line, ``pending_bounds`` gives the bound of the one
+function still to port (``sharded_col_step``) at the single north star's
+column step.  The last three lines are the card's name and power limit,
+the kernel table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of ``waffle_con_tpu``.
 """
 
@@ -281,6 +307,8 @@ def bound(nbytes: float, ops: float):
 ARENA_LAUNCHES = {}
 #: frontier-gang launches of each main path's warm search (path -> count)
 GANG_LAUNCHES = {}
+#: branch-step launches of each main path's warm search (path -> count)
+BRANCH_LAUNCHES = {}
 #: the arena calls recorded by the main paths' cold searches
 ARENA_RECORDS = {}
 #: each deployment's inputs, config, ``"torch"`` result (as plain data)
@@ -315,10 +343,16 @@ def host_profile(fn, top=15):
 
 
 def reset_arena_counts():
-    """Zero the arena's and the frontier gang's launch and twin counts."""
+    """Zero the arena's, the frontier gang's and the branch step's launch
+    and twin counts."""
     from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
     from waffle_con_tpu_torch.ops import ragged_kernel as rgk
 
+    bk.branch_cuda.launches = 0
+    bk.branch_cuda.entries = dict.fromkeys(bk.branch_cuda.entries, 0)
+    for twin in bk.TWINS:
+        twin.calls = 0
     ak.arena_cuda.launches = 0
     ak.arena_cuda.placements = {"smem": 0, "global": 0}
     ak.arena_plain.calls = 0
@@ -336,13 +370,22 @@ def arena_plan():
 
 
 def arena_counts():
-    """(arena kernel launches, twin calls of the arena and the gang) since
-    the last reset."""
+    """(arena kernel launches, twin calls of the arena, the gang and the
+    branch step) since the last reset."""
     from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
     from waffle_con_tpu_torch.ops import ragged_kernel as rgk
 
     return (ak.arena_cuda.launches,
-            ak.arena_plain.calls + rgk.run_ragged_plain.calls)
+            ak.arena_plain.calls + rgk.run_ragged_plain.calls
+            + bk.plain_calls())
+
+
+def branch_launches():
+    """Branch-step kernel launches since the last reset, and by entry."""
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+    return bk.branch_cuda.launches, dict(bk.branch_cuda.entries)
 
 
 def gang_launches():
@@ -793,6 +836,7 @@ def phase_main():
         placements = dict(rk.run_extend_cuda.placements)
         arena_launches, arena_plain = arena_counts()
         ragged_launches = gang_launches()
+        branch = branch_launches()
         plain_calls = rk.run_extend_plain.calls + arena_plain
         if not res or res[0].sequence != truth:
             raise AssertionError(f"{run}: consensus != truth")
@@ -827,6 +871,7 @@ def phase_main():
         grow_e_events=c["grow_e_events"], scores_sum=sum(res[0].scores),
         arena_kernel_launches=arena_launches, **arena_counters(c),
         gang_kernel_launches=ragged_launches, **gang_counters(c),
+        branch_step_launches=branch[0], branch_step_entries=branch[1],
         **plan_refusals("main", c),
         profiled_device_ms=device_ms,
         device_busy_share=(
@@ -836,6 +881,7 @@ def phase_main():
     )
     print("main", json.dumps(line), flush=True)
     ARENA_LAUNCHES["main"] = arena_launches
+    BRANCH_LAUNCHES["main"] = branch[0]
     GANG_LAUNCHES["main"] = ragged_launches
     return launches
 
@@ -1399,6 +1445,7 @@ def phase_dual_main():
         launches = (rdk.run_extend_dual_cuda.launches,
                     rk.run_extend_cuda.launches) + arena_counts()[:1]
         ragged_launches = gang_launches()
+        branch = branch_launches()
         placements = dict(rk.run_extend_cuda.placements)
         dual_placements = dict(rdk.run_extend_dual_cuda.placements)
         plain_calls = (rdk.run_extend_dual_plain.calls,
@@ -1486,6 +1533,7 @@ def phase_dual_main():
     BASELINE["dual"] = dict(reads=reads, config=cfg, want=_dual_key(res),
                             torch_warm_s=walls[1])
     ARENA_LAUNCHES["dual_main"] = launches[2]
+    BRANCH_LAUNCHES["dual_main"] = branch[0]
     GANG_LAUNCHES["dual_main"] = ragged_launches
     ARENA_RECORDS["dual_main"] = recorder.calls
     return launches
@@ -1601,6 +1649,7 @@ def phase_priority_main():
             launches = (rk.run_extend_cuda.launches,
                         rdk.run_extend_dual_cuda.launches) + arena_counts()[:1]
             ragged_launches = gang_launches()
+            branch = branch_launches()
             plain_calls = (rk.run_extend_plain.calls,
                            rdk.run_extend_dual_plain.calls) + arena_counts()[1:]
             st = eng.last_search_stats
@@ -1682,6 +1731,7 @@ def phase_priority_main():
     BASELINE["priority"] = dict(chains=chains, config=cfg, want=got,
                                 torch_warm_s=walls[1])
     ARENA_LAUNCHES["priority_main"] = launches[2]
+    BRANCH_LAUNCHES["priority_main"] = branch[0]
     GANG_LAUNCHES["priority_main"] = ragged_launches
     ARENA_RECORDS["priority_main"] = recorder.calls
     return launches
@@ -1923,6 +1973,7 @@ def phase_late_main():
                      rk.run_extend_plain.calls + arena_counts()[1])
             arena_launches = arena_counts()[0]
             ragged_launches = gang_launches()
+            branch = branch_launches()
             c = eng.last_search_stats["scorer_counters"]
             plan_refusals(f"late_main {run}", c)
             if not res or res[0].sequence != truth:
@@ -1990,6 +2041,7 @@ def phase_late_main():
         config=cfg, want=[(r.sequence, list(r.scores)) for r in res],
         torch_warm_s=walls["warm"])
     ARENA_LAUNCHES["late_main"] = arena_launches
+    BRANCH_LAUNCHES["late_main"] = branch[0]
     GANG_LAUNCHES["late_main"] = ragged_launches
     return launches, records
 
@@ -3047,7 +3099,11 @@ def phase_plan_gate():
                 launches = dict(
                     run=rk.run_extend_cuda.launches,
                     run_dual=rdk.run_extend_dual_cuda.launches,
-                    arena=arena_counts()[0], gang=gang_launches())
+                    arena=arena_counts()[0], gang=gang_launches(),
+                    branch_step=branch_launches()[0])
+                BRANCH_LAUNCHES["plan_gate"] = (
+                    BRANCH_LAUNCHES.get("plan_gate", 0)
+                    + launches["branch_step"])
         cfg = CdwfaConfigBuilder().min_count(mc).build()
         t0 = time.perf_counter()
         if engine is DualConsensusDWFA:
@@ -3474,6 +3530,7 @@ def launch_counts():
         offset_scan=rpk.offset_scan_cuda.launches,
         col_replay=rpk.replay_rows_cuda.launches,
         col_replay_activate=rpk.replay_rows_cuda.activate_launches,
+        branch_step=branch_launches()[0],
         plain=(rk.run_extend_plain.calls + rdk.run_extend_dual_plain.calls
                + rpk.offset_scan_plain.calls + rpk.replay_rows_plain.calls
                + arena_plain),
@@ -3485,33 +3542,44 @@ class RestoreTimer:
     while an engine's ``_restore_search`` runs, ``root``, ``push_many``
     (the column replay), ``activate`` (one column-replay launch a read)
     and ``stats`` of the branch store are timed between two
-    ``torch.cuda.synchronize()`` calls.  Used as a context manager around
-    a resumed search."""
+    ``torch.cuda.synchronize()`` calls, and inside them the branch-step
+    advances (``branch_kernel.advance``: the launches and the copy of
+    their result, between synchronisations too) and the host's
+    conversion of each batch's stats (``_stats_batch``, host work only,
+    no synchronisation), so that the replay's host time is its calls'
+    time less theirs.  Used as a context manager around a resumed
+    search."""
 
     OPS = ("root", "push_many", "activate", "stats")
+    #: (owner, name, synchronise) of the calls timed inside them; the
+    #: owner is looked up when the timer is entered
+    INNER = (("branch_kernel", "advance", True),
+             ("TorchScorer", "_stats_batch", False))
 
     def __init__(self):
-        self.seconds = {op: 0.0 for op in self.OPS}
-        self.calls = {op: 0 for op in self.OPS}
+        names = self.OPS + tuple(name for _owner, name, _ in self.INNER)
+        self.seconds = {op: 0.0 for op in names}
+        self.calls = {op: 0 for op in names}
         self.activate_launches = 0
         self.restore_s = 0.0
         self._active = False
         self._saved = []
 
-    def _timed(self, op, fn):
+    def _timed(self, op, fn, sync=True):
         import torch
         from waffle_con_tpu_torch.ops import replay_kernel as rpk
 
         timer = self
+        settle = torch.cuda.synchronize if sync else (lambda: None)
 
         def wrapper(*args, **kwargs):
             if not timer._active:
                 return fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            settle()
             before = rpk.replay_rows_cuda.activate_launches
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            settle()
             timer.seconds[op] += time.perf_counter() - t0
             timer.calls[op] += 1
             timer.activate_launches += (
@@ -3540,10 +3608,15 @@ class RestoreTimer:
 
     def __enter__(self):
         from waffle_con_tpu_torch import ConsensusDWFA, DualConsensusDWFA
+        from waffle_con_tpu_torch.ops import branch_kernel
         from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
 
+        owners = dict(branch_kernel=branch_kernel, TorchScorer=TorchScorer)
         for cls, names, wrap in (
                 (TorchScorer, self.OPS, self._timed),
+                *((owners[owner], (name,),
+                   lambda op, fn, sync=sync: self._timed(op, fn, sync))
+                  for owner, name, sync in self.INNER),
                 (ConsensusDWFA, ("_restore_search",), None),
                 (DualConsensusDWFA, ("_restore_search",), None)):
             for name in names:
@@ -3566,6 +3639,10 @@ class RestoreTimer:
             root_calls=self.calls["root"],
             replay_s=round(self.seconds["push_many"], 4),
             push_many_calls=self.calls["push_many"],
+            branch_advance_s=round(self.seconds["advance"], 4),
+            branch_advance_calls=self.calls["advance"],
+            stats_batch_s=round(self.seconds["_stats_batch"], 4),
+            stats_batch_calls=self.calls["_stats_batch"],
             activate_s=round(self.seconds["activate"], 4),
             activate_calls=self.calls["activate"],
             col_replay_launches=self.activate_launches,
@@ -3972,6 +4049,293 @@ def phase_obs_main():
         flip_stats=flipped)), flush=True)
 
 
+# ---------------------------------------------------------------------
+# phase 20: the branch store's life-cycle calls
+
+
+def _branch_store(seed, B, R, length, E, clens, A=4, inactive=(), late=(),
+                  garbage=()):
+    """A branch store on the card for the branch-step cases: ``R`` reads,
+    each a 1 % corruption (``corrupt``) of one random truth of ``length``
+    symbols over ``A``, slot ``b`` holding the truth up to ``clens[b]``
+    (the slots in ``garbage`` random symbols), ``late`` ``(read,
+    offset)`` rows anchored at ``offset`` with the read cut there,
+    ``inactive`` ``(slot, read)`` rows off (read ``None``: the whole
+    slot); bands and folds from the column-replay kernel.  Returns
+    ``(state, reads, rlen)``."""
+    import numpy as np
+    import torch
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    from waffle_con_tpu_torch.utils.example_gen import corrupt
+
+    rng = np.random.default_rng(seed)
+    truth = rng.integers(0, A, length).astype(np.uint8).tobytes()
+    reads = [corrupt(truth, 0.01, rng, A) for _ in range(R)]
+    off = np.zeros((B, R), dtype=np.int32)
+    for r, o in late:
+        reads[r] = reads[r][o:]
+        off[:, r] = o
+    L = 256
+    while L < max(map(len, reads)):
+        L *= 2
+    rd = np.full((R, L), -1, dtype=np.int16)
+    for i, r in enumerate(reads):
+        rd[i, :len(r)] = np.frombuffer(r, dtype=np.uint8)
+    rlen = np.array([len(r) for r in reads], dtype=np.int32)
+    C = max(512, 1 << (length + 64 - 1).bit_length())
+    cons = np.zeros((B, C), dtype=np.int32)
+    cons[:, :length] = np.frombuffer(truth, dtype=np.uint8)
+    for b in garbage:
+        cons[b, :length] = rng.integers(0, A, length)
+    act = np.ones((B, R), dtype=bool)
+    for b, r in inactive:
+        act[b, slice(None) if r is None else r] = False
+    dev = torch.device("cuda")
+    st = dict(off=torch.from_numpy(off).to(dev),
+              act=torch.from_numpy(act).to(dev),
+              cons=torch.from_numpy(cons).to(dev),
+              clen=torch.tensor(list(clens), dtype=torch.int32, device=dev))
+    rd, rlen = torch.from_numpy(rd).to(dev), torch.from_numpy(rlen).to(dev)
+    D, e, rmin, er = rpk.replay_rows_cuda(
+        st["off"], st["act"], st["cons"], st["clen"], rd, rlen, -2, False, E,
+        2 * E + 2)
+    st.update(D=D, e=e, rmin=rmin, er=er)
+    return st, rd, rlen
+
+
+def branch_bound(entry, state, rows, A):
+    """(bound_ms, bound_by) of one branch-step call on ``rows`` (the
+    call's own: ``[3, n]`` rows of an advance or a copy, the slots of
+    stats and finalize, ``[2, m]`` pairs of a deactivation): each input
+    read once and each output written once (the src rows' bands and
+    fields read, the dst rows' written, the packed stats written; a copy
+    row's consensus read and written, a push row's one symbol), and ~20
+    int32 operations a band cell of a pushed active read (4, the tip
+    test, a cell of any other active read whose votes are taken)."""
+    B, R, W = state["D"].shape
+    C = state["cons"].shape[1]
+    if entry == "root":
+        return bound(4 * R * (W + 6), 0)
+    if entry == "deactivate":
+        return bound(rows.shape[1] * 9, 0)
+    act = state["act"].cpu().numpy()
+    if entry in ("stats", "finalize"):
+        n, votes = len(rows), entry == "stats"
+        head = 4 * (4 * n * R + n + 1)
+        if not votes:
+            return bound(4 * n * R * 3 + head, 0)
+        return bound(4 * n * R * (W + 3 + A) + head,
+                     4 * W * int(act[rows].sum()))
+    src, dst, sym = rows
+    n = rows.shape[1]
+    head = 4 * (4 * n * R + n + 1)
+    pushed = int(act[src[sym >= 0]].sum())
+    others = int(act[src].sum()) - pushed
+    copies = int((src != dst).sum())
+    votes = 4 * n * R * A + head if entry == "advance" else 0
+    nbytes = (2 * 4 * n * R * (W + 5) + 2 * 4 * C * copies
+              + 8 * (n - copies) + votes)
+    return bound(nbytes, OPS_PER_CELL * W * pushed + 4 * W * others * (
+        entry == "advance"))
+
+
+def _branch_diff(out_k, out_p, st_k, st_p):
+    """Where the kernel's call and the twin's differ: ``{field: (max abs
+    difference, first index, kernel value, twin value)}`` over the
+    outputs (a ``BranchOut`` or a tuple of arrays, ``None`` for none) and
+    every store field."""
+    import numpy as np
+
+    pairs = [(f"store.{k}", st_k[k].cpu().numpy(), st_p[k].cpu().numpy())
+             for k in st_k]
+    if out_k is not None:
+        names = getattr(out_k, "_fields", range(len(out_k)))
+        pairs += [(f"out.{name}", x, y)
+                  for name, x, y in zip(names, out_k, out_p)]
+    diff = {}
+    for name, x, y in pairs:
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape:
+            diff[name] = ("shape", x.shape, y.shape)
+            continue
+        d = np.abs(x.astype(np.int64) - y.astype(np.int64))
+        if d.size and d.max():
+            at = np.unravel_index(int(d.argmax()), d.shape)
+            diff[name] = (int(d.max()), [int(i) for i in at],
+                          x[at].item(), y[at].item())
+    return diff
+
+
+def _branch_call(entry, kernel, st, rd, rl, rows, A, wc, et):
+    """One call of ``entry`` on store ``st`` through the CUDA wrapper
+    (``kernel``) or the twin."""
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+    if entry in ("advance", "copy"):
+        fn = bk.advance_cuda if kernel else bk.advance_plain
+        return fn(st, rows, rd, rl, wc, et, A, with_stats=entry == "advance")
+    if entry == "stats":
+        fn = bk.stats_cuda if kernel else bk.stats_plain
+        return fn(st, rows, rd, rl, A)
+    if entry == "finalize":
+        return (bk.finalize_cuda(st, rows, rd, rl) if kernel
+                else bk.finalize_plain(st, rows))
+    if entry == "root":
+        fn = bk.root_cuda if kernel else bk.root_plain
+        return fn(st, rows[0], rows[1], rl)
+    fn = bk.deactivate_cuda if kernel else bk.deactivate_plain
+    return fn(st, rows)
+
+
+def branch_case(label, store, entry, rows, A=4, wc=-2, et=False,
+                overflow=False, reps=20):
+    """The kernel and the twin on copies of ``store``, every output and
+    every store field compared bitwise (an overflow must leave the store
+    as it was); then the kernel's ms a call (CUDA events around it, the
+    host's launches and its copy of the result included), its device ms
+    (``torch.profiler`` over ``reps`` calls: every device activity, and
+    the kernels alone), the twin's ms and the bound.  ``rows``: ``(src,
+    dst, sym)`` tuples of an advance or a copy, the slots of stats and
+    finalize, ``[2, m]`` pairs of a deactivation, ``(slot, act)`` of a
+    root."""
+    import numpy as np
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+    st0, rd, rl = store
+    if entry in ("advance", "copy"):
+        rows = np.ascontiguousarray(np.asarray(rows, dtype=np.int32).T)
+    elif entry != "root":
+        rows = np.asarray(rows, dtype=np.int32)
+
+    def call(kernel, st):
+        return _branch_call(entry, kernel, st, rd, rl, rows, A, wc, et)
+
+    st_k, st_p = _copy_state(st0), _copy_state(st0)
+    out_k = call(True, st_k)
+    plan = bk.branch_cuda.last_plan
+    out_p = call(False, st_p)
+    if (out_k is None) != (out_p is None):
+        raise AssertionError(f"{label}: one side returned no stats")
+    diff = _branch_diff(out_k, out_p, st_k, st_p)
+    if entry == "advance" and out_k.overflow != overflow:
+        raise AssertionError(f"{label}: overflow {out_k.overflow}, expected "
+                             f"{overflow}")
+    if overflow:
+        diff.update({f"uncommitted.{k}": v for k, v in _branch_diff(
+            None, None, st_k, st0).items()})
+    if diff:
+        raise AssertionError(f"{label}: branch_step kernel != plain {diff}")
+    err = 0
+    st_t = _copy_state(st0)
+    p_ms = _time_cuda(lambda: call(False, st_t), 3)
+    k_ms = _time_cuda(lambda: call(True, st_t), reps)
+    dev_ms, by_name = _device_ms(lambda: [call(True, st_t)
+                                          for _ in range(reps)])
+    kern_ms = sum(_kernel_ms(by_name, k) for k in (
+        "branch_rows_kernel", "branch_commit_kernel", "branch_root_kernel",
+        "branch_deactivate_kernel"))
+    B, R, W = st0["D"].shape
+    bms, by = branch_bound(entry, st0, rows, A)
+    line = dict(
+        case=label, entry=entry,
+        n=1 if entry == "root" else rows.shape[-1], R=R, W=W, A=A,
+        overflow=bool(overflow),
+        plan=plan._asdict() if entry not in ("root", "deactivate") else None,
+        kernel_ms=round(k_ms, 4),
+        device_ms=None if dev_ms is None else round(dev_ms / reps, 5),
+        kernels_device_ms=round(kern_ms / reps, 5),
+        plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by)
+    print("branch_kernel", json.dumps(line), flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                device_ms=line["device_ms"]), err
+
+
+def phase_branch_kernel(small_only: bool):
+    """Every entry of ``csrc/branch_step.cu`` against its plain twin on
+    the card, bitwise: pushes at the single north star's restore shape
+    (R=256, W=514, a branch of 5,000 columns, every read active and none),
+    the dual restore's largest batch (92 slots in place, R=64, W=258,
+    late and inactive rows, early termination), an expansion (the source
+    pushed in place, its siblings cloned from it) and a cycle of rows
+    each writing the slot the next reads (gather before scatter), a batch
+    with a row that overflows the band at E=8 (nothing may commit),
+    ``plan_gate``'s alphabet (A=256, R=256, 12 clones pushed, the
+    wildcard), W=2050 and W=139266 (past a CTA's registers), copies
+    without stats, and root, stats, finalize and deactivate.  Returns the
+    kernel table's numbers (the north star's restore push) and the max
+    error."""
+    import numpy as np
+
+    L = 600 if small_only else 6000
+    clen = L - 500
+    ns = _branch_store(11, 4, 256, L, 256, (clen, clen, 0, 0),
+                       inactive=((1, None),), late=((7, 300), (99, 200)))
+    cases = [
+        ("north_star/restore_all_active", ns, "advance", [(0, 0, 2)]),
+        ("north_star/restore_none_active", ns, "advance", [(1, 1, 3)]),
+        ("north_star/expand", ns, "advance",
+         [(0, 2, 1), (0, 3, -1), (0, 0, 0)]),
+        ("north_star/copy", ns, "copy", [(0, 2, -1), (1, 3, -1)]),
+        ("north_star/root", ns, "root", None),
+        ("north_star/stats", ns, "stats", [0, 1, 3]),
+        ("north_star/finalize", ns, "finalize", [0, 1]),
+        ("north_star/deactivate", ns, "deactivate",
+         [[0, 0, 1, 0], [3, 100, 5, 3]]),
+        ("overflow/E8", _branch_store(13, 4, 16, 400, 8, (300, 300, 0, 0),
+                                      garbage=(1,)), "advance",
+         [(0, 2, 1), (1, 1, 2), (0, 0, 3)]),
+    ]
+    if not small_only:
+        nd = 128
+        dual = _branch_store(
+            12, nd, 64, 3000, 128, [2500 - 7 * b for b in range(nd)],
+            late=((5, 300), (17, 900)), inactive=((3, 9), (40, 2)))
+        wide_a = _branch_store(14, 32, 256, 320, 128, (200,) * 16 + (0,) * 16,
+                               A=256)
+        cases += [
+            ("dual/restore_92", dual, "advance",
+             [(b, b, b % 4) for b in range(92)], 4, -2, True),
+            ("dual/cycle", dual, "advance",
+             [(0, 1, 1), (1, 2, 2), (2, 0, -1), (5, 100, 3), (5, 101, -1)]),
+            ("plan_gate/A256", wide_a, "advance",
+             [(k, 16 + k, (37 * k) % 256 if k % 3 else -1)
+              for k in range(12)], 256, 255),
+            ("plan_gate/A256_stats", wide_a, "stats", list(range(12)), 256),
+            ("wide/W2050", _branch_store(15, 4, 16, 3000, 1024,
+                                         (2500, 2400, 0, 0)), "advance",
+             [(0, 0, 1), (1, 2, 0), (1, 3, -1)]),
+            ("wide/W139266", _branch_store(16, 2, 16, 1000, 69632, (300, 0)),
+             "advance", [(0, 0, 2), (0, 1, -1)]),
+        ]
+    worst, first = 0, None
+    for label, store, entry, rows, *opt in cases:
+        A, wc, et = opt + [4, -2, False][len(opt):]
+        if entry == "root":
+            import torch
+
+            act = torch.ones(store[0]["act"].shape[1], dtype=torch.bool,
+                             device="cuda")
+            act[::7] = False
+            rows = (2, act)
+        timing, err = branch_case(label, store, entry, rows, A, wc, et,
+                                  overflow=label.startswith("overflow"))
+        worst = max(worst, err)
+        first = first or timing
+    return first, worst
+
+
+def sharded_col_step_bound(R, W, A, shards=1):
+    """(bound_ms, bound_by) of one card's share of ``waffle_con_tpu``'s
+    ``sharded_col_step`` (``parallel/mesh.py:284``, still to port): one
+    column step of ``R / shards`` reads of ``W`` cells, the band read and
+    written, the read window (int16) gathered, nine per-read fields read
+    or written, ``occ [R, A]`` and ``split`` written, 20 int32
+    operations a cell; the ``psum`` of its three scalars is left out."""
+    r = R // shards
+    nbytes = 2 * 4 * r * W + 2 * r * W + 4 * 9 * r + 4 * r * (A + 1)
+    return bound(nbytes, OPS_PER_CELL * r * W)
+
+
 def kernel_row(name, source, replaces, check, launches):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -4002,7 +4366,8 @@ def main(argv=None) -> int:
         default="kernel,main,oracle,dual_kernel,dual_main,dual_oracle,"
                 "priority_main,priority_oracle,replay_kernel,late_main,"
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
-                "gang_kernel,gang_main,checkpoint_main,obs_main",
+                "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
+                "obs_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -4044,6 +4409,12 @@ def main(argv=None) -> int:
         nvcc_s=round(cuda_build.build_info["seconds"], 2), ptxas=ptxas,
     )), flush=True)
 
+    # the function still to port (B9): its bound at the single north
+    # star's column step, on one card and a card's share of four
+    print("pending_bounds", json.dumps(dict(sharded_col_step={
+        f"R256_W514_A4_shards{k}": sharded_col_step_bound(256, 514, 4, k)
+        for k in (1, 4)})), flush=True)
+
     phase_s = {}
 
     def timed(phase, fn, *a):
@@ -4081,6 +4452,7 @@ def main(argv=None) -> int:
     timed("plan_gate", phase_plan_gate)
     gang_check = timed("gang_kernel", phase_gang_kernel, opts.small)
     gang_main_launches = timed("gang_main", phase_gang_main)
+    branch_check = timed("branch_kernel", phase_branch_kernel, opts.small)
     ckpt = timed("checkpoint_main", phase_checkpoint_main) or {}
     timed("obs_main", phase_obs_main)
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
@@ -4113,6 +4485,12 @@ def main(argv=None) -> int:
                    dict({path: GANG_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main",
                           "late_main")}, gang_main=gang_main_launches)),
+        kernel_row("branch_step", "branch_step.cu",
+                   "jax_scorer.py:506,537,557,629,683,754,821", branch_check,
+                   dict({path: BRANCH_LAUNCHES.get(path) for path in
+                         ("main", "dual_main", "priority_main", "late_main",
+                          "plan_gate")},
+                        checkpoint_main=ckpt.get("branch_step"))),
     ]
     # every kernel must have launched on some main path that ran (the
     # gang's path is gang_main: on the other paths it engages only where
@@ -4124,6 +4502,10 @@ def main(argv=None) -> int:
         if by and not sum(by.values()) and not ARENA_OFF:
             return fail(f"{row['name']}: no launch on the main paths "
                         f"{row['launches_by_path']}")
+        # every search roots, reads stats and pushes through the branch
+        # step: each path that ran launched it
+        if row["name"] == "branch_step" and not all(by.values()):
+            return fail(f"branch_step: a path without a launch {by}")
 
     print("phase_seconds", json.dumps(phase_s), flush=True)
     print(smi)

@@ -14,7 +14,11 @@ package's module docstring; the parity tests hold this port to it.
 The column primitives (:func:`init_col`, :func:`col_step`,
 :func:`stats_core`, :func:`finalized`) are plain torch ops over any
 number of leading branch dimensions.  The branch life-cycle calls
-(root, clone, push, stats, finalize) are built from them.  The run
+(root, clone, push, clone_push, stats, finalize, deactivate) go through
+:mod:`waffle_con_tpu_torch.ops.branch_kernel`: the CUDA kernels of
+``csrc/branch_step.cu`` on a CUDA device (an advance is two launches and
+one packed copy of its stats), and plain twins built from those
+primitives on the CPU.  The run
 loops — the hot path — are the CUDA kernels of
 :mod:`waffle_con_tpu_torch.ops.run_kernel` (one branch) and
 :mod:`waffle_con_tpu_torch.ops.run_dual_kernel` (the two branches of a
@@ -450,17 +454,9 @@ class TorchScorer(WavefrontScorer):
         handle, slot = self._alloc()
         act_np = np.zeros(self._R, dtype=bool)
         act_np[: len(active)] = active
-        act = torch.from_numpy(act_np).to(self.device)
-        off = torch.zeros(self._R, dtype=torch.int32, device=self.device)
-        D, e, rmin, er = init_col(off, act, self._rlen, self._E, self._W)
-        st = self._state
-        st["D"][slot] = D
-        st["e"][slot] = e
-        st["rmin"][slot] = rmin
-        st["er"][slot] = er
-        st["off"][slot] = 0
-        st["act"][slot] = act
-        st["clen"][slot] = 0
+        branch_kernel.root(self._state, slot,
+                           torch.from_numpy(act_np).to(self.device),
+                           self._rlen)
         self._off_host[slot] = 0
         self._act_host[slot] = act_np
         return handle
@@ -476,9 +472,11 @@ class TorchScorer(WavefrontScorer):
         srcs = [self._slot_of[h] for h in hs]
         alloc = [self._alloc() for _ in hs]
         dsts = [a[1] for a in alloc]
-        si, di = self._rows(srcs), self._rows(dsts)
-        for arr in self._state.values():
-            arr[di] = arr[si]
+        branch_kernel.advance(
+            self._state, [srcs, dsts, [-1] * len(hs)], self._reads,
+            self._rlen, self._wc, self._et, self.num_symbols,
+            with_stats=False,
+        )
         self._off_host[dsts] = self._off_host[srcs]
         self._act_host[dsts] = self._act_host[srcs]
         return [a[0] for a in alloc]
@@ -548,72 +546,26 @@ class TorchScorer(WavefrontScorer):
 
     def _advance_rows(self, rows) -> List[BranchStats]:
         """Copy slot ``src`` to slot ``dst`` advanced by ``sym`` (``-1``:
-        copy only) for every ``(src, dst, sym)``; commits nothing while
-        any advanced read overflows the band (grows it and retries).
-        Returns the per-row stats with the finalized distances bundled."""
-        st = self._state
-        si = self._rows([r[0] for r in rows])
-        di = self._rows([r[1] for r in rows])
-        sym = torch.tensor([r[2] for r in rows], dtype=torch.int32,
-                           device=self.device)
-        push = sym >= 0
+        copy only) for every ``(src, dst, sym)`` in one branch-step call;
+        commits nothing while any advanced read overflows the band (grows
+        it and retries).  Returns the per-row stats with the finalized
+        distances bundled."""
+        packed = np.array(rows, dtype=np.int32).T
         while True:
-            E, W = self._E, self._W
-            D, e, rmin, er = st["D"][si], st["e"][si], st["rmin"][si], st["er"][si]
-            off, act, cons, clen = (
-                st["off"][si], st["act"][si], st["cons"][si], st["clen"][si]
+            out = branch_kernel.advance(
+                self._state, packed, self._reads, self._rlen, self._wc,
+                self._et, self.num_symbols,
             )
-            Dn, en, rminn, ern = col_step(
-                D, e, rmin, er, off, act, self._rlen,
-                gather_window(self._reads, clen, off, E, W), clen + 1,
-                sym.clamp(min=0), self._wc, self._et, E,
-            )
-            sel = lambda new, old: torch.where(  # noqa: E731
-                push.reshape((-1,) + (1,) * (new.dim() - 1)), new, old
-            )
-            Dn, en, rminn, ern = sel(Dn, D), sel(en, e), sel(rminn, rmin), sel(ern, er)
-            ovf = push & (act & (en >= E)).any(-1)
-            clenn = torch.where(push, clen + 1, clen)
-            stats = stats_core(
-                Dn, en, rminn, ern, off, act, self._rlen,
-                gather_window(self._reads, clenn, off, E, W), clenn,
-                self.num_symbols, E,
-            )
-            fin, fin_ovf = finalized(en, rminn, act, E)
-            host = [x.cpu().numpy() for x in stats + (fin, fin_ovf, ovf)]
-            if host[-1].any():
-                self._grow_e()
-                continue
-            C = self._C
-            cpos = clen.clamp(0, C - 1).long()
-            cons_n = cons.clone()
-            at = torch.arange(len(rows), device=self.device)
-            cons_n[at, cpos] = torch.where(push, sym, cons[at, cpos])
-            for name, val in (
-                ("D", Dn), ("e", en), ("rmin", rminn), ("er", ern),
-                ("off", off), ("act", act), ("cons", cons_n), ("clen", clenn),
-            ):
-                st[name][di] = val
-            eds, occ, split, reached, fin_np, fovf_np, _ = host
-            return [
-                self._stats_np(eds[i], occ[i], split[i], reached[i],
-                               None if fovf_np[i] else fin_np[i])
-                for i in range(len(rows))
-            ]
+            if not out.overflow:
+                return self._stats_batch(out)
+            self._grow_e()
 
     def stats(self, h: int, consensus: bytes) -> BranchStats:
         self.counters["stats_calls"] += 1
-        slot = self._slot_of[h]
-        st = self._state
-        E, W = self._E, self._W
-        off, clen = st["off"][slot], st["clen"][slot]
-        eds, occ, split, reached = stats_core(
-            st["D"][slot], st["e"][slot], st["rmin"][slot], st["er"][slot],
-            off, st["act"][slot], self._rlen,
-            gather_window(self._reads, clen, off, E, W), clen,
-            self.num_symbols, E,
-        )
-        return self._stats_np(*(x.cpu().numpy() for x in (eds, occ, split, reached)))
+        out = branch_kernel.stats(self._state, [self._slot_of[h]],
+                                  self._reads, self._rlen, self.num_symbols)
+        return self._stats_np(out.eds[0], out.occ[0], out.split[0],
+                              out.reached[0])
 
     def best_activation_offset(
         self,
@@ -695,20 +647,17 @@ class TorchScorer(WavefrontScorer):
         slots = [self._slot_of[h] for h, _ in pairs]
         ridx = [r for _, r in pairs]
         self._act_host[slots, ridx] = False
-        self._state["act"][self._rows(slots), self._rows(ridx)] = False
+        branch_kernel.deactivate(self._state, [slots, ridx])
 
     def finalized_eds(self, h: int, consensus: bytes) -> np.ndarray:
         self.counters["finalize_calls"] += 1
         slot = self._slot_of[h]
-        st = self._state
         while True:
-            fin, ovf = finalized(
-                st["e"][slot], st["rmin"][slot], st["act"][slot], self._E
-            )
-            if bool(ovf):
-                self._grow_e()
-                continue
-            return fin.cpu().numpy()[: self.num_reads].astype(np.int64)
+            fin, ovf = branch_kernel.finalize(self._state, [slot],
+                                              self._reads, self._rlen)
+            if not ovf[0]:
+                return fin[0, : self.num_reads].astype(np.int64)
+            self._grow_e()
 
     def _fit_steps(self, longest: int, max_steps: int) -> int:
         """Grow the consensus buffer for a run of ``max_steps`` from a
@@ -1320,6 +1269,21 @@ class TorchScorer(WavefrontScorer):
 
     # -----------------------------------------------------------------
 
+    def _stats_batch(self, out) -> List[BranchStats]:
+        """A batch's ``BranchOut`` (``ops/branch_kernel.py``) -> one
+        :class:`BranchStats` a row (read padding sliced away, the
+        finalized distances where they are in the band): each field is
+        converted once for the batch and each row is a view of it."""
+        n = self.num_reads
+        eds, occ, split, fin = (x[:, :n].astype(np.int64) for x in (
+            out.eds, out.occ, out.split, out.fin))
+        reached = out.reached[:, :n]
+        return [
+            BranchStats(eds[i], occ[i], split[i], reached[i],
+                        fin[i] if out.fin_ok[i] else None)
+            for i in range(len(eds))
+        ]
+
     def _stats_np(self, eds, occ, split, reached, fin=None) -> BranchStats:
         """Host arrays -> :class:`BranchStats`, slicing read padding
         away."""
@@ -1331,3 +1295,8 @@ class TorchScorer(WavefrontScorer):
             reached[:n].astype(bool),
             None if fin is None else fin[:n].astype(np.int64),
         )
+
+
+# the branch life-cycle calls' kernels and twins, which build on this
+# module's column primitives (so imported after them)
+from waffle_con_tpu_torch.ops import branch_kernel  # noqa: E402
