@@ -218,16 +218,23 @@ Phases, one line each (every failure exits non-zero):
     overflows the band at E=8 (nothing may commit), ``plan_gate``'s
     alphabet (A=256, R=256, 12 clones pushed, the wildcard), W=2050 and
     W=139266, copies without stats, root, stats, finalize and
-    deactivate.  Each line gives the plan, the kernel's ms a call (CUDA
-    events around it, the host's launches and its copy of the result
-    included), the device ms a call (``torch.profiler``: every device
-    activity, and the kernels alone), the twin's ms and the bound.  The
-    branch step is what every search roots, pushes, clones, deactivates
-    and reads stats through, so every main path counts its launches
-    (``main``, ``dual_main``, ``priority_main``, ``late_main``,
-    ``plan_gate``, ``checkpoint_main``) and fails if its twins ran;
-    ``checkpoint_main``'s restore split gives the time inside the
-    branch-step calls and the host's ``_stats_batch``.
+    deactivate; several cases also forced onto the slab plan, held
+    bitwise and timed.  Each line gives the plan (``one_launch`` or
+    ``slab``; the north star's advance, copy, stats and finalize must be
+    one launch on ``one_launch``, W=2050 and W=139266 must take
+    ``slab``), the launches a call, the kernel's ms a call (CUDA events
+    around it, the host's work and its copy of the result included), the
+    host wall a call (1,000 calls, the store restored every 32 outside
+    the clock, so every push commits), the device ms a call (``torch.profiler``: every device
+    activity, and the kernels alone), the twin's ms and the bound.  Then
+    1,000 in-place restore pushes with no read active through
+    ``TorchScorer.push_many`` (``north_star/replay_1000``), held to the
+    CPU twins.  The branch step is what every search roots, pushes,
+    clones, deactivates and reads stats through, so every main path
+    counts its launches (``main``, ``dual_main``, ``priority_main``,
+    ``late_main``, ``plan_gate``, ``checkpoint_main``) and fails if its
+    twins ran; ``checkpoint_main``'s restore split gives the time inside
+    the branch-step calls and the host's ``_stats_batch``.
 
 The JAX package's megastep (``_j_run_mega``, an XLA loop under a per-call
 step budget) is the run kernel itself here: one launch runs to the first
@@ -4166,38 +4173,126 @@ def _branch_diff(out_k, out_p, st_k, st_p):
     return diff
 
 
-def _branch_call(entry, kernel, st, rd, rl, rows, A, wc, et):
+def _branch_call(entry, kernel, st, rd, rl, rows, A, wc, et, bufs=None):
     """One call of ``entry`` on store ``st`` through the CUDA wrapper
-    (``kernel``) or the twin."""
+    (``kernel``, with the store's persistent buffers ``bufs``) or the
+    twin."""
     from waffle_con_tpu_torch.ops import branch_kernel as bk
 
     if entry in ("advance", "copy"):
-        fn = bk.advance_cuda if kernel else bk.advance_plain
-        return fn(st, rows, rd, rl, wc, et, A, with_stats=entry == "advance")
+        if not kernel:
+            return bk.advance_plain(st, rows, rd, rl, wc, et, A,
+                                    with_stats=entry == "advance")
+        return bk.advance_cuda(st, rows, rd, rl, wc, et, A,
+                               with_stats=entry == "advance", bufs=bufs)
     if entry == "stats":
-        fn = bk.stats_cuda if kernel else bk.stats_plain
-        return fn(st, rows, rd, rl, A)
+        return (bk.stats_cuda(st, rows, rd, rl, A, bufs=bufs) if kernel
+                else bk.stats_plain(st, rows, rd, rl, A))
     if entry == "finalize":
-        return (bk.finalize_cuda(st, rows, rd, rl) if kernel
+        return (bk.finalize_cuda(st, rows, rd, rl, bufs=bufs) if kernel
                 else bk.finalize_plain(st, rows))
     if entry == "root":
-        fn = bk.root_cuda if kernel else bk.root_plain
-        return fn(st, rows[0], rows[1], rl)
-    fn = bk.deactivate_cuda if kernel else bk.deactivate_plain
-    return fn(st, rows)
+        if not kernel:
+            return bk.root_plain(st, rows[0], rows[1], rl)
+        return bk.root_cuda(st, rows[0], rows[1], rl, bufs=bufs)
+    if not kernel:
+        return bk.deactivate_plain(st, rows)
+    return bk.deactivate_cuda(st, rows, bufs=bufs)
+
+
+class _forced_slab:
+    """Force ``branch_kernel``'s planner onto the slab plan (no band in
+    registers) while it is entered, so that ``branch_kernel`` can hold and
+    time both plans at one shape."""
+
+    def __enter__(self):
+        from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+        self.saved = bk.CELLS
+        bk.CELLS = ()
+        return self
+
+    def __exit__(self, *exc):
+        from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+        bk.CELLS = self.saved
+        return False
+
+
+#: the plan each ``branch_kernel`` case must take (the others print theirs)
+BRANCH_PLANS = {
+    "north_star/restore_all_active": "one_launch",
+    "north_star/restore_none_active": "one_launch",
+    "north_star/expand": "one_launch",
+    "north_star/copy": "one_launch",
+    "north_star/stats": "one_launch",
+    "north_star/finalize": "one_launch",
+    "wide/W2050": "slab",
+    "wide/W139266": "slab",
+}
+#: entries whose north-star calls must be one launch each
+ONE_LAUNCH_ENTRIES = ("advance", "copy", "stats", "finalize")
+#: calls of a ``branch_kernel`` case's host-wall loop, and calls on one
+#: copy of the case's store before it is restored (a push moves an edit
+#: distance by at most one, so no push case reaches its band in 32 calls)
+BRANCH_WALL_CALLS = 1000
+BRANCH_WALL_CHUNK = 32
+#: kernels of ``csrc/branch_step.cu`` (their device time)
+BRANCH_KERNELS = ("branch_one_kernel", "branch_rows_kernel",
+                  "branch_commit_kernel", "branch_root_kernel",
+                  "branch_deactivate_kernel")
+
+
+def _branch_timing(call, restore, check, reps, walls):
+    """The kernel's ms a call (CUDA events around one call, its host work
+    included), its host wall a call (``perf_counter`` over ``walls``
+    calls, ``BRANCH_WALL_CHUNK`` at a time between synchronisations, the
+    store restored before each chunk outside the clock and each chunk's
+    last result held to ``check``), and its device ms a call
+    (``torch.profiler`` over ``reps`` calls: every device activity, and
+    ``csrc/branch_step.cu``'s kernels alone); each measurement starts from
+    the case's store (``restore``)."""
+    import torch
+
+    restore()
+    k_ms = _time_cuda(call, reps)
+    wall, done = 0.0, 0
+    while done < walls:
+        m = min(BRANCH_WALL_CHUNK, walls - done)
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(m):
+            out = call()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        check(out)
+        done += m
+    wall_ms = wall * 1e3 / walls
+    restore()
+    dev_ms, by_name = _device_ms(lambda: [call() for _ in range(reps)])
+    kern_ms = sum(_kernel_ms(by_name, k) for k in BRANCH_KERNELS)
+    return dict(
+        kernel_ms=round(k_ms, 4), host_wall_ms=round(wall_ms, 4),
+        device_ms=None if dev_ms is None else round(dev_ms / reps, 5),
+        kernels_device_ms=round(kern_ms / reps, 5))
 
 
 def branch_case(label, store, entry, rows, A=4, wc=-2, et=False,
-                overflow=False, reps=20):
+                overflow=False, reps=20, variants=()):
     """The kernel and the twin on copies of ``store``, every output and
     every store field compared bitwise (an overflow must leave the store
-    as it was); then the kernel's ms a call (CUDA events around it, the
-    host's launches and its copy of the result included), its device ms
-    (``torch.profiler`` over ``reps`` calls: every device activity, and
-    the kernels alone), the twin's ms and the bound.  ``rows``: ``(src,
-    dst, sym)`` tuples of an advance or a copy, the slots of stats and
-    finalize, ``[2, m]`` pairs of a deactivation, ``(slot, act)`` of a
-    root."""
+    as it was), the kernel through one persistent ``BranchBuffers`` as
+    ``TorchScorer`` calls it; then its plan, its launches a call, its ms a
+    call (CUDA events around it, the host's work and its copy of the
+    result included), its host wall a call (1,000 calls, the store
+    restored every 32, so a push case commits every call but the overflow
+    case's), its device ms (``torch.profiler``: every device activity,
+    and the kernels alone), the twin's ms and the bound.  With
+    ``variants`` (``("slab",)``: ``_forced_slab``) the slab plan is held
+    bitwise and timed the same way.  ``rows``: ``(src, dst, sym)``
+    tuples of an advance or a copy, the slots of stats and finalize,
+    ``[2, m]`` pairs of a deactivation, ``(slot, act)`` of a root."""
     import numpy as np
     from waffle_con_tpu_torch.ops import branch_kernel as bk
 
@@ -4207,83 +4302,181 @@ def branch_case(label, store, entry, rows, A=4, wc=-2, et=False,
     elif entry != "root":
         rows = np.asarray(rows, dtype=np.int32)
 
-    def call(kernel, st):
-        return _branch_call(entry, kernel, st, rd, rl, rows, A, wc, et)
+    def call(kernel, st, bufs=None):
+        return _branch_call(entry, kernel, st, rd, rl, rows, A, wc, et, bufs)
 
-    st_k, st_p = _copy_state(st0), _copy_state(st0)
-    out_k = call(True, st_k)
-    plan = bk.branch_cuda.last_plan
+    st_p = _copy_state(st0)
     out_p = call(False, st_p)
-    if (out_k is None) != (out_p is None):
-        raise AssertionError(f"{label}: one side returned no stats")
-    diff = _branch_diff(out_k, out_p, st_k, st_p)
-    if entry == "advance" and out_k.overflow != overflow:
-        raise AssertionError(f"{label}: overflow {out_k.overflow}, expected "
-                             f"{overflow}")
-    if overflow:
-        diff.update({f"uncommitted.{k}": v for k, v in _branch_diff(
-            None, None, st_k, st0).items()})
-    if diff:
-        raise AssertionError(f"{label}: branch_step kernel != plain {diff}")
-    err = 0
+
+    def checked(tag):
+        """One kernel call on a fresh copy, held to the twin's; returns
+        its plan and launches."""
+        st_k, bufs = _copy_state(st0), bk.BranchBuffers()
+        bk.branch_cuda.last_plan = None
+        before = bk.branch_cuda.launches
+        out_k = call(True, st_k, bufs)
+        launches = bk.branch_cuda.launches - before
+        plan = bk.branch_cuda.last_plan
+        if (out_k is None) != (out_p is None):
+            raise AssertionError(f"{tag}: one side returned no stats")
+        diff = _branch_diff(out_k, out_p, st_k, st_p)
+        if entry == "advance" and out_k.overflow != overflow:
+            raise AssertionError(f"{tag}: overflow {out_k.overflow}, "
+                                 f"expected {overflow}")
+        if overflow:
+            diff.update({f"uncommitted.{k}": v for k, v in _branch_diff(
+                None, None, st_k, st0).items()})
+        if diff:
+            raise AssertionError(f"{tag}: branch_step kernel != plain {diff}")
+        return plan, launches
+
+    plan, launches = checked(label)
+    want = BRANCH_PLANS.get(label)
+    if want is not None and plan.name != want:
+        raise AssertionError(f"{label}: plan {plan.name}, expected {want}")
+    if (label.startswith("north_star/") and entry in ONE_LAUNCH_ENTRIES
+            and launches != 1):
+        raise AssertionError(f"{label}: {launches} launches, expected 1")
     st_t = _copy_state(st0)
+
+    def restore():
+        for k, v in st0.items():
+            st_t[k].copy_(v)
+
+    def check(out):
+        if entry == "advance" and out.overflow != overflow:
+            raise AssertionError(f"{label}: host-wall call overflow "
+                                 f"{out.overflow}, expected {overflow}")
+
     p_ms = _time_cuda(lambda: call(False, st_t), 3)
-    k_ms = _time_cuda(lambda: call(True, st_t), reps)
-    dev_ms, by_name = _device_ms(lambda: [call(True, st_t)
-                                          for _ in range(reps)])
-    kern_ms = sum(_kernel_ms(by_name, k) for k in (
-        "branch_rows_kernel", "branch_commit_kernel", "branch_root_kernel",
-        "branch_deactivate_kernel"))
+    bufs_t = bk.BranchBuffers()
+    timing = _branch_timing(lambda: call(True, st_t, bufs_t), restore, check,
+                            reps, BRANCH_WALL_CALLS)
+    alt = {}
+    for variant in variants:
+        assert variant == "slab", variant
+        with _forced_slab():
+            vplan, vlaunches = checked(f"{label}[{variant}]")
+            bufs_v = bk.BranchBuffers()
+            alt[variant] = dict(
+                plan=vplan.name, launches=vlaunches,
+                **_branch_timing(lambda: call(True, st_t, bufs_v), restore,
+                                 check, reps, BRANCH_WALL_CALLS))
     B, R, W = st0["D"].shape
     bms, by = branch_bound(entry, st0, rows, A)
     line = dict(
         case=label, entry=entry,
         n=1 if entry == "root" else rows.shape[-1], R=R, W=W, A=A,
         overflow=bool(overflow),
-        plan=plan._asdict() if entry not in ("root", "deactivate") else None,
-        kernel_ms=round(k_ms, 4),
-        device_ms=None if dev_ms is None else round(dev_ms / reps, 5),
-        kernels_device_ms=round(kern_ms / reps, 5),
-        plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by)
+        plan=plan._asdict() if plan is not None else None,
+        launches_per_call=launches, **timing,
+        plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by, variants=alt)
     print("branch_kernel", json.dumps(line), flush=True)
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                device_ms=line["device_ms"]), err
+    return dict(ms=timing["kernel_ms"], plain_ms=p_ms, bound_ms=bms,
+                bound_by=by, device_ms=timing["device_ms"],
+                host_wall_ms=timing["host_wall_ms"],
+                plan=None if plan is None else plan.name), 0
+
+
+def branch_replay_case(pushes=1000, length=10000):
+    """A restore's replay at the single north star's geometry (R=256,
+    W=514): a branch rooted with no read active and pushed ``pushes``
+    times in place through ``TorchScorer.push_many``, one column a call,
+    as ``_replay_consensus`` does, on the card; the same on the CPU
+    (the twins) gives the store and the last stats, compared bitwise.
+    Prints the wall a ``push_many`` call and the branch step's launches
+    and plans."""
+    import numpy as np
+    import torch
+    from waffle_con_tpu_torch import CdwfaConfigBuilder
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+    from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    truth, reads = generate_test(4, length, 256, 0.01, seed=0)
+    cons = truth[:pushes]
+    got = {}
+    for device in ("cuda", "cpu"):
+        sc = TorchScorer(reads, CdwfaConfigBuilder().backend("torch")
+                         .device(device).min_count(64).initial_band(216)
+                         .build())
+        h = sc.root(np.zeros(len(reads), dtype=bool))
+        before = bk.branch_cuda.launches
+        entries = dict(bk.branch_cuda.entries)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for col in range(pushes):
+            last = sc.push_many([(h, cons[:col + 1])])[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got[device] = dict(
+            wall=wall, last=last,
+            store={k: v.cpu() for k, v in sc._state.items()},
+            launches=bk.branch_cuda.launches - before,
+            plans={k: bk.branch_cuda.entries[k] - entries[k]
+                   for k in bk.PLANS})
+    diff = {k: int((got["cuda"]["store"][k].long()
+                    - got["cpu"]["store"][k].long()).abs().max())
+            for k in got["cuda"]["store"]}
+    a, b = got["cuda"]["last"], got["cpu"]["last"]
+    same_stats = all(np.array_equal(x, y) for x, y in (
+        (a.eds, b.eds), (a.occ, b.occ), (a.split, b.split),
+        (a.reached, b.reached), (a.fin, b.fin)))
+    if any(diff.values()) or not same_stats:
+        raise AssertionError(f"north_star/replay_1000: kernel != plain "
+                             f"{diff}, stats equal {same_stats}")
+    line = dict(
+        case="north_star/replay_1000", pushes=pushes,
+        push_many_ms=round(got["cuda"]["wall"] * 1e3 / pushes, 4),
+        plain_push_many_ms_cpu=round(got["cpu"]["wall"] * 1e3 / pushes, 4),
+        launches=got["cuda"]["launches"], plans=got["cuda"]["plans"])
+    print("branch_kernel", json.dumps(line), flush=True)
+    return line
 
 
 def phase_branch_kernel(small_only: bool):
     """Every entry of ``csrc/branch_step.cu`` against its plain twin on
     the card, bitwise: pushes at the single north star's restore shape
-    (R=256, W=514, a branch of 5,000 columns, every read active and none),
-    the dual restore's largest batch (92 slots in place, R=64, W=258,
-    late and inactive rows, early termination), an expansion (the source
+    (R=256, W=514, a branch of 5,000 columns, every read active and none;
+    each also forced onto the slab plan), the
+    dual restore's largest batch (92 slots in place, R=64, W=258, late
+    and inactive rows, early termination), an expansion (the source
     pushed in place, its siblings cloned from it) and a cycle of rows
     each writing the slot the next reads (gather before scatter), a batch
     with a row that overflows the band at E=8 (nothing may commit),
     ``plan_gate``'s alphabet (A=256, R=256, 12 clones pushed, the
-    wildcard), W=2050 and W=139266 (past a CTA's registers), copies
-    without stats, and root, stats, finalize and deactivate.  Returns the
-    kernel table's numbers (the north star's restore push) and the max
-    error."""
+    wildcard), W=2050 and W=139266 (the slab plan), copies without stats,
+    and root, stats, finalize and deactivate; then 1,000 in-place restore
+    pushes with no read active through ``TorchScorer.push_many``.  Returns
+    the kernel table's numbers (the north star's restore push) and the
+    max error."""
     import numpy as np
 
     L = 600 if small_only else 6000
     clen = L - 500
     ns = _branch_store(11, 4, 256, L, 256, (clen, clen, 0, 0),
                        inactive=((1, None),), late=((7, 300), (99, 200)))
+    forced = ("slab",)
     cases = [
-        ("north_star/restore_all_active", ns, "advance", [(0, 0, 2)]),
-        ("north_star/restore_none_active", ns, "advance", [(1, 1, 3)]),
+        ("north_star/restore_all_active", ns, "advance", [(0, 0, 2)],
+         dict(variants=forced)),
+        ("north_star/restore_none_active", ns, "advance", [(1, 1, 3)],
+         dict(variants=forced)),
         ("north_star/expand", ns, "advance",
-         [(0, 2, 1), (0, 3, -1), (0, 0, 0)]),
-        ("north_star/copy", ns, "copy", [(0, 2, -1), (1, 3, -1)]),
-        ("north_star/root", ns, "root", None),
-        ("north_star/stats", ns, "stats", [0, 1, 3]),
-        ("north_star/finalize", ns, "finalize", [0, 1]),
+         [(0, 2, 1), (0, 3, -1), (0, 0, 0)], dict(variants=("slab",))),
+        ("north_star/copy", ns, "copy", [(0, 2, -1), (1, 3, -1)],
+         dict(variants=forced)),
+        ("north_star/root", ns, "root", None, {}),
+        ("north_star/stats", ns, "stats", [0, 1, 3], dict(variants=("slab",))),
+        ("north_star/finalize", ns, "finalize", [0, 1], {}),
         ("north_star/deactivate", ns, "deactivate",
-         [[0, 0, 1, 0], [3, 100, 5, 3]]),
+         [[0, 0, 1, 0], [3, 100, 5, 3]], {}),
         ("overflow/E8", _branch_store(13, 4, 16, 400, 8, (300, 300, 0, 0),
                                       garbage=(1,)), "advance",
-         [(0, 2, 1), (1, 1, 2), (0, 0, 3)]),
+         [(0, 2, 1), (1, 1, 2), (0, 0, 3)],
+         dict(overflow=True, variants=forced)),
     ]
     if not small_only:
         nd = 128
@@ -4294,22 +4487,24 @@ def phase_branch_kernel(small_only: bool):
                                A=256)
         cases += [
             ("dual/restore_92", dual, "advance",
-             [(b, b, b % 4) for b in range(92)], 4, -2, True),
+             [(b, b, b % 4) for b in range(92)],
+             dict(A=4, wc=-2, et=True, variants=("slab",))),
             ("dual/cycle", dual, "advance",
-             [(0, 1, 1), (1, 2, 2), (2, 0, -1), (5, 100, 3), (5, 101, -1)]),
+             [(0, 1, 1), (1, 2, 2), (2, 0, -1), (5, 100, 3), (5, 101, -1)],
+             dict(variants=forced)),
             ("plan_gate/A256", wide_a, "advance",
              [(k, 16 + k, (37 * k) % 256 if k % 3 else -1)
-              for k in range(12)], 256, 255),
-            ("plan_gate/A256_stats", wide_a, "stats", list(range(12)), 256),
+              for k in range(12)], dict(A=256, wc=255, variants=("slab",))),
+            ("plan_gate/A256_stats", wide_a, "stats", list(range(12)),
+             dict(A=256)),
             ("wide/W2050", _branch_store(15, 4, 16, 3000, 1024,
                                          (2500, 2400, 0, 0)), "advance",
-             [(0, 0, 1), (1, 2, 0), (1, 3, -1)]),
+             [(0, 0, 1), (1, 2, 0), (1, 3, -1)], {}),
             ("wide/W139266", _branch_store(16, 2, 16, 1000, 69632, (300, 0)),
-             "advance", [(0, 0, 2), (0, 1, -1)]),
+             "advance", [(0, 0, 2), (0, 1, -1)], {}),
         ]
     worst, first = 0, None
-    for label, store, entry, rows, *opt in cases:
-        A, wc, et = opt + [4, -2, False][len(opt):]
+    for label, store, entry, rows, opt in cases:
         if entry == "root":
             import torch
 
@@ -4317,10 +4512,10 @@ def phase_branch_kernel(small_only: bool):
                              device="cuda")
             act[::7] = False
             rows = (2, act)
-        timing, err = branch_case(label, store, entry, rows, A, wc, et,
-                                  overflow=label.startswith("overflow"))
+        timing, err = branch_case(label, store, entry, rows, **opt)
         worst = max(worst, err)
         first = first or timing
+    branch_replay_case(pushes=200 if small_only else 1000)
     return first, worst
 
 
@@ -4336,7 +4531,7 @@ def sharded_col_step_bound(R, W, A, shards=1):
     return bound(nbytes, OPS_PER_CELL * r * W)
 
 
-def kernel_row(name, source, replaces, check, launches):
+def kernel_row(name, source, replaces, check, launches, status=None):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
     (``launches``: path -> count, ``None`` where the phase did not run).
@@ -4356,6 +4551,8 @@ def kernel_row(name, source, replaces, check, launches):
     )
     timing.pop("steps", None)
     row.update(timing)
+    if status is not None:
+        row["status"] = status
     return row
 
 
@@ -4490,7 +4687,9 @@ def main(argv=None) -> int:
                    dict({path: BRANCH_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main", "late_main",
                           "plan_gate")},
-                        checkpoint_main=ckpt.get("branch_step"))),
+                        checkpoint_main=ckpt.get("branch_step")),
+                   status="redesigned: one launch a batch with the band in "
+                          "registers (one_launch), else the slab plan"),
     ]
     # every kernel must have launched on some main path that ran (the
     # gang's path is gang_main: on the other paths it engages only where

@@ -12,50 +12,112 @@
 // DP column step of R reads x W band cells (~20 int32 operations a cell),
 // the tip histogram and a few folds a read.  Its bound is the band read
 // and written once, a microsecond or less at the tracked shapes, so a
-// call's time is its launches and the host's copy of the result.  The
-// design keeps the launches to two a batch and makes one packed output
-// that the host fetches in one copy.
+// call's time is its launches, the bytes it moves more than once and the
+// host's work around it.  The design makes one launch a batch where the
+// batch fits, reads each band once and writes only what changes.
 //
-// Design.
-//  * branch_rows: one warp a (row, read).  The warp steps its read's band
-//    with band_ops.cuh's `column_step_runs`, both columns in device
-//    memory, so any W takes the same code (each lane walks a contiguous
-//    run of cells; the insertion chain crosses lanes by one warp scan),
-//    or copies it for a copy-only row or an inactive read, into a scratch
-//    slab with the row's folds, consensus and length.  Then the tip
-//    histogram of the new column goes straight into the packed output's
-//    occ row of that (row, read), in device memory, so any alphabet takes
-//    the same code, and lane 0 writes the read's fields.  A finalized
-//    distance outside the band and a band overflow are ORed into words of
-//    the output (zeroed before the launch).
-//  * branch_commit: a second launch on the same stream copies the slab
-//    into the dst slots unless the overflow word is set.  So a batch
-//    commits nothing when any of its rows overflows, as JAX's does, and
-//    every src row is read (launch 1) before any dst row is written
-//    (launch 2): a row may write the slot another row copies from.
-//  * stats and finalize: branch_rows on (slot, slot, -1) rows with no
-//    slab and no commit (finalize without the histogram).
+// Contracts.  Every src row is read before any dst row is written (a row
+// may write the slot another row copies from: an expansion pushes its
+// source in place beside the clones).  Nothing commits when a pushed
+// active read reaches the band edge (e >= E): the batch's overflow word.
+// Stats come back in one packed output that the host fetches in one copy.
+// The output's flags hold the epoch of the call that set them (a number
+// above every other output value, new each call), so no launch clears
+// them.
+//
+// Two plans (`plan_branch` in ops/branch_kernel.py, picked before the
+// launch from the shape and the card's occupancy):
+//  * one_launch (W <= 544, every warp of the batch resident at once):
+//    branch_one_kernel, one warp a (row, read), 16 warps a CTA.  The warp
+//    loads its src band row once into registers, a run of `C` cells a
+//    lane (col_replay.cu's layout, C in 1, 2, 3, 5, 9, 17), and steps it
+//    there: the diagonal and deletion terms from the lane's own cells and
+//    lane + 1's first, the insertion chain by one warp scan of the run
+//    minima.  The row is read and written coalesced, through the warp's
+//    row of shared memory (32 C words).  The tip histogram of the new
+//    column (or of the current one, for stats and copies with stats) goes
+//    to the warp's histogram row in shared memory (A words) and is
+//    written to the output's occ row once.  A pushed read that overflows
+//    writes the epoch into the overflow word, then the batch meets one
+//    barrier: a cooperative launch's grid barrier (at the tracked shapes
+//    as fast as one thread-block cluster's, which would take only batches
+//    of up to 16 CTAs).  After it, unless the word holds this call's
+//    epoch, each warp writes its registers straight into its dst slot:
+//    a pushed active read its new band and folds, a copy (src != dst) the
+//    band and fields it read; an inactive read or a row in place without
+//    a push writes nothing of the band, and an in-place push writes one
+//    consensus symbol and the length.  A copy's consensus row is staged in
+//    a scratch row by the threads that write it back, so it too is read
+//    before the barrier.  Stats and finalize take the same kernel with no
+//    barrier and no write.
+//  * slab (wider bands, or a batch whose warps cannot all be resident):
+//    branch_rows_kernel, one warp a (row, read) with both columns in
+//    device memory (band_ops.cuh's `column_step_runs`, so any W and any
+//    alphabet take the same code), a pushed read's new band and a copy's
+//    band into a scratch slab, then branch_commit_kernel, gated on the
+//    overflow word, copies into each dst (row, read) only what changed.
+// The work is a column recurrence on int32 and each warp reads one
+// contiguous band row (2 KB at W = 514) once, coalesced: there is no
+// matrix product for wgmma and no tile worth a TMA descriptor, so neither
+// is used.
 //  * root: one warp a read writes the fresh column; deactivate: one
 //    thread a (slot, read) pair.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "band_ops.cuh"
 
+// One call as the host describes it (ops/branch_kernel.py's `_Call`,
+// field for field), the argument of the C entry `branch_rows_launch` (so
+// outside the unnamed namespace: the entry must keep external linkage).
+struct BranchCall {
+  void* D;
+  void* e;
+  void* rmin;
+  void* er;
+  void* off;
+  void* act;
+  void* cons;
+  void* clen;
+  void* reads;
+  void* rlen;
+  void* rows;       // device rows [3, n]
+  void* rows_host;  // pinned host rows [3, n]
+  void* out;        // device packed output (null: no stats)
+  void* out_host;   // pinned host output: one_launch writes it, the slab
+                    // plan's output is copied into it
+  void* flag;       // device word: the batch's overflow epoch
+  void* slab;
+  void* event;      // the store's event (branch_event)
+  void* stream;
+  int B, R, W, C, L;
+  int n, A, wc, et, mode, votes, epoch;
+  int plan, cells, warps, blocks, smem, commit_blocks, commit_rows;
+  int out_words;    // words fetched into out_host
+};
+
 namespace {
 
+namespace cg = cooperative_groups;
 using band::Folds3;
+using band::kFull;
 using band::kInf;
 
-constexpr int kMaxWarps = 8;  // warps of a CTA of branch_rows / root
+constexpr int kSlabWarps = 8;   // warps of a CTA of branch_rows / root
+constexpr int kOneWarps = 16;   // warps of a CTA of branch_one
+
+enum PlanId { kPlanSlab = 0, kPlanOne = 1 };
 
 // Symbols of one read as the plain twin gathers them (torch_scorer.py's
 // `gather_window`, JAX's `take_along_axis` over clipped positions):
 // positions clamped into [0, L).  It differs from band::GlobalWindow
 // (-1 outside) only where a finite cell faces position -1: a read whose
-// anchor lies past its branch's length, stepped before it.
+// anchor lies past its branch's length, stepped before it (no engine
+// makes such a call; tests/test_torch_window_edge.py).
 struct ClampedWindow {
   const int16_t* rd;
   int L;
@@ -78,18 +140,22 @@ struct Store {
   int B, R, W, C, E;
 };
 
+// A launch's arguments, passed as a __grid_constant__ parameter.
 struct RowsArgs {
   Store s;
   const int16_t* reads;  // [R, L], -1 past a read's end
-  const int32_t* rlen;   // [R]
   const int32_t* rows;   // [3, n]: src slot, dst slot, symbol (-1: copy)
+  const int32_t* rlen;   // [R]
   int32_t* out;          // packed output (null: no stats)
-  int32_t* slab;         // scratch of an advance (null: stats only)
-  int n, L, A, wc, et, votes;
+  int32_t* flag;         // device copy of the batch's overflow word
+  int32_t* slab;         // slab plan: the advance's scratch; one_launch:
+                         // the copies' staged consensus rows [n, C]
+  int n, L, A, wc, et, votes, mode, epoch;
 };
 
-// Packed output (branch_kernel.out_layout): eds, split, reached and fin
+// Packed output (branch_kernel.unpack): eds, split, reached and fin
 // [n, R] each, fin_ovf [n], the batch's overflow word, then occ [n, R, A].
+// A flag is set when it holds the call's epoch.
 __host__ __device__ inline size_t flags_at(int n, int R) {
   return 4 * (size_t)n * R;
 }
@@ -97,8 +163,8 @@ __host__ __device__ inline size_t occ_at(int n, int R) {
   return flags_at(n, R) + n + 1;
 }
 
-// Scratch of an advance (branch_kernel.slab_words): D [n, R, W], then
-// e, rmin, er, off, act [n, R] each, cons [n, C] and clen [n].
+// Scratch of the slab plan's advance (branch_kernel.slab_words): D [n, R,
+// W], then e, rmin, er, off, act [n, R] each, cons [n, C] and clen [n].
 struct Slab {
   int32_t* D;
   int32_t* folds;
@@ -113,8 +179,267 @@ struct Slab {
   }
 };
 
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    branch_rows_kernel(const RowsArgs a) {
+// Lane 0's stats of (row k, read r) = warp w of the batch, at the row's
+// new length; a finalized distance outside the band and a pushed read's
+// overflow set their flags to the call's epoch.
+__device__ __forceinline__ void write_stats(const RowsArgs& a, long long w,
+                                            int k, int act, Folds3 f,
+                                            int split, bool stepped) {
+  const int n = a.n, R = a.s.R, E = a.s.E;
+  const size_t nR = (size_t)n * R;
+  int32_t* o = a.out;
+  o[w] = act ? f.e : 0;
+  o[nR + w] = split;
+  o[2 * nR + w] = act && f.er < kInf && f.e == f.er;
+  const int fin = max(f.e, f.rmin);
+  o[3 * nR + w] = act ? min(fin, kInf) : 0;
+  if (act && fin >= E) o[flags_at(n, R) + k] = a.epoch;
+  if (stepped && f.e >= E) {
+    o[flags_at(n, R) + n] = a.epoch;
+    *a.flag = a.epoch;
+  }
+}
+
+// ---------------------------------------------------------------------
+// one_launch: the band row in registers
+
+// One DP column of one read with the lane's cells [ta, ta + C) in
+// registers `u` (cells past W hold kInf and take no part), ta = lane * C:
+// what band_ops.cuh's `column_step_runs` computes, cell for cell.  `rd`
+// is the read's symbol row, the window starts at read position i0 for
+// cell 0.  With `hist` (the warp's shared row) the tip histogram of the
+// new column goes there and its size to *split.  Returns the new folds.
+template <int C>
+__device__ __forceinline__ Folds3 step_regs(int (&u)[C], const int16_t* rd,
+                                            int L, int W, int rl, int i0,
+                                            int sym, int wc, int et,
+                                            Folds3 f, int* hist,
+                                            int* split) {
+  const int lane = threadIdx.x & 31;
+  const int ta = lane * C;
+  // symbols at read positions i0 - 1 + ta + q, clamped as the twin's
+  // gather: cell q compares ch[q] and votes for ch[q + 1]
+  int ch[C + 1];
+#pragma unroll
+  for (int q = 0; q <= C; ++q) {
+    ch[q] = rd[min(max(i0 - 1 + ta + q, 0), L - 1)];
+  }
+  // the old column's cell above the lane's run: lane + 1's first cell
+  int above = __shfl_down_sync(kFull, u[0], 1);
+  if (lane == 31) above = kInf;
+  int run = INT_MAX;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int t = ta + q;
+    const int d_next = q + 1 < C ? u[q + 1] : above;
+    const int i_new = i0 + t;
+    const int sub = ch[q] != sym && ch[q] != wc;
+    int base = min(u[q] + sub, d_next + 1);
+    if ((unsigned)i_new > (unsigned)rl) base = kInf;  // i_new < 0 or > rl
+    if (t < W) {
+      u[q] = base;
+      run = min(run, base - t);
+    }
+  }
+  // the chain entering this lane: the minimum over the lanes below (a
+  // shuffle from below lane 0 returns the lane's own value)
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    run = min(run, __shfl_up_sync(kFull, run, o));
+  }
+  int x = __shfl_up_sync(kFull, run, 1);
+  if (lane == 0) x = INT_MAX;
+  int colmin = kInf, rend = kInf;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int t = ta + q;
+    if (t < W) {
+      const int base = u[q];
+      x = min(x, base - t);
+      const int dn = min(min(base, x + t), kInf);
+      u[q] = dn;
+      colmin = min(colmin, dn);
+      if (i0 + t == rl) rend = min(rend, dn);
+    }
+  }
+  colmin = __reduce_min_sync(kFull, colmin);
+  rend = __reduce_min_sync(kFull, rend);
+  const int rmin_n = min(f.rmin, rend);
+  const int e_unc = max(f.e, colmin);
+  const int e_cap =
+      f.er < kInf ? f.e : max(f.e, min(colmin, max(f.e, rmin_n)));
+  const int e_n = et ? e_cap : e_unc;
+  const int er_n =
+      f.er < kInf ? f.er : (rmin_n <= e_n ? max(f.e, rmin_n) : kInf);
+  if (hist != nullptr) {
+    int cnt = 0;
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int i = i0 + ta + q;
+      if (ta + q < W && (unsigned)i < (unsigned)rl && u[q] <= e_n) {
+        atomicAdd(&hist[ch[q + 1]], 1);
+        ++cnt;
+      }
+    }
+    *split = __reduce_add_sync(kFull, cnt);
+  }
+  return Folds3{e_n, rmin_n, er_n};
+}
+
+// Tip histogram of the column in registers (cells with D <= e facing a
+// real read base, the window starting at read position i0): band_ops.cuh's
+// `tip_histogram_win`.  Returns the number of tips in every lane.
+template <int C>
+__device__ __forceinline__ int tips_regs(const int (&u)[C], const int16_t* rd,
+                                         int W, int rl, int i0, int e,
+                                         int* hist) {
+  const int ta = (threadIdx.x & 31) * C;
+  int cnt = 0;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const int i = i0 + ta + q;
+    if (ta + q < W && (unsigned)i < (unsigned)rl && u[q] <= e) {
+      atomicAdd(&hist[rd[i]], 1);
+      ++cnt;
+    }
+  }
+  return __reduce_add_sync(kFull, cnt);
+}
+
+// One launch a batch: warp w = (row k, read r).  Without kCommit it
+// reads stats (mode 1) and writes nothing else; with it (a cooperative
+// launch) it advances or copies (mode 0) and commits after the grid
+// barrier.
+template <int C, bool kCommit>
+__global__ void __launch_bounds__(kOneWarps * 32)
+    branch_one_kernel(const __grid_constant__ RowsArgs a) {
+  // [warps][32 C] band rows, then [warps][A] histograms: a row a warp
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  const Store& s = a.s;
+  const int n = a.n, R = s.R, W = s.W, E = s.E;
+  const bool valid = w < (long long)n * R;  // the whole warp
+  const int ta = lane * C;
+  int k = 0, r = 0, src = 0, dst = 0, sym = -1, act = 0, off = 0, cl = 0;
+  bool push = false, moved = false;
+  Folds3 f{0, 0, 0};
+  int u[C];
+  if (valid) {
+    k = (int)(w / R);
+    r = (int)(w % R);
+    const int32_t* rows = a.rows;
+    src = rows[k];
+    dst = rows[n + k];
+    sym = rows[2 * n + k];
+    push = a.mode == 0 && sym >= 0;
+    moved = a.mode == 0 && src != dst;
+    const size_t sr = (size_t)src * R + r;
+    act = s.act[sr];
+    off = s.off[sr];
+    cl = s.clen[src];
+    f = Folds3{s.e[sr], s.rmin[sr], s.er[sr]};
+    const int rl = a.rlen[r];
+    const bool votes = a.out != nullptr && a.votes;
+    const bool step = push && act;
+    const bool tips = votes && act && !step;
+    // the band row, read once: for a step, the tips or a copy
+    const int32_t* Do = s.D + sr * W;
+    const bool need = step || tips || moved;
+    // read coalesced, through the warp's row of shared memory
+    int* band_s = smem + warp * 32 * C;
+    if (need) {
+      for (int t = lane; t < W; t += 32) band_s[t] = Do[t];
+      __syncwarp();
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      u[q] = need && ta + q < W ? band_s[ta + q] : kInf;
+    }
+    int* hist = smem + (blockDim.x >> 5) * 32 * C + warp * a.A;
+    if (votes) {
+      for (int q = lane; q < a.A; q += 32) hist[q] = 0;
+      __syncwarp();
+    }
+    const int16_t* rd = a.reads + (size_t)r * a.L;
+    int split = 0;
+    if (step) {
+      f = step_regs<C>(u, rd, a.L, W, rl, cl + 1 - off - E, sym, a.wc, a.et,
+                       f, votes ? hist : nullptr, &split);
+    } else if (tips) {
+      split = tips_regs<C>(u, rd, W, rl, cl - off - E, f.e, hist);
+    }
+    if (a.out != nullptr) {
+      if (votes) {
+        __syncwarp();
+        int32_t* occ = a.out + occ_at(n, R) + (size_t)w * a.A;
+        for (int q = lane; q < a.A; q += 32) occ[q] = hist[q];
+      }
+      if (lane == 0) write_stats(a, w, k, act, f, split, step);
+    }
+    // a copy's consensus row, staged by the threads that write it back
+    if (kCommit && moved) {
+      const int32_t* cons = s.cons + (size_t)src * s.C;
+      int32_t* stage = a.slab + (size_t)k * s.C;
+      for (long long c = (long long)r * 32 + lane; c < s.C;
+           c += (long long)R * 32) {
+        stage[c] = cons[c];
+      }
+    }
+  }
+  if constexpr (!kCommit) {
+    return;
+  } else {
+    // every src row of the batch is read, and every overflow flagged
+    cg::this_grid().sync();
+    if (!valid) return;
+    if (a.out != nullptr && __ldcg(a.flag) == a.epoch) {
+      return;  // a pushed read reached the band: nothing commits
+    }
+    const size_t dr = (size_t)dst * R + r;
+    if ((push && act) || moved) {
+      // written coalesced, through the warp's row of shared memory
+      int* band_s = smem + warp * 32 * C;
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        if (ta + q < W) band_s[ta + q] = u[q];
+      }
+      __syncwarp();
+      int32_t* Dd = s.D + dr * W;
+      for (int t = lane; t < W; t += 32) Dd[t] = band_s[t];
+      if (lane == 0) {
+        s.e[dr] = f.e;
+        s.rmin[dr] = f.rmin;
+        s.er[dr] = f.er;
+        if (moved) {
+          s.off[dr] = off;
+          s.act[dr] = (uint8_t)act;
+        }
+      }
+    }
+    const int cpos = min(max(cl, 0), s.C - 1);
+    int32_t* cons = s.cons + (size_t)dst * s.C;
+    if (moved) {
+      const int32_t* stage = a.slab + (size_t)k * s.C;
+      for (long long c = (long long)r * 32 + lane; c < s.C;
+           c += (long long)R * 32) {
+        cons[c] = push && c == cpos ? sym : stage[c];
+      }
+    } else if (push && r == 0 && lane == 0) {
+      cons[cpos] = sym;
+    }
+    if (r == 0 && lane == 0 && (push || moved)) {
+      s.clen[dst] = push ? cl + 1 : cl;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// slab: the band in device memory, a commit launch
+
+__global__ void __launch_bounds__(kSlabWarps * 32)
+    branch_rows_kernel(const __grid_constant__ RowsArgs a) {
   const int lane = threadIdx.x & 31;
   const long long w =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -122,11 +447,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int n = a.n, R = s.R, W = s.W, E = s.E;
   if (w >= (long long)n * R) return;  // the whole warp
   const int k = (int)(w / R), r = (int)(w % R);
-  const int src = a.rows[k], sym = a.rows[2 * n + k];
-  const bool push = sym >= 0 && a.slab != nullptr;
+  const int32_t* rows = a.rows;
+  const int src = rows[k], dst = rows[n + k], sym = rows[2 * n + k];
+  const bool push = a.mode == 0 && sym >= 0;
+  const bool moved = a.mode == 0 && src != dst;
   const size_t sr = (size_t)src * R + r;
   const int rl = a.rlen[r], off = s.off[sr], act = s.act[sr];
   const int cl = s.clen[src];
+  const bool step = push && act;
   const int32_t* Do = s.D + sr * W;
   const ClampedWindow win{a.reads + (size_t)r * a.L, a.L};
   Folds3 f{s.e[sr], s.rmin[sr], s.er[sr]};
@@ -138,10 +466,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   const bool votes = hist != nullptr && act;
   int split = 0;
-  if (a.slab != nullptr) {
+  if (a.mode == 0) {
     const Slab sl(a.slab, n, s);
     int32_t* Dn = sl.D + (size_t)w * W;
-    if (push && act) {
+    if (step) {
       const int i0 = cl + 1 - off - E;
       if (votes) {
         f = band::column_step_runs<ClampedWindow, true>(
@@ -151,7 +479,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             Do, Dn, win, W, rl, i0, sym, a.wc, a.et, f, nullptr, nullptr);
       }
     } else {
-      for (int t = lane; t < W; t += 32) Dn[t] = Do[t];
+      // a copy carries its band through the slab; a row in place keeps
+      // its own
+      if (moved) {
+        for (int t = lane; t < W; t += 32) Dn[t] = Do[t];
+      }
       if (votes) {
         split = band::tip_histogram_win(Do, win, W, rl, cl - off - E, f.e,
                                         hist);
@@ -165,64 +497,77 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       sl.folds[3 * nR + w] = off;
       sl.folds[4 * nR + w] = act;
     }
-    // the row's consensus, spread over its R warps
-    const int32_t* cons = s.cons + (size_t)src * s.C;
-    int32_t* cons_n = sl.cons + (size_t)k * s.C;
-    const int cpos = min(max(cl, 0), s.C - 1);
-    for (long long c = (long long)r * 32 + lane; c < s.C;
-         c += (long long)R * 32) {
-      cons_n[c] = push && c == cpos ? sym : cons[c];
+    // a copy's consensus row, spread over its R warps
+    if (moved) {
+      const int32_t* cons = s.cons + (size_t)src * s.C;
+      int32_t* cons_n = sl.cons + (size_t)k * s.C;
+      for (long long c = (long long)r * 32 + lane; c < s.C;
+           c += (long long)R * 32) {
+        cons_n[c] = cons[c];
+      }
     }
-    if (r == 0 && lane == 0) sl.clen[k] = push ? cl + 1 : cl;
+    if (r == 0 && lane == 0) sl.clen[k] = cl;
   } else if (votes) {
     split = band::tip_histogram_win(Do, win, W, rl, cl - off - E, f.e, hist);
   }
   if (a.out == nullptr || lane != 0) return;
-  const size_t nR = (size_t)n * R;
-  int32_t* o = a.out;
-  o[w] = act ? f.e : 0;
-  o[nR + w] = split;
-  o[2 * nR + w] = act && f.er < kInf && f.e == f.er;
-  const int fin = max(f.e, f.rmin);
-  o[3 * nR + w] = act ? min(fin, kInf) : 0;
-  if (act && fin >= E) atomicOr(&o[flags_at(n, R) + k], 1);
-  if (push && act && f.e >= E) atomicOr(&o[flags_at(n, R) + n], 1);
+  write_stats(a, w, k, act, f, split, step);
 }
 
-// Row k of the batch's slab into slot rows[1][k], unless the batch's
-// overflow word is set (rows over gridDim.y, a row's words over the
-// CTAs of gridDim.x).
-__global__ void __launch_bounds__(256) branch_commit_kernel(const RowsArgs a) {
+// The slab into the dst slots, unless the batch's overflow word holds the
+// call's epoch: (row, read) pairs over gridDim.y, a pair's words over the
+// CTAs of gridDim.x.  A pair writes its band and folds only when its read
+// was pushed active or its row copies (src != dst); an in-place push
+// writes one consensus symbol.
+__global__ void __launch_bounds__(256)
+    branch_commit_kernel(const __grid_constant__ RowsArgs a) {
   const Store& s = a.s;
-  const int n = a.n, R = s.R;
-  if (a.out != nullptr && a.out[flags_at(n, R) + n] != 0) return;
+  const int n = a.n, R = s.R, W = s.W;
+  if (a.out != nullptr && *a.flag == a.epoch) return;
   const Slab sl(a.slab, n, s);
-  const size_t nR = (size_t)n * R, RW = (size_t)R * s.W;
-  const size_t step = (size_t)gridDim.x * blockDim.x;
+  const size_t nR = (size_t)n * R;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int k = blockIdx.y; k < n; k += gridDim.y) {
-    const size_t dst = (size_t)a.rows[n + k];
-    int32_t* D = s.D + dst * RW;
-    const int32_t* Ds = sl.D + (size_t)k * RW;
-    for (size_t i = tid; i < RW; i += step) D[i] = Ds[i];
-    for (size_t r = tid; r < (size_t)R; r += step) {
-      const size_t q = (size_t)k * R + r, d = dst * R + r;
-      s.e[d] = sl.folds[q];
-      s.rmin[d] = sl.folds[nR + q];
-      s.er[d] = sl.folds[2 * nR + q];
-      s.off[d] = sl.folds[3 * nR + q];
-      s.act[d] = (uint8_t)sl.folds[4 * nR + q];
+  for (size_t p = blockIdx.y; p < nR; p += gridDim.y) {
+    const int k = (int)(p / R), r = (int)(p % R);
+    const int32_t* rows = a.rows;
+    const int src = rows[k], dst = rows[n + k], sym = rows[2 * n + k];
+    const bool push = sym >= 0, moved = src != dst;
+    const int act = sl.folds[4 * nR + p];
+    const size_t d = (size_t)dst * R + r;
+    if ((push && act) || moved) {
+      int32_t* D = s.D + d * W;
+      const int32_t* Ds = sl.D + p * W;
+      for (size_t i = tid; i < (size_t)W; i += stride) D[i] = Ds[i];
+      if (tid == 0) {
+        s.e[d] = sl.folds[p];
+        s.rmin[d] = sl.folds[nR + p];
+        s.er[d] = sl.folds[2 * nR + p];
+        if (moved) {
+          s.off[d] = sl.folds[3 * nR + p];
+          s.act[d] = (uint8_t)act;
+        }
+      }
     }
-    for (size_t c = tid; c < (size_t)s.C; c += step) {
-      s.cons[dst * s.C + c] = sl.cons[(size_t)k * s.C + c];
+    if (r != 0) continue;
+    const int cl = sl.clen[k];
+    const size_t cpos = (size_t)min(max(cl, 0), s.C - 1);
+    int32_t* cons = s.cons + (size_t)dst * s.C;
+    if (moved) {
+      const int32_t* cs = sl.cons + (size_t)k * s.C;
+      for (size_t c = tid; c < (size_t)s.C; c += stride) {
+        cons[c] = push && c == cpos ? sym : cs[c];
+      }
+    } else if (push && tid == 0) {
+      cons[cpos] = sym;
     }
-    if (tid == 0) s.clen[dst] = sl.clen[k];
+    if (tid == 0 && (push || moved)) s.clen[dst] = push ? cl + 1 : cl;
   }
 }
 
 // The fresh column of every read of `slot` (torch_scorer.init_col at
 // off = 0), one warp a read.
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kSlabWarps * 32)
     branch_root_kernel(const Store s, const int32_t* rlen,
                        const uint8_t* act_in, int slot) {
   const int lane = threadIdx.x & 31;
@@ -273,87 +618,280 @@ Store make_store(void* D, void* e, void* rmin, void* er, void* off,
   return s;
 }
 
+// Most dynamic shared memory a CTA of sm_90 may take (with the opt-in).
+constexpr int kMaxSmem = 232448;
+
+// Lets `fn` take up to kMaxSmem bytes of dynamic shared memory (the
+// default is 48 KB); once a kernel.
+int allow_smem(const void* fn) {
+  static const void* done[32] = {};
+  for (const void*& slot : done) {
+    if (slot == fn) return 0;
+    if (slot == nullptr) {
+      cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err == cudaSuccess) slot = fn;
+      return (int)err;
+    }
+  }
+  return 0;
+}
+
+template <int C, bool kCommit>
+int launch_one_as(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
+  auto* fn = branch_one_kernel<C, kCommit>;
+  const dim3 grid(c.blocks), block(c.warps * 32);
+  const size_t smem = (size_t)c.smem;
+  if (smem > 48 * 1024) {
+    const int rc = allow_smem(reinterpret_cast<const void*>(fn));
+    if (rc != 0) return rc;
+  }
+  if constexpr (kCommit) {
+    void* args[] = {const_cast<RowsArgs*>(&a)};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(fn), grid, block, args, smem, st);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    fn<<<grid, block, smem, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kCommit>
+int launch_one(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
+  switch (c.cells) {
+    case 1: return launch_one_as<1, kCommit>(a, c, st);
+    case 2: return launch_one_as<2, kCommit>(a, c, st);
+    case 3: return launch_one_as<3, kCommit>(a, c, st);
+    case 5: return launch_one_as<5, kCommit>(a, c, st);
+    case 9: return launch_one_as<9, kCommit>(a, c, st);
+    case 17: return launch_one_as<17, kCommit>(a, c, st);
+    default: return -1;
+  }
+}
+
+// The committing instance on `cells` cells a lane (null: none), whose
+// CTAs must all be resident.
+const void* commit_kernel(int cells) {
+  switch (cells) {
+    case 1: return reinterpret_cast<const void*>(branch_one_kernel<1, true>);
+    case 2: return reinterpret_cast<const void*>(branch_one_kernel<2, true>);
+    case 3: return reinterpret_cast<const void*>(branch_one_kernel<3, true>);
+    case 5: return reinterpret_cast<const void*>(branch_one_kernel<5, true>);
+    case 9: return reinterpret_cast<const void*>(branch_one_kernel<9, true>);
+    case 17:
+      return reinterpret_cast<const void*>(branch_one_kernel<17, true>);
+    default: return nullptr;
+  }
+}
+
+// Whether the call's plan covers it and agrees with the kernels' layout.
+bool plan_covers(const BranchCall& c) {
+  const long long nR = (long long)c.n * c.R;
+  const bool base =
+      (c.mode == 0 || c.mode == 1) && c.n >= 1 && c.B >= 1 && c.R >= 1 &&
+      c.C >= 1 && c.L >= 1 && c.W >= 4 && c.W % 2 == 0 && c.blocks >= 1 &&
+      c.D && c.e && c.rmin && c.er && c.off && c.act && c.cons && c.clen &&
+      c.reads && c.rlen && c.rows &&
+      (c.mode == 0 || c.out != nullptr) &&
+      (c.out == nullptr || (c.epoch > kInf && (!c.votes || c.A >= 1)));
+  if (!base) return false;
+  if (c.plan == kPlanOne) {
+    return (c.mode == 1 || c.slab != nullptr) &&
+           commit_kernel(c.cells) != nullptr && 32LL * c.cells >= c.W &&
+           c.warps >= 1 && c.warps <= kOneWarps &&
+           (long long)c.warps * c.blocks >= nR && c.smem <= kMaxSmem &&
+           (long long)c.smem >=
+               4LL * c.warps * (32LL * c.cells + (c.votes ? c.A : 0));
+  }
+  return c.plan == kPlanSlab && c.warps >= 1 && c.warps <= kSlabWarps &&
+         (long long)c.warps * c.blocks >= nR &&
+         (c.mode == 0 ? c.slab != nullptr && c.commit_blocks >= 1 &&
+                            c.commit_rows >= 1 && c.commit_rows <= 65535
+                      : c.slab == nullptr);
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each returns 0 on success,
 // -1 when the plan (`plan_branch` in ops/branch_kernel.py) does not cover
-// the call, else the CUDA error; none synchronises.  The host checks the
-// slots and reads of `rows` and `pairs` against B and R.
+// the call, else the CUDA error.  The host checks the slots and reads of
+// `rows` and `pairs` against B and R.  A host buffer is pinned: an upload
+// from it is one async copy, and every call that returns without waiting
+// records the store's event, on which the host waits (branch_event_sync)
+// before it writes the pinned rows again.
 
-// `mode` 0 advances rows [3, n] (src, dst, sym; sym -1 copies) of the
-// store through the slab `slab` and commits them unless the batch
+namespace {
+
+// One async copy of `bytes` from the pinned host to the device, unless
+// there is nothing to copy.
+int upload(void* dev, const void* host, size_t bytes, cudaStream_t st) {
+  if (bytes == 0) return 0;
+  return (int)cudaMemcpyAsync(dev, host, bytes, cudaMemcpyHostToDevice, st);
+}
+
+// After a launch: with `out_host`, the output copied into it (when the
+// kernel wrote it on the device: `out` set) and one wait on the event;
+// else the event marks the upload for the next call.
+int finish(void* event, void* out_host, const void* out, size_t bytes,
+           cudaStream_t st) {
+  cudaEvent_t ev = static_cast<cudaEvent_t>(event);
+  if (out_host != nullptr) {
+    cudaError_t err = cudaSuccess;
+    if (out != nullptr) {
+      err = cudaMemcpyAsync(out_host, out, bytes, cudaMemcpyDeviceToHost,
+                            st);
+    }
+    if (err == cudaSuccess) err = cudaEventRecord(ev, st);
+    if (err == cudaSuccess) err = cudaEventSynchronize(ev);
+    return (int)err;
+  }
+  return (int)cudaEventRecord(ev, st);
+}
+
+}  // namespace
+
+// A new event for a store's calls (no timing), into *event.
+extern "C" int branch_event(void** event) {
+  if (event == nullptr) return -1;
+  cudaEvent_t ev;
+  cudaError_t err = cudaEventCreateWithFlags(&ev, cudaEventDisableTiming);
+  *event = err == cudaSuccess ? static_cast<void*>(ev) : nullptr;
+  return (int)err;
+}
+
+extern "C" int branch_event_free(void* event) {
+  return (int)cudaEventDestroy(static_cast<cudaEvent_t>(event));
+}
+
+extern "C" int branch_event_sync(void* event) {
+  return (int)cudaEventSynchronize(static_cast<cudaEvent_t>(event));
+}
+
+// One call (`BranchCall`).  `mode` 0 advances rows [3, n] (src, dst, sym;
+// sym -1 copies) of the store and commits them unless the batch
 // overflows; `out` (packed stats, null: none) gets every row's stats at
 // its new length.  `mode` 1 reads the stats of rows (slot, slot, -1) into
 // `out` and writes nothing else.  `votes` 0 skips the histogram (occ and
-// split are left unwritten).  `warps` warps a CTA, `blocks` CTAs of the
-// rows launch, `commit_blocks` x `commit_rows` CTAs of the commit.
-extern "C" int branch_rows_launch(
-    int mode, int votes, void* D, void* e, void* rmin, void* er, void* off,
-    void* act, void* cons, void* clen, void* reads, void* rlen, void* rows,
-    void* out, void* slab, int B, int R, int W, int C, int L, int n, int A,
-    int wc, int et, int warps, int blocks, int commit_blocks,
-    int commit_rows, void* stream) {
-  const bool plan_ok =
-      (mode == 0 || mode == 1) && n >= 1 && B >= 1 && R >= 1 && C >= 1 &&
-      L >= 1 && W >= 4 && W % 2 == 0 && warps >= 1 && warps <= kMaxWarps &&
-      blocks >= 1 && (long long)warps * blocks >= (long long)n * R &&
-      (mode == 0 ? slab != nullptr && commit_blocks >= 1 &&
-                       commit_rows >= 1 && commit_rows <= 65535
-                 : slab == nullptr && out != nullptr) &&
-      (out == nullptr || !votes || A >= 1);
-  if (!plan_ok) return -1;
-  RowsArgs a;
-  a.s = make_store(D, e, rmin, er, off, act, cons, clen, B, R, W, C);
-  a.reads = static_cast<const int16_t*>(reads);
-  a.rlen = static_cast<const int32_t*>(rlen);
-  a.rows = static_cast<const int32_t*>(rows);
-  a.out = static_cast<int32_t*>(out);
-  a.slab = static_cast<int32_t*>(slab);
-  a.n = n;
-  a.L = L;
-  a.A = A;
-  a.wc = wc;
-  a.et = et;
-  a.votes = votes;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.out != nullptr) {
-    cudaError_t err = cudaMemsetAsync(a.out + flags_at(n, R), 0,
-                                      (size_t)(n + 1) * sizeof(int32_t), st);
-    if (err != cudaSuccess) return (int)err;
+// split are left unwritten).  `plan` 1 (one_launch) is branch_one on
+// `cells` cells a lane, `warps` x `blocks`, `smem` bytes of band and
+// histogram rows, for mode 0 a cooperative launch behind the grid barrier;
+// `slab` then holds the copies' consensus rows [n, C].  `plan` 0
+// (slab) is branch_rows on `warps` x `blocks`, then for mode 0
+// branch_commit on `commit_blocks` x `commit_rows` CTAs, through the
+// scratch `slab` (branch_kernel.slab_words).  The rows are one async copy
+// from the pinned `rows_host` to `rows`.
+// With `out_host` (pinned, so the card reaches it) the call returns when
+// the output is there: the one-launch kernel writes it straight into
+// `out_host`, the slab plan into `out`, whose first `out_words` words are
+// then copied; `flag` is the device word the commit tests for an
+// overflow.  Without `out_host` the call returns at once.
+extern "C" int branch_rows_launch(const BranchCall* call) {
+  if (call == nullptr || !plan_covers(*call) || call->event == nullptr ||
+      call->rows_host == nullptr ||
+      (call->out_host != nullptr &&
+       (call->out == nullptr || call->flag == nullptr ||
+        call->out_words < 1))) {
+    return -1;
   }
-  branch_rows_kernel<<<blocks, warps * 32, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || mode == 1) return (int)err;
-  branch_commit_kernel<<<dim3(commit_blocks, commit_rows), 256, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  const BranchCall& c = *call;
+  cudaStream_t st = static_cast<cudaStream_t>(c.stream);
+  RowsArgs a;
+  a.s = make_store(c.D, c.e, c.rmin, c.er, c.off, c.act, c.cons, c.clen,
+                   c.B, c.R, c.W, c.C);
+  a.reads = static_cast<const int16_t*>(c.reads);
+  a.rows = static_cast<const int32_t*>(c.rows);
+  a.rlen = static_cast<const int32_t*>(c.rlen);
+  const bool direct = c.plan == kPlanOne && c.out_host != nullptr;
+  a.out = static_cast<int32_t*>(direct ? c.out_host : c.out);
+  a.flag = static_cast<int32_t*>(c.flag);
+  a.slab = static_cast<int32_t*>(c.slab);
+  a.n = c.n;
+  a.L = c.L;
+  a.A = c.A;
+  a.wc = c.wc;
+  a.et = c.et;
+  a.votes = c.votes;
+  a.mode = c.mode;
+  a.epoch = c.epoch;
+  int rc = upload(c.rows, c.rows_host, 3 * sizeof(int32_t) * (size_t)c.n,
+                  st);
+  if (rc != 0) return rc;
+  if (c.plan == kPlanOne) {
+    rc = c.mode == 0 ? launch_one<true>(a, c, st)
+                     : launch_one<false>(a, c, st);
+  } else {
+    branch_rows_kernel<<<c.blocks, c.warps * 32, 0, st>>>(a);
+    rc = (int)cudaGetLastError();
+    if (rc == 0 && c.mode == 0) {
+      branch_commit_kernel<<<dim3(c.commit_blocks, c.commit_rows), 256, 0,
+                             st>>>(a);
+      rc = (int)cudaGetLastError();
+    }
+  }
+  if (rc != 0) return rc;
+  return finish(c.event, c.out_host, direct ? nullptr : c.out,
+                sizeof(int32_t) * (size_t)c.out_words, st);
+}
+
+// CTAs of the committing branch_one on `cells` cells a lane that one SM
+// holds at once with `warps` warps and `smem` bytes of shared memory, into
+// *per_sm (`plan_branch`'s residency test).
+extern "C" int branch_occupancy(int cells, int warps, int smem, int* per_sm) {
+  const void* fn = commit_kernel(cells);
+  if (fn == nullptr || per_sm == nullptr || warps < 1 ||
+      warps > kOneWarps || smem < 0 || smem > kMaxSmem) {
+    return -1;
+  }
+  if (smem > 48 * 1024) {
+    const int rc = allow_smem(fn);
+    if (rc != 0) return rc;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, fn, warps * 32, (size_t)smem);
 }
 
 // Roots slot `slot`: the fresh column of every read, active where
-// act_in [R] (uint8) says, consensus length 0.
+// act_in [R] (uint8, copied from the pinned `act_host` first) says,
+// consensus length 0.
 extern "C" int branch_root_launch(void* D, void* e, void* rmin, void* er,
                                   void* off, void* act, void* clen,
-                                  void* rlen, void* act_in, int slot, int B,
-                                  int R, int W, int warps, int blocks,
+                                  void* rlen, void* act_in, void* act_host,
+                                  void* event, int slot, int B, int R,
+                                  int W, int warps, int blocks,
                                   void* stream) {
   const bool plan_ok = slot >= 0 && slot < B && R >= 1 && W >= 4 &&
-                       W % 2 == 0 && warps >= 1 && warps <= kMaxWarps &&
-                       (long long)warps * blocks >= R && act_in != nullptr;
+                       W % 2 == 0 && warps >= 1 && warps <= kSlabWarps &&
+                       (long long)warps * blocks >= R && act_in != nullptr &&
+                       act_host != nullptr && event != nullptr;
   if (!plan_ok) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = upload(act_in, act_host, (size_t)R, st);
+  if (rc != 0) return rc;
   const Store s =
       make_store(D, e, rmin, er, off, act, nullptr, clen, B, R, W, 1);
-  branch_root_kernel<<<blocks, warps * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  branch_root_kernel<<<blocks, warps * 32, 0, st>>>(
       s, static_cast<const int32_t*>(rlen),
       static_cast<const uint8_t*>(act_in), slot);
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : finish(event, nullptr, nullptr, 0, st);
 }
 
-// Clears act[pairs[0][i], pairs[1][i]] for each of the `m` pairs [2, m].
-extern "C" int branch_deactivate_launch(void* act, void* pairs, int m, int B,
-                                        int R, int blocks, void* stream) {
-  if (m < 1 || B < 1 || R < 1 || (long long)blocks * 256 < m) return -1;
-  branch_deactivate_kernel<<<blocks, 256, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+// Clears act[pairs[0][i], pairs[1][i]] for each of the `m` pairs [2, m]
+// (copied from the pinned `pairs_host` first).
+extern "C" int branch_deactivate_launch(void* act, void* pairs,
+                                        void* pairs_host, void* event,
+                                        int m, int B, int R, int blocks,
+                                        void* stream) {
+  if (m < 1 || B < 1 || R < 1 || (long long)blocks * 256 < m ||
+      pairs == nullptr || pairs_host == nullptr || event == nullptr) {
+    return -1;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = upload(pairs, pairs_host, 2 * sizeof(int32_t) * m, st);
+  if (rc != 0) return rc;
+  branch_deactivate_kernel<<<blocks, 256, 0, st>>>(
       static_cast<uint8_t*>(act), static_cast<const int32_t*>(pairs), m, R);
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : finish(event, nullptr, nullptr, 0, st);
 }

@@ -12,12 +12,19 @@ source, ``csrc/branch_step.cu``, in the style of
   (:func:`root_plain`, :func:`advance_plain`, :func:`stats_plain`,
   :func:`finalize_plain`, :func:`deactivate_plain`), each counted in its
   ``.calls``;
-* :func:`plan_branch`, the kernels' launch geometry, which takes every
-  shape the store can hold: the band and the tip histogram live in device
-  memory, so neither the width nor the alphabet bounds a launch;
+* :func:`plan_branch`, the launch plan of a call, picked before the
+  launch from the shape and the card's occupancy: ``one_launch`` (one
+  launch a batch, each band row in registers, a grid barrier before the
+  commit) where the band fits a warp's registers and every warp of the
+  batch is resident, else ``slab`` (the band in device memory, a commit
+  launch), which takes every shape the store can hold;
+* :class:`BranchBuffers`, a store's persistent device and pinned host
+  buffers (the rows, the packed output, the scratch), its checked
+  geometry and its call record, grown as needed (a call given none uses
+  the module's own);
 * the CUDA wrappers (``*_cuda``), every launch through
-  :func:`branch_cuda`, counted in ``branch_cuda.launches`` (and by entry
-  in ``branch_cuda.entries``);
+  :func:`branch_cuda`, counted in ``branch_cuda.launches`` (kernels
+  launched) and in ``branch_cuda.entries`` (by call and by plan);
 * the dispatch (:func:`root`, :func:`advance`, :func:`stats`,
   :func:`finalize`, :func:`deactivate`): tensors on the CPU take the twin,
   tensors on a CUDA device launch the kernel or raise.
@@ -29,29 +36,46 @@ An advance takes rows ``(src, dst, sym)``: ``sym == -1`` copies slot
 written, and the batch commits nothing when any pushed read's edit
 distance reaches the band (``e >= E``): the caller grows the band and
 retries.  Results come back to the host as :class:`BranchOut` numpy
-arrays; the kernel's packed output is fetched in one copy.
+arrays.  On ``cuda`` the packed output lands in the store's pinned
+buffer (written there by the one-launch kernel, or in one copy from the
+slab plan's device output), and the arrays are views of it, valid until
+the next call on those buffers (``TorchScorer`` converts them at once).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from waffle_con_tpu_torch.ops import cuda_build
 from waffle_con_tpu_torch.ops import replay_kernel as rpk
 from waffle_con_tpu_torch.ops import torch_scorer as ts
 
-#: warps of a CTA of the rows and root launches, one (row, read) a warp
+#: cells a lane of the one-launch kernel holds, by kernel instance (a
+#: band takes the smallest with ``32 * cells >= W``)
+CELLS = (1, 2, 3, 5, 9, 17)
+#: warps of a CTA of the one-launch kernel, one (row, read) each
+ONE_WARPS = 16
+#: most shared memory of a one-launch CTA (its warps' band rows and
+#: histogram rows; past 48 KB with the kernel's opt-in)
+ONE_SMEM_MAX = 232448
+#: warps of a CTA of the slab plan's rows launch and of root
 ROW_WARPS = 8
 #: threads of a CTA of the commit and deactivate launches
 COPY_THREADS = 256
-#: most CTAs of the commit on one row (each thread copies several words)
+#: most CTAs of the commit on one (row, read) pair
 COMMIT_CTAS = 264
-#: most rows of the commit's grid (its y dimension); rows past it loop
+#: most pairs of the commit's grid (its y dimension); pairs past it loop
 COMMIT_ROWS = 65535
+#: the first call's epoch: a flag of the packed output is set when it
+#: holds its call's epoch, which is above every other output value (at
+#: most ``torch_scorer.INF``), so no launch clears the flags
+EPOCH0 = 2 * ts.INF
+#: the plans' names, as ``branch_cuda.entries`` counts them
+PLANS = ("one_launch", "slab")
 
 
 class BranchOut(NamedTuple):
@@ -76,56 +100,114 @@ class BranchOut(NamedTuple):
 
 
 class BranchPlan(NamedTuple):
-    """Launch geometry of one call of ``csrc/branch_step.cu``."""
+    """Launch plan of one call of ``csrc/branch_step.cu``."""
 
-    #: warps of a CTA of the rows launch, one (row, read) each
+    #: ``"one_launch"`` or ``"slab"``
+    name: str
+    #: the call writes the store back (an advance or a copy; False for
+    #: stats and finalize): on one_launch a cooperative launch, its grid
+    #: barrier before the commit
+    commit: bool
+    #: band cells a lane holds (one_launch; 0 on the slab plan)
+    cells: int
+    #: warps of a CTA, one (row, read) each, and CTAs
     warps: int
-    #: CTAs of the rows launch
     blocks: int
-    #: CTAs of the commit on one row, and rows of its grid
+    #: bytes of shared memory a CTA (one_launch's band and histogram
+    #: rows, :func:`one_launch_smem`)
+    smem: int
+    #: CTAs of the slab plan's commit on one pair, and pairs of its grid
+    #: (0: no commit launch)
     commit_blocks: int
     commit_rows: int
     #: words of the packed output without and with the ``occ`` plane
     head_words: int
     out_words: int
 
+    @property
+    def kernels(self) -> int:
+        """Kernels a call on this plan launches."""
+        return 2 if self.commit_rows else 1
 
-def plan_branch(n: int, R: int, W: int, A: int) -> BranchPlan:
-    """The launch geometry of a call on ``n`` rows of ``R`` reads, ``W``
-    band cells and ``A`` symbols.  Every shape the store can hold is
-    taken: one warp a (row, read), 8 a CTA, the band and the histogram
-    in device memory; the commit copies a row's ``R x W`` words with up
-    to ``COMMIT_CTAS`` CTAs.  Raises ``ValueError`` only on an empty
-    batch or a band that is not ``2E + 2`` cells."""
+
+def one_launch_cells(W: int) -> int:
+    """Cells a lane of the one-launch kernel holds for a band of ``W``
+    cells (0: wider than a warp's registers take)."""
+    return next((c for c in CELLS if 32 * c >= W), 0)
+
+
+def one_launch_smem(cells: int, A: int) -> int:
+    """Bytes of shared memory of a one-launch CTA: each warp's band row
+    (``32 * cells`` words) and histogram row (``A`` words)."""
+    return 4 * ONE_WARPS * (32 * cells + A)
+
+
+def plan_branch(n: int, R: int, W: int, A: int, sms: int, per_sm: int,
+                commit: bool = True) -> BranchPlan:
+    """The launch plan of a call on ``n`` rows of ``R`` reads, ``W`` band
+    cells and ``A`` histogram symbols (1 without the histogram), on a card
+    of ``sms`` SMs that hold ``per_sm`` one-launch CTAs each at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); ``commit`` False
+    for stats and finalize, which write nothing back.
+
+    ``one_launch`` where the band fits a warp's registers (``W <= 32 *
+    CELLS[-1]`` = 544) and a CTA's band and histogram rows fit
+    ``ONE_SMEM_MAX``: a warp a (row, read), ``ONE_WARPS`` a CTA; an
+    advance or a copy takes it only when every CTA is resident (``sms *
+    per_sm``), as its grid barrier needs.  Anything else takes ``slab``,
+    which takes every shape the store can hold.  Raises ``ValueError``
+    only on an empty batch or a band that is not ``2E + 2`` cells."""
     if n < 1 or R < 1 or A < 1 or W < 4 or W % 2:
         raise ValueError(f"no branch plan for n={n}, R={R}, W={W}, A={A}")
-    blocks = -(-n * R // ROW_WARPS)
-    commit = max(1, min(COMMIT_CTAS, -(-R * W // (4 * COPY_THREADS))))
-    head = 4 * n * R + n + 1
-    return BranchPlan(ROW_WARPS, blocks, commit, min(n, COMMIT_ROWS), head,
-                      head + n * R * A)
+    nR = n * R
+    head = 4 * nR + n + 1
+    out = head + nR * A
+    cells = one_launch_cells(W)
+    smem = one_launch_smem(cells, A)
+    blocks = -(-nR // ONE_WARPS)
+    if (cells and smem <= ONE_SMEM_MAX
+            and (not commit or blocks <= sms * per_sm)):
+        return BranchPlan("one_launch", commit, cells, ONE_WARPS, blocks,
+                          smem, 0, 0, head, out)
+    copy_ctas = max(1, min(COMMIT_CTAS, -(-W // (4 * COPY_THREADS))))
+    return BranchPlan(
+        "slab", commit, 0, ROW_WARPS, -(-nR // ROW_WARPS), 0,
+        copy_ctas if commit else 0, min(nR, COMMIT_ROWS) if commit else 0,
+        head, out)
 
 
 def slab_words(n: int, R: int, W: int, C: int) -> int:
-    """int32 words of an advance's scratch slab: the new band, the five
-    per-read fields (``e``, ``rmin``, ``er``, ``off``, ``act``), the
-    consensus and the length of every row."""
+    """int32 words of the slab plan's scratch for an advance: the new
+    band, the five per-read fields (``e``, ``rmin``, ``er``, ``off``,
+    ``act``), the consensus and the length of every row."""
     return n * R * W + 5 * n * R + n * C + n
 
 
-def unpack(host: np.ndarray, n: int, R: int, A: int, votes: bool) -> BranchOut:
+def scratch_words(plan: BranchPlan, n: int, R: int, W: int, C: int) -> int:
+    """int32 words of a call's scratch: the slab plan's advance slab, or
+    the one-launch plan's staged consensus rows of its copies (``[n,
+    C]``); none for stats and finalize."""
+    if plan.name == "slab":
+        return slab_words(n, R, W, C) if plan.commit_rows else 0
+    return n * C if plan.commit else 0
+
+
+def unpack(host: np.ndarray, n: int, R: int, A: int, votes: bool,
+           epoch: int) -> BranchOut:
     """A packed output (``csrc/branch_step.cu``'s layout: ``eds``,
     ``split``, ``reached``, ``fin`` ``[n, R]`` each, the rows' ``fin``
     overflow flags ``[n]``, the batch's overflow word, then ``occ [n, R,
-    A]``) as a :class:`BranchOut`."""
+    A]``) as a :class:`BranchOut` of views of ``host``; a flag is set
+    when it holds the call's ``epoch``."""
     nR = n * R
     field = lambda i: host[i * nR:(i + 1) * nR].reshape(n, R)  # noqa: E731
     flags = host[4 * nR:4 * nR + n + 1]
     occ = host[4 * nR + n + 1:4 * nR + n + 1 + nR * A]
     return BranchOut(
         eds=field(0), occ=occ.reshape(n, R, A) if votes else None,
-        split=field(1) if votes else None, reached=field(2).astype(bool),
-        fin=field(3), fin_ok=flags[:n] == 0, overflow=bool(flags[n]),
+        split=field(1) if votes else None, reached=field(2) != 0,
+        fin=field(3), fin_ok=flags[:n] != epoch,
+        overflow=bool(flags[n] == epoch),
     )
 
 
@@ -143,8 +225,10 @@ def _check_rows(state, rows: np.ndarray, pushes: bool) -> None:
     B = state["D"].shape[0]
     if rows[:2].min() < 0 or rows[:2].max() >= B:
         raise ValueError(f"rows: slots outside [0, {B})")
-    if len(set(rows[1].tolist())) != rows.shape[1]:
-        raise ValueError("rows: duplicate destination slots")
+    if rows.shape[1] > 1:
+        dst = np.sort(rows[1])
+        if (dst[1:] == dst[:-1]).any():
+            raise ValueError("rows: duplicate destination slots")
     if not pushes and (rows[2] >= 0).any():
         raise ValueError("rows: a copy without stats cannot push")
 
@@ -290,31 +374,51 @@ def plain_calls() -> int:
 
 
 # ---------------------------------------------------------------------
-# CUDA kernels: bind, launch (the build lives in ops/cuda_build.py)
+# CUDA kernels: bind, launch (the build lives in ops/cuda_build.py, the
+# binding helpers in ops/replay_kernel.py)
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "rows": [_INT] * 2 + [_PTR] * 13 + [_INT] * 13 + [_PTR],
-    "root": [_PTR] * 9 + [_INT] * 6 + [_PTR],
-    "deactivate": [_PTR] * 2 + [_INT] * 4 + [_PTR],
+    "rows": [_PTR],
+    "root": [_PTR] * 11 + [_INT] * 6 + [_PTR],
+    "deactivate": [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
 
 
-def branch_cuda(entry: str, launcher: str, *args) -> None:
+class _Call(ctypes.Structure):
+    """One call of ``branch_rows_launch``: ``csrc/branch_step.cu``'s
+    ``BranchCall``, field for field."""
+
+    _fields_ = [(name, _PTR) for name in (
+        "D", "e", "rmin", "er", "off", "act", "cons", "clen", "reads",
+        "rlen", "rows", "rows_host", "out", "out_host", "flag", "slab",
+        "event", "stream")] + [(name, _INT) for name in (
+            "B", "R", "W", "C", "L", "n", "A", "wc", "et", "mode", "votes",
+            "epoch", "plan", "cells", "warps", "blocks", "smem",
+            "commit_blocks", "commit_rows", "out_words")]
+
+
+def branch_cuda(entry: str, launcher: str, *args,
+                plan: Optional[BranchPlan] = None) -> None:
     """Call the C entry ``branch_<launcher>_launch`` of
     ``csrc/branch_step.cu`` with ``args``; raises when it refuses the plan
-    or the launch fails, never falls back.  Each call adds one to
-    ``branch_cuda.launches`` and to ``branch_cuda.entries[entry]``."""
+    or the launch fails, never falls back.  Each call adds the kernels it
+    launched to ``branch_cuda.launches`` and one to
+    ``branch_cuda.entries[entry]`` and, for a call on ``plan``, to
+    ``branch_cuda.entries[plan.name]``."""
     name = f"branch_{launcher}_launch"
     rc = rpk._bind(name, _ARGTYPES[launcher])(*args)
     rpk._raise_on(rc, f"branch_step {entry}", name)
-    branch_cuda.launches += 1
+    branch_cuda.launches += 1 if plan is None else plan.kernels
     branch_cuda.entries[entry] += 1
+    if plan is not None:
+        branch_cuda.entries[plan.name] += 1
+        branch_cuda.last_plan = plan
 
 
 branch_cuda.launches = 0
 branch_cuda.entries = dict.fromkeys(
-    ("root", "copy", "advance", "stats", "finalize", "deactivate"), 0)
+    ("root", "copy", "advance", "stats", "finalize", "deactivate") + PLANS, 0)
 branch_cuda.last_plan = None
 
 
@@ -339,68 +443,304 @@ def _check_store(state, reads, rlen):
     return dev, B, R, W
 
 
-def _upload(host: np.ndarray, dev):
-    """One host-to-device copy of a small int32 array, from pinned
-    memory."""
-    return torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+_STORE = ("D", "e", "rmin", "er", "off", "act", "cons", "clen")
+#: (device index) -> SMs; (device index, cells, smem) -> one-launch CTAs
+#: an SM holds at once
+_SMS = {}
+_PER_SM = {}
 
 
-def _store_ptrs(st):
-    return [rpk._ptr(st[k])
-            for k in ("D", "e", "rmin", "er", "off", "act", "cons", "clen")]
+def _occupancy(dev, cells: int, smem: int):
+    """``(sms, per_sm)`` of the card for the one-launch kernel on
+    ``cells`` cells a lane and ``smem`` bytes (the committing instance,
+    whose CTAs must all be resident), asked once a shape."""
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    key = (dev.index, cells, smem)
+    if key not in _PER_SM:
+        per_sm = ctypes.c_int(0)
+        fn = rpk._bind("branch_occupancy",
+                       [_INT, _INT, _INT, ctypes.POINTER(_INT)])
+        rc = fn(cells, ONE_WARPS, smem, ctypes.byref(per_sm))
+        rpk._raise_on(rc, "branch_step occupancy", "branch_occupancy")
+        _PER_SM[key] = per_sm.value
+    return _SMS[dev.index], _PER_SM[key]
+
+
+def _grown(t, need: int, device, host: bool = False, zero: bool = False):
+    """``t`` when it holds ``need`` int32 words, else a new buffer of the
+    next power of two, at least 256: on ``device``, or with ``host`` on
+    the host (pinned when ``device`` is a card)."""
+    if t is not None and t.numel() >= need:
+        return t
+    cap = 1 << max(8, (need - 1).bit_length())
+    make = torch.zeros if zero else torch.empty
+    if host:
+        return make(cap, dtype=torch.int32,
+                    pin_memory=torch.device(device).type == "cuda")
+    return make(cap, dtype=torch.int32, device=device)
+
+
+def _stream(dev) -> int:
+    """PyTorch's current CUDA stream on ``dev``, as an address."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _wait(event: int) -> None:
+    """Wait until the work recorded on ``event`` (a store's last upload)
+    has finished."""
+    rpk._raise_on(rpk._bind("branch_event_sync", [_PTR])(event),
+                  "branch_step event", "branch_event_sync")
+
+
+def _free_event(event: int) -> None:
+    """Free ``event`` once its work has finished: the buffers' pinned
+    rows, freed right after, may still feed its upload."""
+    _wait(event)
+    rpk._bind("branch_event_free", [_PTR])(event)
+
+
+class BranchBuffers:
+    """A branch store's persistent buffers for the CUDA branch step (a
+    call given none uses the module's own, :func:`shared_buffers`): the
+    rows (device and pinned host), the packed output (device and pinned
+    host), the scratch, an event, and the call record with the store's
+    pointers and geometry, checked once a geometry.  Grown as a call
+    needs; ``reset`` drops them (``TorchScorer`` does when it reallocates
+    its store).  The C entry does a call's copies: the rows (a root's or
+    a deactivation's input too) are one async copy from the pinned rows,
+    which are written again, grown or dropped only after the last call
+    that returned without waiting (its event) has finished; the output
+    lands in the pinned output, then one wait on the event."""
+
+    def __init__(self) -> None:
+        self._event = self._release = None
+        self.pending = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.wait()
+        self.call = None
+        self.checks = 0
+        self._key = None
+        self._dev = None
+        self._rows = self._rows_host = self._rows_np = None
+        self._out = self._out_host = self._out_np = None
+        self._scratch = None
+        self._plans = {}
+        self.pending = False
+        self.epoch = EPOCH0
+        if self._release is not None:
+            self._release()
+            self._event = self._release = None
+
+    def bind(self, state, reads, rlen) -> _Call:
+        """The call record of ``state``: its checks and pointers are made
+        again only when a tensor of the store moved or changed shape."""
+        key = (tuple(state[k].data_ptr() for k in _STORE)
+               + (state["D"].shape, state["cons"].shape, reads.data_ptr(),
+                  reads.shape, rlen.data_ptr()))
+        if key != self._key:
+            dev, B, R, W = _check_store(state, reads, rlen)
+            self.on(dev)
+            c = _Call()
+            for name in _STORE:
+                setattr(c, name, state[name].data_ptr())
+            c.reads, c.rlen = reads.data_ptr(), rlen.data_ptr()
+            c.B, c.R, c.W = B, R, W
+            c.C, c.L = state["cons"].shape[1], reads.shape[1]
+            self.call, self._key = c, key
+            self._plans = {}
+            self.checks += 1
+        return self.call
+
+    def device(self):
+        return self._dev
+
+    def on(self, dev) -> None:
+        """Serve stores on ``dev`` (dropping the buffers of another)."""
+        if dev != self._dev:
+            self.reset()
+            self._dev = dev
+
+    def wait(self) -> None:
+        """Wait for the last call that returned without waiting: until
+        then its upload may still read the pinned rows."""
+        if self.pending:
+            _wait(self._event)
+            self.pending = False
+
+    def event(self) -> int:
+        """The store's CUDA event (made at first use), as an address."""
+        if self._event is None:
+            ev = ctypes.c_void_p()
+            fn = rpk._bind("branch_event", [ctypes.POINTER(_PTR)])
+            rpk._raise_on(fn(ctypes.byref(ev)), "branch_step event",
+                          "branch_event")
+            self._event = ev.value
+            # freed by reset, or when the buffers are collected
+            self._release = weakref.finalize(self, _free_event, ev.value)
+        return self._event
+
+    def stage(self, words: np.ndarray):
+        """The int32 ``words`` into the pinned rows, once the last upload
+        from them has landed; returns the device and host addresses of
+        the rows buffers (the C entry copies)."""
+        n = words.size
+        self.wait()
+        if self._rows is None or self._rows.numel() < n:
+            self._rows = _grown(None, n, self._dev)
+            self._rows_host = _grown(None, n, self._dev, host=True)
+            self._rows_np = self._rows_host.numpy()
+        self._rows_np[:n] = words.reshape(-1)
+        return self._rows.data_ptr(), self._rows_host.data_ptr()
+
+    def output(self, words: int):
+        """The output buffers for ``words`` words, zeroed when they are
+        made (so no flag holds an epoch yet): returns the addresses of
+        the device output, the pinned host output and the device overflow
+        word (the buffer's last word)."""
+        if self._out is None or self._out.numel() < words + 1:
+            self._out = _grown(None, words + 1, self._dev, zero=True)
+            self._out_host = _grown(None, words + 1, self._dev, host=True,
+                                    zero=True)
+            self._out_np = self._out_host.numpy()
+        out = self._out.data_ptr()
+        return out, self._out_host.data_ptr(), out + 4 * (
+            self._out.numel() - 1)
+
+    def fetched(self, words: int) -> np.ndarray:
+        """The pinned output's first ``words`` words (a view)."""
+        return self._out_np[:words]
+
+    def scratch(self, words: int) -> Optional[int]:
+        if not words:
+            return None
+        self._scratch = _grown(self._scratch, words, self._dev)
+        return self._scratch.data_ptr()
+
+    def next_epoch(self) -> int:
+        """A new epoch for a call with stats (the output zeroed when the
+        epochs run out of int32)."""
+        self.epoch += 1
+        if self.epoch >= 2**31 - 1:
+            self._out.zero_()
+            self._out_host.zero_()
+            self.epoch = EPOCH0 + 1
+        return self.epoch
+
+    def plan(self, n: int, A: int, commit: bool) -> BranchPlan:
+        """:func:`plan_branch` for a call of ``n`` rows on the bound
+        store, with the card's SMs and occupancy (kept a shape)."""
+        key = (n, A, commit)
+        plan = self._plans.get(key)
+        if plan is None:
+            c = self.call
+            cells = one_launch_cells(c.W)
+            smem = one_launch_smem(cells, A)
+            sms, per_sm = (_occupancy(self._dev, cells, smem)
+                           if cells and smem <= ONE_SMEM_MAX else (0, 0))
+            plan = plan_branch(n, c.R, c.W, A, sms, per_sm, commit)
+            if len(self._plans) < 4096:
+                self._plans[key] = plan
+        return plan
+
+
+_SHARED = []
+
+
+def shared_buffers() -> BranchBuffers:
+    """The module's :class:`BranchBuffers`, for calls given none (made
+    at first use)."""
+    if not _SHARED:
+        _SHARED.append(BranchBuffers())
+    return _SHARED[0]
 
 
 def _rows_cuda(entry, mode, votes, state, rows, reads, rlen, wc, et,
-               num_symbols, with_out):
-    dev, B, R, W = _check_store(state, reads, rlen)
+               num_symbols, with_out, bufs):
+    bufs = shared_buffers() if bufs is None else bufs
+    c = bufs.bind(state, reads, rlen)
     n = rows.shape[1]
-    C = state["cons"].shape[1]
-    A = max(int(num_symbols), 1)
-    plan = plan_branch(n, R, W, A)
+    A = max(int(num_symbols), 1) if votes else 1
+    plan = bufs.plan(n, A, mode == 0)
     words = plan.out_words if votes else plan.head_words
-    out = (torch.empty(words, dtype=torch.int32, device=dev) if with_out
-           else None)
-    slab = (torch.empty(slab_words(n, R, W, C), dtype=torch.int32,
-                        device=dev) if mode == 0 else None)
-    rows_dev = _upload(rows, dev)
-    branch_cuda(
-        entry, "rows", mode, int(votes), *_store_ptrs(state),
-        *map(rpk._ptr, (reads, rlen, rows_dev, out, slab)), B, R, W, C,
-        reads.shape[1], n, A, wc, int(et), plan.warps, plan.blocks,
-        plan.commit_blocks, plan.commit_rows, cuda_build.stream_ptr(dev),
-    )
-    branch_cuda.last_plan = plan
-    if out is None:
+    c.rows, c.rows_host = bufs.stage(rows)
+    if with_out:
+        c.out, c.out_host, c.flag = bufs.output(words)
+        c.epoch = bufs.next_epoch()
+    else:
+        c.out = c.out_host = c.flag = None
+        c.epoch = 0
+    c.out_words = words
+    c.slab = bufs.scratch(scratch_words(plan, n, c.R, c.W, c.C))
+    c.event = bufs.event()
+    c.stream = _stream(bufs.device())
+    c.n, c.A, c.wc, c.et = n, A, wc, int(et)
+    c.mode, c.votes = mode, int(votes)
+    c.plan = int(plan.name == "one_launch")
+    c.cells, c.warps, c.blocks, c.smem = (plan.cells, plan.warps,
+                                          plan.blocks, plan.smem)
+    c.commit_blocks, c.commit_rows = plan.commit_blocks, plan.commit_rows
+    branch_cuda(entry, "rows", ctypes.byref(c), plan=plan)
+    bufs.pending = not with_out
+    if not with_out:
         return None
-    host = torch.empty(words, dtype=torch.int32, pin_memory=True)
-    host.copy_(out)
-    return unpack(host.numpy(), n, R, A, votes)
+    return unpack(bufs.fetched(words), n, c.R, A, votes, c.epoch)
 
 
-def root_cuda(state, slot: int, act, rlen) -> None:
-    """Launch ``branch_root``: :func:`root_plain` on the card."""
+def _act_words(act) -> np.ndarray:
+    """A ``[R]`` bool mask as the bytes of int32 words (the root kernel
+    reads it as uint8)."""
+    a = np.asarray(act, dtype=np.uint8).reshape(-1)
+    buf = np.zeros(-(-a.size // 4) * 4, dtype=np.uint8)
+    buf[:a.size] = a
+    return buf.view(np.int32)
+
+
+def root_cuda(state, slot: int, act, rlen, bufs=None) -> None:
+    """Launch ``branch_root``: :func:`root_plain` on the card; ``act`` is
+    a ``[R]`` bool mask (a host array, or a tensor), copied to the card
+    through ``bufs``'s rows."""
     dev, B, R, W = _check_store(state, None, rlen)
-    rpk._need(act, torch.bool, dev, "act", (R,))
+    if isinstance(act, torch.Tensor):
+        act = act.cpu().numpy()
+    act = np.asarray(act)
+    if act.shape != (R,):
+        raise ValueError(f"act: need [{R}]")
     if not 0 <= slot < B:
         raise ValueError(f"slot {slot} outside [0, {B})")
+    bufs = shared_buffers() if bufs is None else bufs
+    bufs.on(dev)
+    act_dev, act_host = bufs.stage(_act_words(act))
     branch_cuda(
         "root", "root", *_store_ptrs(state)[:6],
-        *map(rpk._ptr, (state["clen"], rlen, act)), slot, B, R, W,
-        ROW_WARPS, -(-R // ROW_WARPS), cuda_build.stream_ptr(dev),
+        *map(rpk._ptr, (state["clen"], rlen)), _PTR(act_dev), _PTR(act_host),
+        _PTR(bufs.event()), slot, B, R, W, ROW_WARPS, -(-R // ROW_WARPS),
+        _PTR(_stream(dev)),
     )
+    bufs.pending = True
+
+
+def _store_ptrs(st):
+    return [rpk._ptr(st[k]) for k in _STORE]
 
 
 def advance_cuda(state, rows, reads, rlen, wc: int, et: bool,
-                 num_symbols: int, with_stats: bool = True):
-    """Launch ``branch_rows`` and ``branch_commit`` (one overflow word
-    between them, on the device): :func:`advance_plain` on the card, its
-    stats fetched in one copy; a batch of copies (``with_stats`` False)
-    does not synchronise."""
+                 num_symbols: int, with_stats: bool = True, bufs=None):
+    """One call of ``csrc/branch_step.cu`` on its plan (one launch, or the
+    slab plan's rows and commit launches): :func:`advance_plain` on the
+    card, its stats fetched in one copy; a batch of copies
+    (``with_stats`` False) does not synchronise."""
     rows = _rows_np(rows)
     _check_rows(state, rows, with_stats)
     return _rows_cuda("advance" if with_stats else "copy", 0, with_stats,
                       state, rows, reads, rlen, wc, et, num_symbols,
-                      with_stats)
+                      with_stats, bufs)
 
 
 def _slot_rows(state, slots) -> np.ndarray:
@@ -412,24 +752,24 @@ def _slot_rows(state, slots) -> np.ndarray:
     return rows
 
 
-def stats_cuda(state, slots, reads, rlen, num_symbols: int) -> BranchOut:
-    """Launch ``branch_rows`` in read mode: :func:`stats_plain` on the
-    card."""
+def stats_cuda(state, slots, reads, rlen, num_symbols: int,
+               bufs=None) -> BranchOut:
+    """The rows kernel in read mode: :func:`stats_plain` on the card."""
     return _rows_cuda("stats", 1, True, state, _slot_rows(state, slots),
-                      reads, rlen, -2, False, num_symbols, True)
+                      reads, rlen, -2, False, num_symbols, True, bufs)
 
 
-def finalize_cuda(state, slots, reads, rlen):
-    """Launch ``branch_rows`` in read mode without the histogram:
+def finalize_cuda(state, slots, reads, rlen, bufs=None):
+    """The rows kernel in read mode without the histogram:
     :func:`finalize_plain` on the card."""
     out = _rows_cuda("finalize", 1, False, state, _slot_rows(state, slots),
-                     reads, rlen, -2, False, 1, True)
+                     reads, rlen, -2, False, 1, True, bufs)
     return out.fin, ~out.fin_ok
 
 
-def deactivate_cuda(state, pairs) -> None:
+def deactivate_cuda(state, pairs, bufs=None) -> None:
     """Launch ``branch_deactivate``: :func:`deactivate_plain` on the
-    card."""
+    card, the pairs uploaded through ``bufs``."""
     act = state["act"]
     dev = act.device
     if dev.type != "cuda":
@@ -441,10 +781,13 @@ def deactivate_cuda(state, pairs) -> None:
     if (m < 1 or p[0].min() < 0 or p[0].max() >= B or p[1].min() < 0
             or p[1].max() >= R):
         raise ValueError(f"pairs: need [2, m] inside [{B}, {R}]")
-    pairs_dev = _upload(p, dev)
-    branch_cuda("deactivate", "deactivate", rpk._ptr(act),
-                rpk._ptr(pairs_dev), m, B, R, -(-m // COPY_THREADS),
-                cuda_build.stream_ptr(dev))
+    bufs = shared_buffers() if bufs is None else bufs
+    bufs.on(dev)
+    pairs_dev, pairs_host = bufs.stage(p)
+    branch_cuda("deactivate", "deactivate", rpk._ptr(act), _PTR(pairs_dev),
+                _PTR(pairs_host), _PTR(bufs.event()), m, B, R,
+                -(-m // COPY_THREADS), _PTR(_stream(dev)))
+    bufs.pending = True
 
 
 # ---------------------------------------------------------------------
@@ -458,41 +801,52 @@ def _on_cuda(t) -> bool:
     return kind == "cuda"
 
 
-def root(state, slot: int, act, rlen) -> None:
+def root(state, slot: int, act, rlen, bufs=None) -> None:
     """Dispatch rule: CPU tensors take :func:`root_plain`, CUDA tensors
-    launch :func:`root_cuda`."""
-    fn = root_cuda if _on_cuda(state["D"]) else root_plain
-    fn(state, slot, act, rlen)
+    launch :func:`root_cuda` (``act`` a host mask or a bool tensor)."""
+    if _on_cuda(state["D"]):
+        root_cuda(state, slot, act, rlen, bufs)
+    else:
+        root_plain(state, slot, torch.as_tensor(act, dtype=torch.bool),
+                   rlen)
 
 
 def advance(state, rows, reads, rlen, wc: int, et: bool, num_symbols: int,
-            with_stats: bool = True):
+            with_stats: bool = True, bufs=None):
     """Dispatch rule: CPU tensors take :func:`advance_plain`, CUDA tensors
-    launch :func:`advance_cuda`."""
-    fn = advance_cuda if _on_cuda(state["D"]) else advance_plain
-    return fn(state, rows, reads, rlen, wc, et, num_symbols, with_stats)
+    launch :func:`advance_cuda` (through ``bufs``, the store's
+    :class:`BranchBuffers`)."""
+    if _on_cuda(state["D"]):
+        return advance_cuda(state, rows, reads, rlen, wc, et, num_symbols,
+                            with_stats, bufs)
+    return advance_plain(state, rows, reads, rlen, wc, et, num_symbols,
+                         with_stats)
 
 
-def stats(state, slots, reads, rlen, num_symbols: int) -> BranchOut:
+def stats(state, slots, reads, rlen, num_symbols: int,
+          bufs=None) -> BranchOut:
     """Dispatch rule: CPU tensors take :func:`stats_plain`, CUDA tensors
     launch :func:`stats_cuda`."""
-    fn = stats_cuda if _on_cuda(state["D"]) else stats_plain
-    return fn(state, slots, reads, rlen, num_symbols)
+    if _on_cuda(state["D"]):
+        return stats_cuda(state, slots, reads, rlen, num_symbols, bufs)
+    return stats_plain(state, slots, reads, rlen, num_symbols)
 
 
-def finalize(state, slots, reads, rlen):
+def finalize(state, slots, reads, rlen, bufs=None):
     """Dispatch rule: CPU tensors take :func:`finalize_plain`, CUDA
     tensors launch :func:`finalize_cuda`."""
     if _on_cuda(state["D"]):
-        return finalize_cuda(state, slots, reads, rlen)
+        return finalize_cuda(state, slots, reads, rlen, bufs)
     return finalize_plain(state, slots)
 
 
-def deactivate(state, pairs) -> None:
+def deactivate(state, pairs, bufs=None) -> None:
     """Dispatch rule: CPU tensors take :func:`deactivate_plain`, CUDA
     tensors launch :func:`deactivate_cuda`."""
-    fn = deactivate_cuda if _on_cuda(state["act"]) else deactivate_plain
-    fn(state, pairs)
+    if _on_cuda(state["act"]):
+        deactivate_cuda(state, pairs, bufs)
+    else:
+        deactivate_plain(state, pairs)
 
 
 #: the plain twins, whose calls :func:`plain_calls` sums

@@ -16,9 +16,10 @@ The column primitives (:func:`init_col`, :func:`col_step`,
 number of leading branch dimensions.  The branch life-cycle calls
 (root, clone, push, clone_push, stats, finalize, deactivate) go through
 :mod:`waffle_con_tpu_torch.ops.branch_kernel`: the CUDA kernels of
-``csrc/branch_step.cu`` on a CUDA device (an advance is two launches and
-one packed copy of its stats), and plain twins built from those
-primitives on the CPU.  The run
+``csrc/branch_step.cu`` on a CUDA device (an advance is one launch, or
+two on the slab plan, its packed stats landing in the store's persistent
+pinned buffers), and plain twins built from those primitives on the
+CPU.  The run
 loops — the hot path — are the CUDA kernels of
 :mod:`waffle_con_tpu_torch.ops.run_kernel` (one branch) and
 :mod:`waffle_con_tpu_torch.ops.run_dual_kernel` (the two branches of a
@@ -327,6 +328,8 @@ class TorchScorer(WavefrontScorer):
         self._B = self.INITIAL_SLOTS
         self._C = max(_next_pow2(max_len + 64), self.MIN_C)
         self._state = self._blank_state()
+        #: the CUDA branch step's persistent buffers for this store
+        self._bk = branch_kernel.BranchBuffers()
         #: host mirrors of the per-slot offset/active state
         self._off_host = np.zeros((self._B, self._R), dtype=np.int32)
         self._act_host = np.zeros((self._B, self._R), dtype=bool)
@@ -382,6 +385,7 @@ class TorchScorer(WavefrontScorer):
         from waffle_con_tpu_torch.ops import replay_kernel
 
         self._spec_drop()
+        self._bk.reset()
         self._E *= 2
         st = self._state
         self.counters["grow_e_events"] += 1
@@ -404,6 +408,7 @@ class TorchScorer(WavefrontScorer):
                   er=fresh["er"])
 
     def _grow_slots(self) -> None:
+        self._bk.reset()
         old_b = self._B
         self._B *= 2
         pad = self._B - old_b
@@ -423,6 +428,7 @@ class TorchScorer(WavefrontScorer):
 
     def _grow_cons(self) -> None:
         self._spec_drop()
+        self._bk.reset()
         cons = self._state["cons"]
         self._C *= 2
         pad = torch.zeros(
@@ -454,9 +460,8 @@ class TorchScorer(WavefrontScorer):
         handle, slot = self._alloc()
         act_np = np.zeros(self._R, dtype=bool)
         act_np[: len(active)] = active
-        branch_kernel.root(self._state, slot,
-                           torch.from_numpy(act_np).to(self.device),
-                           self._rlen)
+        branch_kernel.root(self._state, slot, act_np, self._rlen,
+                           bufs=self._bk)
         self._off_host[slot] = 0
         self._act_host[slot] = act_np
         return handle
@@ -475,7 +480,7 @@ class TorchScorer(WavefrontScorer):
         branch_kernel.advance(
             self._state, [srcs, dsts, [-1] * len(hs)], self._reads,
             self._rlen, self._wc, self._et, self.num_symbols,
-            with_stats=False,
+            with_stats=False, bufs=self._bk,
         )
         self._off_host[dsts] = self._off_host[srcs]
         self._act_host[dsts] = self._act_host[srcs]
@@ -550,11 +555,11 @@ class TorchScorer(WavefrontScorer):
         commits nothing while any advanced read overflows the band (grows
         it and retries).  Returns the per-row stats with the finalized
         distances bundled."""
-        packed = np.array(rows, dtype=np.int32).T
+        packed = np.ascontiguousarray(np.array(rows, dtype=np.int32).T)
         while True:
             out = branch_kernel.advance(
                 self._state, packed, self._reads, self._rlen, self._wc,
-                self._et, self.num_symbols,
+                self._et, self.num_symbols, bufs=self._bk,
             )
             if not out.overflow:
                 return self._stats_batch(out)
@@ -563,7 +568,8 @@ class TorchScorer(WavefrontScorer):
     def stats(self, h: int, consensus: bytes) -> BranchStats:
         self.counters["stats_calls"] += 1
         out = branch_kernel.stats(self._state, [self._slot_of[h]],
-                                  self._reads, self._rlen, self.num_symbols)
+                                  self._reads, self._rlen, self.num_symbols,
+                                  bufs=self._bk)
         return self._stats_np(out.eds[0], out.occ[0], out.split[0],
                               out.reached[0])
 
@@ -647,14 +653,15 @@ class TorchScorer(WavefrontScorer):
         slots = [self._slot_of[h] for h, _ in pairs]
         ridx = [r for _, r in pairs]
         self._act_host[slots, ridx] = False
-        branch_kernel.deactivate(self._state, [slots, ridx])
+        branch_kernel.deactivate(self._state, [slots, ridx], bufs=self._bk)
 
     def finalized_eds(self, h: int, consensus: bytes) -> np.ndarray:
         self.counters["finalize_calls"] += 1
         slot = self._slot_of[h]
         while True:
             fin, ovf = branch_kernel.finalize(self._state, [slot],
-                                              self._reads, self._rlen)
+                                              self._reads, self._rlen,
+                                              bufs=self._bk)
             if not ovf[0]:
                 return fin[0, : self.num_reads].astype(np.int64)
             self._grow_e()
@@ -1273,15 +1280,18 @@ class TorchScorer(WavefrontScorer):
         """A batch's ``BranchOut`` (``ops/branch_kernel.py``) -> one
         :class:`BranchStats` a row (read padding sliced away, the
         finalized distances where they are in the band): each field is
-        converted once for the batch and each row is a view of it."""
+        converted once for the batch (no copy where it is int64 already;
+        the kernel's int32 views of the pinned output are copied once) and
+        each row is a view of it."""
         n = self.num_reads
-        eds, occ, split, fin = (x[:, :n].astype(np.int64) for x in (
-            out.eds, out.occ, out.split, out.fin))
-        reached = out.reached[:, :n]
+        eds, occ, split, fin = (x[:, :n].astype(np.int64, copy=False)
+                                for x in (out.eds, out.occ, out.split,
+                                          out.fin))
         return [
-            BranchStats(eds[i], occ[i], split[i], reached[i],
-                        fin[i] if out.fin_ok[i] else None)
-            for i in range(len(eds))
+            BranchStats(e, o, s, r, f if ok else None)
+            for e, o, s, r, f, ok in zip(eds, occ, split,
+                                         out.reached[:, :n], fin,
+                                         out.fin_ok.tolist())
         ]
 
     def _stats_np(self, eds, occ, split, reached, fin=None) -> BranchStats:
