@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,checkpoint_main,obs_main
     python3 chip_smoke.py --phases branch_kernel --small  # branch step build + check
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,plan_gate,branch_kernel,checkpoint_main
+    python3 chip_smoke.py --phases main,dual_main,priority_main,native_baseline,runtime_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -235,6 +236,22 @@ Phases, one line each (every failure exits non-zero):
     ``late_main``, ``plan_gate``, ``checkpoint_main``) and fails if its
     twins ran; ``checkpoint_main``'s restore split gives the time inside
     the branch-step calls and the host's ``_stats_batch``.
+21. runtime_main (after the main phases and ``native_baseline``): the
+    runtime plane on the single, dual and priority north stars.
+    Supervised with no fault, each search equals the unsupervised one
+    and the C++ engine's byte for byte, with no demotion and every
+    kernel's launches equal to the unsupervised search's; the line gives
+    both warm walls (alternating) side by side and the wall with the
+    dispatch timer on.  ``device_loss`` at the middle ``"torch"`` run
+    call demotes once to native; ``garbage`` and ``timeout`` there are
+    retried without a demotion; with ``repromote_after`` the single and
+    priority searches go back to ``"torch"`` and the line gives the
+    launches after the re-promotion (> 0); the dispatch budget pinned at the search's own
+    count passes in strict mode and one fewer raises.  On the single north
+    star an armed ``pallas_compile`` raises unsupervised and demotes
+    supervised; a small draw demotes torch -> python.  Every result is
+    held to the unsupervised and the C++ one, and every line carries the
+    card's name and power limit.
 
 The JAX package's megastep (``_j_run_mega``, an XLA loop under a per-call
 step budget) is the run kernel itself here: one launch runs to the first
@@ -4057,6 +4074,298 @@ def phase_obs_main():
 
 
 # ---------------------------------------------------------------------
+# phase 21: the runtime plane (supervised dispatch)
+
+
+#: the kernels whose launches a supervised search must match
+RUNTIME_KERNELS = ("run_extend", "run_extend_dual", "arena", "branch_step",
+                   "offset_scan", "col_replay", "plain")
+
+
+class _SupervisorWatch:
+    """While entered, records each supervised scorer call's ``(op,
+    index)`` and the kernel launch counts at each re-promotion (so the
+    launches after it can be told apart)."""
+
+    def __enter__(self):
+        from waffle_con_tpu_torch.runtime import supervisor
+
+        self.sup = supervisor.BackendSupervisor
+        self.saved = (self.sup._supervised, self.sup._probe)
+        self.calls, self.at_promotion = [], []
+        watch = self
+        supervised, probe = self.saved
+
+        def spy(sup, op, involved, call, **kw):
+            watch.calls.append((op, sup._dispatch_index))
+            return supervised(sup, op, involved, call, **kw)
+
+        def probed(sup):
+            before = sup.backend
+            probe(sup)
+            if sup.backend != before:
+                watch.at_promotion.append(launch_counts())
+
+        self.sup._supervised, self.sup._probe = spy, probed
+        return self
+
+    def __exit__(self, *exc):
+        self.sup._supervised, self.sup._probe = self.saved
+        return False
+
+
+def _supervised_search(name, spec, plan=None, **cfg):
+    """One warm search of a deployment through ``_torch_run`` with the
+    config's fields replaced by ``cfg`` and ``plan``'s fault rules
+    armed; returns ``(result, wall, launches, events, watch, engine)``
+    with the event log and the launch counts of that search alone."""
+    import dataclasses
+
+    from waffle_con_tpu_torch.runtime import events, faults, supervisor
+
+    run_spec = dict(spec, config=dataclasses.replace(spec["config"], **cfg))
+    events.clear_events()
+    faults.install(plan) if plan is not None else faults.clear()
+    reset_launch_counts()
+    try:
+        with _SupervisorWatch() as watch:
+            got, wall = _torch_run(name, run_spec)
+    finally:
+        faults.clear()
+        supervisor.shutdown_executors(wait=True)
+    eng = _torch_run.last_engine
+    _torch_run.last_engine = None
+    return got, wall, launch_counts(), events.get_events(), watch, eng
+
+
+def _kinds(evs):
+    out = {}
+    for e in evs:
+        out[e["kind"]] = out.get(e["kind"], 0) + 1
+    return out
+
+
+def _demoted(evs):
+    return [(e["from_backend"], e["to_backend"]) for e in evs
+            if e["kind"] == "backend_demoted"]
+
+
+def _mid_call(watch, ops=("run",)):
+    """The dispatch index of the middle call of ``ops`` (``arena`` when
+    the search made fewer than two of them)."""
+    hits = [i for op, i in watch.calls if op in ops]
+    if len(hits) < 2:
+        hits = [i for op, i in watch.calls if op == "arena"] or hits
+    if not hits:
+        raise AssertionError(f"runtime_main: no {ops} call to fault")
+    return hits[len(hits) // 2]
+
+
+def phase_runtime_main():
+    """The runtime plane (``waffle_con_tpu_torch/runtime``) on the single,
+    dual and priority north stars the main phases ran, on ``cuda``:
+
+    * supervised without a fault: the result equals the unsupervised
+      search's and the C++ engine's byte for byte, no demotion, and every
+      kernel's launches equal the unsupervised search's; the warm walls of
+      both, alternating (unsupervised, supervised, supervised,
+      unsupervised), side by side; one more supervised search with the
+      dispatch timer on (every call on the supervisor's worker thread);
+    * ``device_loss`` at the middle ``"torch"`` run call (and its two
+      retries): one demotion torch -> native, byte-identical;
+    * ``garbage`` once and ``timeout`` once at that call: caught and
+      retried without a demotion, byte-identical;
+    * ``repromote_after`` (single and priority): after that demotion the
+      search returns to ``"torch"`` and launches kernels there,
+      byte-identical;
+    * the dispatch budget pinned at the search's own count passes in
+      strict mode, one fewer raises;
+
+    then on the single north star ``pallas_compile`` armed raises
+    unsupervised and demotes supervised (an event), and on a small draw
+    the chain torch -> python (demotion to the oracle).  Each line
+    carries the card's name and power limit."""
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, ConsensusDWFA
+    from waffle_con_tpu_torch.runtime import faults, watchdog
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    smi = smi_line()
+    ran = [n for n in ("single", "dual", "priority") if n in BASELINE]
+    if not ran:
+        raise AssertionError("runtime_main needs main, dual_main or "
+                             "priority_main before it")
+
+    def emit(kind, **line):
+        print("runtime_main", json.dumps(dict(case=kind, card=smi, **line)),
+              flush=True)
+
+    def check(name, tag, got, spec, evs, demotions=()):
+        cpp = spec.get("cpp")
+        if cpp is None:
+            cpp = spec["cpp"] = _cpp_run(name, spec)[0]
+        if got != spec["want"] or got != cpp:
+            raise AssertionError(f"runtime_main {name} {tag}: the result "
+                                 "differs from the unsupervised / C++ one")
+        if _demoted(evs) != list(demotions):
+            raise AssertionError(f"runtime_main {name} {tag}: demotions "
+                                 f"{_demoted(evs)}, expected {demotions}")
+
+    base = dict(retry_backoff_s=0.0)
+    for name in ran:
+        spec = BASELINE[name]
+        # -- no fault: equal results, launches and no demotion
+        walls = {"unsupervised": [], "supervised": []}
+        counts = {}
+        watch = None
+        for sup in (False, True, True, False):
+            got, wall, launches, evs, w, eng = _supervised_search(
+                name, spec, supervised=sup, **base)
+            tag = "supervised" if sup else "unsupervised"
+            check(name, tag, got, spec, evs)
+            plan_refusals(f"runtime_main {name}",
+                          eng.last_search_stats["scorer_counters"])
+            walls[tag].append(round(wall, 4))
+            key = {k: launches[k] for k in RUNTIME_KERNELS}
+            if counts.setdefault(tag, key) != key:
+                raise AssertionError(f"runtime_main {name}: {tag} launches "
+                                     f"differ between runs")
+            if sup:
+                watch = w
+                pinned = watchdog.dispatch_total(
+                    eng.last_search_stats["scorer_counters"])
+        if counts["supervised"] != counts["unsupervised"] or counts[
+                "supervised"]["plain"]:
+            raise AssertionError(f"runtime_main {name}: launches differ "
+                                 f"{counts}")
+        got, wall_t, _l, evs, _w, _e = _supervised_search(
+            name, spec, supervised=True, dispatch_timeout_s=600.0, **base)
+        check(name, "timer", got, spec, evs)
+        emit("no_fault", deployment=name, wall_unsupervised_s=walls[
+            "unsupervised"], wall_supervised_s=walls["supervised"],
+            supervised_over_unsupervised=round(
+                min(walls["supervised"]) / min(walls["unsupervised"]), 4),
+            wall_supervised_timer_s=round(wall_t, 4),
+            launches=counts["supervised"], demotions=0,
+            supervised_calls=len(watch.calls))
+
+        at = _mid_call(watch)
+        # -- device loss at the middle run call and its retries
+        plan = faults.FaultPlan()
+        for k in range(3):
+            plan.add("device_loss", backend="torch", at=at + k, count=None)
+        got, wall, launches, evs, w, eng = _supervised_search(
+            name, spec, plan, supervised=True, **base)
+        check(name, "device_loss", got, spec, evs, [("torch", "native")])
+        if _kinds(evs).get("dispatch_failed") != 3:
+            raise AssertionError(f"runtime_main {name} device_loss: "
+                                 f"{_kinds(evs)}")
+        emit("device_loss", deployment=name, at_dispatch=at,
+             wall_s=round(wall, 4), events=_kinds(evs),
+             launches_before_demotion={k: launches[k]
+                                       for k in RUNTIME_KERNELS},
+             ended_on=eng.last_search_stats["backend"])
+        # -- garbage and timeout once: retried, no demotion
+        for kind in ("garbage", "timeout"):
+            plan = faults.FaultPlan().add(kind, backend="torch", at=at,
+                                          count=1)
+            got, wall, launches, evs, w, eng = _supervised_search(
+                name, spec, plan, supervised=True, **base)
+            check(name, kind, got, spec, evs)
+            failed = [e for e in evs if e["kind"] == "dispatch_failed"]
+            want_err = "GarbageStats" if kind == "garbage" else "Timeout"
+            if len(failed) != 1 or want_err not in failed[0]["error"]:
+                raise AssertionError(f"runtime_main {name} {kind}: "
+                                     f"{failed}")
+            emit(kind, deployment=name, at_dispatch=at,
+                 wall_s=round(wall, 4), events=_kinds(evs),
+                 launches={k: launches[k] for k in RUNTIME_KERNELS})
+        # -- re-promotion after the demotion (the single and priority
+        # north stars: the dual's migration back replays two 5 kb
+        # branches, ~25 s of the script for nothing the others do not show)
+        if name != "dual":
+            plan = faults.FaultPlan()
+            for k in range(3):
+                plan.add("device_loss", backend="torch", at=at + k, count=None)
+            got, wall, launches, evs, w, eng = _supervised_search(
+                name, spec, plan, supervised=True, repromote_after=2, **base)
+            check(name, "repromote", got, spec, evs, [("torch", "native")])
+            promoted = [e for e in evs if e["kind"] == "backend_promoted"]
+            if (not promoted or not w.at_promotion
+                    or _kinds(evs).get("dispatch_failed") != 3):
+                raise AssertionError(f"runtime_main {name}: no re-promotion "
+                                     f"{_kinds(evs)}")
+            snap = w.at_promotion[0]
+            after = {k: launches[k] - snap[k] for k in RUNTIME_KERNELS}
+            kernels_after = sum(v for k, v in after.items() if k != "plain")
+            if kernels_after <= 0 or launches["plain"]:
+                raise AssertionError(f"runtime_main {name}: launches after the "
+                                     f"re-promotion {after}")
+            emit("repromote", deployment=name, at_dispatch=at,
+                 wall_s=round(wall, 4), events=_kinds(evs),
+                 promoted_to=promoted[0]["to_backend"],
+                 launches_at_promotion={k: snap[k] for k in RUNTIME_KERNELS},
+                 launches_after_promotion=after)
+        # -- the dispatch budget
+        for sup in (False, True):
+            got, wall, _l, evs, _w, eng = _supervised_search(
+                name, spec, supervised=sup, dispatch_budget=pinned,
+                watchdog_strict=True, **base)
+            check(name, "budget", got, spec, evs)
+        try:
+            _supervised_search(name, spec, dispatch_budget=pinned - 1,
+                               watchdog_strict=True)
+        except watchdog.WatchdogError:
+            pass
+        else:
+            raise AssertionError(f"runtime_main {name}: strict mode passed "
+                                 f"a budget of {pinned - 1}")
+        emit("budget", deployment=name, pinned=pinned,
+             strict_passes_at_pin=True, strict_raises_below=True)
+
+    # -- a kernel that fails: raises unsupervised, demotes supervised
+    name = "single" if "single" in BASELINE else ran[0]
+    spec = BASELINE[name]
+    plan = faults.FaultPlan().add("pallas_compile", count=None)
+    try:
+        _supervised_search(name, spec, plan)
+    except faults.InjectedKernelFailure as exc:
+        raised = repr(exc)
+    else:
+        raise AssertionError("runtime_main: an armed kernel fault did not "
+                             "raise unsupervised")
+    plan = faults.FaultPlan().add("pallas_compile", count=None)
+    got, wall, launches, evs, _w, eng = _supervised_search(
+        name, spec, plan, supervised=True, **base)
+    check(name, "pallas_compile", got, spec, evs, [("torch", "native")])
+    if sum(launches[k] for k in RUNTIME_KERNELS):
+        raise AssertionError(f"runtime_main: a kernel or twin ran with the "
+                             f"kernel fault armed {launches}")
+    emit("pallas_compile", deployment=name, unsupervised_raised=raised,
+         supervised_wall_s=round(wall, 4), events=_kinds(evs),
+         ended_on=eng.last_search_stats["backend"])
+
+    # -- the chain down to the oracle, on a small draw
+    _truth, reads = generate_test(4, 1000, 16, 0.02, seed=3)
+    small = dict(reads=reads, offsets=None, config=CdwfaConfigBuilder()
+                 .backend("torch").device("cuda").min_count(4).build())
+    small["want"] = _torch_run("single", small)[0]
+    small["cpp"] = _cpp_run("single", small)[0]
+    py = ConsensusDWFA(CdwfaConfigBuilder().backend("python").min_count(4)
+                       .build())
+    _add_reads(py, zip(reads, [None] * len(reads)))
+    if [(c.sequence, list(c.scores)) for c in py.consensus()] != small["want"]:
+        raise AssertionError("runtime_main: the python oracle differs")
+    plan = faults.FaultPlan()
+    for k in range(3):
+        plan.add("device_loss", backend="torch", at=2 + k, count=None)
+    got, wall, _l, evs, _w, eng = _supervised_search(
+        "single", small, plan, backend_chain=("python",), **base)
+    check("small", "python_chain", got, small, evs, [("torch", "python")])
+    emit("python_chain", draw="16 x 1 kb at 2 %", wall_s=round(wall, 4),
+         events=_kinds(evs), ended_on=eng.last_search_stats["backend"])
+
+
+# ---------------------------------------------------------------------
 # phase 20: the branch store's life-cycle calls
 
 
@@ -4564,7 +4873,7 @@ def main(argv=None) -> int:
                 "priority_main,priority_oracle,replay_kernel,late_main,"
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
                 "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
-                "obs_main",
+                "obs_main,runtime_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -4652,6 +4961,7 @@ def main(argv=None) -> int:
     branch_check = timed("branch_kernel", phase_branch_kernel, opts.small)
     ckpt = timed("checkpoint_main", phase_checkpoint_main) or {}
     timed("obs_main", phase_obs_main)
+    timed("runtime_main", phase_runtime_main)
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
                      checkpoint_main=ckpt.get("run_extend"))

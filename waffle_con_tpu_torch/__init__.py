@@ -20,8 +20,10 @@ reference, reached by the tests alone.
   span tracer (Chrome trace, ``torch.profiler`` bridge), metrics
   registry (Prometheus text), per-search reports, the decision audit
   and its lockstep shadow against the python oracle.
-* ``runtime`` — the ``flip_vote`` fault the audit plane is tested
-  against.
+* ``runtime`` — supervised dispatch, off by default: retry, demotion
+  down torch -> native -> python and re-promotion of a live search,
+  deterministic fault injection, dispatch budgets and deadlines, and the
+  event log they record into.
 * ``native`` — the C++ engine suite (a copy of the JAX package's),
   built with ``g++`` on first use: ``backend="native"`` and the host
   baseline ``native_consensus`` / ``native_dual_consensus`` /

@@ -101,6 +101,39 @@ class CdwfaConfig:
     #: to M = 1 by construction).  ``None`` is the adaptive width; 1 turns
     #: the gang off.
     frontier_width: Optional[int] = None
+    #: Route every scorer call through the fault-tolerant
+    #: :class:`~waffle_con_tpu_torch.runtime.supervisor.BackendSupervisor`
+    #: (timeout, retry with backoff, mid-search demotion down the backend
+    #: chain).  Implied by setting ``backend_chain``.
+    supervised: bool = False
+    #: Explicit fallback chain for the supervisor, e.g. ``("torch",
+    #: "python")``.  ``None`` derives the suffix of torch -> native ->
+    #: python that starts at ``backend``.
+    backend_chain: Optional[tuple] = None
+    #: Wall-clock budget of one scorer call before the supervisor declares
+    #: it hung (seconds; ``None`` runs no timer — injected timeouts still
+    #: work).
+    dispatch_timeout_s: Optional[float] = None
+    #: Retries of a failed call on the current backend before demotion.
+    dispatch_retries: int = 2
+    #: Base delay of the exponential retry backoff (seconds).
+    retry_backoff_s: float = 0.05
+    #: Uniform-random jitter fraction added to each backoff delay.
+    retry_jitter: float = 0.25
+    #: Circuit breaker: consecutive failed calls (across ops) before the
+    #: supervisor demotes the live search.
+    breaker_threshold: int = 3
+    #: After this many clean calls on a demoted backend, probe the
+    #: next-better backend for re-promotion (doubling after each failed
+    #: probe).  ``None`` disables re-promotion.
+    repromote_after: Optional[int] = None
+    #: Watchdog: pinned budget of blocking scorer calls for one
+    #: ``consensus()`` (summed over ``DISPATCH_COUNTER_KEYS``); ``None``
+    #: disables the check.
+    dispatch_budget: Optional[int] = None
+    #: Watchdog strict mode: raise ``WatchdogError`` instead of warning
+    #: when the dispatch budget is exceeded.
+    watchdog_strict: bool = False
     #: Log each search's one-line summary (the ``SearchReport``
     #: ``summary_line``) at INFO instead of DEBUG.
     log_search_summary: bool = False
@@ -116,6 +149,28 @@ class CdwfaConfig:
             raise ValueError("frontier_width must be >= 1")
         if self.initial_band is not None and self.initial_band < 1:
             raise ValueError("initial_band must be >= 1")
+        if self.backend_chain is not None:
+            chain = tuple(self.backend_chain)
+            if not chain:
+                raise ValueError("backend_chain must not be empty")
+            for b in chain:
+                if b not in ("python", "native", "torch"):
+                    raise ValueError(f"unknown backend {b!r} in chain")
+            if len(set(chain)) != len(chain):
+                raise ValueError("backend_chain entries must be unique")
+            object.__setattr__(self, "backend_chain", chain)
+        if self.dispatch_timeout_s is not None and self.dispatch_timeout_s <= 0:
+            raise ValueError("dispatch_timeout_s must be positive")
+        if self.dispatch_retries < 0:
+            raise ValueError("dispatch_retries must be >= 0")
+        if self.retry_backoff_s < 0 or self.retry_jitter < 0:
+            raise ValueError("retry backoff and jitter must be >= 0")
+        if self.breaker_threshold < 1:
+            raise ValueError("breaker_threshold must be >= 1")
+        if self.repromote_after is not None and self.repromote_after < 1:
+            raise ValueError("repromote_after must be >= 1")
+        if self.dispatch_budget is not None and self.dispatch_budget < 1:
+            raise ValueError("dispatch_budget must be >= 1")
 
 
 class CdwfaConfigBuilder:

@@ -275,6 +275,11 @@ class CheckpointController:
     ``interval_s``      periodic snapshot cadence (0/None = off).
     ``max_bytes``       drop (do not keep/deliver) snapshots larger than
                         this many serialized bytes (0/None = unbounded).
+    ``deadline``        ``time.monotonic()`` deadline: when lapsed, one
+                        final snapshot is taken and
+                        :class:`~waffle_con_tpu_torch.runtime.watchdog.DeadlineExceeded`
+                        is raised at the pop boundary, so a stopped
+                        search carries a checkpoint of where it stopped.
     ``snapshot_at_pops``  pinned poll counts for deterministic tests,
                         matched against the controller's cumulative
                         poll counter (keeps counting across the
@@ -289,6 +294,7 @@ class CheckpointController:
         *,
         interval_s: Optional[float] = None,
         max_bytes: Optional[int] = None,
+        deadline: Optional[float] = None,
         snapshot_at_pops=None,
         preempt: bool = False,
         on_snapshot: Optional[Callable[[SearchCheckpoint], None]] = None,
@@ -296,6 +302,7 @@ class CheckpointController:
     ) -> None:
         self.interval_s = interval_s
         self.max_bytes = max_bytes
+        self.deadline = deadline
         self.snapshot_at_pops = (
             frozenset(snapshot_at_pops) if snapshot_at_pops else None
         )
@@ -342,11 +349,17 @@ class CheckpointController:
     def poll(self, pops: int, builder: Callable[[], Dict]) -> None:
         """Called by the engines at the top of every pop iteration with
         the completed-pop count and a zero-argument body builder.
-        Builds a snapshot when due; may raise :class:`SearchPreempted`."""
+        Builds a snapshot when due; may raise ``DeadlineExceeded`` (with
+        the final checkpoint kept) or :class:`SearchPreempted`."""
         cum_polls = self._polls
         self._polls += 1
         preempt = self._preempt_requested
         want = self._requested or preempt
+        deadline_hit = (
+            self.deadline is not None
+            and time.monotonic() >= self.deadline
+        )
+        want = want or deadline_hit
         if not want and self.snapshot_at_pops is not None:
             if cum_polls in self.snapshot_at_pops:
                 want = True
@@ -358,6 +371,10 @@ class CheckpointController:
         self._requested = False
         self._preempt_requested = False
         checkpoint = self._build(builder)
+        if deadline_hit:
+            from waffle_con_tpu_torch.runtime.watchdog import enforce_deadline
+
+            enforce_deadline(self.deadline, label=self.label)
         if preempt and checkpoint is not None:
             raise SearchPreempted(checkpoint)
 

@@ -42,6 +42,7 @@ from waffle_con_tpu_torch.ops.scorer import (
     make_scorer,
 )
 from waffle_con_tpu_torch.runtime import faults as faults_mod
+from waffle_con_tpu_torch.runtime.watchdog import enforce_dispatch_budget
 from waffle_con_tpu_torch.utils.pqueue import PQueueTracker, SetPriorityQueue
 
 logger = logging.getLogger(__name__)
@@ -875,8 +876,12 @@ class ConsensusDWFA:
             "nodes_ignored": nodes_ignored,
             "peak_queue_size": peak_queue_size,
             "scorer_counters": dict(scorer.counters),
-            "backend": cfg.backend,
+            # a supervised scorer names the backend it ended on
+            "backend": getattr(scorer, "backend", None) or cfg.backend,
         }
+        enforce_dispatch_budget(
+            cfg, self.last_search_stats["scorer_counters"], "single"
+        )
         return results
 
     # -- checkpoint / resume -------------------------------------------

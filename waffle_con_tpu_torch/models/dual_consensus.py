@@ -58,6 +58,7 @@ from waffle_con_tpu_torch.ops.scorer import (
     fast_paths,
     make_scorer,
 )
+from waffle_con_tpu_torch.runtime.watchdog import enforce_dispatch_budget
 from waffle_con_tpu_torch.utils.pqueue import PQueueTracker, SetPriorityQueue
 
 logger = logging.getLogger(__name__)
@@ -1046,8 +1047,11 @@ class DualConsensusDWFA:
                 k: v - counters_before.get(k, 0)
                 for k, v in scorer.counters.items()
             },
-            "backend": cfg.backend,
+            "backend": getattr(scorer, "backend", None) or cfg.backend,
         }
+        enforce_dispatch_budget(
+            cfg, self.last_search_stats["scorer_counters"], "dual"
+        )
         return results
 
     # ==================================================================

@@ -47,6 +47,7 @@ from waffle_con_tpu_torch.ops.scorer import (
     WavefrontScorer,
     make_scorer,
 )
+from waffle_con_tpu_torch.runtime.watchdog import enforce_dispatch_budget
 
 logger = logging.getLogger(__name__)
 
@@ -160,6 +161,7 @@ class PriorityConsensusDWFA:
         # level, not once per group
         level_scorers: Dict[int, WavefrontScorer] = {}
         merged_counters: Dict[str, int] = {}
+        last_backend: Optional[str] = None
         groups: List[Dict] = []
         scorer_constructions = 0
         total_explored = 0
@@ -304,6 +306,7 @@ class PriorityConsensusDWFA:
                     ctrl.pop_wrapper()
                     self._last_checkpoint = ctrl.last_checkpoint
             inner_stats = dc_dwfa.last_search_stats
+            last_backend = inner_stats["backend"]
             for k, v in inner_stats["scorer_counters"].items():
                 merged_counters[k] = merged_counters.get(k, 0) + v
             total_explored += inner_stats["nodes_explored"]
@@ -379,9 +382,10 @@ class PriorityConsensusDWFA:
             "nodes_explored": total_explored,
             "nodes_ignored": total_ignored,
             "peak_queue_size": peak_queue_size,
-            "backend": self.config.backend,
+            "backend": last_backend or self.config.backend,
             "groups": groups,
         }
+        enforce_dispatch_budget(self.config, merged_counters, "priority")
 
         if len(consensuses) > 1:
             indices = [-1] * len(self.sequences)

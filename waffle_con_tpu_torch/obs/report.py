@@ -25,7 +25,8 @@ DISPATCH_COUNTER_KEYS = (
 )
 
 
-def _dispatch_total(counters: Dict[str, int]) -> int:
+def dispatch_total(counters: Dict[str, int]) -> int:
+    """Blocking scorer calls: the sum of ``DISPATCH_COUNTER_KEYS``."""
     return sum(int(counters.get(k, 0)) for k in DISPATCH_COUNTER_KEYS)
 
 
@@ -59,7 +60,7 @@ class SearchReport:
         self.nodes_ignored = int(nodes_ignored)
         self.peak_queue_size = int(peak_queue_size)
         self.dispatch_counts = dict(dispatch_counts)
-        self.dispatch_total = _dispatch_total(self.dispatch_counts)
+        self.dispatch_total = dispatch_total(self.dispatch_counts)
         self.time_breakdown = dict(time_breakdown or {})
         self.n_results = int(n_results)
         self.consensus_len = int(consensus_len)

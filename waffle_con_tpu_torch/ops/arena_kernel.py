@@ -64,6 +64,7 @@ from waffle_con_tpu_torch.ops.torch_scorer import (
     gather_window,
     stats_core,
 )
+from waffle_con_tpu_torch.runtime import faults
 
 #: creation records of one arena call
 CRE_CAP = 64
@@ -932,7 +933,9 @@ arena_cuda.last_plan = None
 def arena(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab, imb_tab,
           args: ArenaArgs):
     """Dispatch rule: CPU tensors take :func:`arena_plain`, CUDA tensors
-    launch :func:`arena_cuda`; any other device raises."""
+    launch :func:`arena_cuda`; any other device raises, and so does an
+    armed ``pallas_compile`` fault."""
+    faults.check_kernel("arena")
     kind = state["D"].device.type
     if kind == "cuda":
         fn = arena_cuda

@@ -53,6 +53,7 @@ import torch
 
 from waffle_con_tpu_torch.ops import replay_kernel as rpk
 from waffle_con_tpu_torch.ops import torch_scorer as ts
+from waffle_con_tpu_torch.runtime import faults
 
 #: cells a lane of the one-launch kernel holds, by kernel instance (a
 #: band takes the smallest with ``32 * cells >= W``)
@@ -795,6 +796,10 @@ def deactivate_cuda(state, pairs, bufs=None) -> None:
 
 
 def _on_cuda(t) -> bool:
+    """Whether a dispatch launches the kernel (CUDA) or its twin (CPU);
+    any other device raises, and so does an armed ``pallas_compile``
+    fault (never a quiet switch to the twin)."""
+    faults.check_kernel("branch")
     kind = t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no branch kernel for device type {kind!r}")

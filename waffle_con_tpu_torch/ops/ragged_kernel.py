@@ -35,6 +35,7 @@ import torch
 from waffle_con_tpu_torch.ops import cuda_build
 from waffle_con_tpu_torch.ops.ragged import JP_COLS, ragged_plain
 from waffle_con_tpu_torch.ops.run_kernel import RunPlan, out_layout, plan_run
+from waffle_con_tpu_torch.runtime import faults
 
 #: members of one launch at most (``FrontierGang.G``, the kernel's
 #: ``kMaxGang``)
@@ -276,7 +277,9 @@ run_ragged_cuda.last_plan = None
 
 def run_ragged(state, params, reads, rlen, call: GangCall):
     """Dispatch rule: CPU tensors run :func:`run_ragged_plain`, CUDA
-    tensors launch the kernel; any other device raises."""
+    tensors launch the kernel; any other device raises, and so does an
+    armed ``pallas_compile`` fault."""
+    faults.check_kernel("ragged")
     kind = state["D"].device.type
     if kind == "cuda":
         return run_ragged_cuda(state, params, reads, rlen, call)

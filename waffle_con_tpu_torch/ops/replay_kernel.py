@@ -33,6 +33,7 @@ import torch
 
 from waffle_con_tpu_torch.ops import cuda_build
 from waffle_con_tpu_torch.ops import torch_scorer as ts
+from waffle_con_tpu_torch.runtime import faults
 
 #: shared memory a CTA may use on an H100 (227 KB, the opt-in maximum)
 SMEM_LIMIT = 232448
@@ -391,6 +392,9 @@ def activate_row_cuda(state, slot: int, read: int, offset: int, reads, rlen,
 
 
 def _kind(t) -> str:
+    """``"cuda"`` (launch the kernel) or ``"cpu"`` (the twin); any other
+    device raises, and so does an armed ``pallas_compile`` fault."""
+    faults.check_kernel("replay")
     kind = t.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no replay kernel for device type {kind!r}")

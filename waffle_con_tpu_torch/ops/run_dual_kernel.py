@@ -62,6 +62,7 @@ from waffle_con_tpu_torch.ops.torch_scorer import (
     gather_window,
     stats_core,
 )
+from waffle_con_tpu_torch.runtime import faults
 
 #: the "untracked side" cost of a read in the node-cost fold
 BIG = 1 << 28
@@ -570,7 +571,9 @@ run_extend_dual_cuda.last_plan = None
 def run_extend_dual(state, h1: int, h2: int, reads, rlen, mc_tab, imb_tab,
                     args: DualRunArgs):
     """Dispatch rule: CPU tensors run :func:`run_extend_dual_plain`, CUDA
-    tensors launch the kernel; any other device raises."""
+    tensors launch the kernel; any other device raises, and so does an
+    armed ``pallas_compile`` fault."""
+    faults.check_kernel("run_dual")
     kind = state["D"].device.type
     if kind == "cuda":
         return run_extend_dual_cuda(state, h1, h2, reads, rlen, mc_tab,

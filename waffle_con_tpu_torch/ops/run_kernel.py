@@ -50,6 +50,7 @@ from waffle_con_tpu_torch.ops.torch_scorer import (
     gather_window,
     stats_core,
 )
+from waffle_con_tpu_torch.runtime import faults
 
 
 class RunArgs(NamedTuple):
@@ -487,7 +488,9 @@ run_extend_cuda.last_plan = None
 
 def run_extend(state, h: int, reads, rlen, args: RunArgs):
     """Dispatch rule: CPU tensors run :func:`run_extend_plain`, CUDA
-    tensors launch the kernel; any other device raises."""
+    tensors launch the kernel; any other device raises, and so does an
+    armed ``pallas_compile`` fault (never a quiet switch to the twin)."""
+    faults.check_kernel("run")
     kind = state["D"].device.type
     if kind == "cuda":
         return run_extend_cuda(state, h, reads, rlen, args)

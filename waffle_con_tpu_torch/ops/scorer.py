@@ -65,6 +65,64 @@ class BranchStats:
         self.fin = fin
 
 
+class DeferredStats(BranchStats):
+    """A :class:`BranchStats` whose arrays are fetched on first access:
+    the async seam of the JAX package's ``ops/scorer.py``, where a device
+    run returns its control scalars at once and its bulk observation
+    arrays later.  ``fetch`` is a zero-argument callable returning the
+    real :class:`BranchStats`; every field read resolves it once, and a
+    field write (the ``garbage`` fault's payload) resolves, then writes
+    through.
+
+    The supervisor resolves every result inside its policy boundary
+    (:func:`resolve_stats`), so a timeout, a garbage result or a demotion
+    is blamed on the call that produced it.  ``TorchScorer`` returns none:
+    its run kernels write the control scalars and the stats into one
+    packed buffer that crosses to the host in one copy, so deferring the
+    stats would add a second copy and save nothing.
+    """
+
+    __slots__ = ("_fetch", "_value")
+
+    def __init__(self, fetch) -> None:
+        self._fetch = fetch
+        self._value: Optional[BranchStats] = None
+
+    def resolve(self) -> BranchStats:
+        """Fetch the arrays; idempotent."""
+        if self._value is None:
+            self._value = self._fetch()
+            self._fetch = None
+        return self._value
+
+    def _get(name):  # noqa: N805 - descriptor factory, not a method
+        def getter(self):
+            return getattr(self.resolve(), name)
+
+        def setter(self, value):
+            setattr(self.resolve(), name, value)
+
+        return property(getter, setter)
+
+    eds = _get("eds")
+    occ = _get("occ")
+    split = _get("split")
+    reached = _get("reached")
+    fin = _get("fin")
+    del _get
+
+
+def resolve_stats(obj):
+    """Resolve every :class:`DeferredStats` reachable in a call's result
+    (lists and tuples walked); returns ``obj``."""
+    if isinstance(obj, DeferredStats):
+        obj.resolve()
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            resolve_stats(x)
+    return obj
+
+
 def build_symbol_table(reads: Sequence[bytes], wildcard: Optional[int]) -> np.ndarray:
     """Dense symbol table: sorted distinct bytes over all reads (plus the
     wildcard if configured).  Index in this array == dense id."""
@@ -372,6 +430,12 @@ class SubsetScorer(WavefrontScorer):
     def counters(self) -> Dict[str, int]:
         return self.base.counters
 
+    @property
+    def fastpath_gen(self) -> int:
+        # forwarded so a supervised base's demotion or re-promotion
+        # invalidates a fast_paths() snapshot taken over this view
+        return getattr(self.base, "fastpath_gen", 0)
+
     def _slice(self, stats: BranchStats) -> BranchStats:
         return _slice_stats(stats, self.indices)
 
@@ -506,10 +570,11 @@ class FastPaths:
     __slots__ = (
         "run_extend", "run_extend_dual", "run_arena", "clone_push_many",
         "arena_cap", "arena_k", "arena_cre_per_event", "arena_take_max",
-        "run_takes", "run_dual_takes", "arena_takes",
+        "run_takes", "run_dual_takes", "arena_takes", "gen",
     )
 
-    def __init__(self, scorer) -> None:
+    def __init__(self, scorer, gen: int = 0) -> None:
+        self.gen = gen
         self.run_extend = getattr(scorer, "run_extend", None)
         self.run_extend_dual = getattr(scorer, "run_extend_dual", None)
         self.run_arena = getattr(scorer, "run_arena", None)
@@ -527,10 +592,14 @@ class FastPaths:
 
 
 def fast_paths(scorer) -> FastPaths:
-    """Cached :class:`FastPaths` for ``scorer`` (resolved on first use)."""
+    """Cached :class:`FastPaths` for ``scorer``, resolved on first use and
+    again whenever the scorer's ``fastpath_gen`` moves (a supervisor
+    bumps it at each demotion or re-promotion; 0 for every other
+    scorer)."""
+    gen = getattr(scorer, "fastpath_gen", 0)
     fp = scorer.__dict__.get("_fastpath_cache")
-    if fp is None:
-        fp = FastPaths(scorer)
+    if fp is None or fp.gen != gen:
+        fp = FastPaths(scorer, gen)
         scorer.__dict__["_fastpath_cache"] = fp
     return fp
 
@@ -562,5 +631,12 @@ def construct_backend(
 
 
 def make_scorer(reads: Sequence[bytes], config: CdwfaConfig) -> WavefrontScorer:
-    """Instantiate the scorer selected by ``config.backend``."""
+    """Instantiate the scorer selected by ``config.backend``, wrapped in
+    the fault-tolerant
+    :class:`~waffle_con_tpu_torch.runtime.supervisor.BackendSupervisor`
+    when ``config.supervised`` or ``config.backend_chain`` is set."""
+    if config.supervised or config.backend_chain is not None:
+        from waffle_con_tpu_torch.runtime.supervisor import BackendSupervisor
+
+        return BackendSupervisor(reads, config)
     return construct_backend(reads, config, config.backend)

@@ -1,22 +1,41 @@
-"""Deterministic fault injection: the ``flip_vote`` fault.
+"""Deterministic fault injection for the port's runtime.
 
-The port of the ``flip_vote`` kind of ``waffle_con_tpu``'s
-``runtime/faults.py``.  A :class:`FaultPlan` is a list of
-:class:`FaultSpec` rules; a rule fires when a poll matches its
-``(kind, backend, op, at)`` filter, at most ``count`` times, so a plan is
-exactly reproducible: the same search sees the same faults at the same
-points on every run.  Plans are installed programmatically only
-(:func:`install` / :func:`clear`; the port reads no environment
-variable).
+The port of ``waffle_con_tpu``'s ``runtime/faults.py``.  A
+:class:`FaultPlan` is a list of :class:`FaultSpec` rules; a rule fires
+when a poll matches its ``(kind, backend, op, at)`` filter, at most
+``count`` times, so a plan is exactly reproducible: the same search sees
+the same faults at the same points on every run.  For the dispatch kinds
+the poll index is the supervisor's attempt counter.  Plans are installed
+in code only (:func:`install` / :func:`clear`); the port reads no
+environment variable, so there is no ``WAFFLE_FAULTS``.
 
-``flip_vote``: the single engine's pop loop (via :func:`maybe_flip_vote`)
-silently replaces the sole passing symbol with a different alphabet
-symbol before committing it — a wrong *decision*, invisible to every
-result check of the scorer, that only the audit plane
-(:mod:`waffle_con_tpu_torch.obs.audit`: the lockstep shadow and
-``diff_logs``) can catch.  The poll index is the popped node's consensus
-length, so a length-pinned rule replays deterministically through a
-checkpoint resume.
+Fault kinds:
+
+* ``timeout`` — the supervisor raises :class:`InjectedTimeout` before
+  touching the backend (state unmutated, so a retry is safe).
+* ``device_loss`` — :class:`InjectedDeviceLoss` before the backend call,
+  a card that fell off the bus.
+* ``garbage`` — the dispatch runs, then every ``BranchStats`` in its
+  result is corrupted (NaN distances, negative tip totals); the
+  supervisor's validation must refuse it and retry from the ledger.
+* ``pallas_compile`` — a kernel that fails to build or launch: the
+  dispatch function of a kernel (:func:`check_kernel`, called by every
+  ``ops/*_kernel.py`` dispatch rule before it picks the CUDA kernel or
+  its plain twin) raises :class:`InjectedKernelFailure`.  Nothing falls
+  back to the twin: unsupervised the search raises, supervised the
+  supervisor demotes it (an event and a counter).
+* ``flip_vote`` — the single engine's pop loop (via
+  :func:`maybe_flip_vote`) silently replaces the sole passing symbol
+  with a different alphabet symbol before committing it — a wrong
+  *decision*, invisible to every result check of the scorer, that only
+  the audit plane (:mod:`waffle_con_tpu_torch.obs.audit`: the lockstep
+  shadow and ``diff_logs``) can catch.  The poll index is the popped
+  node's consensus length, so a length-pinned rule replays
+  deterministically through a checkpoint resume.
+
+Every fired dispatch or kernel fault records a ``fault_injected`` event
+(:mod:`waffle_con_tpu_torch.runtime.events`); ``flip_vote`` records
+none.
 
 Example::
 
@@ -36,7 +55,31 @@ import dataclasses
 import threading
 from typing import List, Optional
 
-FAULT_KINDS = ("flip_vote",)
+import numpy as np
+
+from waffle_con_tpu_torch.runtime import events
+
+FAULT_KINDS = (
+    "timeout", "device_loss", "garbage", "pallas_compile", "flip_vote",
+)
+#: the kinds the supervisor polls at each dispatch attempt
+DISPATCH_KINDS = ("timeout", "device_loss", "garbage")
+
+
+class InjectedFault(Exception):
+    """Base class for exceptions raised by injected faults."""
+
+
+class InjectedTimeout(InjectedFault):
+    """Injected dispatch timeout (raised before the backend runs)."""
+
+
+class InjectedDeviceLoss(InjectedFault):
+    """Injected device loss (raised before the backend runs)."""
+
+
+class InjectedKernelFailure(InjectedFault):
+    """Injected kernel build or launch failure (``pallas_compile``)."""
 
 
 @dataclasses.dataclass
@@ -138,3 +181,48 @@ def maybe_flip_vote(backend: str, length: int) -> bool:
     if plan is None:
         return False
     return plan.poll(backend, "vote", length, kinds=("flip_vote",)) is not None
+
+
+def poll(backend: str, op: str, index: int) -> Optional[FaultSpec]:
+    """Supervisor-side hook: the dispatch kinds only."""
+    plan = _ACTIVE
+    if plan is None:
+        return None
+    spec = plan.poll(backend, op, index, kinds=DISPATCH_KINDS)
+    if spec is not None:
+        events.record("fault_injected", fault=spec.kind, backend=backend,
+                      op=op, index=index)
+    return spec
+
+
+def check_kernel(name: str) -> None:
+    """Kernel dispatch hook: raise :class:`InjectedKernelFailure` when a
+    ``pallas_compile`` fault is armed for kernel ``name`` (the rule's
+    ``op``; its backend is ``"torch"``)."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    if plan.poll("torch", name, None, kinds=("pallas_compile",)):
+        events.record("fault_injected", fault="pallas_compile",
+                      backend="torch", op=name, index=None)
+        raise InjectedKernelFailure(
+            f"injected kernel build/launch failure ({name})")
+
+
+def mangle_stats(result):
+    """Corrupt every ``BranchStats`` reachable in a dispatch result (NaN
+    distances, negative tip totals): the ``garbage`` payload."""
+    from waffle_con_tpu_torch.ops.scorer import BranchStats
+
+    def walk(obj):
+        if isinstance(obj, BranchStats):
+            obj.eds = np.full(np.shape(obj.eds), np.nan)
+            obj.split = np.full(np.shape(obj.split), -1, dtype=np.int64)
+            return obj
+        if isinstance(obj, list):
+            return [walk(x) for x in obj]
+        if isinstance(obj, tuple):
+            return tuple(walk(x) for x in obj)
+        return obj
+
+    return walk(result)
