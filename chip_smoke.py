@@ -12,12 +12,17 @@
     python3 chip_smoke.py --phases branch_kernel --small  # branch step build + check
     python3 chip_smoke.py --phases main,dual_main,priority_main,late_main,plan_gate,branch_kernel,checkpoint_main
     python3 chip_smoke.py --phases main,dual_main,priority_main,native_baseline,runtime_main
+    python3 chip_smoke.py --phases mesh_kernel --small  # sharded step check
+    python3 chip_smoke.py --phases main,priority_main,mesh_kernel,mesh_main
 
 Phases, one line each (every failure exits non-zero):
 
 1. device: the card (``nvidia-smi``), torch, and the ``nvcc`` build of
    ``waffle_con_tpu_torch/csrc/*.cu`` (one compiler per source, in
-   parallel, linked into one library).
+   parallel, linked into one library); then ``build_cache``: the kernel
+   library and the C++ engines' library loaded, each checked first
+   against the build directory's manifest (``utils/cache.py``:
+   ``verified``, ``sealed``, or ``quarantined`` and rebuilt).
 2. kernel: the CUDA run kernel (one thread-block cluster per launch)
    against its plain PyTorch version on the card, every output compared
    bitwise, on a small geometry (R=16, E=8; one read; a band of
@@ -273,9 +278,30 @@ from the root, interleaved across the CTAs or filling whole CTAs.
 ``late_main`` runs before ``replay_kernel``, which also holds the
 deployment's own recorded calls (scans, activations and growths).
 
-After the device line, ``pending_bounds`` gives the bound of the one
-function still to port (``sharded_col_step``) at the single north star's
-column step.  The last three lines are the card's name and power limit,
+22. mesh_kernel: the sharded column step (``parallel/mesh.py``'s
+    ``sharded_col_step``: one ``csrc/branch_step.cu`` call a shard on a
+    one-slot store of the shard's state, commit forced, the partials
+    gathered by the kernel and added in shard order on the first device)
+    at 1, 2 and 4 shards (round-robin over the cards: on one card the
+    shards share it), every output bitwise against the plain version
+    (``advance_plain`` a shard, the same sum) and against the 1-shard
+    (unsharded) branch step: the single north star's column (R=256,
+    W=514, A=4, 5,000 columns in) and a step that overflows at E=8.
+    Each line gives the shards a device, ms a step (CUDA events around
+    the call, host work included), its device ms (``torch.profiler``:
+    every activity, and the branch-step kernels alone), the plain
+    version's ms and the bound.
+23. mesh_main: the engines through ``mesh_shards=4`` (a pinned
+    ``DeviceSet`` of 4 shard devices, round-robin over the cards): the
+    single north star (cold and warm), the priority north star and the
+    dual engine on 64 reads x 1 kb at the dual north star's settings
+    (depth cut from 5 kb).  Each result equals the unsharded ``"torch"``
+    search's and the C++ engine's byte for byte; on the sharded store the
+    run, dual-run, arena and gang kernels launch 0 times, the branch step
+    more, and no plain twin runs.  One line a draw: the placement, the
+    sharded and unsharded walls, launches by kernel, shard steps.
+
+The last three lines are the card's name and power limit,
 the kernel table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of ``waffle_con_tpu``.
 """
@@ -4829,15 +4855,265 @@ def phase_branch_kernel(small_only: bool):
 
 
 def sharded_col_step_bound(R, W, A, shards=1):
-    """(bound_ms, bound_by) of one card's share of ``waffle_con_tpu``'s
-    ``sharded_col_step`` (``parallel/mesh.py:284``, still to port): one
-    column step of ``R / shards`` reads of ``W`` cells, the band read and
-    written, the read window (int16) gathered, nine per-read fields read
-    or written, ``occ [R, A]`` and ``split`` written, 20 int32
-    operations a cell; the ``psum`` of its three scalars is left out."""
+    """(bound_ms, bound_by) of one card's share of ``sharded_col_step``
+    (``waffle_con_tpu/parallel/mesh.py:284``; the port's
+    ``waffle_con_tpu_torch/parallel/mesh.py``): one column step of ``R /
+    shards`` reads of ``W`` cells, the band read and written, the read
+    window (int16) gathered, nine per-read fields read or written, ``occ
+    [R, A]`` and ``split`` written, 20 int32 operations a cell; the sum
+    of the three partials across shards is left out.  With ``shards``
+    co-resident on one card, the card's share is the whole step
+    (``shards=1``)."""
     r = R // shards
     nbytes = 2 * 4 * r * W + 2 * r * W + 4 * 9 * r + 4 * r * (A + 1)
     return bound(nbytes, OPS_PER_CELL * r * W)
+
+
+# ---------------------------------------------------------------------
+# phases 22-23: read-axis sharding (the sharded column step, and the
+# engines on a read-sharded store)
+
+#: shards of ``mesh_main``'s sharded stores
+MESH_SHARDS = 4
+
+
+def mesh_devices(n):
+    """``n`` shard devices: round-robin over the cards, so on a one-card
+    machine all ``n`` share ``cuda:0`` (co-resident shards)."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    return tuple(f"cuda:{i % cards}" for i in range(n))
+
+
+def _mesh_inputs(store, slot, devs):
+    """The sharded column step's inputs: slot ``slot`` of a branch store
+    on the card, its per-read fields split over ``devs``."""
+    from waffle_con_tpu_torch.ops.state_io import split_reads
+
+    st, rd, rl = store
+    per = {k: split_reads(st[k][slot], devs)
+           for k in ("D", "e", "rmin", "er", "off", "act")}
+    return ([per[k] for k in ("D", "e", "rmin", "er", "off", "act")]
+            + [st["cons"][slot], int(st["clen"][slot]),
+               split_reads(rd, devs), split_reads(rl, devs)])
+
+
+def _mesh_out(out):
+    """A sharded step's outputs gathered: six numpy arrays and three
+    scalars."""
+    from waffle_con_tpu_torch.ops.state_io import gather_reads
+
+    return ([gather_reads(parts) for parts in out[:6]]
+            + [int(out[6]), bool(out[7]), bool(out[8])])
+
+
+def _mesh_err(a, b):
+    """Max abs difference of two gathered outputs (raises on a shape or
+    dtype mismatch)."""
+    import numpy as np
+
+    err = 0
+    for x, y in zip(a[:6], b[:6]):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"mesh: {x.shape} {x.dtype} vs {y.shape} "
+                                 f"{y.dtype}")
+        err = max(err, int(np.abs(x.astype(np.int64)
+                                  - y.astype(np.int64)).max(initial=0)))
+    return max(err, *(abs(int(p) - int(q)) for p, q in zip(a[6:], b[6:])))
+
+
+def phase_mesh_kernel(small_only: bool):
+    """The sharded column step (``parallel/mesh.py``'s
+    ``sharded_col_step``: one ``csrc/branch_step.cu`` call a shard, then
+    the partials added in shard order) at 1, 2 and 4 shards against its
+    plain version (``advance_plain`` a shard and the same sum) and
+    against the unsharded branch step (the 1-shard kernel), bitwise:
+    the single north star's column (R=256, W=514, A=4, 5,000 columns
+    in) and an overflow at E=8 (R=16, every shard forced to commit).
+    Returns ``(timing, max_err)`` of the north-star column on 4 shards
+    for the kernel table."""
+    import torch
+    from waffle_con_tpu_torch.ops import sharded_scorer as ss
+    from waffle_con_tpu_torch.parallel import make_mesh, sharded_col_step
+
+    cases = [("north_star", _branch_store(17, 1, 256, 10000, 256, (5000,)),
+              (256, 514, 4))]
+    if not small_only:
+        cases.append(("overflow/E8", _branch_store(
+            13, 1, 16, 400, 8, (300,), garbage=(0,)), (16, 18, 4)))
+    smi = smi_line()
+    worst, first = 0, None
+    reps = 5 if small_only else 20
+    for label, store, (R, W, A) in cases:
+        sym = int(store[0]["cons"][0, int(store[0]["clen"][0])])
+        ref = None
+        for k in (1, 2, MESH_SHARDS):
+            devs = mesh_devices(k)
+            mesh = make_mesh(devices=devs)
+            step = sharded_col_step(mesh, num_symbols=A)
+            plain = sharded_col_step(mesh, num_symbols=A, plain=True)
+            args = _mesh_inputs(store, 0, mesh.devices) + [sym, -2, False]
+            before = ss.shard_step.launches
+            got = _mesh_out(step(*args))
+            launches = ss.shard_step.launches - before
+            want = _mesh_out(plain(*args))
+            err = _mesh_err(got, want)
+            ref = got if ref is None else ref
+            err_unsharded = _mesh_err(got, ref)
+            if err or err_unsharded:
+                raise AssertionError(
+                    f"mesh_kernel {label} shards={k}: kernel vs plain "
+                    f"{err}, vs the unsharded branch step {err_unsharded}")
+            if launches != k:
+                raise AssertionError(f"mesh_kernel {label}: {launches} "
+                                     f"launches for {k} shards")
+            ms = _time_cuda(lambda: step(*args), reps)
+            plain_ms = _time_cuda(lambda: plain(*args), max(2, reps // 4))
+            # device time a step: every activity (the inputs' copies into
+            # each shard's one-slot store, the partials' zeroing and
+            # adds) and the branch-step kernels alone
+            dev_ms, by_name = _device_ms(
+                lambda: [step(*args) for _ in range(reps)])
+            kern_ms = sum(_kernel_ms(by_name, kn) for kn in BRANCH_KERNELS)
+            b_one, by_one = sharded_col_step_bound(R, W, A, 1)
+            b_share, _ = sharded_col_step_bound(R, W, A, k)
+            per_dev = {}
+            for d in mesh.devices:
+                per_dev[str(d)] = per_dev.get(str(d), 0) + 1
+            line = dict(
+                case=label, shards=k, shards_per_device=per_dev, R=R, W=W,
+                A=A, overflow=got[8], total=got[6], reached_any=got[7],
+                launches=launches, max_abs_err=err,
+                max_abs_err_vs_unsharded=err_unsharded, ms=round(ms, 4),
+                device_ms=None if dev_ms is None else round(dev_ms / reps, 5),
+                kernels_device_ms=round(kern_ms / reps, 5),
+                plain_ms=round(plain_ms, 4), bound_ms=b_one,
+                bound_by=by_one, bound_ms_card_share_distinct=b_share,
+                smi=smi)
+            print("mesh_kernel", json.dumps(line), flush=True)
+            worst = max(worst, err)
+            if label == "north_star" and k == MESH_SHARDS:
+                first = dict(ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+                             bound_ms=b_one, bound_by=by_one,
+                             kernels_device_ms=round(kern_ms / reps, 5))
+    return first, worst
+
+
+def _mesh_search(kind, spec, cfg):
+    """One search of a deployment on ``cfg``: ``(result as plain data,
+    wall, launches by kernel, shard-step launches, the last
+    ``scorer_sharded`` event, the engine)``."""
+    import torch
+    from waffle_con_tpu_torch.ops import sharded_scorer as ss
+    from waffle_con_tpu_torch.runtime import events
+
+    eng = _engine_for(kind, spec, cfg)
+    reset_launch_counts()
+    ss.shard_step.launches = 0
+    ss.partials_plain.calls = 0
+    events.clear_events()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.consensus()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    counts["plain"] += ss.partials_plain.calls
+    placed = events.get_events("scorer_sharded")
+    return (_result_key(kind, res), wall, counts, ss.shard_step.launches,
+            placed[-1] if placed else None, eng)
+
+
+def phase_mesh_main():
+    """The engines on a read-sharded store (``mesh_shards=4``, the shards
+    co-resident on a one-card machine through a pinned ``DeviceSet``):
+    the single north star (256 x 10 kb at 1 %, cold and warm), the
+    priority north star and the dual engine on 64 reads x 1 kb at the
+    dual north star's settings (depth cut from 5 kb: without the arena
+    every pop makes store calls).  Each result must equal the unsharded
+    ``"torch"`` search's and the C++ engine's byte for byte; on the
+    sharded store the run, dual-run, arena and gang kernels must not
+    launch, the branch step must, and no plain twin may run.  Returns the
+    shard-step launches of the three searches (warm where run twice)."""
+    import dataclasses
+
+    from waffle_con_tpu_torch import CdwfaConfigBuilder
+    from waffle_con_tpu_torch.parallel import DeviceSet, use_device_set
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    smi = smi_line()
+    devs = mesh_devices(MESH_SHARDS)
+    pinned = DeviceSet("mesh", devs)
+    single = BASELINE.get("single")
+    if single is None:
+        truth, reads = generate_test(4, 10000, 256, 0.01, seed=0)
+        cfg = (CdwfaConfigBuilder().backend("torch").device("cuda")
+               .min_count(64).initial_band(216).build())
+        single = dict(reads=reads, offsets=None, config=cfg)
+    prio = BASELINE.get("priority")
+    if prio is None:
+        _t, _h, chains = priority_north_star()
+        b = CdwfaConfigBuilder().backend("torch").device("cuda")
+        for k, v in PRIORITY_CFG.items():
+            b = getattr(b, k)(v)
+        prio = dict(chains=chains, config=b.build())
+    _t1, _t2, dual_reads = dual_north_star(64, 1000, 0.01)
+    dual = dict(reads=dual_reads, offsets=None, config=(
+        CdwfaConfigBuilder().backend("torch").device("cuda")
+        .min_count(16).initial_band(116).build()))
+    draws = [("single", "single", single, ("cold", "warm")),
+             ("priority", "priority", prio, ("cold",)),
+             ("dual_1kb", "dual", dual, ("cold",))]
+    total = 0
+    for name, kind, spec, runs in draws:
+        cfg = spec["config"]
+        want, wall_plain, counts_plain, _n, _ev, _e = _mesh_search(
+            kind, spec, cfg)
+        if spec.get("want") is not None and want != spec["want"]:
+            raise AssertionError(f"mesh_main {name}: the unsharded search "
+                                 "differs from its main phase's")
+        cpp, cpp_s = _cpp_run(kind, spec)
+        if cpp != want:
+            raise AssertionError(f"mesh_main {name}: C++ differs from the "
+                                 "unsharded torch search")
+        sharded_cfg = dataclasses.replace(cfg, mesh_shards=MESH_SHARDS)
+        walls = []
+        with use_device_set(pinned):
+            for run in runs:
+                got, wall, counts, shard_launches, placed, eng = _mesh_search(
+                    kind, spec, sharded_cfg)
+                walls.append(wall)
+                if got != want:
+                    raise AssertionError(f"mesh_main {name} {run}: the "
+                                         "sharded result differs")
+                off_path = {k: counts[k] for k in (
+                    "run_extend", "run_extend_dual", "arena", "run_ragged")}
+                if (any(off_path.values()) or counts["branch_step"] <= 0
+                        or counts["plain"] or shard_launches <= 0):
+                    raise AssertionError(
+                        f"mesh_main {name} {run}: launches {counts}, "
+                        f"shard steps {shard_launches}")
+        c = eng.last_search_stats.get("scorer_counters", {})
+        total += shard_launches
+        print("mesh_main", json.dumps(dict(
+            deployment=name, shards=MESH_SHARDS,
+            placement=None if placed is None else dict(
+                devices=placed["devices"], rows=placed["reads"],
+                rows_per_shard=placed["reads"] // MESH_SHARDS),
+            sharded_s=[round(w, 3) for w in walls],
+            unsharded_s=round(wall_plain, 3), cpp_s=round(cpp_s, 3),
+            sharded_over_unsharded=round(min(walls) / wall_plain, 2),
+            identical_to_unsharded_and_cpp=True,
+            launches_sharded=counts, shard_step_launches=shard_launches,
+            launches_unsharded=counts_plain,
+            pops=eng.last_search_stats.get("nodes_explored", 0)
+            + eng.last_search_stats.get("nodes_ignored", 0),
+            push_calls=c.get("push_calls"),
+            clone_push_calls=c.get("clone_push_calls"),
+            rollbacks=c.get("shard_overflow_rollbacks", 0), smi=smi,
+        )), flush=True)
+    return total
 
 
 def kernel_row(name, source, replaces, check, launches, status=None):
@@ -4851,7 +5127,8 @@ def kernel_row(name, source, replaces, check, launches, status=None):
     ran = {path: n for path, n in launches.items() if n is not None}
     row = dict(
         name=name, route="cuda", source="waffle_con_tpu_torch/csrc/" + source,
-        replaces="waffle_con_tpu/ops/" + replaces,
+        replaces="waffle_con_tpu/" + (
+            replaces if "/" in replaces else "ops/" + replaces),
         launches=sum(ran.values()) if ran else None, launches_by_path=ran,
         max_abs_err=max_err, ms=timing.pop("ms", None),
         plain_ms=timing.pop("plain_ms", None),
@@ -4873,7 +5150,7 @@ def main(argv=None) -> int:
                 "priority_main,priority_oracle,replay_kernel,late_main,"
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
                 "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
-                "obs_main,runtime_main",
+                "obs_main,runtime_main,mesh_kernel,mesh_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -4913,13 +5190,22 @@ def main(argv=None) -> int:
         int32_peak_ops_s=peak_int32_ops_s(),
         build_s=round(build_s, 2),
         nvcc_s=round(cuda_build.build_info["seconds"], 2), ptxas=ptxas,
+        cards=torch.cuda.device_count(),
     )), flush=True)
 
-    # the function still to port (B9): its bound at the single north
-    # star's column step, on one card and a card's share of four
-    print("pending_bounds", json.dumps(dict(sharded_col_step={
-        f"R256_W514_A4_shards{k}": sharded_col_step_bound(256, 514, 4, k)
-        for k in (1, 4)})), flush=True)
+    # the build cache: both libraries checked against the manifest at
+    # their first load (verified, sealed, or quarantined and rebuilt)
+    from waffle_con_tpu_torch import native
+    from waffle_con_tpu_torch.runtime import events
+    from waffle_con_tpu_torch.utils import cache
+
+    cuda_build.library()
+    native.load_library()
+    print("build_cache", json.dumps(dict(
+        checks=dict(cache.last_checks),
+        manifest=sorted(cache._load_manifest(cuda_build.BUILD_DIR)),
+        quarantined=[e["entry"] for e in
+                     events.get_events("cache_quarantine")])), flush=True)
 
     phase_s = {}
 
@@ -4962,6 +5248,8 @@ def main(argv=None) -> int:
     ckpt = timed("checkpoint_main", phase_checkpoint_main) or {}
     timed("obs_main", phase_obs_main)
     timed("runtime_main", phase_runtime_main)
+    mesh_check = timed("mesh_kernel", phase_mesh_kernel, opts.small)
+    mesh_launches = timed("mesh_main", phase_mesh_main)
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
                      checkpoint_main=ckpt.get("run_extend"))
@@ -5000,6 +5288,13 @@ def main(argv=None) -> int:
                         checkpoint_main=ckpt.get("branch_step")),
                    status="redesigned: one launch a batch with the band in "
                           "registers (one_launch), else the slab plan"),
+        # a shard's body is one branch-step call: its launches are the
+        # sharded store's column steps on mesh_main
+        kernel_row("sharded_col_step", "branch_step.cu",
+                   "parallel/mesh.py:284", mesh_check,
+                   dict(mesh_main=mesh_launches),
+                   status="ported: one branch_step.cu call a shard, the "
+                          "partials added in shard order"),
     ]
     # every kernel must have launched on some main path that ran (the
     # gang's path is gang_main: on the other paths it engages only where

@@ -134,6 +134,13 @@ class CdwfaConfig:
     #: Watchdog strict mode: raise ``WatchdogError`` instead of warning
     #: when the dispatch budget is exceeded.
     watchdog_strict: bool = False
+    #: Read-axis sharding of the "torch" branch store: the reads are
+    #: split over this many devices of the mesh
+    #: (:mod:`waffle_con_tpu_torch.parallel`), the devices of the thread's
+    #: pinned ``DeviceSet`` when one is pinned (one device may be listed
+    #: more than once), else the local devices of ``device``'s type.
+    #: 0 keeps one unsharded store.
+    mesh_shards: int = 0
     #: Log each search's one-line summary (the ``SearchReport``
     #: ``summary_line``) at INFO instead of DEBUG.
     log_search_summary: bool = False
@@ -171,6 +178,10 @@ class CdwfaConfig:
             raise ValueError("repromote_after must be >= 1")
         if self.dispatch_budget is not None and self.dispatch_budget < 1:
             raise ValueError("dispatch_budget must be >= 1")
+        if self.mesh_shards < 0:
+            raise ValueError("mesh_shards must be >= 0")
+        if self.mesh_shards and self.backend != "torch":
+            raise ValueError("mesh_shards requires the torch backend")
 
 
 class CdwfaConfigBuilder:

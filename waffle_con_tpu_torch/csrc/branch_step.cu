@@ -23,7 +23,14 @@
 // Stats come back in one packed output that the host fetches in one copy.
 // The output's flags hold the epoch of the call that set them (a number
 // above every other output value, new each call), so no launch clears
-// them.
+// them.  Two options serve a read shard's column step (parallel/mesh.py's
+// `sharded_col_step`, the counterpart of JAX's parallel/mesh.py:284):
+// `force` commits a batch even when it overflows (the step's outputs are
+// wanted whatever the overflow says), and `part` (three device words,
+// zeroed before the launch) gathers the shard's partials as the stats are
+// written: the sum of the active reads' edit distances, whether any read
+// reached its end and whether any pushed read overflowed; integer atomics,
+// so the words are the same in any order of the warps.
 //
 // Two plans (`plan_branch` in ops/branch_kernel.py, picked before the
 // launch from the shape and the card's occupancy):
@@ -94,10 +101,12 @@ struct BranchCall {
   void* slab;
   void* event;      // the store's event (branch_event)
   void* stream;
+  void* part;       // device partials [3] (null: none; needs `out`)
   int B, R, W, C, L;
   int n, A, wc, et, mode, votes, epoch;
   int plan, cells, warps, blocks, smem, commit_blocks, commit_rows;
   int out_words;    // words fetched into out_host
+  int force;        // commit even when the batch overflows
 };
 
 namespace {
@@ -150,7 +159,8 @@ struct RowsArgs {
   int32_t* flag;         // device copy of the batch's overflow word
   int32_t* slab;         // slab plan: the advance's scratch; one_launch:
                          // the copies' staged consensus rows [n, C]
-  int n, L, A, wc, et, votes, mode, epoch;
+  int32_t* part;         // partials: edit-distance sum, reached, overflow
+  int n, L, A, wc, et, votes, mode, epoch, force;
 };
 
 // Packed output (branch_kernel.unpack): eds, split, reached and fin
@@ -181,7 +191,8 @@ struct Slab {
 
 // Lane 0's stats of (row k, read r) = warp w of the batch, at the row's
 // new length; a finalized distance outside the band and a pushed read's
-// overflow set their flags to the call's epoch.
+// overflow set their flags to the call's epoch.  With `part`, the read's
+// share of the shard's partials.
 __device__ __forceinline__ void write_stats(const RowsArgs& a, long long w,
                                             int k, int act, Folds3 f,
                                             int split, bool stepped) {
@@ -197,6 +208,11 @@ __device__ __forceinline__ void write_stats(const RowsArgs& a, long long w,
   if (stepped && f.e >= E) {
     o[flags_at(n, R) + n] = a.epoch;
     *a.flag = a.epoch;
+  }
+  if (a.part != nullptr) {
+    if (act) atomicAdd(&a.part[0], f.e);
+    if (act && f.er < kInf && f.e == f.er) atomicOr(&a.part[1], 1);
+    if (stepped && f.e >= E) atomicOr(&a.part[2], 1);
   }
 }
 
@@ -394,7 +410,7 @@ __global__ void __launch_bounds__(kOneWarps * 32)
     // every src row of the batch is read, and every overflow flagged
     cg::this_grid().sync();
     if (!valid) return;
-    if (a.out != nullptr && __ldcg(a.flag) == a.epoch) {
+    if (a.out != nullptr && !a.force && __ldcg(a.flag) == a.epoch) {
       return;  // a pushed read reached the band: nothing commits
     }
     const size_t dr = (size_t)dst * R + r;
@@ -515,15 +531,15 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
 }
 
 // The slab into the dst slots, unless the batch's overflow word holds the
-// call's epoch: (row, read) pairs over gridDim.y, a pair's words over the
-// CTAs of gridDim.x.  A pair writes its band and folds only when its read
-// was pushed active or its row copies (src != dst); an in-place push
-// writes one consensus symbol.
+// call's epoch (and the call does not `force`): (row, read) pairs over
+// gridDim.y, a pair's words over the CTAs of gridDim.x.  A pair writes its
+// band and folds only when its read was pushed active or its row copies
+// (src != dst); an in-place push writes one consensus symbol.
 __global__ void __launch_bounds__(256)
     branch_commit_kernel(const __grid_constant__ RowsArgs a) {
   const Store& s = a.s;
   const int n = a.n, R = s.R, W = s.W;
-  if (a.out != nullptr && *a.flag == a.epoch) return;
+  if (a.out != nullptr && !a.force && *a.flag == a.epoch) return;
   const Slab sl(a.slab, n, s);
   const size_t nR = (size_t)n * R;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
@@ -694,7 +710,8 @@ bool plan_covers(const BranchCall& c) {
       c.D && c.e && c.rmin && c.er && c.off && c.act && c.cons && c.clen &&
       c.reads && c.rlen && c.rows &&
       (c.mode == 0 || c.out != nullptr) &&
-      (c.out == nullptr || (c.epoch > kInf && (!c.votes || c.A >= 1)));
+      (c.out == nullptr || (c.epoch > kInf && (!c.votes || c.A >= 1))) &&
+      (c.part == nullptr || c.out != nullptr);
   if (!base) return false;
   if (c.plan == kPlanOne) {
     return (c.mode == 1 || c.slab != nullptr) &&
@@ -785,7 +802,9 @@ extern "C" int branch_event_sync(void* event) {
 // the output is there: the one-launch kernel writes it straight into
 // `out_host`, the slab plan into `out`, whose first `out_words` words are
 // then copied; `flag` is the device word the commit tests for an
-// overflow.  Without `out_host` the call returns at once.
+// overflow.  Without `out_host` the call returns at once.  `force`
+// commits an overflowing batch too; `part` (device, with `out`) is zeroed,
+// then gathers the shard's partials.
 extern "C" int branch_rows_launch(const BranchCall* call) {
   if (call == nullptr || !plan_covers(*call) || call->event == nullptr ||
       call->rows_host == nullptr ||
@@ -814,9 +833,15 @@ extern "C" int branch_rows_launch(const BranchCall* call) {
   a.votes = c.votes;
   a.mode = c.mode;
   a.epoch = c.epoch;
+  a.part = static_cast<int32_t*>(c.part);
+  a.force = c.force;
   int rc = upload(c.rows, c.rows_host, 3 * sizeof(int32_t) * (size_t)c.n,
                   st);
   if (rc != 0) return rc;
+  if (c.part != nullptr) {
+    rc = (int)cudaMemsetAsync(c.part, 0, 3 * sizeof(int32_t), st);
+    if (rc != 0) return rc;
+  }
   if (c.plan == kPlanOne) {
     rc = c.mode == 0 ? launch_one<true>(a, c, st)
                      : launch_one<false>(a, c, st);

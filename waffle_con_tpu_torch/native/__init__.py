@@ -6,7 +6,9 @@ the port's build directory (``waffle_con_tpu_torch/_build/``, listed in
 ``.gitignore``), under a name carrying the hash of the source and the
 flags.  Nothing is built at import: the first call (or an explicit
 :func:`build`) compiles to a temporary file and renames it into place,
-so a process never loads a half-written library.  Provides:
+so a process never loads a half-written library, and the library is
+sealed into the build cache's manifest and checked before each load
+(:mod:`waffle_con_tpu_torch.utils.cache`).  Provides:
 
 * :class:`NativeScorer` — the C++ branch store behind the scorer seam
   (``backend="native"``);
@@ -38,6 +40,7 @@ from waffle_con_tpu_torch.models.dual_consensus import DualConsensus
 from waffle_con_tpu_torch.models.priority_consensus import PriorityConsensus
 from waffle_con_tpu_torch.ops.cuda_build import BUILD_DIR
 from waffle_con_tpu_torch.ops.scorer import BranchStats, WavefrontScorer
+from waffle_con_tpu_torch.utils import cache
 
 SRC = Path(__file__).resolve().parent / "src" / "waffle_native.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -90,6 +93,7 @@ def build(rebuild: bool = False) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    cache.seal(lib)
     return lib
 
 
@@ -98,7 +102,7 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        lib = cache.load_checked(build, ctypes.CDLL)
 
         lib.wn_scorer_new.restype = ctypes.c_void_p
         lib.wn_scorer_new.argtypes = [

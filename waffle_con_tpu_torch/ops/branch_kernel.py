@@ -267,13 +267,16 @@ root_plain.calls = 0
 
 
 def advance_plain(state, rows, reads, rlen, wc: int, et: bool,
-                  num_symbols: int, with_stats: bool = True):
+                  num_symbols: int, with_stats: bool = True,
+                  force: bool = False):
     """Rows ``(src, dst, sym)`` (``[3, n]``): slot ``src`` advanced by
     ``sym`` (``-1``: copied as it is) into slot ``dst``, every src read
     before any dst written, nothing committed when a pushed read reaches
-    the band.  Returns the :class:`BranchOut` of the rows at their new
-    lengths (``_j_clone_push_batch``'s stats and overflow), or ``None``
-    without ``with_stats`` (a batch of copies, ``_j_clone_batch``)."""
+    the band (unless ``force``: a read shard's column step commits
+    whatever the overflow says).  Returns the :class:`BranchOut` of the
+    rows at their new lengths (``_j_clone_push_batch``'s stats and
+    overflow), or ``None`` without ``with_stats`` (a batch of copies,
+    ``_j_clone_batch``)."""
     advance_plain.calls += 1
     rows = _rows_np(rows)
     _check_rows(state, rows, with_stats)
@@ -305,7 +308,7 @@ def advance_plain(state, rows, reads, rlen, wc: int, et: bool,
         )
         fin, fin_ovf = ts.finalized(en, rminn, act, E)
         out = _host_out(stats, fin, fin_ovf, overflow)
-    if not overflow:
+    if force or not overflow:
         at = torch.arange(rows.shape[1], device=dev)
         cpos = clen.clamp(0, C - 1).long()
         cons_n = cons.clone()
@@ -393,10 +396,10 @@ class _Call(ctypes.Structure):
     _fields_ = [(name, _PTR) for name in (
         "D", "e", "rmin", "er", "off", "act", "cons", "clen", "reads",
         "rlen", "rows", "rows_host", "out", "out_host", "flag", "slab",
-        "event", "stream")] + [(name, _INT) for name in (
+        "event", "stream", "part")] + [(name, _INT) for name in (
             "B", "R", "W", "C", "L", "n", "A", "wc", "et", "mode", "votes",
             "epoch", "plan", "cells", "warps", "blocks", "smem",
-            "commit_blocks", "commit_rows", "out_words")]
+            "commit_blocks", "commit_rows", "out_words", "force")]
 
 
 def branch_cuda(entry: str, launcher: str, *args,
@@ -663,7 +666,7 @@ def shared_buffers() -> BranchBuffers:
 
 
 def _rows_cuda(entry, mode, votes, state, rows, reads, rlen, wc, et,
-               num_symbols, with_out, bufs):
+               num_symbols, with_out, bufs, force=False, part=None):
     bufs = shared_buffers() if bufs is None else bufs
     c = bufs.bind(state, reads, rlen)
     n = rows.shape[1]
@@ -687,6 +690,8 @@ def _rows_cuda(entry, mode, votes, state, rows, reads, rlen, wc, et,
     c.cells, c.warps, c.blocks, c.smem = (plan.cells, plan.warps,
                                           plan.blocks, plan.smem)
     c.commit_blocks, c.commit_rows = plan.commit_blocks, plan.commit_rows
+    c.force = int(force)
+    c.part = None if part is None else part.data_ptr()
     branch_cuda(entry, "rows", ctypes.byref(c), plan=plan)
     bufs.pending = not with_out
     if not with_out:
@@ -732,16 +737,25 @@ def _store_ptrs(st):
 
 
 def advance_cuda(state, rows, reads, rlen, wc: int, et: bool,
-                 num_symbols: int, with_stats: bool = True, bufs=None):
+                 num_symbols: int, with_stats: bool = True, bufs=None,
+                 force: bool = False, part=None):
     """One call of ``csrc/branch_step.cu`` on its plan (one launch, or the
     slab plan's rows and commit launches): :func:`advance_plain` on the
     card, its stats fetched in one copy; a batch of copies
-    (``with_stats`` False) does not synchronise."""
+    (``with_stats`` False) does not synchronise.  ``force`` commits an
+    overflowing batch; ``part`` (an int32 ``[3]`` tensor on the store's
+    device, with stats) receives the partials of a read shard's column
+    step: the active reads' edit-distance sum, any read reached, any
+    pushed read overflowed."""
     rows = _rows_np(rows)
     _check_rows(state, rows, with_stats)
+    if part is not None:
+        if not with_stats:
+            raise ValueError("partials need the stats")
+        rpk._need(part, torch.int32, state["D"].device, "part", (3,))
     return _rows_cuda("advance" if with_stats else "copy", 0, with_stats,
                       state, rows, reads, rlen, wc, et, num_symbols,
-                      with_stats, bufs)
+                      with_stats, bufs, force, part)
 
 
 def _slot_rows(state, slots) -> np.ndarray:

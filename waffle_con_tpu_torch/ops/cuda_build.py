@@ -7,7 +7,10 @@ library is named by the hash of every source (``*.cu`` and ``*.cuh``)
 and of the code-generation flags, and lives in :data:`BUILD_DIR` (listed
 in ``.gitignore``), so an edited source rebuilds and an unchanged one is
 reused.  Nothing is built when a module is imported: the first kernel
-launch (or an explicit :func:`build`) does it.
+launch (or an explicit :func:`build`) does it.  A library is sealed into
+the build directory's manifest when it lands and checked against it
+before it is loaded (:mod:`waffle_con_tpu_torch.utils.cache`): one
+whose bytes changed is quarantined and built again.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+from waffle_con_tpu_torch.utils import cache
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -109,15 +114,17 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError(f"nvcc failed:\n{build_info['log']}")
         build_info["seconds"] = time.perf_counter() - t0
         os.replace(out_so, lib)
+    cache.seal(lib)
     return lib
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use, checked against the
+    build cache's manifest before it is loaded)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
+            _lib = cache.load_checked(build, ctypes.CDLL)
     return _lib
 
 

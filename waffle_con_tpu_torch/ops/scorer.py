@@ -15,6 +15,9 @@ Implementations:
 * ``TorchScorer`` (:mod:`waffle_con_tpu_torch.ops.torch_scorer`) — all
   branches and reads batched in torch tensors on one device, with the
   run loop as a hand-written CUDA kernel.
+* ``ShardedScorer`` (:mod:`waffle_con_tpu_torch.ops.sharded_scorer`) —
+  the device branch store with its reads split over the devices of a
+  mesh (``config.mesh_shards``), one ``TorchScorer`` a shard.
 * ``NativeScorer`` (:mod:`waffle_con_tpu_torch.native`) — the C++ branch
   store, one incremental DWFA per (branch, read) on the host.
 * :class:`SubsetScorer` (here) — a view of any of them, restricted to the
@@ -616,8 +619,10 @@ def construct_backend(
         scorer = PythonScorer(reads, config)
     elif backend == "torch":
         from waffle_con_tpu_torch.ops.torch_scorer import TorchScorer
+        from waffle_con_tpu_torch.parallel.mesh import shard_for_config
 
-        scorer = TorchScorer(reads, config)
+        # the read-sharded store when config.mesh_shards asks for one
+        scorer = shard_for_config(reads, config) or TorchScorer(reads, config)
     elif backend == "native":
         from waffle_con_tpu_torch.native import NativeScorer
 

@@ -50,7 +50,7 @@ band overflow, branch slots and consensus capacity doubling on demand.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -282,6 +282,21 @@ def replay_rows(off, act, cons, clen, reads, rlen, wc: int, et: bool,
 # ======================================================================
 
 
+class StoreGeometry(NamedTuple):
+    """What a read shard's store takes from its sharded store
+    (:mod:`waffle_con_tpu_torch.ops.sharded_scorer`) instead of deriving
+    it from its own reads, so that every shard of one store steps the
+    same columns: its device, its rows (the padded reads over the shard
+    count, no floor), the read buffer's and the consensus buffer's
+    lengths, and the symbol table of all the reads."""
+
+    device: torch.device
+    rows: int
+    length: int
+    cons: int
+    symtab: np.ndarray
+
+
 class TorchScorer(WavefrontScorer):
     """Branch store on one torch device.
 
@@ -296,19 +311,28 @@ class TorchScorer(WavefrontScorer):
     MIN_L = 256
     MIN_C = 512
 
-    def __init__(self, reads: Sequence[bytes], config: CdwfaConfig) -> None:
+    def __init__(self, reads: Sequence[bytes], config: CdwfaConfig,
+                 geometry: Optional[StoreGeometry] = None) -> None:
         super().__init__(reads, config)
-        dev = torch.device(config.device)
+        dev = torch.device(config.device if geometry is None
+                           else geometry.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                f"device {config.device!r} requested but no CUDA device is "
+                f"device {str(dev)!r} requested but no CUDA device is "
                 "available (pass device='cpu' to run on the CPU)"
             )
         self.device = dev
         n = len(self.reads)
-        self._R = max(_next_pow2(max(n, 1)), self.MIN_R)
         max_len = max((len(r) for r in self.reads), default=1)
-        self._L = max(_next_pow2(max(max_len, 1)), self.MIN_L)
+        if geometry is None:
+            self._R = max(_next_pow2(max(n, 1)), self.MIN_R)
+            self._L = max(_next_pow2(max(max_len, 1)), self.MIN_L)
+            self._C = max(_next_pow2(max_len + 64), self.MIN_C)
+        else:
+            self.symtab = geometry.symtab
+            self.sym_id = {int(s): i for i, s in enumerate(self.symtab)}
+            self._R, self._L, self._C = (geometry.rows, geometry.length,
+                                         geometry.cons)
         reads_arr = np.full((self._R, self._L), -1, dtype=np.int16)
         rlen = np.zeros(self._R, dtype=np.int32)
         for i, r in enumerate(self.reads):
@@ -326,7 +350,6 @@ class TorchScorer(WavefrontScorer):
         else:
             self._E = self.INITIAL_E
         self._B = self.INITIAL_SLOTS
-        self._C = max(_next_pow2(max_len + 64), self.MIN_C)
         self._state = self._blank_state()
         #: the CUDA branch step's persistent buffers for this store
         self._bk = branch_kernel.BranchBuffers()

@@ -32,6 +32,12 @@ Fault kinds:
   shadow and ``diff_logs``) can catch.  The poll index is the popped
   node's consensus length, so a length-pinned rule replays
   deterministically through a checkpoint resume.
+* ``cache_corrupt`` — the build cache's check before a library load
+  (:func:`maybe_corrupt_cache`, called by
+  :func:`waffle_con_tpu_torch.utils.cache.check_library`) flips bytes in
+  the middle of the build directory's first library: the check must
+  quarantine it and the loader build it again.  It records a
+  ``cache_corruption_injected`` event.
 
 Every fired dispatch or kernel fault records a ``fault_injected`` event
 (:mod:`waffle_con_tpu_torch.runtime.events`); ``flip_vote`` records
@@ -61,6 +67,7 @@ from waffle_con_tpu_torch.runtime import events
 
 FAULT_KINDS = (
     "timeout", "device_loss", "garbage", "pallas_compile", "flip_vote",
+    "cache_corrupt",
 )
 #: the kinds the supervisor polls at each dispatch attempt
 DISPATCH_KINDS = ("timeout", "device_loss", "garbage")
@@ -207,6 +214,30 @@ def check_kernel(name: str) -> None:
                       backend="torch", op=name, index=None)
         raise InjectedKernelFailure(
             f"injected kernel build/launch failure ({name})")
+
+
+def maybe_corrupt_cache(path) -> Optional[str]:
+    """Build-cache hook: when a ``cache_corrupt`` fault is armed, flip
+    bytes in the middle of the first library of the build directory
+    ``path`` (name order: deterministic) and return its name."""
+    plan = _ACTIVE
+    if plan is None:
+        return None
+    if not plan.poll("cache", "load", None, kinds=("cache_corrupt",)):
+        return None
+    from waffle_con_tpu_torch.utils.cache import cache_entries
+
+    entries = cache_entries(path)
+    if not entries:
+        return None
+    name, target = entries[0]
+    with open(target, "r+b") as f:
+        data = f.read()
+        mid = len(data) // 2
+        f.seek(mid)
+        f.write(bytes(b ^ 0xFF for b in data[mid:mid + 16]) or b"\xff")
+    events.record("cache_corruption_injected", entry=name)
+    return name
 
 
 def mangle_stats(result):
