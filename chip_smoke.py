@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases main,dual_main,priority_main,native_baseline,runtime_main
     python3 chip_smoke.py --phases mesh_kernel --small  # sharded step check
     python3 chip_smoke.py --phases main,priority_main,mesh_kernel,mesh_main
+    python3 chip_smoke.py --phases serve_kernel,serve_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -300,6 +301,34 @@ deployment's own recorded calls (scans, activations and growths).
     run, dual-run, arena and gang kernels launch 0 times, the branch step
     more, and no plain twin runs.  One line a draw: the placement, the
     sharded and unsharded walls, launches by kernel, shard steps.
+
+24. serve_kernel: the gang kernel (``csrc/run_ragged.cu``) with members
+    from different branch stores in one launch, in place as the serving
+    pool runs it: ``mixed3`` (R=32, W=130; R=64, W=258; R=256, W=514; a
+    forced first symbol), ``mixed4/global_band`` (the three and R=1024,
+    W=514 with its band in device memory), ``constants`` (L2, a
+    wildcard alphabet of 5, early termination with cut reads, a lost
+    budget, a member out of step with its slot) and
+    ``gang10/two_launches`` (ten stores: two consecutive launches).
+    Every member's packed output and slot rows bitwise against the plain
+    version on the card and against its solo run-kernel launch from the
+    same state; each line gives the launch plan and each member's, ms a
+    launch (CUDA events around the call, and device time: events around
+    launches queued behind a spin kernel), the
+    members' solo launches summed, the plain version's ms and the bound.
+25. serve_main: the in-process serving path — one ``ConsensusService``
+    on the card (8 workers, a queue of 16, a pool of 4,096 rows of 8 a
+    page, E 256, L 10,240, C 12,288, gang 8) answers 16 jobs submitted
+    at once: the single north star, the late-read deployment, the dual
+    north star and the priority north star at seeds 0-3 each (seed 0 the
+    tracked draw), the kinds interleaved.  Every served result must equal
+    the same request run alone on ``"torch"``, byte for byte; seed 0 of
+    each kind must equal the C++ engine.  The phase fails unless the gang
+    kernel launched with members of two or more jobs and a group spanned
+    two band widths, and on any planner refusal or twin call.  One line:
+    the 16-job wall beside the solo warm walls summed, batch and gang
+    occupancy, the pool's counters (mixed-width groups, admits,
+    exhaustion, recenters), probes refused by reason, launches by kernel.
 
 The last three lines are the card's name and power limit,
 the kernel table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -1009,20 +1038,23 @@ def phase_oracle():
 # phases 5-7: the dual engine
 
 
-def dual_north_star(num_reads=64, seq_len=5000, err=0.01):
+def dual_north_star(num_reads=64, seq_len=5000, err=0.01, seed=0):
     """The dual north star: half the reads from ``generate_test``, half
     from a second haplotype 3 SNPs away (the JAX package's ``bench.py``
-    draw).  Returns ``(truth, h2, reads)``."""
+    draw; ``seed`` 0 is the tracked draw, others shift every generator's
+    seed).  Returns ``(truth, h2, reads)``."""
     import numpy as np
     from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
 
-    rng = np.random.default_rng(1)
-    truth, reads1 = generate_test(4, seq_len, num_reads // 2, err, seed=1)
+    rng = np.random.default_rng(1 + seed)
+    truth, reads1 = generate_test(4, seq_len, num_reads // 2, err,
+                                  seed=1 + seed)
     h2 = bytearray(truth)
     for pos in rng.choice(seq_len, size=3, replace=False):
         h2[pos] = (h2[pos] + 1 + rng.integers(3)) % 4
     h2 = bytes(h2)
-    reads2 = [corrupt(h2, err, np.random.default_rng(100 + i))
+    reads2 = [corrupt(h2, err,
+                      np.random.default_rng(100 + num_reads * seed + i))
               for i in range(num_reads // 2)]
     return truth, h2, list(reads1) + reads2
 
@@ -5116,6 +5148,413 @@ def phase_mesh_main():
     return total
 
 
+# ---------------------------------------------------------------------
+# the serving pool: the gang kernel across stores, and the service
+
+
+def _serve_store(make, prefix, cfg):
+    """A ``TorchScorer`` on the card over ``make()``'s reads with one
+    branch pushed to the truth's first ``prefix`` symbols: ``(scorer,
+    truth, handle)``."""
+    import numpy as np
+
+    truth, reads = make()
+    sc = _scorer(reads, **cfg)
+    h = sc.root(np.ones(sc.num_reads, dtype=bool))
+    for k in range(prefix):
+        sc.push(h, truth[: k + 1])
+    return sc, truth, h
+
+
+def _draw(length, n, err, seed, wild=None, cut=0):
+    """``generate_test(4, length, n, err, seed=seed)``, every 20th base
+    the wildcard ``wild`` when given, every other read cut by ``cut``."""
+    def make():
+        from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+        truth, reads = generate_test(4, length, n, err, seed=seed)
+        if wild is not None:
+            reads = [bytes(wild if k % 20 == 19 else b
+                           for k, b in enumerate(r)) for r in reads]
+        if cut:
+            reads = [r[: len(r) - cut * (i % 2)] for i, r in enumerate(reads)]
+        return truth, reads
+    return make
+
+
+#: (label, members): a member is (draw, scorer config, prefix, call
+#: overrides); overrides name ``max_steps``, ``me_budget``,
+#: ``other_cost``, ``other_len``, ``first`` ("truth" / "wrong": a forced
+#: first symbol), ``l2`` and ``len0_shift`` (a consensus length the slot
+#: does not hold: the member must run nothing, code -1)
+def serve_kernel_cases(small_only: bool):
+    ns = dict(min_count=64, initial_band=216)
+    m1 = (_draw(1000, 32, 0.01, 301), dict(min_count=8, initial_band=56),
+          200, dict(max_steps=300))
+    m2 = (_draw(5000, 64, 0.01, 302), dict(min_count=16, initial_band=116),
+          800, dict(max_steps=300, first="truth"))
+    m3 = (_draw(3000, 256, 0.01, 303), ns, 1500, dict(max_steps=300))
+    cases = [("mixed3", [m1, m2, m3])]
+    if small_only:
+        return cases
+    m4 = (_draw(600, 1024, 0.01, 304), ns, 100, dict(max_steps=100))
+    cases.append(("mixed4/global_band", [m1, m2, m3, m4]))
+    cases.append(("constants", [
+        (_draw(300, 16, 0.03, 305), dict(min_count=3), 40,
+         dict(max_steps=200, l2=True)),
+        (_draw(400, 24, 0.01, 306, wild=ord("*")),
+         dict(min_count=3, initial_band=16, wildcard=ord("*")), 60,
+         dict(max_steps=120, first="wrong")),
+        (_draw(350, 20, 0.01, 307, cut=2),
+         dict(min_count=3, initial_band=32, allow_early_termination=True),
+         80, dict(max_steps=400)),
+        (_draw(300, 40, 0.01, 308), dict(min_count=5, initial_band=16), 50,
+         dict(max_steps=100, me_budget=3)),
+        (_draw(300, 24, 0.01, 309), dict(min_count=3, initial_band=16), 30,
+         dict(max_steps=50, len0_shift=1)),
+    ]))
+    cases.append(("gang10/two_launches", [
+        (_draw(200 + 20 * i, 16 + 4 * i, 0.01, 310 + i),
+         dict(min_count=3, initial_band=8 * (1 + i % 3)), 20 + i,
+         dict(max_steps=60 + 10 * i)) for i in range(10)]))
+    return cases
+
+
+def _serve_members(stores, states, specs):
+    """The gang's members over ``states`` (one copy of each store)."""
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
+
+    out = []
+    for (sc, _truth, h, call), st in zip(stores, states):
+        out.append(rgk.Member(
+            st, sc._slot_of[h], sc._reads, sc._rlen, call["len0"],
+            call["me_budget"], call["other_cost"], call["other_len"],
+            call["max_steps"], call["first_sym"], call["min_count"],
+            call["l2"], sc._wc, sc._et, sc.num_symbols))
+    return out
+
+
+def serve_bound(members, steps):
+    """(bound_ms, bound_by) of a gang launch of members of different
+    shapes: each member's band read and written once and its reads'
+    windows read once (bytes), 20 int32 operations a band cell a step."""
+    nbytes = ops = 0
+    for m, s in zip(members, steps):
+        R, W, _A, _C = m.shape()
+        nbytes += 2 * R * W * 4 + R * (s + W) * 2
+        ops += s * R * W * OPS_PER_CELL
+    return bound(nbytes, ops)
+
+
+def phase_serve_kernel(small_only: bool):
+    """The gang kernel (``csrc/run_ragged.cu``) with members from
+    different stores in one launch, at different R, W, C, L, A and search
+    constants, in place as the serving pool runs it: every member's packed
+    output and slot rows compared bitwise against the plain version
+    (``run_members_plain`` on the card) and against the member's solo
+    run-kernel launch from the same state.  One line a case: the plan,
+    ms a launch (CUDA events around the call, and device time), the
+    members' solo launches summed, the plain version's ms and the bound.
+    Device time: launches on fresh copies queued behind a spin kernel,
+    CUDA events around them (``_launch_device_ms``).  Returns the kernel
+    table's numbers of the first case and the max error."""
+    import torch
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    max_err = 0
+    timing = None
+    for label, spec in serve_kernel_cases(small_only):
+        stores = []
+        for make, cfg, prefix, over in spec:
+            sc, truth, h = _serve_store(make, prefix, cfg)
+            first = over.get("first")
+            fs = -1
+            if first == "truth":
+                fs = sc.sym_id[truth[prefix]]
+            elif first == "wrong":
+                fs = (sc.sym_id[truth[prefix]] + 1) % sc.num_symbols
+            call = dict(
+                len0=prefix + over.get("len0_shift", 0),
+                me_budget=over.get("me_budget", 2**31 - 1),
+                other_cost=over.get("other_cost", 2**31 - 1),
+                other_len=over.get("other_len", 0),
+                max_steps=over["max_steps"], first_sym=fs,
+                min_count=cfg.get("min_count", 3), l2=over.get("l2", False))
+            stores.append((sc, truth, h, call))
+        st0 = [sc._state for sc, _t, _h, _c in stores]
+        copies = lambda: [_copy_state(s) for s in st0]  # noqa: E731
+        st_k, st_p = copies(), copies()
+        before = rgk.run_ragged_cuda.launches
+        outs_k, _ = rgk.run_members(_serve_members(stores, st_k, None),
+                                    in_place=True)
+        n_launch = rgk.run_ragged_cuda.launches - before
+        plan = rgk.run_ragged_cuda.last_plan
+        members = _serve_members(stores, st_p, None)
+        t0 = time.perf_counter()
+        outs_p, _ = rgk.run_members_plain(members, in_place=True)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        steps, codes, bands, solo_ms = [], [], [], 0.0
+        for g, (sc, _t, h, call) in enumerate(stores):
+            R, W, A = sc._R, sc._W, sc.num_symbols
+            slot = sc._slot_of[h]
+            ok = outs_k[g].cpu().numpy()
+            op = outs_p[g].cpu().numpy()
+            res_k = rk.unpack(ok, R, A, call["max_steps"])
+            if res_k.code == -1:
+                if list(ok[:5]) != list(op[:5]):
+                    raise AssertionError(f"{label} member {g}: "
+                                         f"{ok[:5]} vs {op[:5]}")
+                steps.append(0)
+                codes.append(-1)
+                continue
+            err = max(_result_err(res_k, rk.unpack(op, R, A,
+                                                   call["max_steps"])),
+                      _rows_err(st_k[g], slot, st_p[g], slot))
+            args = rk.RunArgs(
+                me_budget=call["me_budget"], other_cost=call["other_cost"],
+                other_len=call["other_len"], min_count=call["min_count"],
+                l2=call["l2"], max_steps=call["max_steps"],
+                first_sym=call["first_sym"], allow_records=False,
+                wc=sc._wc, et=sc._et, a_real=A)
+            st_s = _copy_state(st0[g])
+            out_s, _rs, _rf = rk.run_extend_cuda(st_s, slot, sc._reads,
+                                                 sc._rlen, args)
+            bands.append(rk.run_extend_cuda.last_plan.band)
+            res_s = rk.unpack(out_s.cpu().numpy(), R, A, call["max_steps"])
+            serr = max(_result_err(res_k, res_s),
+                       _rows_err(st_k[g], slot, st_s, slot))
+            it = iter([_copy_state(st0[g]) for _ in range(3)])
+            solo_ms += _time_cuda(lambda: rk.run_extend_cuda(
+                next(it), slot, sc._reads, sc._rlen, args), 3)
+            max_err = max(max_err, err, serr)
+            if err or serr:
+                raise AssertionError(
+                    f"{label} member {g}: kernel != plain (max err {err}) "
+                    f"or != solo launch ({serr})")
+            steps.append(res_k.steps)
+            codes.append(res_k.code)
+        if label.startswith("mixed4") and "global" not in bands:
+            raise AssertionError(f"{label}: no member's band in device "
+                                 f"memory ({bands})")
+        # in place, so every launch takes a fresh copy of the stores
+        it = iter([copies() for _ in range(7)])
+        k_ms = _time_cuda(lambda: rgk.run_members(
+            _serve_members(stores, next(it), None), in_place=True), 3)
+        dev_ms = _launch_device_ms(lambda: rgk.run_members(
+            _serve_members(stores, next(it), None), in_place=True), 3)
+        bound_ms, bound_by = serve_bound(members, steps)
+        line = dict(
+            card=smi_line(), case=label, members=len(stores),
+            launches=n_launch,
+            shapes=[list(m.shape()) for m in members], steps=steps,
+            codes=codes, cluster=plan.run.cluster,
+            ctas_threads=plan.run.threads, band=plan.run.band,
+            smem_bytes=plan.run.smem_bytes,
+            member_plans=[_plan_fields(p) for p in plan.plans],
+            kernel_ms=round(k_ms, 4), device_ms=dev_ms,
+            solo_sum_ms=round(solo_ms, 4),
+            plain_ms=round(p_ms, 3), bound_ms=bound_ms, bound_by=bound_by)
+        print("serve_kernel", json.dumps(line), flush=True)
+        if timing is None:
+            timing = dict(serve_case=label, serve_ms=round(k_ms, 4),
+                          serve_device_ms=dev_ms,
+                          serve_solo_sum_ms=round(solo_ms, 4),
+                          serve_plain_ms=round(p_ms, 3),
+                          serve_bound_ms=bound_ms, serve_bound_by=bound_by)
+        del stores, st0, st_k, st_p, it
+    return timing, max_err
+
+
+def serve_requests():
+    """The 16 jobs of ``serve_main``, in submission order (the kinds
+    interleaved): single, late, dual and priority north-star shapes at
+    seeds 0-3 (seed 0 is each deployment's tracked draw).  Returns
+    ``[(kind, seed, JobRequest), ...]``."""
+    from waffle_con_tpu_torch import CdwfaConfigBuilder
+    from waffle_con_tpu_torch.serve import JobRequest
+    from waffle_con_tpu_torch.utils.example_gen import (
+        generate_priority_test,
+        generate_test,
+    )
+
+    def cfg(**kw):
+        b = CdwfaConfigBuilder().backend("torch").device("cuda")
+        for k, v in kw.items():
+            b = getattr(b, k)(v)
+        return b.build()
+
+    out = []
+    for seed in range(4):
+        if seed == 0 and "single" in BASELINE:
+            reads = BASELINE["single"]["reads"]  # main's draw, seed 0
+        else:
+            _t, reads = generate_test(4, 10000, 256, 0.01, seed=seed)
+        out.append(("single", seed, JobRequest(
+            "single", tuple(reads), config=cfg(min_count=64,
+                                               initial_band=216))))
+        late = _cut_late(reads, (1000, 5000))
+        out.append(("late", seed, JobRequest(
+            "single", tuple(r for r, _o in late),
+            offsets=tuple(o for _r, o in late), config=cfg(**LATE_CFG))))
+        _t1, _t2, dreads = dual_north_star(seed=seed)
+        out.append(("dual", seed, JobRequest(
+            "dual", tuple(dreads), config=cfg(min_count=16,
+                                              initial_band=116))))
+        _t0, _h, chains = generate_priority_test(
+            32, 2000, 0.01, seeds=(3 + seed, 4 + seed, 200 + 32 * seed))
+        out.append(("priority", seed, JobRequest(
+            "priority", tuple(tuple(c) for c in chains),
+            config=cfg(**PRIORITY_CFG))))
+    return out
+
+
+def _serve_key(kind, res):
+    if kind == "dual":
+        return _dual_key(res)
+    if kind == "priority":
+        return _priority_key(res)
+    return [(c.sequence, list(c.scores)) for c in res]
+
+
+#: the serving pool of ``serve_main``: sized for its 16 jobs
+SERVE_POOL = dict(ragged_rows=4096, ragged_page=8, ragged_e=256,
+                  ragged_l=10240, ragged_c=12288, ragged_gang=8)
+
+
+def _launch_counts():
+    """Every kernel's launches and every plain twin's calls so far."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+    from waffle_con_tpu_torch.ops import ragged_kernel as rgk
+    from waffle_con_tpu_torch.ops import replay_kernel as rpk
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    launches = dict(
+        run_extend=rk.run_extend_cuda.launches,
+        run_extend_dual=rdk.run_extend_dual_cuda.launches,
+        arena=ak.arena_cuda.launches,
+        run_ragged=rgk.run_ragged_cuda.launches,
+        branch_step=bk.branch_cuda.launches,
+        offset_scan=rpk.offset_scan_cuda.launches,
+        col_replay=rpk.replay_rows_cuda.launches,
+    )
+    twins = (rk.run_extend_plain.calls + rdk.run_extend_dual_plain.calls
+             + ak.arena_plain.calls + rgk.run_ragged_plain.calls
+             + bk.plain_calls() + rpk.offset_scan_plain.calls
+             + rpk.replay_rows_plain.calls)
+    return launches, twins
+
+
+def phase_serve_main():
+    """The in-process serving path on the card: one ``ConsensusService``
+    (8 workers, a queue of 16, the pool of :data:`SERVE_POOL`) answers
+    :func:`serve_requests`' 16 jobs submitted at once.  Every served
+    result must equal the same request run alone, unserved, on
+    ``"torch"`` on the card, byte for byte; seed 0 of each kind must also
+    equal the C++ engine on the card's host.  Fails unless the gang
+    kernel launched with members of two or more jobs and a group spanned
+    two or more band widths, on any planner refusal and on any twin call.
+    Prints one line: the 16-job wall and the solo walls summed, batch
+    and gang occupancy, the pool's counters, probes refused by reason,
+    launches by kernel.  Returns the gang kernel's launches."""
+    import torch
+    from waffle_con_tpu_torch.ops import ragged as ops_ragged
+    from waffle_con_tpu_torch.serve import ConsensusService, ServeConfig
+    from waffle_con_tpu_torch.serve.service import _build_engine
+
+    t0 = time.perf_counter()
+    reqs = serve_requests()
+    gen_s = time.perf_counter() - t0
+
+    def solo_pass():
+        got, walls = [], []
+        for kind, _seed, req in reqs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = _build_engine(req).consensus()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            got.append(_serve_key(kind, res))
+        return got, walls
+
+    cfg = ServeConfig(workers=8, queue_limit=16, **SERVE_POOL)
+    ops_ragged.reset_arena()
+    launches0, twins0 = _launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with ConsensusService(cfg) as svc:
+        handles = svc.submit_all([req for _k, _s, req in reqs])
+        results = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        stats = svc.stats()
+        counters = [h.search_report.dispatch_counts if h.search_report
+                    else {} for h in handles]
+    launches1, twins1 = _launch_counts()
+    launches = {k: launches1[k] - launches0[k] for k in launches1}
+    twins = twins1 - twins0
+    # each request alone, unserved, after the service (warm)
+    want, warm_walls = solo_pass()
+    for (kind, seed, _req), res, w in zip(reqs, results, want):
+        if _serve_key(kind, res) != w:
+            raise AssertionError(f"serve_main: {kind} seed {seed}: the "
+                                 "served result != the solo result")
+    cpp = {}
+    for (kind, seed, req), w in zip(reqs, want):
+        if seed != 0:
+            continue
+        spec = dict(reads=list(req.reads), offsets=(
+            list(req.offsets) if req.offsets else None),
+            chains=[list(c) for c in req.reads], config=req.config)
+        got, cpp_s = _cpp_run("dual" if kind == "dual" else "priority"
+                              if kind == "priority" else "single", spec)
+        if got != w:
+            raise AssertionError(f"serve_main: {kind} seed 0 != C++")
+        cpp[kind] = round(cpp_s, 3)
+    pool, disp = stats["ragged"], stats["dispatch"]
+    refusals = {k: sum(c.get(k, 0) for c in counters) for k in PLAN_KEYS}
+    line = dict(
+        card=smi_line(), jobs=len(reqs), workers=cfg.workers,
+        gen_s=round(gen_s, 3),
+        serve_wall_s=round(serve_s, 3),
+        solo_warm_sum_s=round(sum(warm_walls), 3),
+        solo_warm_s={f"{k}{s}": round(w, 3)
+                     for (k, s, _r), w in zip(reqs, warm_walls)},
+        batches=disp["batches"],
+        mean_batch_occupancy=round(disp["mean_batch_occupancy"], 3),
+        routed=disp["routed_requests"], direct=disp["direct_dispatches"],
+        ragged_groups=disp["ragged_groups"],
+        ragged_members=disp["ragged_members"],
+        pool={k: pool[k] for k in (
+            "groups", "members", "mean_occupancy", "occupancy_max",
+            "mixed_w_groups", "admits", "releases", "exhausted",
+            "recenters", "injected_consumed", "injected_dropped",
+            "launches", "group_failures", "plan_refused", "pages_used")},
+        probes_refused=pool["refused"], launches=launches,
+        **refusals, twin_calls=twins, cpp_s=cpp,
+        jobs_done=stats["jobs"]["done"],
+    )
+    print("serve_main", json.dumps(line), flush=True)
+    if stats["jobs"]["done"] != len(reqs):
+        raise AssertionError(f"serve_main: jobs {stats['jobs']}")
+    if twins:
+        raise AssertionError(f"serve_main: {twins} twin calls")
+    if any(refusals.values()) or pool["plan_refused"]:
+        raise AssertionError(f"serve_main: planner refusals {refusals}")
+    if pool["group_failures"]:
+        raise AssertionError("serve_main: a gang launch failed")
+    if not launches["run_ragged"] or not pool["groups"]:
+        raise AssertionError("serve_main: no cross-job gang launch")
+    if not pool["mixed_w_groups"]:
+        raise AssertionError("serve_main: no group spanned two band widths")
+    if pool["pages_used"]:
+        raise AssertionError("serve_main: pages still held after close")
+    return launches["run_ragged"]
+
+
 def kernel_row(name, source, replaces, check, launches, status=None):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -5142,6 +5581,21 @@ def kernel_row(name, source, replaces, check, launches, status=None):
     return row
 
 
+def _merge_checks(gang, serve):
+    """The gang kernel's row numbers: ``gang_kernel``'s (the frontier
+    gang's launch) with ``serve_kernel``'s cross-store launch beside them
+    (its keys ``serve_*``), the larger max error."""
+    if serve is None:
+        return gang
+    if gang is None:
+        timing, err = serve
+        return dict(timing, ms=timing["serve_ms"],
+                    plain_ms=timing["serve_plain_ms"],
+                    bound_ms=timing["serve_bound_ms"],
+                    bound_by=timing["serve_bound_by"]), err
+    return dict(gang[0] or {}, **(serve[0] or {})), max(gang[1], serve[1])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -5150,7 +5604,8 @@ def main(argv=None) -> int:
                 "priority_main,priority_oracle,replay_kernel,late_main,"
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
                 "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
-                "obs_main,runtime_main,mesh_kernel,mesh_main",
+                "obs_main,runtime_main,mesh_kernel,mesh_main,"
+                "serve_kernel,serve_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -5250,6 +5705,8 @@ def main(argv=None) -> int:
     timed("runtime_main", phase_runtime_main)
     mesh_check = timed("mesh_kernel", phase_mesh_kernel, opts.small)
     mesh_launches = timed("mesh_main", phase_mesh_main)
+    serve_check = timed("serve_kernel", phase_serve_kernel, opts.small)
+    serve_launches = timed("serve_main", phase_serve_main)
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
                      checkpoint_main=ckpt.get("run_extend"))
@@ -5276,10 +5733,11 @@ def main(argv=None) -> int:
         kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",
                    cap_check, run_paths),
         kernel_row("run_ragged", "run_ragged.cu", "ragged.py:595",
-                   gang_check,
+                   _merge_checks(gang_check, serve_check),
                    dict({path: GANG_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main",
-                          "late_main")}, gang_main=gang_main_launches)),
+                          "late_main")}, gang_main=gang_main_launches,
+                        serve_main=serve_launches)),
         kernel_row("branch_step", "branch_step.cu",
                    "jax_scorer.py:506,537,557,629,683,754,821", branch_check,
                    dict({path: BRANCH_LAUNCHES.get(path) for path in
@@ -5302,7 +5760,8 @@ def main(argv=None) -> int:
     for row in rows:
         by = row["launches_by_path"]
         if row["name"] == "run_ragged":
-            by = {k: v for k, v in by.items() if k == "gang_main"}
+            by = {k: v for k, v in by.items()
+                  if k in ("gang_main", "serve_main")}
         if by and not sum(by.values()) and not ARENA_OFF:
             return fail(f"{row['name']}: no launch on the main paths "
                         f"{row['launches_by_path']}")

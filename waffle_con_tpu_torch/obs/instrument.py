@@ -10,6 +10,8 @@ scorer call the engines make, recording:
   batched multi-branch calls (branches per call);
 * ``waffle_handle_arena_live`` gauge, sampled every few calls from the
   backend's ``live_handles()`` (a host count, never a device read);
+* a phase record (:mod:`~waffle_con_tpu_torch.obs.phases`) when phase
+  profiling is on;
 
 and opens a ``dispatch:<op>`` tracer span (category ``dispatch``) so
 scorer calls nest inside the engines' ``search`` spans in the Chrome
@@ -17,15 +19,15 @@ trace — and, with the tracer's profiler bridge on, the kernel launches
 of a call nest inside its ``record_function`` range.
 
 The proxy is installed by ``construct_backend``
-(:mod:`waffle_con_tpu_torch.ops.scorer`) only when metrics or tracing is
-on; a run with both off never pays for it.  It is transparent to the
-engines' capability probes (``FastPaths``): every other attribute — the
-kernel launch planners' answers ``run_takes`` / ``run_dual_takes`` /
-``arena_takes``, the ``ARENA_*`` sizes, ``ragged_run_probe``, the
-``counters`` dict — falls through to the wrapped backend, so
-``getattr(scorer, "run_extend", None)`` is ``None`` exactly when the
-backend lacks the kernel and a wrapped search launches the same kernels
-as a bare one.
+(:mod:`waffle_con_tpu_torch.ops.scorer`) only when metrics, tracing or
+phase profiling is on; a run with all three off never pays for it. It is
+transparent to the engines' capability probes (``FastPaths``): every
+other attribute — the kernel launch planners' answers ``run_takes`` /
+``run_dual_takes`` / ``arena_takes``, the ``ARENA_*`` sizes,
+``ragged_run_probe``, the ``counters`` dict — falls through to the
+wrapped backend, so ``getattr(scorer, "run_extend", None)`` is ``None``
+exactly when the backend lacks the kernel and a wrapped search launches
+the same kernels as a bare one.
 
 :class:`FrontierSampler` is the search-frontier telemetry half: a
 decimated per-pop sampler the engines feed (queue depth, live branch
@@ -41,6 +43,7 @@ import time
 from typing import Dict, List, Optional
 
 from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs import phases as obs_phases
 from waffle_con_tpu_torch.obs import trace as obs_trace
 
 #: scorer method -> short op label (the same vocabulary as the scorer
@@ -106,11 +109,16 @@ class TimedScorer:
 
         def timed(*args, **kwargs):
             metrics_on = obs_metrics.metrics_enabled()
+            # phase record: the dispatch seam attributes device and
+            # transfer time into it; one boolean check when profiling
+            # is off
+            rec = obs_phases.begin(op, backend)
             with span(f"dispatch:{op}", "dispatch", backend=backend):
                 t0 = time.perf_counter()
                 try:
                     return fn(*args, **kwargs)
                 finally:
+                    obs_phases.end(rec)
                     if metrics_on:
                         dt = time.perf_counter() - t0
                         reg = obs_metrics.registry()
@@ -149,9 +157,13 @@ class TimedScorer:
 
 
 def maybe_instrument(scorer, backend: str):
-    """Wrap ``scorer`` in a :class:`TimedScorer` when metrics or tracing
-    is on; return it unchanged otherwise."""
-    if obs_metrics.metrics_enabled() or obs_trace.tracing_enabled():
+    """Wrap ``scorer`` in a :class:`TimedScorer` when metrics, tracing or
+    phase profiling is on; return it unchanged otherwise."""
+    if (
+        obs_metrics.metrics_enabled()
+        or obs_trace.tracing_enabled()
+        or obs_phases.profiling_enabled()
+    ):
         return TimedScorer(scorer, backend)
     return scorer
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import bisect
 import threading
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 #: default latency buckets (seconds): from a fast host call to a
 #: multi-second search, roughly x2.5 per step like Prometheus' defaults
@@ -166,6 +166,24 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         #: name -> (kind, {label_key: instrument}, histogram bounds)
         self._families: Dict[str, Tuple[str, Dict[_LabelKey, object], Optional[tuple]]] = {}
+        self._collectors: List[Callable[[], None]] = []
+
+    def register_collector(self, fn: Callable[[], None]) -> None:
+        """Register a callback run at the start of every :meth:`snapshot`
+        and :meth:`render_prometheus`, so derived metrics (the rolling
+        percentiles of :mod:`~waffle_con_tpu_torch.obs.slo`) are fresh
+        at read time."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def _collect(self) -> None:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 - never break a read
+                pass
 
     def _child(self, kind: str, name: str, labels: Dict[str, str],
                bounds: Optional[Iterable[float]] = None):
@@ -210,6 +228,7 @@ class MetricsRegistry:
     def snapshot(self) -> Dict:
         """JSON-ready dump: ``{name: {"type": ..., "series": {labelstr:
         value-or-histogram-dict}}}``."""
+        self._collect()
         with self._lock:
             families = {
                 name: (kind, dict(children))
@@ -238,6 +257,7 @@ class MetricsRegistry:
 
     def render_prometheus(self) -> str:
         """Prometheus text exposition format 0.0.4."""
+        self._collect()
         with self._lock:
             families = {
                 name: (kind, dict(children))

@@ -116,11 +116,17 @@ def run_reported_search(engine, engine_label: str, impl: Callable):
     """
     # lazy submodule imports keep obs.report importable mid-package-init
     from waffle_con_tpu_torch.obs import audit as obs_audit
+    from waffle_con_tpu_torch.obs import flight as obs_flight
     from waffle_con_tpu_torch.obs import metrics as obs_metrics
+    from waffle_con_tpu_torch.obs import phases as obs_phases
+    from waffle_con_tpu_torch.obs import slo as obs_slo
     from waffle_con_tpu_torch.obs import trace as obs_trace
 
     tracer = obs_trace.get_tracer()
     totals_before = tracer.category_totals() if tracer.enabled else None
+    phases_before = (
+        obs_phases.totals() if obs_phases.profiling_enabled() else None
+    )
     #: lockstep shadow execution (a debug tool): the python-oracle twin
     #: runs in step with this search and per-pop decisions are compared
     shadow = obs_audit.maybe_shadow(engine, engine_label)
@@ -156,6 +162,25 @@ def run_reported_search(engine, engine_label: str, impl: Callable):
     trace_id = obs_trace.current_trace_id()
     if trace_id is not None:
         report.extra["trace_id"] = trace_id
+    if phases_before is not None:
+        # per-phase dispatch time spent during this search (process-wide
+        # totals diffed around it)
+        deltas = {
+            p: round(total - phases_before.get(p, 0.0), 6)
+            for p, total in obs_phases.totals().items()
+        }
+        if any(v > 0.0 for v in deltas.values()):
+            report.extra["phases"] = deltas
+    # the rolling-SLO check before this sample joins the window (a
+    # pathological search must not dilute the baseline it is judged
+    # against); fires the flight recorder's slow_search trigger
+    if obs_slo.observe_search(wall_s, trace_id=trace_id):
+        report.extra["slow_search"] = True
+    obs_flight.record(
+        "search", trace_id=trace_id, engine=engine_label,
+        backend=report.backend, wall_s=round(wall_s, 6),
+        dispatches=report.dispatch_total,
+    )
     engine.last_search_report = report
 
     if obs_metrics.metrics_enabled():

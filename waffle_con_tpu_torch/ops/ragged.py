@@ -1,63 +1,100 @@
-"""The frontier gang: same-search speculation through one gang launch.
+"""Gang runs through one launch: the cross-job serving pool and the
+frontier gang.
 
-The port's counterpart of the self-gang half of ``waffle_con_tpu``'s
-``ops/ragged.py``.  Alongside the in-hand node's ``run_extend`` the
-engines advance the next-best queued branches of the same search in one
-launch (:class:`FrontierGang`, driven by
-:class:`~waffle_con_tpu_torch.models.frontier.FrontierSpeculator`).  Each
-member's post-run state is kept as a consume-once deposit
-(:class:`_SpecInjected`); no slot is touched at gang time, and a deposit
-is used only when the member's own pop makes a call it validates
-(``TorchScorer._spec_consume``), so every gang width is byte-identical to
-M = 1.
+The port of ``waffle_con_tpu``'s ``ops/ragged.py``.  Two users share the
+gang kernel (:mod:`~waffle_con_tpu_torch.ops.ragged_kernel`:
+``csrc/run_ragged.cu`` on a CUDA device, :func:`ragged_plain` on the
+CPU):
 
-Pieces:
+* **The serving pool** (:class:`BandArena`): the serve layer's
+  :class:`~waffle_con_tpu_torch.serve.dispatcher.BatchingDispatcher`
+  gangs parked ``run_extend`` calls of *different* jobs — different read
+  counts, read lengths, band widths, alphabets and search constants —
+  into one launch.  :class:`PageTable` keeps JAX's residency accounting:
+  a job's reads hold whole pages of a fixed pool of rows, and a pool that
+  cannot hold another job raises the typed :class:`ArenaExhausted`
+  internally (the call then takes the bucketed path: backpressure, never
+  corruption).  :func:`probe` resolves a parked call down the proxy
+  stack (``CoalescingScorer`` -> supervisor -> ``TorchScorer``) through
+  the ``ragged_run_probe`` hop, checks eligibility and admits the job;
+  :func:`run_group` runs the members in one launch and deposits a
+  consume-once result per member that its own ``run_extend`` then
+  returns at once, so supervision, faults and tracing compose unchanged.
+* **The frontier gang** (:class:`FrontierGang`): alongside the in-hand
+  node's ``run_extend`` the engines advance the next-best queued branches
+  of the same search in one launch, each member's post-run state kept as
+  a consume-once speculative deposit (:class:`_SpecInjected`); no slot is
+  touched at gang time, and a deposit is used only when the member's own
+  pop makes a call it validates (``TorchScorer._spec_consume``).  Inside
+  a serve scope (:func:`serving_active`) the engines do not self-gang.
 
-* :func:`ragged_plain` — the plain PyTorch twin of the JAX package's
-  ``_j_run_ragged`` (``BandArena._build_kernel``): the K=1 run body over a
-  pool of member rows with per-row ``(off, act, seg, wrow)`` descriptors,
-  every per-branch fold a segment reduce.  Same arguments and outputs
-  (mixed band strides included), so the tests hold it to JAX.
-* :class:`FrontierGang` — gathers nothing to the host: the member slots
-  are read on the device by the gang launch
-  (:func:`~waffle_con_tpu_torch.ops.ragged_kernel.run_ragged`: the CUDA
-  kernel ``csrc/run_ragged.cu`` on a CUDA device, :func:`ragged_plain` on
-  the CPU), the post-states stay in device deposit buffers, and only the
-  control scalars and the final stats come to the host in one packed
-  fetch.  Consuming a deposit is a device copy into the slot.
+Where the pool differs from JAX's.  JAX stages every member's reads into
+one ``[ROWS, L] int16`` pool array and gathers and scatters band state,
+because one XLA call needs one array.  The port stages nothing: the gang
+kernel reads each member straight from its own branch store (its slot,
+its reads) at its own geometry and advances the slot in place, as the
+member's own ``run_extend`` would; only each member's packed output
+comes to the host, in one copy.  The page table still decides residency
+and exhaustion with JAX's semantics and counters, so the same jobs gang.
 
-What decides "no gang" is settled before the launch and counted in the
-scorer's counters: fewer than two members (``gang_skip_members``), a
-member whose run could need more consensus capacity
-(``gang_skip_capacity``), a member with a pending deposit
+Byte-identity with the serial path: a member's cluster runs the run
+kernel's body at the member's own split of reads over CTAs and warps, so
+its fold, hence its result, is its solo launch's; records are never
+absorbed (a reached state stops with code 2, which the engines handle);
+a member whose band grows mid-run (code 5) is re-centred in the pool
+(:func:`recenter_scorer`), keeping its residency while its new width
+fits the pool's.
+
+No fallback hides the kernel: a gang whose build or launch fails leaves
+a failure deposit for each member, whose own ``run_extend`` raises it
+(the job's supervisor, if any, sees a failed call).  The only ways to
+the bucketed path are JAX's — not eligible, :class:`ArenaExhausted`, or
+a planner refusal — and each is counted.
+
+The JAX package's knobs are config fields here (:class:`ArenaConfig`,
+built from the service's ``ServeConfig``): ``WAFFLE_RAGGED`` ->
+``enabled``, ``WAFFLE_RAGGED_MIXED_W`` -> ``mixed_w``, ``_ROWS`` /
+``_PAGE`` / ``_E`` / ``_L`` / ``_C`` / ``_GANG`` -> ``rows`` /
+``page_rows`` / ``band_e`` / ``read_len`` / ``cons_len`` / ``gang``.
+The port reads no environment variable.
+
+:func:`ragged_plain` is the plain PyTorch twin of JAX's ``_j_run_ragged``
+(``BandArena._build_kernel``): the K=1 run body over a pool of member
+rows with per-row ``(off, act, seg, wrow)`` descriptors, every
+per-branch fold a segment reduce; same arguments and outputs (mixed band
+strides included), so the tests hold it to JAX.
+
+What decides "no gang" for the frontier gang is settled before the
+launch and counted in the scorer's counters: fewer than two members
+(``gang_skip_members``), a member whose run could need more consensus
+capacity (``gang_skip_capacity``), a member with a pending deposit
 (``gang_skip_pending``), the gang planner's refusal
 (``plan_refused_ragged``).  A member whose slot does not hold the
 engine's consensus length runs nothing in the launch and gets no deposit
-(``gang_skip_desync``); the launch still counts as a group
-(``gang_groups``), and only the in-step members count in
-``gang_members``.  A failed build or launch raises.
+(``gang_skip_desync``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from waffle_con_tpu_torch.analysis import lockcheck
+from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs import phases as _phases
+
+logger = logging.getLogger(__name__)
 
 #: columns of the per-member parameter rows ``jp [G + 1, 10]`` of
 #: :func:`ragged_plain`: in_group, me_budget, other_cost, other_len,
 #: min_count, l2, max_steps, first_sym, wildcard, early termination
 JP_COLS = 10
-
-
-def serving_active() -> bool:
-    """True inside a serving scope, where the cross-job dispatcher owns
-    batching and engines must not self-gang.  The port has no serving
-    layer yet (``serve_scope`` comes with the serving pool), so this is
-    always False."""
-    return False
 
 
 # ======================================================================
@@ -290,6 +327,14 @@ class _Injected:
 
 
 @dataclass
+class _GangFailure:
+    """A serving-pool group whose build or launch failed: each member's
+    own ``run_extend`` raises ``error`` (never a quiet solo run)."""
+
+    error: BaseException
+
+
+@dataclass
 class _SpecInjected(_Injected):
     """A speculative frontier-gang deposit.  The member's slot was not
     advanced at gang time: its post-run state stays in the gang's device
@@ -479,8 +524,711 @@ def frontier_gang_for(scorer) -> FrontierGang:
     return gang
 
 
-def take_injected(scorer, h: int) -> Optional[_SpecInjected]:
-    """The scorer's pending gang deposit for ``h``, taken (None when
-    there is none)."""
+# ======================================================================
+# the serving pool: configuration, serve scope, page table
+
+
+class ArenaExhausted(RuntimeError):
+    """Typed backpressure: the page table cannot hold another job's
+    reads.  Callers fall back to the bucketed dispatch path — this must
+    never surface as a corrupted result."""
+
+
+def _in_range(name: str, value: int, lo: int, hi: int) -> None:
+    if not lo <= value <= hi:
+        raise ValueError(f"{name}={value} outside [{lo}, {hi}]")
+
+
+@dataclass(frozen=True)
+class ArenaConfig:
+    """Pool geometry and switches (JAX's defaults and ranges)."""
+
+    rows: int = 256       # total pool rows (reads across all jobs)
+    page_rows: int = 8    # rows per page (residency quantum)
+    band_e: int = 32      # pool band half-width; W = 2E + 2
+    read_len: int = 512   # longest read a member may have
+    cons_len: int = 2048  # per-member consensus capacity
+    gang: int = 8         # max members per group
+    alphabet: int = 8     # widest dense alphabet a member may have
+    #: the ragged pass at all (JAX's ``WAFFLE_RAGGED``)
+    enabled: bool = True
+    #: members of different band widths share a group (the band width is
+    #: a cap, not an equality; JAX's ``WAFFLE_RAGGED_MIXED_W``)
+    mixed_w: bool = True
+
+    def __post_init__(self) -> None:
+        _in_range("rows", self.rows, 16, 1 << 16)
+        _in_range("page_rows", self.page_rows, 1, 256)
+        _in_range("band_e", self.band_e, 8, 512)
+        _in_range("read_len", self.read_len, 64, 1 << 15)
+        _in_range("cons_len", self.cons_len, 256, 1 << 16)
+        _in_range("gang", self.gang, 2, 64)
+        _in_range("alphabet", self.alphabet, 1, 1 << 16)
+
+    @property
+    def W(self) -> int:
+        return 2 * self.band_e + 2
+
+
+@dataclass(frozen=True)
+class GeometryHint:
+    band: int    # floor for the scorer's band half-width E
+    rows: int    # floor for the read-slot axis R
+    length: int  # floor for the reads axis L
+    cons: int    # floor for the consensus axis C
+
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def serve_scope(config: Optional[ArenaConfig] = None):
+    """Marks the current thread as building and running a served job
+    with the pool ``config`` (default: the process arena's): scorer
+    constructors consult :func:`geometry_hint` while it is active, and
+    the engines do not self-gang (:func:`serving_active`)."""
+    prev = getattr(_TLS, "serving", 0)
+    prev_cfg = getattr(_TLS, "config", None)
+    _TLS.serving = prev + 1
+    _TLS.config = config
+    try:
+        yield
+    finally:
+        _TLS.serving = prev
+        _TLS.config = prev_cfg
+
+
+def serving_active() -> bool:
+    """True inside a :func:`serve_scope`, where the coalescing dispatcher
+    owns batching and engines must not self-gang (a frontier gang would
+    race the cross-job pass over the same slots).  The nesting counter
+    decides, so a thread that once served a job gets its self-ganging
+    back afterwards."""
+    return bool(getattr(_TLS, "serving", 0))
+
+
+def _scope_config() -> ArenaConfig:
+    cfg = getattr(_TLS, "config", None)
+    if cfg is not None:
+        return cfg
+    arena = _ARENA
+    return arena.cfg if arena is not None else ArenaConfig()
+
+
+def geometry_hint() -> Optional[GeometryHint]:
+    """The serve scope's geometry floor, or None outside a served job (or
+    with the pool switched off).  Only the consensus axis is always
+    floored — eligibility demands ``len(consensus) + max_steps + 2 < C``
+    at probe time, and the solo path grows C lazily mid-run — and the
+    band half-width too when mixed widths are off (then the band width
+    is the gang's equality gate).  R and L stay natural: the kernel reads
+    any member's R and L from its own store."""
+    if not serving_active():
+        return None
+    cfg = _scope_config()
+    if not cfg.enabled:
+        return None
+    band = 0 if cfg.mixed_w else cfg.band_e
+    return GeometryHint(band=band, rows=0, length=0, cons=cfg.cons_len)
+
+
+class PageTable:
+    """Host-side fixed-page allocator over the pool's rows.
+
+    Pages are the residency quantum: a job's ``num_reads`` rows round up
+    to whole pages.  Free pages recycle LIFO."""
+
+    def __init__(self, n_pages: int, page_rows: int) -> None:
+        if n_pages < 1 or page_rows < 1:
+            raise ValueError("page table needs >= 1 page of >= 1 row")
+        self.n_pages = n_pages
+        self.page_rows = page_rows
+        self._free: List[int] = list(range(n_pages - 1, -1, -1))
+        self._held: Dict[int, List[int]] = {}
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def alloc(self, key: int, rows_needed: int) -> np.ndarray:
+        """Allocate the page run covering ``rows_needed`` rows under
+        ``key``; returns the (page-quantized) pool row indices.  Raises
+        :class:`ArenaExhausted` when the pool cannot hold them."""
+        if rows_needed < 1:
+            raise ValueError("rows_needed must be >= 1")
+        pages = -(-rows_needed // self.page_rows)
+        if pages > len(self._free):
+            raise ArenaExhausted(
+                f"band-state pool exhausted: need {pages} pages "
+                f"({rows_needed} rows), {len(self._free)} free of "
+                f"{self.n_pages}"
+            )
+        got = [self._free.pop() for _ in range(pages)]
+        self._held[key] = got
+        return np.concatenate([
+            np.arange(p * self.page_rows, (p + 1) * self.page_rows)
+            for p in sorted(got)
+        ]).astype(np.int64)
+
+    def release(self, key: int) -> bool:
+        pages = self._held.pop(key, None)
+        if pages is None:
+            return False
+        self._free.extend(pages)
+        return True
+
+
+# ======================================================================
+# dispatch-time records
+
+_RUN_ARGS = (
+    "h", "consensus", "me_budget", "other_cost", "other_len",
+    "min_count", "l2", "max_steps", "first_sym", "allow_records",
+)
+
+
+@dataclass
+class RunSpec:
+    """One probed and admitted group member: the resolved ``TorchScorer``
+    endpoint plus the normalized ``run_extend`` call arguments."""
+
+    scorer: object
+    h: int
+    vals: Dict
+    ticket: object = None
+    job_id: Optional[int] = None
+
+
+@dataclass
+class _Residency:
+    scorer: object           # strong ref: keyed by id() while resident
+    rows: np.ndarray
+    job_id: Optional[int] = None
+
+
+def _normalize_run_args(args, kwargs) -> Optional[Dict]:
+    """Positional/keyword ``run_extend`` call -> named dict (None when
+    the shape is unrecognized — then the call just runs solo)."""
+    if len(args) > len(_RUN_ARGS):
+        return None
+    vals: Dict = {"first_sym": -1, "allow_records": True}
+    vals.update(zip(_RUN_ARGS, args))
+    for k, v in kwargs.items():
+        if k not in _RUN_ARGS:
+            return None
+        vals[k] = v
+    if any(k not in vals for k in _RUN_ARGS[:8]):
+        return None
+    return vals
+
+
+# ======================================================================
+# the pool
+
+
+class BandArena:
+    """The serving pool: page table, residency, deposits and counters.
+
+    All host bookkeeping is guarded by one lock; device work happens on
+    the dispatcher thread (:meth:`run_group`) with :meth:`release_job` the
+    only cross-thread caller."""
+
+    def __init__(self, cfg: ArenaConfig) -> None:
+        self.cfg = cfg
+        self.rows = cfg.rows
+        self.page_rows = cfg.page_rows
+        self.E = cfg.band_e
+        self.W = cfg.W
+        self.L = cfg.read_len
+        self.C = cfg.cons_len
+        self.gang = cfg.gang
+        self.A = cfg.alphabet
+        self.pages = PageTable(cfg.rows // cfg.page_rows, cfg.page_rows)
+        self._lock = lockcheck.make_rlock("ops.ragged.BandArena")
+        self._resident: Dict[int, _Residency] = {}
+        self._injected: Dict[Tuple[int, int], object] = {}
+        self._counters = {
+            "groups": 0, "members": 0, "occupancy_max": 0,
+            "admits": 0, "releases": 0, "exhausted": 0,
+            "injected_consumed": 0, "injected_dropped": 0,
+            "member_store_failures": 0,
+            # width-agnostic accounting: groups whose members span >= 2
+            # band widths, rows stepped, in-pool re-centerings
+            "mixed_w_groups": 0, "gang_rows": 0, "recenters": 0,
+            # the port's: launches, groups whose launch failed, and
+            # groups a planner refused
+            "launches": 0, "group_failures": 0, "plan_refused": 0,
+        }
+        #: probes that took the bucketed path, by reason
+        self._refused: Dict[str, int] = {}
+
+    def _publish_pages(self) -> None:
+        if not obs_metrics.metrics_enabled():
+            return
+        reg = obs_metrics.registry()
+        reg.gauge("waffle_ragged_pool_pages_used").set(self.pages.used_pages)
+        reg.gauge("waffle_ragged_pool_pages_free").set(self.pages.free_pages)
+
+    def refuse(self, reason: str) -> None:
+        """Count one probe that takes the bucketed path."""
+        with self._lock:
+            self._refused[reason] = self._refused.get(reason, 0) + 1
+
+    # -- eligibility + residency ---------------------------------------
+
+    def why_not(self, scorer, vals: Dict) -> Optional[str]:
+        """Why ``scorer`` cannot take part with the call ``vals`` (None:
+        it can).  With mixed widths (the default) the pool's band width
+        is a cap: any member with ``W <= pool W`` gangs at its own row
+        stride; without, the widths must be equal.  The capacity check
+        mirrors the solo path's growth condition, so a ganged run never
+        needs a consensus growth."""
+        try:
+            n = scorer.num_reads
+            if n < 1 or n > self.rows:
+                return "rows"
+            if self.cfg.mixed_w:
+                if scorer._W > self.W:
+                    return "width"
+            elif scorer._W != self.W:
+                return "width"
+            if scorer.num_symbols > self.A:
+                return "alphabet"
+            if scorer._max_rlen > self.L:
+                return "length"
+            need = len(vals["consensus"]) + int(vals["max_steps"]) + 2
+            if need >= min(scorer._C, self.C):
+                return "capacity"
+        except (AttributeError, TypeError):
+            return "not_a_store"
+        return None
+
+    def eligible(self, scorer, vals: Dict) -> bool:
+        """Geometry gate for one probed member (see :meth:`why_not`)."""
+        return self.why_not(scorer, vals) is None
+
+    def try_admit(self, scorer, job_id: Optional[int]) -> Optional[np.ndarray]:
+        """Admission on first probe: allocate this scorer's page run.
+        Returns the pool rows, or None on exhaustion (the call takes the
+        bucketed path).  The port stages no reads: a member's kernel
+        reads its own store."""
+        with self._lock:
+            key = id(scorer)
+            res = self._resident.get(key)
+            if res is not None:
+                if res.job_id is None:
+                    res.job_id = job_id
+                return res.rows
+            try:
+                rows = self.pages.alloc(key, scorer.num_reads)
+            except ArenaExhausted:
+                self._counters["exhausted"] += 1
+                if obs_metrics.metrics_enabled():
+                    obs_metrics.registry().counter(
+                        "waffle_ragged_exhausted_total"
+                    ).inc()
+                return None
+            self._resident[key] = _Residency(scorer, rows, job_id)
+            self._counters["admits"] += 1
+            self._publish_pages()
+            return rows
+
+    def _release_key(self, key: int) -> None:
+        res = self._resident.pop(key, None)
+        if res is None:
+            return
+        self.pages.release(key)
+        self._counters["releases"] += 1
+        # pending deposits of the departing scorer are stale by definition
+        for k in [k for k in self._injected if k[0] == key]:
+            self._injected.pop(k, None)
+            self._counters["injected_dropped"] += 1
+        self._publish_pages()
+
+    def release_scorer(self, scorer) -> None:
+        with self._lock:
+            self._release_key(id(scorer))
+
+    def release_job(self, job_id) -> None:
+        if job_id is None:
+            return
+        with self._lock:
+            for key in [
+                k for k, r in self._resident.items() if r.job_id == job_id
+            ]:
+                self._release_key(key)
+
+    def recenter_scorer(self, scorer) -> bool:
+        """In-pool band re-centering: the scorer's band just grew, so any
+        held deposits are stale, but its page run is untouched by a band
+        change, so residency survives and the member gangs again on its
+        next probe at the new row stride.  Only a width outgrowing the
+        pool's (or the equality gate) evicts; returns True while the
+        scorer is still resident."""
+        with self._lock:
+            key = id(scorer)
+            res = self._resident.get(key)
+            if res is None:
+                return False
+            for k in [k for k in self._injected if k[0] == key]:
+                self._injected.pop(k, None)
+                self._counters["injected_dropped"] += 1
+            try:
+                if scorer._W > self.W or not self.cfg.mixed_w:
+                    self._release_key(key)
+                    return False
+            except AttributeError:
+                self._release_key(key)
+                return False
+            self._counters["recenters"] += 1
+            if obs_metrics.metrics_enabled():
+                obs_metrics.registry().counter(
+                    "waffle_ragged_recenter_total"
+                ).inc()
+            return True
+
+    # -- deposits ------------------------------------------------------
+
+    def take_injected(self, scorer, h: int):
+        with self._lock:
+            inj = self._injected.pop((id(scorer), int(h)), None)
+            if inj is not None:
+                self._counters["injected_consumed"] += 1
+            return inj
+
+    def discard_injected(self, keys) -> None:
+        """Drop deposits of a batch that were never consumed (the member's
+        dispatch raised before reaching the scorer): a stale deposit must
+        never survive into a later call."""
+        with self._lock:
+            for k in keys:
+                if self._injected.pop(k, None) is not None:
+                    self._counters["injected_dropped"] += 1
+
+    # -- group execution -----------------------------------------------
+
+    def run_group(self, specs: List[RunSpec]) -> List[Tuple[int, int]]:
+        """Run every member (up to ``gang``) in one gang launch (groups
+        of more than 8 in consecutive launches of 8), each advancing its
+        own slot in place, then deposit each member's result.  Returns
+        the deposit keys (the dispatcher discards leftovers after the
+        batch).  A failed build or launch deposits a failure for every
+        member instead, which its own ``run_extend`` raises."""
+        rec = _phases.begin("ragged_group", "torch")
+        try:
+            return self._run_group(specs)
+        finally:
+            _phases.end(rec)
+
+    def _run_group(self, specs: List[RunSpec]) -> List[Tuple[int, int]]:
+        from waffle_con_tpu_torch.ops import ragged_kernel, run_kernel
+        from waffle_con_tpu_torch.ops.torch_scorer import planner_refuses
+
+        members = []
+        with self._lock:
+            for spec in specs[: self.gang]:
+                res = self._resident.get(id(spec.scorer))
+                slot = spec.scorer._slot_of.get(spec.h)
+                if res is None or slot is None:
+                    continue
+                if spec.scorer._W > self.W:
+                    continue  # grew past the pool since the probe
+                members.append((spec, slot, len(res.rows)))
+        if len(members) < 2:
+            return []
+        dev = members[0][0].scorer.device
+        if any(m[0].scorer.device != dev for m in members):
+            # one launch runs on one device: the first device's members
+            members = [m for m in members if m[0].scorer.device == dev]
+            if len(members) < 2:
+                return []
+        gm = []
+        for spec, slot, _rows in members:
+            sc, v = spec.scorer, spec.vals
+            gm.append(ragged_kernel.Member(
+                sc._state, slot, sc._reads, sc._rlen, len(v["consensus"]),
+                min(int(v["me_budget"]), 2**31 - 1),
+                min(int(v["other_cost"]), 2**31 - 1), int(v["other_len"]),
+                int(v["max_steps"]), int(v["first_sym"]),
+                int(v["min_count"]), bool(v["l2"]), sc._wc, sc._et,
+                sc.num_symbols,
+            ))
+        # a launch's shapes the planner refuses take the bucketed path
+        for i in range(0, len(gm), ragged_kernel.MAX_GANG):
+            chunk = gm[i:i + ragged_kernel.MAX_GANG]
+            if planner_refuses(dev, ragged_kernel.plan_members,
+                               [m.shape() for m in chunk]):
+                with self._lock:
+                    self._counters["plan_refused"] += 1
+                for spec, _slot, _rows in members:
+                    c = spec.scorer.counters
+                    c["plan_refused_ragged"] = (
+                        c.get("plan_refused_ragged", 0) + 1)
+                return []
+        rec = _phases.current()
+        widths = {m.shape()[1] for m in gm}
+        if rec is not None:
+            rec.annotate(kernel="ragged", k=1,
+                         geom=f"G{len(gm)}W{max(widths)}")
+        keys: List[Tuple[int, int]] = []
+        try:
+            with _phases.device_scope(rec, dev):
+                outs, _dep = ragged_kernel.run_members(gm, in_place=True)
+            with _phases.transfer_scope(rec):
+                host = ragged_kernel.fetch_outs(outs)
+        except Exception as exc:  # noqa: BLE001 - delivered to every member
+            logger.warning("ragged group of %d failed", len(gm),
+                           exc_info=True)
+            with self._lock:
+                self._counters["group_failures"] += 1
+                for spec, _slot, _rows in members:
+                    key = (id(spec.scorer), int(spec.h))
+                    self._injected[key] = _GangFailure(exc)
+                    keys.append(key)
+            return keys
+        n_members = n_rows = 0
+        run_widths = set()
+        for (spec, _slot, rows), m, out in zip(members, gm, host):
+            R, W, A, _C = m.shape()
+            res = run_kernel.unpack(out, R, A, m.max_steps)
+            if res.code == -1:
+                continue  # slot out of step with the engine: solo decides
+            inj = _Injected(
+                len0=m.len0, steps=res.steps, code=res.code, ids=res.syms,
+                stats=(res.eds, res.occ, res.split, res.reached,
+                       None if res.fin_ovf else res.fin),
+                iters=gang_iters(m.first_sym, res.steps),
+            )
+            key = (id(spec.scorer), int(spec.h))
+            with self._lock:
+                self._injected[key] = inj
+            keys.append(key)
+            n_members += 1
+            # JAX's count: the member's page run, up to its store's rows
+            n_rows += min(rows, spec.scorer._R)
+            run_widths.add(W)
+        n_launch = -(-len(gm) // ragged_kernel.MAX_GANG)
+        with self._lock:
+            self._counters["launches"] += n_launch
+            if n_members:
+                self._counters["groups"] += 1
+                self._counters["members"] += n_members
+                self._counters["occupancy_max"] = max(
+                    self._counters["occupancy_max"], n_members)
+                self._counters["gang_rows"] += n_rows
+                if len(run_widths) > 1:
+                    self._counters["mixed_w_groups"] += 1
+        if n_members and obs_metrics.metrics_enabled():
+            reg = obs_metrics.registry()
+            reg.histogram(
+                "waffle_ragged_occupancy",
+                buckets=obs_metrics.DEFAULT_COUNT_BUCKETS,
+            ).observe(n_members)
+            reg.histogram(
+                "waffle_ragged_gang_rows",
+                buckets=obs_metrics.DEFAULT_COUNT_BUCKETS,
+            ).observe(n_rows)
+            reg.gauge("waffle_ragged_gang_widths").set(len(run_widths))
+        return keys
+
+    # -- introspection -------------------------------------------------
+
+    def stats(self) -> Dict:
+        with self._lock:
+            c = dict(self._counters)
+            refused = dict(self._refused)
+        groups = c["groups"]
+        return {
+            "active": True,
+            "enabled": self.cfg.enabled,
+            "mixed_w": self.cfg.mixed_w,
+            "rows": self.rows,
+            "page_rows": self.page_rows,
+            "pages_total": self.pages.n_pages,
+            "pages_used": self.pages.used_pages,
+            "pages_free": self.pages.free_pages,
+            "band_e": self.E,
+            "gang": self.gang,
+            "mean_occupancy": (c["members"] / groups) if groups else 0.0,
+            "mean_gang_rows": (c["gang_rows"] / groups) if groups else 0.0,
+            "refused": refused,
+            **c,
+        }
+
+
+# ======================================================================
+# process-wide arena registry and the module API the serve layer calls.
+# The default arena backs a single service; named arenas (one a
+# replicated service's replica) keep residency and groups replica-local.
+# Scorer-keyed lookups search every arena (id(scorer) is process-unique).
+
+_ARENA: Optional[BandArena] = None
+_ARENA_LOCK = lockcheck.make_lock("ops.ragged.PROCESS_ARENA")
+_NAMED_ARENAS: Dict[str, BandArena] = {}
+
+
+def get_arena(config: Optional[ArenaConfig] = None) -> BandArena:
+    """The process arena, built on first use (``config``, or the
+    defaults); a ``config`` that differs from the live arena's replaces
+    it."""
+    global _ARENA
+    with _ARENA_LOCK:
+        if _ARENA is None or (config is not None and _ARENA.cfg != config):
+            _ARENA = BandArena(config or ArenaConfig())
+        return _ARENA
+
+
+def peek_arena() -> Optional[BandArena]:
+    return _ARENA
+
+
+def new_arena(name: str, config: Optional[ArenaConfig] = None) -> BandArena:
+    """Create (or replace) the named arena."""
+    arena = BandArena(config or ArenaConfig())
+    with _ARENA_LOCK:
+        _NAMED_ARENAS[name] = arena
+    return arena
+
+
+def drop_arena(name: str) -> None:
+    with _ARENA_LOCK:
+        _NAMED_ARENAS.pop(name, None)
+
+
+def _all_arenas() -> List[BandArena]:
+    with _ARENA_LOCK:
+        out = [] if _ARENA is None else [_ARENA]
+        out.extend(_NAMED_ARENAS.values())
+        return out
+
+
+def reset_arena() -> None:
+    """Drop the process arena and every named arena."""
+    global _ARENA
+    with _ARENA_LOCK:
+        _ARENA = None
+        _NAMED_ARENAS.clear()
+
+
+def enabled(arena: Optional[BandArena] = None) -> bool:
+    """The ragged pass's switch of ``arena`` (default: the process
+    arena's; on when there is none)."""
+    a = arena if arena is not None else _ARENA
+    return a.cfg.enabled if a is not None else True
+
+
+def gang_width(arena: Optional[BandArena] = None) -> int:
+    return (arena or get_arena()).gang
+
+
+def probe(payload, ticket=None,
+          arena: Optional[BandArena] = None) -> Optional[RunSpec]:
+    """Resolve one parked ``run_extend`` call into a group member.
+
+    ``payload`` is ``(probe_attr, args, kwargs)`` captured by the
+    coalescing proxy; ``probe_attr`` hops the proxy and supervisor stack
+    to the live ``TorchScorer`` (or gives None when the current backend
+    cannot take part).  Returns None — the bucketed path — on any
+    ineligibility, pool exhaustion included; each such probe is counted
+    by reason in the arena's ``refused``."""
+    arena = arena if arena is not None else get_arena()
+    if not arena.cfg.enabled:
+        arena.refuse("disabled")
+        return None
+    probe_fn, args, kwargs = payload
+    vals = _normalize_run_args(args, kwargs)
+    if vals is None:
+        arena.refuse("args")
+        return None
+    try:
+        endpoint = probe_fn(vals["h"])
+    except Exception:  # noqa: BLE001 - a dead handle just runs solo
+        arena.refuse("dead_handle")
+        return None
+    if endpoint is None:
+        arena.refuse("no_endpoint")
+        return None
+    scorer, bh = endpoint
+    why = arena.why_not(scorer, vals)
+    if why is not None:
+        arena.refuse(why)
+        return None
+    job_id = getattr(ticket, "job_id", None)
+    if arena.try_admit(scorer, job_id) is None:
+        arena.refuse("exhausted")
+        return None
+    return RunSpec(
+        scorer=scorer, h=int(bh), vals=vals, ticket=ticket, job_id=job_id
+    )
+
+
+def run_group(specs: List[RunSpec],
+              arena: Optional[BandArena] = None) -> List[Tuple[int, int]]:
+    return (arena if arena is not None else get_arena()).run_group(specs)
+
+
+def take_injected(scorer, h: int):
+    """The scorer's pending deposit for ``h``, taken (None when there is
+    none): a frontier-gang deposit first (search-local, and never at the
+    same time as a serving-pool one), then the arenas'."""
     gang = getattr(scorer, "_frontier_gang", None)
-    return gang.take(h) if gang is not None else None
+    if gang is not None:
+        inj = gang.take(h)
+        if inj is not None:
+            return inj
+    if _ARENA is None and not _NAMED_ARENAS:
+        return None  # no serving pool: every run_extend asks, keep it cheap
+    for a in _all_arenas():
+        inj = a.take_injected(scorer, h)
+        if inj is not None:
+            return inj
+    return None
+
+
+def discard_injected(keys, arena: Optional[BandArena] = None) -> None:
+    if arena is not None:
+        arena.discard_injected(keys)
+        return
+    for a in _all_arenas():
+        a.discard_injected(keys)
+
+
+def release_scorer(scorer) -> None:
+    """A backend swap: every held deposit of ``scorer`` is stale, and its
+    residency ends."""
+    gang = getattr(scorer, "_frontier_gang", None)
+    if gang is not None:
+        gang.drop_all()
+    for a in _all_arenas():
+        a.release_scorer(scorer)
+
+
+def recenter_scorer(scorer) -> bool:
+    """The band of ``scorer`` grew: drop its stale deposits everywhere
+    but keep its residency (see :meth:`BandArena.recenter_scorer`).
+    Returns True while it is still resident in some arena."""
+    resident = False
+    for a in _all_arenas():
+        if a.recenter_scorer(scorer):
+            resident = True
+    return resident
+
+
+def release_job(job_id, arena: Optional[BandArena] = None) -> None:
+    if arena is not None:
+        arena.release_job(job_id)
+        return
+    a = _ARENA
+    if a is not None:
+        a.release_job(job_id)
+
+
+def arena_stats(arena: Optional[BandArena] = None) -> Dict:
+    a = arena if arena is not None else _ARENA
+    if a is None:
+        return {"active": False, "enabled": True}
+    return a.stats()

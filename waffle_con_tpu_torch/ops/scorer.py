@@ -32,6 +32,7 @@ in read order, so float summation order is the same on every backend).
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -635,13 +636,45 @@ def construct_backend(
     return maybe_tap(maybe_instrument(scorer, backend), backend)
 
 
+#: thread-local scorer decoration (see :func:`set_scorer_decorator`)
+_SCORER_HOOK = threading.local()
+
+
+def set_scorer_decorator(decorator):
+    """Install a *thread-local* decorator applied to every scorer that
+    :func:`make_scorer` builds on this thread; returns the previous one
+    so callers can restore it (``None``: none installed).
+
+    This is the serve layer's injection point: a worker thread installs
+    ``lambda s: CoalescingScorer(s, dispatcher, job)`` around an engine's
+    ``consensus()`` call, and every scorer the engine builds — the
+    priority engine's per-level shared scorers included — routes its
+    calls through the cross-job batching dispatcher.  Thread-locality
+    keeps concurrent jobs from seeing each other's wrappers.  The
+    decorator applies only in :func:`make_scorer`, never in
+    :func:`construct_backend`: fallback scorers the supervisor builds
+    mid-search live inside an already routed call and must not be
+    routed again.
+    """
+    previous = getattr(_SCORER_HOOK, "decorator", None)
+    _SCORER_HOOK.decorator = decorator
+    return previous
+
+
 def make_scorer(reads: Sequence[bytes], config: CdwfaConfig) -> WavefrontScorer:
     """Instantiate the scorer selected by ``config.backend``, wrapped in
     the fault-tolerant
     :class:`~waffle_con_tpu_torch.runtime.supervisor.BackendSupervisor`
-    when ``config.supervised`` or ``config.backend_chain`` is set."""
+    when ``config.supervised`` or ``config.backend_chain`` is set, then
+    in the calling thread's scorer decorator when one is installed (see
+    :func:`set_scorer_decorator`)."""
     if config.supervised or config.backend_chain is not None:
         from waffle_con_tpu_torch.runtime.supervisor import BackendSupervisor
 
-        return BackendSupervisor(reads, config)
-    return construct_backend(reads, config, config.backend)
+        scorer: WavefrontScorer = BackendSupervisor(reads, config)
+    else:
+        scorer = construct_backend(reads, config, config.backend)
+    decorator = getattr(_SCORER_HOOK, "decorator", None)
+    if decorator is not None:
+        scorer = decorator(scorer)
+    return scorer

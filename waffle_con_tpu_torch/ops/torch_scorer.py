@@ -56,6 +56,8 @@ import numpy as np
 import torch
 
 from waffle_con_tpu_torch.config import CdwfaConfig
+from waffle_con_tpu_torch.obs import phases as _phases
+from waffle_con_tpu_torch.ops import ragged
 from waffle_con_tpu_torch.ops.scorer import (
     BranchStats,
     WavefrontScorer,
@@ -324,10 +326,18 @@ class TorchScorer(WavefrontScorer):
         self.device = dev
         n = len(self.reads)
         max_len = max((len(r) for r in self.reads), default=1)
+        #: the longest read (the serving pool's eligibility reads it)
+        self._max_rlen = max_len
+        # inside a served job the consensus axis (and, with mixed widths
+        # off, the band) rises to the serving pool's floor, so a job's
+        # run calls pass the pool's capacity gate
+        hint = ragged.geometry_hint() if geometry is None else None
         if geometry is None:
             self._R = max(_next_pow2(max(n, 1)), self.MIN_R)
             self._L = max(_next_pow2(max(max_len, 1)), self.MIN_L)
             self._C = max(_next_pow2(max_len + 64), self.MIN_C)
+            if hint is not None:
+                self._C = max(self._C, hint.cons)
         else:
             self.symtab = geometry.symtab
             self.sym_id = {int(s): i for i, s in enumerate(self.symtab)}
@@ -349,6 +359,8 @@ class TorchScorer(WavefrontScorer):
             self._E = _next_pow2(int(config.initial_band), self.INITIAL_E)
         else:
             self._E = self.INITIAL_E
+        if hint is not None:
+            self._E = max(self._E, hint.band)
         self._B = self.INITIAL_SLOTS
         self._state = self._blank_state()
         #: the CUDA branch step's persistent buffers for this store
@@ -410,6 +422,9 @@ class TorchScorer(WavefrontScorer):
         self._spec_drop()
         self._bk.reset()
         self._E *= 2
+        # a serving-pool member is re-centred in the pool: its residency
+        # survives while the new width fits the pool's
+        ragged.recenter_scorer(self)
         st = self._state
         self.counters["grow_e_events"] += 1
         self.counters["replayed_cols"] += int(st["clen"].max())
@@ -809,19 +824,37 @@ class TorchScorer(WavefrontScorer):
         -1) force-pushes the host's already-nominated child as step 0.
         On band overflow (code 5) the band is grown so the caller can
         simply continue."""
-        from waffle_con_tpu_torch.ops import ragged, run_kernel
+        from waffle_con_tpu_torch.ops import run_kernel
 
         inj = ragged.take_injected(self, h)
-        # a frontier-gang deposit: the slot was not advanced at gang time,
-        # so a deposit that does not validate against the real call is
-        # dropped and the run below starts from the slot as it was
-        used = inj is not None and self._spec_consume(
-            inj, h, consensus, me_budget, other_cost, other_len, min_count,
-            l2, max_steps, first_sym,
-        )
-        if inj is not None:
+        if isinstance(inj, ragged._GangFailure):
+            # the serving pool's launch of this call failed: fail the call
+            raise inj.error
+        served = inj is not None and not isinstance(inj, ragged._SpecInjected)
+        used = served
+        if inj is not None and not served:
+            # a frontier-gang deposit: the slot was not advanced at gang
+            # time, so a deposit that does not validate against the real
+            # call is dropped and the run below starts from the slot
+            used = self._spec_consume(
+                inj, h, consensus, me_budget, other_cost, other_len,
+                min_count, l2, max_steps, first_sym,
+            )
             key = "run_gang_injected" if used else "run_gang_mispredict"
             self.counters[key] = self.counters.get(key, 0) + 1
+        if served:
+            # the serving pool ran this very call in a gang launch and
+            # advanced the slot; its result is returned as the run's
+            if inj.len0 != len(consensus):
+                raise RuntimeError(
+                    "serving-pool deposit out of step: made at consensus "
+                    f"length {inj.len0}, called at {len(consensus)}")
+            key = "run_ragged_injected"
+            self.counters[key] = self.counters.get(key, 0) + 1
+            rec = _phases.current()
+            if rec is not None:
+                # the device work happened in the group's own record
+                rec.annotate(kernel="ragged", k=1, geom=self._geom_bucket())
         if used:
             steps, code, syms = inj.steps, inj.code, inj.ids[: inj.steps]
             stats, records = self._stats_np(*inj.stats), []
@@ -830,13 +863,19 @@ class TorchScorer(WavefrontScorer):
                 len(consensus), me_budget, other_cost, other_len, min_count,
                 l2, max_steps, first_sym, allow_records,
             )
-            out, rec_steps, rec_fins = run_kernel.run_extend(
-                self._state, self._slot_of[h], self._reads, self._rlen, args
-            )
-            res, rsteps, rfins = run_kernel.fetch(
-                out, rec_steps, rec_fins, self._R, self.num_symbols,
-                args.max_steps,
-            )
+            rec = _phases.current()
+            if rec is not None:
+                rec.annotate(kernel="solo", k=1, geom=self._geom_bucket())
+            with _phases.device_scope(rec, self.device):
+                out, rec_steps, rec_fins = run_kernel.run_extend(
+                    self._state, self._slot_of[h], self._reads, self._rlen,
+                    args,
+                )
+            with _phases.transfer_scope(rec):
+                res, rsteps, rfins = run_kernel.fetch(
+                    out, rec_steps, rec_fins, self._R, self.num_symbols,
+                    args.max_steps,
+                )
             steps, code, syms = res.steps, res.code, res.syms
             n = self.num_reads
             records = [
@@ -861,11 +900,22 @@ class TorchScorer(WavefrontScorer):
     # -- the frontier gang's deposits -------------------------------------
 
     def ragged_run_probe(self, h: int):
-        """``(self, h)`` when branch ``h`` of this store can join a frontier
-        gang, else None (no such branch)."""
+        """``(self, h)`` when branch ``h`` of this store can join a gang
+        (the serving pool's or the frontier gang), else None (no such
+        branch); the pool still checks eligibility against the call."""
         if h not in self._slot_of:
             return None
         return (self, h)
+
+    def ragged_release(self) -> None:
+        """Release this store's serving-pool residency (a no-op when it
+        has none) and drop its pending deposits; the supervisor calls it
+        before it swaps backends."""
+        ragged.release_scorer(self)
+
+    def _geom_bucket(self) -> str:
+        """Geometry label of phase records: slots x reads x band width."""
+        return f"B{self._B}R{self._R}W{self._W}"
 
     def _spec_drop(self, h: int | None = None) -> None:
         """Invalidate pending gang deposits: branch ``h``'s when its slot
@@ -1013,12 +1063,18 @@ class TorchScorer(WavefrontScorer):
             lock1, lock2, allow_records, rec_min, mc_tab, imb_tab, mc_dyn,
         )
         max_steps = args.max_steps
-        out = run_dual_kernel.run_extend_dual(
-            self._state, s1, s2, self._reads, self._rlen, mc_t, imb_t, args,
-        )
-        res, rsteps, rplanes = run_dual_kernel.fetch(
-            *out, self._R, self.num_symbols, max_steps
-        )
+        rec = _phases.current()
+        if rec is not None:
+            rec.annotate(kernel="dual", k=1, geom=self._geom_bucket())
+        with _phases.device_scope(rec, self.device):
+            out = run_dual_kernel.run_extend_dual(
+                self._state, s1, s2, self._reads, self._rlen, mc_t, imb_t,
+                args,
+            )
+        with _phases.transfer_scope(rec):
+            res, rsteps, rplanes = run_dual_kernel.fetch(
+                *out, self._R, self.num_symbols, max_steps
+            )
         steps, code = res.steps, res.code
         self.counters["run_dual_calls"] += 1
         self.counters["run_dual_steps"] += steps
@@ -1193,12 +1249,17 @@ class TorchScorer(WavefrontScorer):
             relax=bool(split_relax), mc_dyn=bool(mc_dyn), wc=self._wc,
             et=self._et, a_real=self.num_symbols, max_steps=self.ARENA_CAP,
         )
-        out = arena_kernel.arena(
-            self._state, self._reads, self._rlen, slots, kinds, lc, pc,
-            np.asarray(tr_scalars).reshape(2, 4), mc_tab, imb_tab, args,
-        )
-        res = arena_kernel.fetch(out, K, self._R, self.num_symbols,
-                                 args.max_steps)
+        rec = _phases.current()
+        if rec is not None:
+            rec.annotate(kernel="arena", k=1, geom=self._geom_bucket())
+        with _phases.device_scope(rec, self.device):
+            out = arena_kernel.arena(
+                self._state, self._reads, self._rlen, slots, kinds, lc, pc,
+                np.asarray(tr_scalars).reshape(2, 4), mc_tab, imb_tab, args,
+            )
+        with _phases.transfer_scope(rec):
+            res = arena_kernel.fetch(out, K, self._R, self.num_symbols,
+                                     args.max_steps)
         nsteps, code, cre_count = res.nsteps, res.code, res.cre_count
         c = self.counters
         if code == 1:

@@ -251,11 +251,43 @@ class BackendSupervisor(WavefrontScorer):
 
     def _swap(self, pos: int, scorer: WavefrontScorer) -> str:
         old = self.backend
+        self._release_ragged()
         self._pos = pos
         self._scorer = scorer
         self.fastpath_gen += 1
         self._probe_interval = self.config.repromote_after
         return old
+
+    def _release_ragged(self) -> None:
+        """A backend swap (demotion or re-promotion) rebuilds the live
+        search on a fresh backend, so the outgoing scorer's serving-pool
+        residency, if it has any, is released now: its pages would
+        otherwise stay held until the job ends, and its pending deposits
+        are stale against the rebuilt state."""
+        rel = getattr(self._scorer, "ragged_release", None)
+        if rel is None:
+            return
+        try:
+            rel()
+        except Exception:  # noqa: BLE001 - release must never block a swap
+            logger.warning(
+                "serving-pool release failed during backend swap",
+                exc_info=True,
+            )
+
+    def ragged_run_probe(self, h: int):
+        """The serving pool's hop through the supervisor: translate the
+        engine's handle to the current backend's and delegate.  None
+        whenever the live backend cannot take part; the call then runs
+        solo through the supervised path."""
+        inner = getattr(self._scorer, "ragged_run_probe", None)
+        if inner is None:
+            return None
+        try:
+            bh = self._ledger[h].backend_h
+        except KeyError:
+            return None
+        return inner(bh)
 
     def _demote(self, cause: Exception) -> None:
         """Move down the chain, migrating the live search; raises
@@ -290,6 +322,13 @@ class BackendSupervisor(WavefrontScorer):
             _metric_inc(
                 "waffle_backend_demotions_total",
                 from_backend=old, to_backend=target,
+            )
+            from waffle_con_tpu_torch.obs import flight, trace
+
+            flight.trigger(
+                "backend_demoted", trace_id=trace.current_trace_id(),
+                from_backend=old, to_backend=target,
+                handles=len(self._ledger), cause=repr(cause),
             )
             logger.warning(
                 "demoting backend %s -> %s (%d live handles migrated): %r",

@@ -51,6 +51,12 @@ def enforce_deadline(
         events.record(
             "deadline_exceeded", label=label, overrun_s=round(overrun, 6)
         )
+        from waffle_con_tpu_torch.obs import flight, trace
+
+        flight.trigger(
+            "deadline_exceeded", trace_id=trace.current_trace_id(),
+            label=label, overrun_s=round(overrun, 6),
+        )
         raise DeadlineExceeded(
             f"deadline exceeded{f' ({label})' if label else ''}: "
             f"{overrun * 1000:.1f} ms past the budget"
@@ -74,6 +80,13 @@ def enforce_dispatch_budget(
         events.record(
             "watchdog_budget_exceeded", engine=engine, total=total,
             budget=budget,
+        )
+        from waffle_con_tpu_torch.obs import flight, trace
+
+        flight.trigger(
+            "watchdog_budget_exceeded",
+            trace_id=trace.current_trace_id(),
+            engine=engine, total=total, budget=budget,
         )
         message = (
             f"{engine} consensus used {total} blocking dispatches, over "

@@ -1,0 +1,564 @@
+"""The multi-tenant consensus service.
+
+The port of ``waffle_con_tpu``'s ``serve/service.py``, in process.
+:class:`ConsensusService` accepts independent consensus jobs
+(:class:`~waffle_con_tpu_torch.serve.job.JobRequest`), admits them
+through a bounded priority queue (reject-on-full backpressure), runs them
+on a worker pool, and coalesces the concurrent jobs' scorer calls via
+the shared :class:`~waffle_con_tpu_torch.serve.dispatcher.BatchingDispatcher`,
+whose ragged pass gangs their ``run_extend`` calls across jobs through
+the serving pool (:mod:`waffle_con_tpu_torch.ops.ragged`).
+
+The engines are untouched: each worker installs a thread-local scorer
+decorator (``ops.scorer.set_scorer_decorator``) for the duration of its
+job, so every scorer the engine builds — supervised or not — is wrapped
+in a :class:`~waffle_con_tpu_torch.serve.dispatcher.CoalescingScorer`
+routing calls into the shared dispatcher with the job's handle as abort
+ticket.  A job whose config asks for supervision (``supervised`` /
+``backend_chain``) gets its supervisor *inside* the coalescing proxy, so
+retries, demotions and the circuit breaker all happen within one routed
+call.
+
+Lifecycle: ``submit`` -> QUEUED -> (worker pop, deadline/cancel check) ->
+RUNNING -> DONE / FAILED / CANCELLED / EXPIRED.  ``close()`` drains
+gracefully by default (runs everything already admitted) or sheds the
+queue with ``cancel_pending=True``.
+
+The JAX package's environment knobs are fields of :class:`ServeConfig`
+here (the port reads no environment variable): the pool's switches and
+geometry (``WAFFLE_RAGGED*``), ``checkpoint_interval_s``
+(``WAFFLE_CKPT_INTERVAL_S``), ``checkpoint_max_bytes``
+(``WAFFLE_CKPT_MAX_BYTES``), ``stats_file`` (``WAFFLE_STATS_FILE``) and
+``flight_dir`` (``WAFFLE_FLIGHT_DIR``).  Mesh placement, replicas, the
+consensus cache and out-of-process workers are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+from waffle_con_tpu_torch.analysis import lockcheck
+from waffle_con_tpu_torch.obs import audit as obs_audit
+from waffle_con_tpu_torch.obs import flight as obs_flight
+from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs import slo as obs_slo
+from waffle_con_tpu_torch.obs import trace as obs_trace
+from waffle_con_tpu_torch.ops import ragged as ops_ragged
+from waffle_con_tpu_torch.runtime import events
+from waffle_con_tpu_torch.runtime.watchdog import DeadlineExceeded
+from waffle_con_tpu_torch.serve.dispatcher import (
+    BatchingDispatcher,
+    CoalescingScorer,
+)
+from waffle_con_tpu_torch.serve.job import (
+    JobCancelled,
+    JobHandle,
+    JobRequest,
+    JobStatus,
+    ServiceClosed,
+    ServiceOverloaded,
+)
+from waffle_con_tpu_torch.serve.scheduler import AdmissionQueue, WorkerPool
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Service knobs.
+
+    * ``workers`` — concurrent jobs in flight (also the natural upper
+      bound on batch occupancy).
+    * ``queue_limit`` — bounded admission queue; the (queue_limit+1)-th
+      concurrent submit gets :class:`ServiceOverloaded`.
+    * ``batch_window_s`` — how long the first call of a batch waits for
+      concurrent company before executing (0 disables coalescing).
+    * ``max_batch`` — batch-size wait target for the window.
+    * ``adaptive_window`` — arrival-rate-predictive hold inside the
+      window cap (see :class:`BatchingDispatcher`); off = fixed window.
+    * ``aging_s`` — admission anti-starvation: the oldest queued job
+      pops regardless of priority class after waiting this long
+      (``None`` = strict priority).
+    * ``placement`` — mesh placement of large jobs; not ported yet, so
+      anything but ``None`` raises ``NotImplementedError``.
+    * ``ragged`` … ``ragged_gang`` — the serving pool
+      (:class:`~waffle_con_tpu_torch.ops.ragged.ArenaConfig`): the
+      ragged pass on or off, mixed band widths in one group, pool rows,
+      rows a page, band half-width, longest read, consensus capacity and
+      members a group.
+    * ``checkpoint_interval_s`` / ``checkpoint_max_bytes`` — each job's
+      periodic snapshot cadence and size cap.
+    * ``stats_file`` — when set, the live stats are rewritten there
+      (atomically, at most every 0.25 s) as jobs finish.
+    * ``flight_dir`` — when set, the flight recorder also writes each
+      incident there (otherwise incidents stay in memory).
+    """
+
+    workers: int = 4
+    queue_limit: int = 64
+    batch_window_s: float = 0.002
+    max_batch: int = 8
+    name: str = "consensus"
+    adaptive_window: bool = True
+    aging_s: Optional[float] = 0.5
+    placement: Optional[object] = None
+    ragged: bool = True
+    ragged_mixed_w: bool = True
+    ragged_rows: int = 256
+    ragged_page: int = 8
+    ragged_e: int = 32
+    ragged_l: int = 512
+    ragged_c: int = 2048
+    ragged_gang: int = 8
+    checkpoint_interval_s: float = 30.0
+    checkpoint_max_bytes: int = 8 * 1024 * 1024
+    stats_file: Optional[str] = None
+    flight_dir: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if self.workers < 1:
+            raise ValueError("workers must be >= 1")
+        if self.queue_limit < 1:
+            raise ValueError("queue_limit must be >= 1")
+        if self.batch_window_s < 0:
+            raise ValueError("batch_window_s must be >= 0")
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.aging_s is not None and self.aging_s <= 0:
+            raise ValueError("aging_s must be > 0 (or None)")
+        if self.checkpoint_max_bytes < 0:
+            raise ValueError("checkpoint_max_bytes must be >= 0")
+        self.arena_config()  # the pool's ranges
+
+    def arena_config(self) -> ops_ragged.ArenaConfig:
+        """The serving pool's configuration from these fields."""
+        return ops_ragged.ArenaConfig(
+            rows=self.ragged_rows, page_rows=self.ragged_page,
+            band_e=self.ragged_e, read_len=self.ragged_l,
+            cons_len=self.ragged_c, gang=self.ragged_gang,
+            enabled=self.ragged, mixed_w=self.ragged_mixed_w,
+        )
+
+
+def _build_engine(request: JobRequest):
+    """Instantiate the engine for one job (with offset seeding).  Imports
+    are local to keep ``serve`` importable without the model stack."""
+    from waffle_con_tpu_torch.config import CdwfaConfig
+    from waffle_con_tpu_torch.models.consensus import ConsensusDWFA
+    from waffle_con_tpu_torch.models.dual_consensus import DualConsensusDWFA
+    from waffle_con_tpu_torch.models.priority_consensus import (
+        PriorityConsensusDWFA,
+    )
+
+    config = request.config if request.config is not None else CdwfaConfig()
+    if request.kind == "priority":
+        engine = PriorityConsensusDWFA(config)
+        for chain in request.reads:
+            engine.add_sequence_chain(list(chain))
+        return engine
+    cls = ConsensusDWFA if request.kind == "single" else DualConsensusDWFA
+    engine = cls(config)
+    offsets = request.offsets or (None,) * len(request.reads)
+    for read, offset in zip(request.reads, offsets):
+        engine.add_sequence_offset(read, offset)
+    return engine
+
+
+class ConsensusService:
+    """Accepts, schedules, and batch-serves consensus jobs.
+
+    Usage::
+
+        with ConsensusService(ServeConfig(workers=4)) as svc:
+            handles = [svc.submit(req) for req in requests]
+            results = [h.result(timeout=60) for h in handles]
+
+    ``autostart=False`` builds the service with workers and dispatcher
+    parked (tests use this to exercise admission-queue semantics with no
+    timing dependence); call :meth:`start` to begin serving.  ``arena``
+    pins the ragged pass to one serving pool; by default the service
+    uses the process pool, rebuilt to this config's geometry.
+    """
+
+    def __init__(
+        self,
+        config: Optional[ServeConfig] = None,
+        autostart: bool = True,
+        arena=None,
+    ) -> None:
+        self.config = config if config is not None else ServeConfig()
+        if self.config.placement is not None:
+            raise NotImplementedError(
+                "ServeConfig.placement (mesh placement of large jobs) is "
+                "not ported yet: it comes with A9b (serve/placement.py)"
+            )
+        if self.config.flight_dir is not None:
+            obs_flight.set_incident_dir(self.config.flight_dir)
+        self._arena = (
+            arena if arena is not None
+            else ops_ragged.get_arena(self.config.arena_config())
+        )
+        self._queue = AdmissionQueue(
+            self.config.queue_limit, name=self.config.name,
+            aging_s=self.config.aging_s,
+        )
+        self._dispatcher = BatchingDispatcher(
+            window_s=self.config.batch_window_s,
+            max_batch=self.config.max_batch,
+            name=self.config.name,
+            adaptive_window=self.config.adaptive_window,
+            arena=self._arena,
+        )
+        self._pool = WorkerPool(
+            self.config.workers, self._queue, self._run_job,
+            name=self.config.name,
+        )
+        self._lock = lockcheck.make_lock("serve.service.ConsensusService")
+        self._next_id = 0
+        self._closed = False
+        self._handles: List[JobHandle] = []
+        #: job_id -> live CheckpointController (running jobs only);
+        #: request_checkpoints() fans a snapshot request out over it
+        self._controllers: Dict[int, object] = {}
+        self._counts = {
+            "submitted": 0, "rejected": 0, "done": 0, "failed": 0,
+            "cancelled": 0, "expired": 0,
+        }
+        self._ckpt_counts = {"snapshots": 0, "bytes": 0}
+        self._stats_published_at = 0.0
+        if autostart:
+            self.start()
+
+    # -- lifecycle -----------------------------------------------------
+
+    def start(self) -> None:
+        self._dispatcher.start()
+        self._pool.start()
+
+    def close(
+        self, cancel_pending: bool = False, timeout: Optional[float] = None
+    ) -> None:
+        """Shut down.  Default drains gracefully: everything already
+        admitted runs to completion first.  ``cancel_pending=True``
+        finalizes still-queued jobs as CANCELLED instead."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            handles = list(self._handles)
+        if cancel_pending:
+            for handle in self._queue.drain():
+                handle.cancel()
+        if self._pool.started:
+            for handle in handles:
+                handle.wait(timeout)
+        self._pool.stop(wait=True)
+        # any job still queued when the pool stopped (never-started
+        # service, or drain raced a worker) must not hang its client
+        for handle in self._queue.drain():
+            handle._finish(
+                JobStatus.CANCELLED,
+                exception=ServiceClosed("service closed before job ran"),
+            )
+        self._dispatcher.close()
+
+    def __enter__(self) -> "ConsensusService":
+        return self
+
+    def __exit__(self, *exc_info) -> None:
+        self.close()
+
+    # -- client API ----------------------------------------------------
+
+    def submit(self, request: JobRequest, checkpoint=None) -> JobHandle:
+        """Admit one job; raises :class:`ServiceOverloaded` when the
+        bounded queue is full and :class:`ServiceClosed` after close.
+        ``checkpoint`` optionally resumes a previously snapshotted search
+        (a wire dict from :attr:`JobHandle.checkpoint`); a checkpoint
+        that does not resume degrades to a fresh search with a
+        ``checkpoint_rejected`` incident, never a failed job."""
+        if not isinstance(request, JobRequest):
+            raise TypeError(
+                f"expected JobRequest, got {type(request).__name__}"
+            )
+        with self._lock:
+            if self._closed:
+                raise ServiceClosed("service is closed to new jobs")
+            handle = JobHandle(
+                self._next_id, request, service=self.config.name
+            )
+            self._next_id += 1
+        if checkpoint is not None:
+            handle._attach_checkpoint(checkpoint)
+        try:
+            self._queue.put(handle)
+        except ServiceOverloaded:
+            with self._lock:
+                self._counts["rejected"] += 1
+            events.record(
+                "serve_overloaded", job_kind=request.kind,
+                queue_limit=self.config.queue_limit,
+            )
+            # one incident per process for the whole storm (dedupe on
+            # reason), carrying the first rejected job's identity
+            obs_flight.trigger(
+                "service_overloaded",
+                rejected_trace_id=handle.trace.trace_id,
+                job_kind=request.kind,
+                queue_limit=self.config.queue_limit,
+                queue_depth=self._queue.depth(),
+            )
+            raise
+        with self._lock:
+            self._counts["submitted"] += 1
+            self._handles.append(handle)
+        return handle
+
+    def submit_all(self, requests: Sequence[JobRequest]) -> List[JobHandle]:
+        return [self.submit(r) for r in requests]
+
+    def outstanding(self) -> int:
+        """Admitted-but-unfinished job count (queued + running)."""
+        with self._lock:
+            counts = dict(self._counts)
+        finished = (counts["done"] + counts["failed"]
+                    + counts["cancelled"] + counts["expired"])
+        return max(0, counts["submitted"] - finished)
+
+    # -- worker --------------------------------------------------------
+
+    def _run_job(self, handle: JobHandle) -> None:
+        from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
+        from waffle_con_tpu_torch.ops.scorer import set_scorer_decorator
+
+        if not handle._mark_running():
+            # cancelled while queued: finalized by cancel() already,
+            # account it now that its heap entry has been consumed
+            self._account(handle, "cancelled")
+            return
+        # the job's trace context for everything the worker does on its
+        # behalf: spans land under the job's Chrome pid and the flight
+        # recorder attributes records even with tracing off
+        prev_ctx = obs_trace.set_current_context(handle.trace)
+        obs_flight.record(
+            "job_start", trace_id=handle.trace.trace_id,
+            job_kind=handle.request.kind, job_id=handle.job_id,
+            queued_s=round(time.monotonic() - handle.submitted_at, 6),
+        )
+        try:
+            handle.check_abort()  # the deadline may already have lapsed
+        except BaseException as exc:
+            self._finalize(handle, exc)
+            obs_trace.set_current_context(prev_ctx)
+            return
+        self._dispatcher.job_started()
+        dispatcher, ticket = self._dispatcher, handle
+        previous = set_scorer_decorator(
+            lambda scorer: CoalescingScorer(scorer, dispatcher, ticket)
+        )
+        ctrl = ckpt_mod.CheckpointController(
+            interval_s=self.config.checkpoint_interval_s,
+            max_bytes=self.config.checkpoint_max_bytes,
+            deadline=handle.deadline,
+            on_snapshot=lambda ckpt: self._deliver_checkpoint(handle, ckpt),
+            label=f"job {handle.job_id}",
+        )
+        with self._lock:
+            self._controllers[handle.job_id] = ctrl
+        try:
+            with obs_trace.span(
+                "serve:job", "serve",
+                kind=handle.request.kind, job_id=handle.job_id,
+            ):
+                # serve scope: scorers built for this job floor their
+                # consensus capacity to the pool's (see
+                # ops.ragged.geometry_hint), and engines do not self-gang
+                with ops_ragged.serve_scope(self._arena.cfg):
+                    engine = self._make_engine(handle)
+                    try:
+                        with ckpt_mod.installed(ctrl):
+                            result = engine.consensus()
+                    except ckpt_mod.CheckpointRejected as exc:
+                        # a checkpoint body is validated when the engine
+                        # consumes it: restart from scratch, never fail
+                        self._record_ckpt_rejection(handle, exc)
+                        handle._drop_checkpoint()
+                        engine = _build_engine(handle.request)
+                        with ckpt_mod.installed(ctrl):
+                            result = engine.consensus()
+        except BaseException as exc:
+            self._finalize(handle, exc)
+        else:
+            handle._finish(
+                JobStatus.DONE, result=result,
+                report=getattr(engine, "last_search_report", None),
+            )
+            self._account(handle, "done")
+        finally:
+            with self._lock:
+                self._controllers.pop(handle.job_id, None)
+            set_scorer_decorator(previous)
+            # page-table residency ends with the job: whatever scorers it
+            # admitted into the serving pool free their pages now
+            try:
+                ops_ragged.release_job(handle.job_id, arena=self._arena)
+            except Exception:  # noqa: BLE001 - never block teardown
+                pass
+            self._dispatcher.job_finished()
+            obs_trace.set_current_context(prev_ctx)
+
+    def _make_engine(self, handle: JobHandle):
+        """Build the job's engine, resuming from the handle's attached
+        checkpoint when one is present.  A rejected checkpoint degrades
+        to a fresh search with a ``checkpoint_rejected`` incident."""
+        from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
+
+        wire_ckpt = handle.checkpoint
+        if wire_ckpt is not None:
+            try:
+                checkpoint = ckpt_mod.SearchCheckpoint.from_wire(wire_ckpt)
+                if checkpoint.kind != handle.request.kind:
+                    raise ckpt_mod.CheckpointRejected(
+                        f"{handle.request.kind} job cannot resume a "
+                        f"{checkpoint.kind!r} checkpoint"
+                    )
+                engine = ckpt_mod.resume_engine(checkpoint)
+            except ckpt_mod.CheckpointRejected as exc:
+                self._record_ckpt_rejection(handle, exc)
+            else:
+                events.record(
+                    "job_resumed", job_id=handle.job_id,
+                    job_kind=handle.request.kind, service=self.config.name,
+                )
+                return engine
+        return _build_engine(handle.request)
+
+    def _record_ckpt_rejection(self, handle: JobHandle, exc) -> None:
+        events.record(
+            "checkpoint_rejected", job_id=handle.job_id,
+            service=self.config.name, why=str(exc),
+        )
+        obs_flight.trigger(
+            "checkpoint_rejected",
+            trace_id=handle.trace.trace_id,
+            job_id=handle.job_id, job_kind=handle.request.kind,
+            service=self.config.name, why=str(exc),
+        )
+
+    def _deliver_checkpoint(self, handle: JobHandle, checkpoint) -> None:
+        """Controller snapshot hook: attach the wire form to the handle
+        and count."""
+        size = checkpoint.byte_size()
+        handle._attach_checkpoint(checkpoint.to_wire())
+        with self._lock:
+            self._ckpt_counts["snapshots"] += 1
+            self._ckpt_counts["bytes"] += size
+        obs_flight.record(
+            "job_checkpoint", trace_id=handle.trace.trace_id,
+            job_id=handle.job_id, bytes=size,
+        )
+
+    def request_checkpoints(self, preempt: bool = False) -> int:
+        """Ask every running job to snapshot at its next pop boundary;
+        with ``preempt`` the searches also stop there.  Returns how many
+        jobs were signalled."""
+        with self._lock:
+            controllers = list(self._controllers.values())
+        for ctrl in controllers:
+            ctrl.request_snapshot(preempt=preempt)
+        return len(controllers)
+
+    def _finalize(self, handle: JobHandle, exc: BaseException) -> None:
+        if isinstance(exc, JobCancelled):
+            handle._finish(JobStatus.CANCELLED, exception=exc)
+            self._account(handle, "cancelled")
+        elif isinstance(exc, DeadlineExceeded):
+            handle._finish(JobStatus.EXPIRED, exception=exc)
+            self._account(handle, "expired")
+        else:
+            handle._finish(JobStatus.FAILED, exception=exc)
+            self._account(handle, "failed")
+
+    def _account(self, handle: JobHandle, outcome: str) -> None:
+        with self._lock:
+            self._counts[outcome] += 1
+        latency = handle.latency_s
+        obs_flight.record(
+            "job_end", trace_id=handle.trace.trace_id,
+            outcome=outcome, job_id=handle.job_id,
+            latency_s=(round(latency, 6) if latency is not None else None),
+        )
+        if outcome == "done" and latency is not None:
+            obs_slo.observe_job(latency)
+        self._publish_stats()
+        if obs_metrics.metrics_enabled():
+            reg = obs_metrics.registry()
+            reg.counter(
+                "waffle_serve_jobs_total",
+                service=self.config.name, outcome=outcome,
+            ).inc()
+            if latency is not None:
+                reg.histogram(
+                    "waffle_serve_job_latency_seconds",
+                    service=self.config.name,
+                ).observe(latency)
+            reg.gauge(
+                "waffle_serve_active_jobs", service=self.config.name
+            ).set(self._active_jobs())
+
+    def _publish_stats(self) -> None:
+        """With ``stats_file`` set, atomically rewrite it with the live
+        stats and SLO snapshot (at most every 0.25 s)."""
+        path = self.config.stats_file
+        if not path:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if now - self._stats_published_at < 0.25:
+                return
+            self._stats_published_at = now
+        payload = {
+            "service": self.config.name,
+            "unix_time": time.time(),
+            "stats": self.stats(),
+            "slo": obs_slo.snapshot(),
+            "incidents": [
+                {k: i.get(k) for k in
+                 ("seq", "reason", "trace_id", "unix_time", "path")}
+                for i in obs_flight.incidents()[-8:]
+            ],
+        }
+        if obs_metrics.metrics_enabled():
+            payload["metrics"] = obs_metrics.registry().snapshot()
+        audit_status = obs_audit.status()
+        if audit_status is not None:
+            payload["audit"] = audit_status
+        try:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            with open(tmp, "w") as fh:
+                json.dump(payload, fh, default=repr)
+            os.replace(tmp, path)
+        except OSError:  # a broken stats sink must never fail a job
+            pass
+
+    def _active_jobs(self) -> int:
+        return max(0, self.outstanding() - self._queue.depth())
+
+    # -- introspection -------------------------------------------------
+
+    def stats(self) -> Dict:
+        """Point-in-time counters, the dispatcher's batching stats and the
+        serving pool's."""
+        with self._lock:
+            counts = dict(self._counts)
+            ckpt_counts = dict(self._ckpt_counts)
+        return {
+            "jobs": counts,
+            "checkpoints": ckpt_counts,
+            "queue_depth": self._queue.depth(),
+            "aged_pops": self._queue.aged_pops,
+            "dispatch": self._dispatcher.stats(),
+            "ragged": ops_ragged.arena_stats(self._arena),
+        }
