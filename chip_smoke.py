@@ -430,6 +430,8 @@ def reset_arena_counts():
 
     bk.branch_cuda.launches = 0
     bk.branch_cuda.entries = dict.fromkeys(bk.branch_cuda.entries, 0)
+    bk.branch_cuda.fused_shards = {}
+    bk.branch_cuda.fused_launches = 0
     for twin in bk.TWINS:
         twin.calls = 0
     ak.arena_cuda.launches = 0
@@ -3447,6 +3449,8 @@ def phase_gang_kernel(small_only: bool):
                                  f"{want_codes} among them")
         k_ms = _time_cuda(lambda: rgk.run_ragged_cuda(
             st0, params, sc._reads, sc._rlen, call), 3)
+        dev_ms = _launch_device_ms(lambda: rgk.run_ragged_cuda(
+            st0, params, sc._reads, sc._rlen, call), 3)
         torch.cuda.synchronize()
         bound_ms, bound_by = gang_bound(R, W, steps)
         longest = max(max(steps), 1)
@@ -3454,9 +3458,9 @@ def phase_gang_kernel(small_only: bool):
             case=label, members=G, reads=R, W=W, A=A, steps=steps,
             codes=codes, cluster=plan.run.cluster,
             ctas_threads=plan.run.threads, band=plan.run.band,
-            smem_bytes=plan.run.smem_bytes,
+            smem_bytes=plan.run.smem_bytes, **_pack_fields(plan),
             coresident_clusters=rgk.max_clusters(plan),
-            kernel_ms=round(k_ms, 4),
+            kernel_ms=round(k_ms, 4), device_ms=dev_ms,
             kernel_us_per_step=round(1000 * k_ms / longest, 3),
             solo_sum_ms=round(solo_ms, 4), plain_ms=round(p_ms, 3),
             bound_ms=bound_ms, bound_by=bound_by)
@@ -3464,6 +3468,8 @@ def phase_gang_kernel(small_only: bool):
         if label == "north_star/g8" or (small_only and timing is None):
             timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                           bound_by=bound_by, solo_ms=solo_ms,
+                          device_ms=dev_ms, clusters=plan.clusters,
+                          waves=plan.waves,
                           coresident_clusters=line["coresident_clusters"])
         del sc, st0, dep_k, dep_p
     if not {4, 5, 3} <= codes_seen:
@@ -4957,15 +4963,18 @@ def _mesh_err(a, b):
 
 def phase_mesh_kernel(small_only: bool):
     """The sharded column step (``parallel/mesh.py``'s
-    ``sharded_col_step``: one ``csrc/branch_step.cu`` call a shard, then
-    the partials added in shard order) at 1, 2 and 4 shards against its
-    plain version (``advance_plain`` a shard and the same sum) and
-    against the unsharded branch step (the 1-shard kernel), bitwise:
-    the single north star's column (R=256, W=514, A=4, 5,000 columns
-    in) and an overflow at E=8 (R=16, every shard forced to commit).
-    Returns ``(timing, max_err)`` of the north-star column on 4 shards
-    for the kernel table."""
-    import torch
+    ``sharded_col_step``: the shards on one card as one fused call of
+    ``csrc/branch_step.cu``, the partials summed in the kernel) at 1, 2
+    and 4 shards against its plain version (every shard's
+    ``advance_plain`` under the all-or-nothing rule, the same sum), the
+    one-call-a-shard route (forced, ``route="per_shard"``) and the
+    unsharded branch step (the 1-shard kernel), bitwise: the single north
+    star's column (R=256, W=514, A=4, 5,000 columns in) and an overflow at
+    E=8 (R=16, every shard forced to commit).  One line a case and shard
+    count: the route and its launches a call (one a card), events ms and
+    device ms of both routes, the kernels' device ms, the bound.  Returns
+    ``(timing, max_err)`` of the north-star column on 4 shards for the
+    kernel table."""
     from waffle_con_tpu_torch.ops import sharded_scorer as ss
     from waffle_con_tpu_torch.parallel import make_mesh, sharded_col_step
 
@@ -4984,30 +4993,43 @@ def phase_mesh_kernel(small_only: bool):
             devs = mesh_devices(k)
             mesh = make_mesh(devices=devs)
             step = sharded_col_step(mesh, num_symbols=A)
+            per_shard = sharded_col_step(mesh, num_symbols=A,
+                                         route="per_shard")
             plain = sharded_col_step(mesh, num_symbols=A, plain=True)
+            groups = ss.shard_groups(mesh.devices)
             args = _mesh_inputs(store, 0, mesh.devices) + [sym, -2, False]
             before = ss.shard_step.launches
             got = _mesh_out(step(*args))
             launches = ss.shard_step.launches - before
+            before = ss.shard_step.launches
+            got_per = _mesh_out(per_shard(*args))
+            launches_per = ss.shard_step.launches - before
             want = _mesh_out(plain(*args))
             err = _mesh_err(got, want)
+            err_per = _mesh_err(got, got_per)
             ref = got if ref is None else ref
             err_unsharded = _mesh_err(got, ref)
-            if err or err_unsharded:
+            if err or err_per or err_unsharded:
                 raise AssertionError(
                     f"mesh_kernel {label} shards={k}: kernel vs plain "
-                    f"{err}, vs the unsharded branch step {err_unsharded}")
-            if launches != k:
-                raise AssertionError(f"mesh_kernel {label}: {launches} "
-                                     f"launches for {k} shards")
+                    f"{err}, vs a call a shard {err_per}, vs the unsharded "
+                    f"branch step {err_unsharded}")
+            if launches != len(groups) or launches_per != k:
+                raise AssertionError(
+                    f"mesh_kernel {label}: {launches} fused launches for "
+                    f"{len(groups)} card(s), {launches_per} a shard for "
+                    f"{k} shards")
             ms = _time_cuda(lambda: step(*args), reps)
+            per_ms = _time_cuda(lambda: per_shard(*args), reps)
             plain_ms = _time_cuda(lambda: plain(*args), max(2, reps // 4))
             # device time a step: every activity (the inputs' copies into
-            # each shard's one-slot store, the partials' zeroing and
-            # adds) and the branch-step kernels alone
+            # the one-slot stores, the partials' zeroing and adds) and the
+            # branch-step kernels alone
             dev_ms, by_name = _device_ms(
                 lambda: [step(*args) for _ in range(reps)])
             kern_ms = sum(_kernel_ms(by_name, kn) for kn in BRANCH_KERNELS)
+            per_dev_ms, _ = _device_ms(
+                lambda: [per_shard(*args) for _ in range(reps)])
             b_one, by_one = sharded_col_step_bound(R, W, A, 1)
             b_share, _ = sharded_col_step_bound(R, W, A, k)
             per_dev = {}
@@ -5016,19 +5038,32 @@ def phase_mesh_kernel(small_only: bool):
             line = dict(
                 case=label, shards=k, shards_per_device=per_dev, R=R, W=W,
                 A=A, overflow=got[8], total=got[6], reached_any=got[7],
-                launches=launches, max_abs_err=err,
+                route="fused" if len(groups) == 1 else "a call a card",
+                groups=[[str(d), ks] for d, ks in groups],
+                launches=launches, launches_per_shard_route=launches_per,
+                max_abs_err=err, max_abs_err_vs_per_shard=err_per,
                 max_abs_err_vs_unsharded=err_unsharded, ms=round(ms, 4),
                 device_ms=None if dev_ms is None else round(dev_ms / reps, 5),
                 kernels_device_ms=round(kern_ms / reps, 5),
+                per_shard_ms=round(per_ms, 4),
+                per_shard_device_ms=None if per_dev_ms is None
+                else round(per_dev_ms / reps, 5),
                 plain_ms=round(plain_ms, 4), bound_ms=b_one,
                 bound_by=by_one, bound_ms_card_share_distinct=b_share,
                 smi=smi)
             print("mesh_kernel", json.dumps(line), flush=True)
-            worst = max(worst, err)
+            if label == "north_star" and k == MESH_SHARDS:
+                # where the host time of a fused step goes
+                print("mesh_profile", json.dumps(host_profile(
+                    lambda: [step(*args) for _ in range(20)], top=12)),
+                      flush=True)
+            worst = max(worst, err, err_per)
             if label == "north_star" and k == MESH_SHARDS:
                 first = dict(ms=round(ms, 4), plain_ms=round(plain_ms, 4),
                              bound_ms=b_one, bound_by=by_one,
-                             kernels_device_ms=round(kern_ms / reps, 5))
+                             device_ms=line["device_ms"],
+                             kernels_device_ms=round(kern_ms / reps, 5),
+                             per_shard_ms=round(per_ms, 4))
     return first, worst
 
 
@@ -5052,9 +5087,70 @@ def _mesh_search(kind, spec, cfg):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     counts["plain"] += ss.partials_plain.calls
+    counts["branch_entries"] = branch_launches()[1]
+    counts["fused_shards"] = _fused_shards()
+    counts["fused_launches"] = _fused_launches()
     placed = events.get_events("scorer_sharded")
     return (_result_key(kind, res), wall, counts, ss.shard_step.launches,
             placed[-1] if placed else None, eng)
+
+
+def _per_shard_search(kind, spec, cfg):
+    """One warm search of a deployment on the sharded store's
+    one-call-a-shard route (``route="per_shard"``, forced for the
+    comparison): ``(result, wall, launches, host rollbacks)``."""
+    from waffle_con_tpu_torch.ops.sharded_scorer import ShardedScorer
+    from waffle_con_tpu_torch.parallel import mesh as tmesh
+
+    def per_shard(reads, config, devices):
+        return ShardedScorer(reads, config, devices, route="per_shard")
+
+    tmesh.ShardedScorer = per_shard
+    try:
+        got, wall, counts, _n, _ev, eng = _mesh_search(kind, spec, cfg)
+    finally:
+        tmesh.ShardedScorer = ShardedScorer
+    c = eng.last_search_stats.get("scorer_counters", {})
+    return got, wall, counts, c.get("shard_overflow_rollbacks", 0)
+
+
+def _fused_shards():
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+    return {str(k): v for k, v in bk.branch_cuda.fused_shards.items()}
+
+
+def _fused_launches():
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+
+    return bk.branch_cuda.fused_launches
+
+
+#: the branch store's calls that make one branch-step call each
+STORE_CALLS = ("root", "copy", "advance", "stats", "finalize")
+
+
+def one_launch_a_call(name, counts, shards):
+    """Fails unless every branch-step call of a sharded search on
+    co-resident shards was one fused call over all ``shards``: fused
+    calls = the store's calls, every launch other than a deactivation a
+    fused call's, one launch a call on ``one_launch`` and two (rows, then
+    the commit) on ``slab``.  Returns ``(fused calls, their launches, the
+    calls on slab)``."""
+    ent = counts["branch_entries"]
+    fused, kernels = ent["fused"], counts["fused_launches"]
+    calls = sum(ent[k] for k in STORE_CALLS)
+    # a root has no plan: one launch
+    launches = counts["branch_step"] - ent["deactivate"]
+    if (not fused or fused != calls or launches != kernels
+            or counts["fused_shards"] != {str(shards): fused}
+            or ent["one_launch"] + ent["slab"] + ent["root"] != fused
+            or kernels > ent["one_launch"] + ent["root"] + 2 * ent["slab"]):
+        raise AssertionError(
+            f"mesh_main {name}: {fused} fused calls ({kernels} launches), "
+            f"{calls} store calls, {launches} launches, by shards "
+            f"{counts['fused_shards']}, plans {ent}")
+    return fused, kernels, ent["slab"]
 
 
 def phase_mesh_main():
@@ -5066,7 +5162,9 @@ def phase_mesh_main():
     every pop makes store calls).  Each result must equal the unsharded
     ``"torch"`` search's and the C++ engine's byte for byte; on the
     sharded store the run, dual-run, arena and gang kernels must not
-    launch, the branch step must, and no plain twin may run.  Returns the
+    launch, the branch step must, and no plain twin may run; on
+    co-resident shards every branch-step call of the store must be one
+    fused launch over the four shards, with no host rollback.  Returns the
     shard-step launches of the three searches (warm where run twice)."""
     import dataclasses
 
@@ -5126,7 +5224,26 @@ def phase_mesh_main():
                     raise AssertionError(
                         f"mesh_main {name} {run}: launches {counts}, "
                         f"shard steps {shard_launches}")
+                c = eng.last_search_stats.get("scorer_counters", {})
+                if len(set(devs)) == 1:
+                    # co-resident: one fused call a store call, no rollback
+                    fused = one_launch_a_call(name, counts, MESH_SHARDS)
+                    if c.get("shard_overflow_rollbacks", 0):
+                        raise AssertionError(
+                            f"mesh_main {name}: a host rollback on "
+                            "co-resident shards")
         c = eng.last_search_stats.get("scorer_counters", {})
+        prof = per_shard = None
+        if name == "single":
+            # where a sharded column's host time goes (one more search),
+            # and the same search on the one-call-a-shard route
+            with use_device_set(pinned):
+                prof = host_profile(lambda: _mesh_search(
+                    kind, spec, sharded_cfg), top=15)
+                per_shard = _per_shard_search(kind, spec, sharded_cfg)
+            if per_shard[0] != want:
+                raise AssertionError(f"mesh_main {name}: the per-shard "
+                                     "route's result differs")
         total += shard_launches
         print("mesh_main", json.dumps(dict(
             deployment=name, shards=MESH_SHARDS,
@@ -5143,7 +5260,16 @@ def phase_mesh_main():
             + eng.last_search_stats.get("nodes_ignored", 0),
             push_calls=c.get("push_calls"),
             clone_push_calls=c.get("clone_push_calls"),
-            rollbacks=c.get("shard_overflow_rollbacks", 0), smi=smi,
+            rollbacks=c.get("shard_overflow_rollbacks", 0),
+            grow_e_events=c.get("grow_e_events", 0),
+            fused_calls=None if len(set(devs)) > 1 else fused[0],
+            fused_launches=None if len(set(devs)) > 1 else fused[1],
+            fused_calls_on_slab=None if len(set(devs)) > 1 else fused[2],
+            per_shard_route=None if per_shard is None else dict(
+                wall_s=round(per_shard[1], 3),
+                branch_launches=per_shard[2]["branch_step"],
+                rollbacks=per_shard[3]),
+            profile=prof, smi=smi,
         )), flush=True)
     return total
 
@@ -5194,7 +5320,12 @@ def serve_kernel_cases(small_only: bool):
     m2 = (_draw(5000, 64, 0.01, 302), dict(min_count=16, initial_band=116),
           800, dict(max_steps=300, first="truth"))
     m3 = (_draw(3000, 256, 0.01, 303), ns, 1500, dict(max_steps=300))
-    cases = [("mixed3", [m1, m2, m3])]
+    # one north-star member (16 CTAs) and seven R 32 / W 130 members (2
+    # CTAs each), 300 steps each: 2 packed clusters, 8 unpacked
+    small8 = [(_draw(1000, 32, 0.01, 311 + i),
+               dict(min_count=8, initial_band=56), 200, dict(max_steps=300))
+              for i in range(7)]
+    cases = [("mixed3", [m1, m2, m3]), ("mixed8", [m3] + small8)]
     if small_only:
         return cases
     m4 = (_draw(600, 1024, 0.01, 304), ns, 100, dict(max_steps=100))
@@ -5246,18 +5377,33 @@ def serve_bound(members, steps):
     return bound(nbytes, ops)
 
 
+def _pack_fields(plan):
+    """The packing of a gang plan, for a result line."""
+    return dict(clusters=plan.clusters, ctas=plan.ctas,
+                ctas_launched=plan.clusters * plan.run.cluster,
+                waves=plan.waves, slots=[list(x) for x in plan.slots],
+                spans=list(plan.spans))
+
+
 def phase_serve_kernel(small_only: bool):
     """The gang kernel (``csrc/run_ragged.cu``) with members from
     different stores in one launch, at different R, W, C, L, A and search
     constants, in place as the serving pool runs it: every member's packed
     output and slot rows compared bitwise against the plain version
     (``run_members_plain`` on the card) and against the member's solo
-    run-kernel launch from the same state.  One line a case: the plan,
-    ms a launch (CUDA events around the call, and device time), the
-    members' solo launches summed, the plain version's ms and the bound.
-    Device time: launches on fresh copies queued behind a spin kernel,
-    CUDA events around them (``_launch_device_ms``).  Returns the kernel
-    table's numbers of the first case and the max error."""
+    run-kernel launch from the same state.  The members are packed by
+    their own cluster size (``plan_members``); the same group is also run
+    on the unpacked plan (a cluster of the largest member's size a member,
+    every CTA of it held for the member's run as before the packing),
+    forced, held bitwise to the packed launch, and timed through the same
+    entry (``run_members_cuda`` with each plan given).  One line a case:
+    the plan, its clusters, CTAs and waves, ms a launch (CUDA events
+    around the call, and device time), the same for the unpacked plan,
+    the members' solo launches
+    summed, the plain version's ms and the bound.  Device time: launches
+    on fresh copies queued behind a spin kernel, CUDA events around them
+    (``_launch_device_ms``).  Returns the kernel table's numbers of the
+    first case and the max error."""
     import torch
     from waffle_con_tpu_torch.ops import ragged_kernel as rgk
     from waffle_con_tpu_torch.ops import run_kernel as rk
@@ -5284,13 +5430,21 @@ def phase_serve_kernel(small_only: bool):
             stores.append((sc, truth, h, call))
         st0 = [sc._state for sc, _t, _h, _c in stores]
         copies = lambda: [_copy_state(s) for s in st0]  # noqa: E731
-        st_k, st_p = copies(), copies()
+        st_k, st_p, st_u = copies(), copies(), copies()
         before = rgk.run_ragged_cuda.launches
         outs_k, _ = rgk.run_members(_serve_members(stores, st_k, None),
                                     in_place=True)
         n_launch = rgk.run_ragged_cuda.launches - before
         plan = rgk.run_ragged_cuda.last_plan
         members = _serve_members(stores, st_p, None)
+        shapes = [m.shape() for m in members]
+        one_launch = len(members) <= rgk.MAX_GANG
+        unpacked = (rgk.plan_members(shapes, packed=False) if one_launch
+                    else None)
+        if one_launch:
+            outs_u, _ = rgk.run_members_cuda(
+                _serve_members(stores, st_u, None), True, plan=unpacked)
+            unpacked = rgk.run_ragged_cuda.last_plan
         t0 = time.perf_counter()
         outs_p, _ = rgk.run_members_plain(members, in_place=True)
         torch.cuda.synchronize()
@@ -5302,6 +5456,15 @@ def phase_serve_kernel(small_only: bool):
             ok = outs_k[g].cpu().numpy()
             op = outs_p[g].cpu().numpy()
             res_k = rk.unpack(ok, R, A, call["max_steps"])
+            if one_launch:
+                res_u = rk.unpack(outs_u[g].cpu().numpy(), R, A,
+                                  call["max_steps"])
+                if (res_k.code == -1) != (res_u.code == -1) or (
+                        res_k.code != -1 and (
+                            _result_err(res_k, res_u)
+                            or _rows_err(st_k[g], slot, st_u[g], slot))):
+                    raise AssertionError(f"{label} member {g}: packed != "
+                                         "unpacked launch")
             if res_k.code == -1:
                 if list(ok[:5]) != list(op[:5]):
                     raise AssertionError(f"{label} member {g}: "
@@ -5338,12 +5501,33 @@ def phase_serve_kernel(small_only: bool):
         if label.startswith("mixed4") and "global" not in bands:
             raise AssertionError(f"{label}: no member's band in device "
                                  f"memory ({bands})")
-        # in place, so every launch takes a fresh copy of the stores
-        it = iter([copies() for _ in range(7)])
-        k_ms = _time_cuda(lambda: rgk.run_members(
-            _serve_members(stores, next(it), None), in_place=True), 3)
-        dev_ms = _launch_device_ms(lambda: rgk.run_members(
-            _serve_members(stores, next(it), None), in_place=True), 3)
+        if label == "mixed8" and (plan.clusters, plan.waves) != (2, 1):
+            raise AssertionError(f"mixed8: {plan.clusters} clusters in "
+                                 f"{plan.waves} waves, want 2 in 1")
+        def launch(states, p):
+            ms = _serve_members(stores, states, None)
+            if one_launch:
+                return rgk.run_members_cuda(ms, True, plan=p)
+            return rgk.run_members(ms, in_place=True)
+
+        def timed(p):
+            # in place, so every launch takes a fresh copy of the stores
+            it = iter([copies() for _ in range(7)])
+            return (_time_cuda(lambda: launch(next(it), p), 3),
+                    _launch_device_ms(lambda: launch(next(it), p), 3))
+
+        u_ms = u_dev_ms = None
+        if one_launch:
+            # both plans through one entry (run_members_cuda, the plan
+            # given), in the order packed, unpacked, unpacked, packed;
+            # each plan's two readings averaged
+            runs = [timed(p) for p in (plan, unpacked, unpacked, plan)]
+            k_ms, dev_ms, u_ms, u_dev_ms = (
+                (runs[a][i] + runs[b][i]) / 2
+                for a, b in ((0, 3), (1, 2)) for i in (0, 1))
+            dev_ms, u_dev_ms = round(dev_ms, 5), round(u_dev_ms, 5)
+        else:
+            k_ms, dev_ms = timed(None)
         bound_ms, bound_by = serve_bound(members, steps)
         line = dict(
             card=smi_line(), case=label, members=len(stores),
@@ -5351,9 +5535,13 @@ def phase_serve_kernel(small_only: bool):
             shapes=[list(m.shape()) for m in members], steps=steps,
             codes=codes, cluster=plan.run.cluster,
             ctas_threads=plan.run.threads, band=plan.run.band,
-            smem_bytes=plan.run.smem_bytes,
+            smem_bytes=plan.run.smem_bytes, **_pack_fields(plan),
+            coresident_clusters=rgk.max_clusters(plan),
             member_plans=[_plan_fields(p) for p in plan.plans],
             kernel_ms=round(k_ms, 4), device_ms=dev_ms,
+            unpacked=None if unpacked is None else dict(
+                _pack_fields(unpacked), kernel_ms=round(u_ms, 4),
+                device_ms=u_dev_ms),
             solo_sum_ms=round(solo_ms, 4),
             plain_ms=round(p_ms, 3), bound_ms=bound_ms, bound_by=bound_by)
         print("serve_kernel", json.dumps(line), flush=True)
@@ -5362,8 +5550,21 @@ def phase_serve_kernel(small_only: bool):
                           serve_device_ms=dev_ms,
                           serve_solo_sum_ms=round(solo_ms, 4),
                           serve_plain_ms=round(p_ms, 3),
-                          serve_bound_ms=bound_ms, serve_bound_by=bound_by)
-        del stores, st0, st_k, st_p, it
+                          serve_bound_ms=bound_ms, serve_bound_by=bound_by,
+                          serve_clusters=plan.clusters,
+                          serve_waves=plan.waves,
+                          serve_unpacked_ms=round(u_ms, 4),
+                          serve_unpacked_device_ms=u_dev_ms,
+                          serve_unpacked_clusters=unpacked.clusters)
+        if label == "mixed8":
+            timing.update(mixed8_ms=round(k_ms, 4),
+                          mixed8_device_ms=dev_ms,
+                          mixed8_clusters=plan.clusters,
+                          mixed8_waves=plan.waves,
+                          mixed8_unpacked_ms=round(u_ms, 4),
+                          mixed8_unpacked_device_ms=u_dev_ms,
+                          mixed8_unpacked_waves=unpacked.waves)
+        del stores, st0, st_k, st_p, st_u, it
     return timing, max_err
 
 
@@ -5737,7 +5938,10 @@ def main(argv=None) -> int:
                    dict({path: GANG_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main",
                           "late_main")}, gang_main=gang_main_launches,
-                        serve_main=serve_launches)),
+                        serve_main=serve_launches),
+                   status="redesigned: members packed by their own "
+                          "cluster size, a member-scoped st.async exchange "
+                          "instead of the cluster barrier"),
         kernel_row("branch_step", "branch_step.cu",
                    "jax_scorer.py:506,537,557,629,683,754,821", branch_check,
                    dict({path: BRANCH_LAUNCHES.get(path) for path in
@@ -5746,13 +5950,14 @@ def main(argv=None) -> int:
                         checkpoint_main=ckpt.get("branch_step")),
                    status="redesigned: one launch a batch with the band in "
                           "registers (one_launch), else the slab plan"),
-        # a shard's body is one branch-step call: its launches are the
-        # sharded store's column steps on mesh_main
+        # the shards of a card are one fused branch-step call: its
+        # launches are the sharded store's calls on mesh_main
         kernel_row("sharded_col_step", "branch_step.cu",
                    "parallel/mesh.py:284", mesh_check,
                    dict(mesh_main=mesh_launches),
-                   status="ported: one branch_step.cu call a shard, the "
-                          "partials added in shard order"),
+                   status="redesigned: one fused branch_step.cu launch for "
+                          "every shard on a card, the partials summed in "
+                          "the kernel"),
     ]
     # every kernel must have launched on some main path that ran (the
     # gang's path is gang_main: on the other paths it engages only where

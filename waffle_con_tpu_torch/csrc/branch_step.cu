@@ -23,14 +23,25 @@
 // Stats come back in one packed output that the host fetches in one copy.
 // The output's flags hold the epoch of the call that set them (a number
 // above every other output value, new each call), so no launch clears
-// them.  Two options serve a read shard's column step (parallel/mesh.py's
+// them.  Two options serve the sharded column step (parallel/mesh.py's
 // `sharded_col_step`, the counterpart of JAX's parallel/mesh.py:284):
 // `force` commits a batch even when it overflows (the step's outputs are
 // wanted whatever the overflow says), and `part` (three device words,
-// zeroed before the launch) gathers the shard's partials as the stats are
+// zeroed before the launch) gathers the call's partials as the stats are
 // written: the sum of the active reads' edit distances, whether any read
 // reached its end and whether any pushed read overflowed; integer atomics,
-// so the words are the same in any order of the warps.
+// so the words are the same in any order of the warps (the sum is exact).
+//
+// Read shards (ops/sharded_scorer.py's fused route).  A call may cover up
+// to kMaxShards read shards of one sharded store that sit on this card:
+// each shard its own store (`Shard`: its addresses, its reads and rlen),
+// all of one geometry (B, R/S, W, C, L).  The warps of every (row, shard,
+// read) are one grid, read-major inside a row, so warp w of the call is
+// output column w of a store of S x R/S reads: the packed output is the
+// one the shards' outputs merged in read order would give, written once.
+// The shards share the call's overflow word, so the barrier then the
+// commit test makes the step all or nothing across the shards inside the
+// kernel, and they share `part`.  One store is the case S = 1.
 //
 // Two plans (`plan_branch` in ops/branch_kernel.py, picked before the
 // launch from the shape and the card's occupancy):
@@ -75,6 +86,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "band_ops.cuh"
 
@@ -102,11 +114,31 @@ struct BranchCall {
   void* event;      // the store's event (branch_event)
   void* stream;
   void* part;       // device partials [3] (null: none; needs `out`)
+  void* shard_ptrs; // host array of `shards` BranchShard (null: one store,
+                    // the addresses above)
   int B, R, W, C, L;
   int n, A, wc, et, mode, votes, epoch;
   int plan, cells, warps, blocks, smem, commit_blocks, commit_rows;
   int out_words;    // words fetched into out_host
   int force;        // commit even when the batch overflows
+  int shards;       // read shards of the call (R each); 1: one store
+  int defer;        // with out_host: return once the output is queued, the
+                    // caller waits on the event (branch_event_sync)
+};
+
+// One read shard's store and reads, as the host lists them for a call on
+// several shards (ops/branch_kernel.py's `_Shard`, field for field).
+struct BranchShard {
+  void* D;
+  void* e;
+  void* rmin;
+  void* er;
+  void* off;
+  void* act;
+  void* cons;
+  void* clen;
+  void* reads;
+  void* rlen;
 };
 
 namespace {
@@ -118,6 +150,7 @@ using band::kInf;
 
 constexpr int kSlabWarps = 8;   // warps of a CTA of branch_rows / root
 constexpr int kOneWarps = 16;   // warps of a CTA of branch_one
+constexpr int kMaxShards = 16;  // branch_kernel.MAX_SHARDS
 
 enum PlanId { kPlanSlab = 0, kPlanOne = 1 };
 
@@ -149,18 +182,50 @@ struct Store {
   int B, R, W, C, E;
 };
 
-// A launch's arguments, passed as a __grid_constant__ parameter.
-struct RowsArgs {
+// One read shard of a launch: its store (R = the shard's reads) and its
+// reads.
+struct Shard {
   Store s;
   const int16_t* reads;  // [R, L], -1 past a read's end
-  const int32_t* rows;   // [3, n]: src slot, dst slot, symbol (-1: copy)
   const int32_t* rlen;   // [R]
+};
+
+// A launch's arguments, passed as a __grid_constant__ parameter (1.8 KB
+// with kMaxShards shards, under the 4 KB limit).  Warp w of a call is
+// (row k, read rg) of the output's [n, Ro] layout, read rg = shard
+// rg / Rs, read rg % Rs of it.
+struct RowsArgs {
+  Shard sh[kMaxShards];
+  const int32_t* rows;   // [3, n]: src slot, dst slot, symbol (-1: copy)
   int32_t* out;          // packed output (null: no stats)
   int32_t* flag;         // device copy of the batch's overflow word
   int32_t* slab;         // slab plan: the advance's scratch; one_launch:
-                         // the copies' staged consensus rows [n, C]
+                         // the copies' staged consensus rows [S, n, C]
   int32_t* part;         // partials: edit-distance sum, reached, overflow
+  int shards, Rs, Ro;    // shards S, reads a shard, reads of the call
   int n, L, A, wc, et, votes, mode, epoch, force;
+};
+
+// Where warp (row k, output read rg) of a call lives: its shard, the read
+// in that shard.
+struct Where {
+  int k, si, r;
+  __device__ __forceinline__ Where(const RowsArgs& a, long long w) {
+    k = (int)(w / a.Ro);
+    const int rg = (int)(w % a.Ro);
+    si = rg / a.Rs;
+    r = rg - si * a.Rs;
+  }
+};
+
+// One store's warp (a call on one shard): shard 0, known at compile time.
+struct WhereOne {
+  int k, si, r;
+  __device__ __forceinline__ WhereOne(const RowsArgs& a, long long w) {
+    k = (int)(w / a.Rs);
+    si = 0;
+    r = (int)(w % a.Rs);
+  }
 };
 
 // Packed output (branch_kernel.unpack): eds, split, reached and fin
@@ -173,30 +238,33 @@ __host__ __device__ inline size_t occ_at(int n, int R) {
   return flags_at(n, R) + n + 1;
 }
 
-// Scratch of the slab plan's advance (branch_kernel.slab_words): D [n, R,
-// W], then e, rmin, er, off, act [n, R] each, cons [n, C] and clen [n].
+// Scratch of the slab plan's advance (branch_kernel.slab_words): D [n, Ro,
+// W], then e, rmin, er, off, act [n, Ro] each, cons [S, n, C] and clen [S,
+// n].
 struct Slab {
   int32_t* D;
   int32_t* folds;
   int32_t* cons;
   int32_t* clen;
-  __device__ Slab(int32_t* base, int n, const Store& s) {
-    const size_t nR = (size_t)n * s.R;
+  __device__ Slab(int32_t* base, const RowsArgs& a) {
+    const Store& s = a.sh[0].s;
+    const size_t nR = (size_t)a.n * a.Ro;
     D = base;
     folds = base + nR * s.W;
     cons = folds + 5 * nR;
-    clen = cons + (size_t)n * s.C;
+    clen = cons + (size_t)a.shards * a.n * s.C;
   }
 };
 
-// Lane 0's stats of (row k, read r) = warp w of the batch, at the row's
-// new length; a finalized distance outside the band and a pushed read's
-// overflow set their flags to the call's epoch.  With `part`, the read's
-// share of the shard's partials.
-__device__ __forceinline__ void write_stats(const RowsArgs& a, long long w,
-                                            int k, int act, Folds3 f,
-                                            int split, bool stepped) {
-  const int n = a.n, R = a.s.R, E = a.s.E;
+// Lane 0's stats of (row k, read r) = warp w of the batch (of R = the
+// call's reads), at the row's new length; a finalized distance outside the
+// band and a pushed read's overflow set their flags to the call's epoch.
+// With `part`, the read's share of the call's partials.
+__device__ __forceinline__ void write_stats(const RowsArgs& a, int R,
+                                            long long w, int k, int act,
+                                            Folds3 f, int split,
+                                            bool stepped) {
+  const int n = a.n, E = a.sh[0].s.E;
   const size_t nR = (size_t)n * R;
   int32_t* o = a.out;
   o[w] = act ? f.e : 0;
@@ -325,8 +393,11 @@ __device__ __forceinline__ int tips_regs(const int (&u)[C], const int16_t* rd,
 // One launch a batch: warp w = (row k, read r).  Without kCommit it
 // reads stats (mode 1) and writes nothing else; with it (a cooperative
 // launch) it advances or copies (mode 0) and commits after the grid
-// barrier.
-template <int C, bool kCommit>
+// barrier.  kShards: the call covers several shards, each warp's store
+// picked at run time; without it the one store is shard 0 at compile
+// time, so a call on one store keeps the registers, and so the CTAs an
+// SM holds, of the kernel before shards.
+template <int C, bool kCommit, bool kShards>
 __global__ void __launch_bounds__(kOneWarps * 32)
     branch_one_kernel(const __grid_constant__ RowsArgs a) {
   // [warps][32 C] band rows, then [warps][A] histograms: a row a warp
@@ -334,17 +405,23 @@ __global__ void __launch_bounds__(kOneWarps * 32)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  const Store& s = a.s;
-  const int n = a.n, R = s.R, W = s.W, E = s.E;
-  const bool valid = w < (long long)n * R;  // the whole warp
+  const int n = a.n, R = a.Rs, W = a.sh[0].s.W, E = a.sh[0].s.E;
+  const int Ro = kShards ? a.Ro : R;  // the call's reads
+  const bool valid = w < (long long)n * Ro;  // the whole warp
   const int ta = lane * C;
-  int k = 0, r = 0, src = 0, dst = 0, sym = -1, act = 0, off = 0, cl = 0;
+  int k = 0, r = 0, si = 0, src = 0, dst = 0, sym = -1, act = 0, off = 0;
+  int cl = 0;
   bool push = false, moved = false;
   Folds3 f{0, 0, 0};
   int u[C];
   if (valid) {
-    k = (int)(w / R);
-    r = (int)(w % R);
+    using At = std::conditional_t<kShards, Where, WhereOne>;
+    const At at(a, w);
+    k = at.k;
+    si = at.si;
+    r = at.r;
+    const Shard& S = a.sh[kShards ? si : 0];
+    const Store& s = S.s;
     const int32_t* rows = a.rows;
     src = rows[k];
     dst = rows[n + k];
@@ -356,7 +433,7 @@ __global__ void __launch_bounds__(kOneWarps * 32)
     off = s.off[sr];
     cl = s.clen[src];
     f = Folds3{s.e[sr], s.rmin[sr], s.er[sr]};
-    const int rl = a.rlen[r];
+    const int rl = S.rlen[r];
     const bool votes = a.out != nullptr && a.votes;
     const bool step = push && act;
     const bool tips = votes && act && !step;
@@ -378,7 +455,7 @@ __global__ void __launch_bounds__(kOneWarps * 32)
       for (int q = lane; q < a.A; q += 32) hist[q] = 0;
       __syncwarp();
     }
-    const int16_t* rd = a.reads + (size_t)r * a.L;
+    const int16_t* rd = S.reads + (size_t)r * a.L;
     int split = 0;
     if (step) {
       f = step_regs<C>(u, rd, a.L, W, rl, cl + 1 - off - E, sym, a.wc, a.et,
@@ -389,15 +466,15 @@ __global__ void __launch_bounds__(kOneWarps * 32)
     if (a.out != nullptr) {
       if (votes) {
         __syncwarp();
-        int32_t* occ = a.out + occ_at(n, R) + (size_t)w * a.A;
+        int32_t* occ = a.out + occ_at(n, Ro) + (size_t)w * a.A;
         for (int q = lane; q < a.A; q += 32) occ[q] = hist[q];
       }
-      if (lane == 0) write_stats(a, w, k, act, f, split, step);
+      if (lane == 0) write_stats(a, Ro, w, k, act, f, split, step);
     }
     // a copy's consensus row, staged by the threads that write it back
     if (kCommit && moved) {
       const int32_t* cons = s.cons + (size_t)src * s.C;
-      int32_t* stage = a.slab + (size_t)k * s.C;
+      int32_t* stage = a.slab + ((size_t)si * n + k) * s.C;
       for (long long c = (long long)r * 32 + lane; c < s.C;
            c += (long long)R * 32) {
         stage[c] = cons[c];
@@ -407,12 +484,14 @@ __global__ void __launch_bounds__(kOneWarps * 32)
   if constexpr (!kCommit) {
     return;
   } else {
-    // every src row of the batch is read, and every overflow flagged
+    // every src row of the batch (of every shard) is read, and every
+    // overflow flagged
     cg::this_grid().sync();
     if (!valid) return;
     if (a.out != nullptr && !a.force && __ldcg(a.flag) == a.epoch) {
       return;  // a pushed read reached the band: nothing commits
     }
+    const Store& s = a.sh[kShards ? si : 0].s;
     const size_t dr = (size_t)dst * R + r;
     if ((push && act) || moved) {
       // written coalesced, through the warp's row of shared memory
@@ -437,7 +516,7 @@ __global__ void __launch_bounds__(kOneWarps * 32)
     const int cpos = min(max(cl, 0), s.C - 1);
     int32_t* cons = s.cons + (size_t)dst * s.C;
     if (moved) {
-      const int32_t* stage = a.slab + (size_t)k * s.C;
+      const int32_t* stage = a.slab + ((size_t)si * n + k) * s.C;
       for (long long c = (long long)r * 32 + lane; c < s.C;
            c += (long long)R * 32) {
         cons[c] = push && c == cpos ? sym : stage[c];
@@ -459,31 +538,34 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
   const int lane = threadIdx.x & 31;
   const long long w =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const Store& s = a.s;
-  const int n = a.n, R = s.R, W = s.W, E = s.E;
-  if (w >= (long long)n * R) return;  // the whole warp
-  const int k = (int)(w / R), r = (int)(w % R);
+  const int n = a.n, R = a.Rs;
+  if (w >= (long long)n * a.Ro) return;  // the whole warp
+  const Where at(a, w);
+  const int k = at.k, si = at.si, r = at.r;
+  const Shard& S = a.sh[si];
+  const Store& s = S.s;
+  const int W = s.W, E = s.E;
   const int32_t* rows = a.rows;
   const int src = rows[k], dst = rows[n + k], sym = rows[2 * n + k];
   const bool push = a.mode == 0 && sym >= 0;
   const bool moved = a.mode == 0 && src != dst;
   const size_t sr = (size_t)src * R + r;
-  const int rl = a.rlen[r], off = s.off[sr], act = s.act[sr];
+  const int rl = S.rlen[r], off = s.off[sr], act = s.act[sr];
   const int cl = s.clen[src];
   const bool step = push && act;
   const int32_t* Do = s.D + sr * W;
-  const ClampedWindow win{a.reads + (size_t)r * a.L, a.L};
+  const ClampedWindow win{S.reads + (size_t)r * a.L, a.L};
   Folds3 f{s.e[sr], s.rmin[sr], s.er[sr]};
   int* hist = nullptr;
   if (a.out != nullptr && a.votes) {
-    hist = a.out + occ_at(n, R) + (size_t)w * a.A;
+    hist = a.out + occ_at(n, a.Ro) + (size_t)w * a.A;
     for (int q = lane; q < a.A; q += 32) hist[q] = 0;
     __syncwarp();
   }
   const bool votes = hist != nullptr && act;
   int split = 0;
   if (a.mode == 0) {
-    const Slab sl(a.slab, n, s);
+    const Slab sl(a.slab, a);
     int32_t* Dn = sl.D + (size_t)w * W;
     if (step) {
       const int i0 = cl + 1 - off - E;
@@ -505,7 +587,7 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
                                         hist);
       }
     }
-    const size_t nR = (size_t)n * R;
+    const size_t nR = (size_t)n * a.Ro;
     if (lane == 0) {
       sl.folds[w] = f.e;
       sl.folds[nR + w] = f.rmin;
@@ -513,21 +595,22 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
       sl.folds[3 * nR + w] = off;
       sl.folds[4 * nR + w] = act;
     }
-    // a copy's consensus row, spread over its R warps
+    // a copy's consensus row, spread over its shard's R warps
+    const size_t row = (size_t)si * n + k;
     if (moved) {
       const int32_t* cons = s.cons + (size_t)src * s.C;
-      int32_t* cons_n = sl.cons + (size_t)k * s.C;
+      int32_t* cons_n = sl.cons + row * s.C;
       for (long long c = (long long)r * 32 + lane; c < s.C;
            c += (long long)R * 32) {
         cons_n[c] = cons[c];
       }
     }
-    if (r == 0 && lane == 0) sl.clen[k] = cl;
+    if (r == 0 && lane == 0) sl.clen[row] = cl;
   } else if (votes) {
     split = band::tip_histogram_win(Do, win, W, rl, cl - off - E, f.e, hist);
   }
   if (a.out == nullptr || lane != 0) return;
-  write_stats(a, w, k, act, f, split, step);
+  write_stats(a, a.Ro, w, k, act, f, split, step);
 }
 
 // The slab into the dst slots, unless the batch's overflow word holds the
@@ -537,15 +620,16 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
 // (src != dst); an in-place push writes one consensus symbol.
 __global__ void __launch_bounds__(256)
     branch_commit_kernel(const __grid_constant__ RowsArgs a) {
-  const Store& s = a.s;
-  const int n = a.n, R = s.R, W = s.W;
+  const int n = a.n, R = a.Rs, W = a.sh[0].s.W;
   if (a.out != nullptr && !a.force && *a.flag == a.epoch) return;
-  const Slab sl(a.slab, n, s);
-  const size_t nR = (size_t)n * R;
+  const Slab sl(a.slab, a);
+  const size_t nR = (size_t)n * a.Ro;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   for (size_t p = blockIdx.y; p < nR; p += gridDim.y) {
-    const int k = (int)(p / R), r = (int)(p % R);
+    const Where at(a, (long long)p);
+    const int k = at.k, r = at.r;
+    const Store& s = a.sh[at.si].s;
     const int32_t* rows = a.rows;
     const int src = rows[k], dst = rows[n + k], sym = rows[2 * n + k];
     const bool push = sym >= 0, moved = src != dst;
@@ -566,11 +650,12 @@ __global__ void __launch_bounds__(256)
       }
     }
     if (r != 0) continue;
-    const int cl = sl.clen[k];
+    const size_t row = (size_t)at.si * n + k;
+    const int cl = sl.clen[row];
     const size_t cpos = (size_t)min(max(cl, 0), s.C - 1);
     int32_t* cons = s.cons + (size_t)dst * s.C;
     if (moved) {
-      const int32_t* cs = sl.cons + (size_t)k * s.C;
+      const int32_t* cs = sl.cons + row * s.C;
       for (size_t c = tid; c < (size_t)s.C; c += stride) {
         cons[c] = push && c == cpos ? sym : cs[c];
       }
@@ -581,17 +666,27 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// A root launch's arguments: the shards' stores and rlen (Shard.reads is
+// not read), the mask act_in [S x R] of the call's reads, the slot.
+struct RootArgs {
+  Shard sh[kMaxShards];
+  const uint8_t* act_in;
+  int shards, slot;
+};
+
 // The fresh column of every read of `slot` (torch_scorer.init_col at
-// off = 0), one warp a read.
+// off = 0) in every shard, one warp a read.
 __global__ void __launch_bounds__(kSlabWarps * 32)
-    branch_root_kernel(const Store s, const int32_t* rlen,
-                       const uint8_t* act_in, int slot) {
+    branch_root_kernel(const __grid_constant__ RootArgs a) {
   const int lane = threadIdx.x & 31;
-  const long long r =
+  const long long rg =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (r >= s.R) return;
-  const size_t sr = (size_t)slot * s.R + r;
-  const int act = act_in[r], rl = rlen[r], E = s.E;
+  const int R = a.sh[0].s.R;
+  if (rg >= (long long)a.shards * R) return;
+  const int si = (int)(rg / R), r = (int)(rg % R);
+  const Store& s = a.sh[si].s;
+  const size_t sr = (size_t)a.slot * R + r;
+  const int act = a.act_in[rg], rl = a.sh[si].rlen[r], E = s.E;
   int32_t* D = s.D + sr * s.W;
   for (int t = lane; t < s.W; t += 32) {
     const int i0 = t - E;
@@ -604,7 +699,7 @@ __global__ void __launch_bounds__(kSlabWarps * 32)
   s.er[sr] = rmin <= 0 ? 0 : kInf;
   s.off[sr] = 0;
   s.act[sr] = (uint8_t)act;
-  if (r == 0) s.clen[slot] = 0;
+  if (r == 0) s.clen[a.slot] = 0;
 }
 
 __global__ void __launch_bounds__(256)
@@ -653,9 +748,9 @@ int allow_smem(const void* fn) {
   return 0;
 }
 
-template <int C, bool kCommit>
+template <int C, bool kCommit, bool kShards>
 int launch_one_as(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
-  auto* fn = branch_one_kernel<C, kCommit>;
+  auto* fn = branch_one_kernel<C, kCommit, kShards>;
   const dim3 grid(c.blocks), block(c.warps * 32);
   const size_t smem = (size_t)c.smem;
   if (smem > 48 * 1024) {
@@ -673,49 +768,101 @@ int launch_one_as(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool kCommit>
-int launch_one(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
+template <bool kCommit, bool kShards>
+int launch_one_on(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
   switch (c.cells) {
-    case 1: return launch_one_as<1, kCommit>(a, c, st);
-    case 2: return launch_one_as<2, kCommit>(a, c, st);
-    case 3: return launch_one_as<3, kCommit>(a, c, st);
-    case 5: return launch_one_as<5, kCommit>(a, c, st);
-    case 9: return launch_one_as<9, kCommit>(a, c, st);
-    case 17: return launch_one_as<17, kCommit>(a, c, st);
+    case 1: return launch_one_as<1, kCommit, kShards>(a, c, st);
+    case 2: return launch_one_as<2, kCommit, kShards>(a, c, st);
+    case 3: return launch_one_as<3, kCommit, kShards>(a, c, st);
+    case 5: return launch_one_as<5, kCommit, kShards>(a, c, st);
+    case 9: return launch_one_as<9, kCommit, kShards>(a, c, st);
+    case 17: return launch_one_as<17, kCommit, kShards>(a, c, st);
     default: return -1;
   }
 }
 
-// The committing instance on `cells` cells a lane (null: none), whose
-// CTAs must all be resident.
-const void* commit_kernel(int cells) {
+template <bool kCommit>
+int launch_one(const RowsArgs& a, const BranchCall& c, cudaStream_t st) {
+  return a.shards > 1 ? launch_one_on<kCommit, true>(a, c, st)
+                      : launch_one_on<kCommit, false>(a, c, st);
+}
+
+template <bool kShards>
+const void* commit_kernel_on(int cells) {
   switch (cells) {
-    case 1: return reinterpret_cast<const void*>(branch_one_kernel<1, true>);
-    case 2: return reinterpret_cast<const void*>(branch_one_kernel<2, true>);
-    case 3: return reinterpret_cast<const void*>(branch_one_kernel<3, true>);
-    case 5: return reinterpret_cast<const void*>(branch_one_kernel<5, true>);
-    case 9: return reinterpret_cast<const void*>(branch_one_kernel<9, true>);
+    case 1:
+      return reinterpret_cast<const void*>(branch_one_kernel<1, true, kShards>);
+    case 2:
+      return reinterpret_cast<const void*>(branch_one_kernel<2, true, kShards>);
+    case 3:
+      return reinterpret_cast<const void*>(branch_one_kernel<3, true, kShards>);
+    case 5:
+      return reinterpret_cast<const void*>(branch_one_kernel<5, true, kShards>);
+    case 9:
+      return reinterpret_cast<const void*>(branch_one_kernel<9, true, kShards>);
     case 17:
-      return reinterpret_cast<const void*>(branch_one_kernel<17, true>);
+      return reinterpret_cast<const void*>(
+          branch_one_kernel<17, true, kShards>);
     default: return nullptr;
   }
 }
 
-// Whether the call's plan covers it and agrees with the kernels' layout.
-bool plan_covers(const BranchCall& c) {
-  const long long nR = (long long)c.n * c.R;
+// The committing instance on `cells` cells a lane for a call on `shards`
+// shards (null: none), whose CTAs must all be resident.
+const void* commit_kernel(int cells, int shards) {
+  return shards > 1 ? commit_kernel_on<true>(cells)
+                    : commit_kernel_on<false>(cells);
+}
+
+// The call's shards: the BranchShard array, or the call's own addresses
+// as one shard.  Returns false when a shard lacks an address or the count
+// is outside [1, kMaxShards].
+bool fill_shards(const BranchShard* ps, int shards, const BranchShard& own,
+                 int B, int R, int W, int C, Shard* out) {
+  if (shards < 1 || shards > kMaxShards || (shards > 1 && ps == nullptr)) {
+    return false;
+  }
+  for (int i = 0; i < shards; ++i) {
+    const BranchShard& p = shards > 1 ? ps[i] : own;
+    if (!p.D || !p.e || !p.rmin || !p.er || !p.off || !p.act || !p.clen ||
+        !p.rlen) {
+      return false;
+    }
+    out[i].s = make_store(p.D, p.e, p.rmin, p.er, p.off, p.act, p.cons,
+                          p.clen, B, R, W, C);
+    out[i].reads = static_cast<const int16_t*>(p.reads);
+    out[i].rlen = static_cast<const int32_t*>(p.rlen);
+  }
+  return true;
+}
+
+BranchShard own_shard(const BranchCall& c) {
+  return BranchShard{c.D,  c.e,    c.rmin,  c.er,    c.off,
+                     c.act, c.cons, c.clen, c.reads, c.rlen};
+}
+
+// Whether the call's plan covers it and agrees with the kernels' layout;
+// `sh` (every shard's store and reads) is filled.
+bool plan_covers(const BranchCall& c, Shard* sh) {
+  const int shards = c.shards < 1 ? 1 : c.shards;
+  const long long nR = (long long)c.n * c.R * shards;
   const bool base =
       (c.mode == 0 || c.mode == 1) && c.n >= 1 && c.B >= 1 && c.R >= 1 &&
       c.C >= 1 && c.L >= 1 && c.W >= 4 && c.W % 2 == 0 && c.blocks >= 1 &&
-      c.D && c.e && c.rmin && c.er && c.off && c.act && c.cons && c.clen &&
-      c.reads && c.rlen && c.rows &&
+      c.rows &&
+      fill_shards(static_cast<const BranchShard*>(c.shard_ptrs), shards,
+                  own_shard(c), c.B, c.R, c.W, c.C, sh) &&
       (c.mode == 0 || c.out != nullptr) &&
       (c.out == nullptr || (c.epoch > kInf && (!c.votes || c.A >= 1))) &&
       (c.part == nullptr || c.out != nullptr);
   if (!base) return false;
+  for (int i = 0; i < shards; ++i) {
+    if (!sh[i].s.cons || !sh[i].reads) return false;
+  }
   if (c.plan == kPlanOne) {
     return (c.mode == 1 || c.slab != nullptr) &&
-           commit_kernel(c.cells) != nullptr && 32LL * c.cells >= c.W &&
+           commit_kernel(c.cells, shards) != nullptr &&
+           32LL * c.cells >= c.W &&
            c.warps >= 1 && c.warps <= kOneWarps &&
            (long long)c.warps * c.blocks >= nR && c.smem <= kMaxSmem &&
            (long long)c.smem >=
@@ -748,10 +895,11 @@ int upload(void* dev, const void* host, size_t bytes, cudaStream_t st) {
 }
 
 // After a launch: with `out_host`, the output copied into it (when the
-// kernel wrote it on the device: `out` set) and one wait on the event;
-// else the event marks the upload for the next call.
+// kernel wrote it on the device: `out` set) and one wait on the event
+// (none with `defer`: the caller waits); else the event marks the upload
+// for the next call.
 int finish(void* event, void* out_host, const void* out, size_t bytes,
-           cudaStream_t st) {
+           cudaStream_t st, bool defer = false) {
   cudaEvent_t ev = static_cast<cudaEvent_t>(event);
   if (out_host != nullptr) {
     cudaError_t err = cudaSuccess;
@@ -760,7 +908,7 @@ int finish(void* event, void* out_host, const void* out, size_t bytes,
                             st);
     }
     if (err == cudaSuccess) err = cudaEventRecord(ev, st);
-    if (err == cudaSuccess) err = cudaEventSynchronize(ev);
+    if (err == cudaSuccess && !defer) err = cudaEventSynchronize(ev);
     return (int)err;
   }
   return (int)cudaEventRecord(ev, st);
@@ -793,21 +941,25 @@ extern "C" int branch_event_sync(void* event) {
 // split are left unwritten).  `plan` 1 (one_launch) is branch_one on
 // `cells` cells a lane, `warps` x `blocks`, `smem` bytes of band and
 // histogram rows, for mode 0 a cooperative launch behind the grid barrier;
-// `slab` then holds the copies' consensus rows [n, C].  `plan` 0
+// `slab` then holds the copies' consensus rows [S, n, C].  `plan` 0
 // (slab) is branch_rows on `warps` x `blocks`, then for mode 0
 // branch_commit on `commit_blocks` x `commit_rows` CTAs, through the
 // scratch `slab` (branch_kernel.slab_words).  The rows are one async copy
 // from the pinned `rows_host` to `rows`.
 // With `out_host` (pinned, so the card reaches it) the call returns when
-// the output is there: the one-launch kernel writes it straight into
-// `out_host`, the slab plan into `out`, whose first `out_words` words are
-// then copied; `flag` is the device word the commit tests for an
-// overflow.  Without `out_host` the call returns at once.  `force`
-// commits an overflowing batch too; `part` (device, with `out`) is zeroed,
-// then gathers the shard's partials.
+// the output is there (with `defer`, when it is queued): the one-launch
+// kernel writes it straight into `out_host`, the slab plan into `out`,
+// whose first `out_words` words are then copied; `flag` is the device
+// word the commit tests for an overflow.  Without `out_host` the call
+// returns at once.  `force` commits an overflowing batch too; `part`
+// (device, with `out`) is zeroed, then gathers the call's partials.
+// `shards` > 1 makes the call cover the `shard_ptrs` stores (R reads
+// each, one geometry): one launch (two on the slab plan) for all of
+// them, the output over their S x R reads in shard order.
 extern "C" int branch_rows_launch(const BranchCall* call) {
-  if (call == nullptr || !plan_covers(*call) || call->event == nullptr ||
-      call->rows_host == nullptr ||
+  RowsArgs a;
+  if (call == nullptr || !plan_covers(*call, a.sh) ||
+      call->event == nullptr || call->rows_host == nullptr ||
       (call->out_host != nullptr &&
        (call->out == nullptr || call->flag == nullptr ||
         call->out_words < 1))) {
@@ -815,12 +967,10 @@ extern "C" int branch_rows_launch(const BranchCall* call) {
   }
   const BranchCall& c = *call;
   cudaStream_t st = static_cast<cudaStream_t>(c.stream);
-  RowsArgs a;
-  a.s = make_store(c.D, c.e, c.rmin, c.er, c.off, c.act, c.cons, c.clen,
-                   c.B, c.R, c.W, c.C);
-  a.reads = static_cast<const int16_t*>(c.reads);
+  a.shards = c.shards < 1 ? 1 : c.shards;
+  a.Rs = c.R;
+  a.Ro = a.shards * c.R;
   a.rows = static_cast<const int32_t*>(c.rows);
-  a.rlen = static_cast<const int32_t*>(c.rlen);
   const bool direct = c.plan == kPlanOne && c.out_host != nullptr;
   a.out = static_cast<int32_t*>(direct ? c.out_host : c.out);
   a.flag = static_cast<int32_t*>(c.flag);
@@ -856,14 +1006,15 @@ extern "C" int branch_rows_launch(const BranchCall* call) {
   }
   if (rc != 0) return rc;
   return finish(c.event, c.out_host, direct ? nullptr : c.out,
-                sizeof(int32_t) * (size_t)c.out_words, st);
+                sizeof(int32_t) * (size_t)c.out_words, st, c.defer != 0);
 }
 
-// CTAs of the committing branch_one on `cells` cells a lane that one SM
-// holds at once with `warps` warps and `smem` bytes of shared memory, into
-// *per_sm (`plan_branch`'s residency test).
-extern "C" int branch_occupancy(int cells, int warps, int smem, int* per_sm) {
-  const void* fn = commit_kernel(cells);
+// CTAs of the committing branch_one on `cells` cells a lane, for a call on
+// `shards` shards, that one SM holds at once with `warps` warps and `smem`
+// bytes of shared memory, into *per_sm (`plan_branch`'s residency test).
+extern "C" int branch_occupancy(int cells, int warps, int smem, int shards,
+                                int* per_sm) {
+  const void* fn = commit_kernel(cells, shards);
   if (fn == nullptr || per_sm == nullptr || warps < 1 ||
       warps > kOneWarps || smem < 0 || smem > kMaxSmem) {
     return -1;
@@ -876,6 +1027,35 @@ extern "C" int branch_occupancy(int cells, int warps, int smem, int* per_sm) {
       per_sm, fn, warps * 32, (size_t)smem);
 }
 
+namespace {
+
+// Roots slot `slot` of each of `nshards` stores (`shards`, R reads each):
+// the launch behind both root entries.
+int root_launch(const BranchShard* shards, int nshards,
+                const BranchShard& own, void* act_in, void* act_host,
+                void* event, int slot, int B, int R, int W, int warps,
+                int blocks, void* stream) {
+  RootArgs a;
+  const bool plan_ok =
+      slot >= 0 && slot < B && R >= 1 && W >= 4 && W % 2 == 0 &&
+      warps >= 1 && warps <= kSlabWarps &&
+      (long long)warps * blocks >= (long long)nshards * R &&
+      act_in != nullptr && act_host != nullptr && event != nullptr &&
+      fill_shards(shards, nshards, own, B, R, W, 1, a.sh);
+  if (!plan_ok) return -1;
+  a.act_in = static_cast<const uint8_t*>(act_in);
+  a.shards = nshards;
+  a.slot = slot;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = upload(act_in, act_host, (size_t)nshards * R, st);
+  if (rc != 0) return rc;
+  branch_root_kernel<<<blocks, warps * 32, 0, st>>>(a);
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : finish(event, nullptr, nullptr, 0, st);
+}
+
+}  // namespace
+
 // Roots slot `slot`: the fresh column of every read, active where
 // act_in [R] (uint8, copied from the pinned `act_host` first) says,
 // consensus length 0.
@@ -885,21 +1065,23 @@ extern "C" int branch_root_launch(void* D, void* e, void* rmin, void* er,
                                   void* event, int slot, int B, int R,
                                   int W, int warps, int blocks,
                                   void* stream) {
-  const bool plan_ok = slot >= 0 && slot < B && R >= 1 && W >= 4 &&
-                       W % 2 == 0 && warps >= 1 && warps <= kSlabWarps &&
-                       (long long)warps * blocks >= R && act_in != nullptr &&
-                       act_host != nullptr && event != nullptr;
-  if (!plan_ok) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = upload(act_in, act_host, (size_t)R, st);
-  if (rc != 0) return rc;
-  const Store s =
-      make_store(D, e, rmin, er, off, act, nullptr, clen, B, R, W, 1);
-  branch_root_kernel<<<blocks, warps * 32, 0, st>>>(
-      s, static_cast<const int32_t*>(rlen),
-      static_cast<const uint8_t*>(act_in), slot);
-  rc = (int)cudaGetLastError();
-  return rc != 0 ? rc : finish(event, nullptr, nullptr, 0, st);
+  const BranchShard own{D, e, rmin, er, off, act, nullptr, clen, nullptr,
+                        rlen};
+  return root_launch(nullptr, 1, own, act_in, act_host, event, slot, B, R,
+                     W, warps, blocks, stream);
+}
+
+// Roots slot `slot` of every one of `nshards` read shards (`shards`, R
+// reads each, one geometry) in one launch: act_in [S x R] in shard order.
+extern "C" int branch_root_shards_launch(const BranchShard* shards,
+                                         int nshards, void* act_in,
+                                         void* act_host, void* event,
+                                         int slot, int B, int R, int W,
+                                         int warps, int blocks,
+                                         void* stream) {
+  if (shards == nullptr || nshards < 1) return -1;
+  return root_launch(shards, nshards, shards[0], act_in, act_host, event,
+                     slot, B, R, W, warps, blocks, stream);
 }
 
 // Clears act[pairs[0][i], pairs[1][i]] for each of the `m` pairs [2, m]

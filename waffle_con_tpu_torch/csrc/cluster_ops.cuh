@@ -4,6 +4,10 @@
 // a CTA's partial into every CTA's gather rows over distributed shared
 // memory.
 //
+// The member-scoped exchange of the gang kernel (csrc/run_ragged.cu) is
+// here too: `mbarrier`s in shared memory, and `st.async` stores into a
+// peer CTA's shared memory that complete bytes on the peer's `mbarrier`.
+//
 // A partial is `Layout::kHead` header words — `kSum` wrapping int32 sums,
 // then `kMax` maxima (of values >= 0), then one word of OR'd flags — then,
 // for each of `kRows` vote rows, has[A] and counts[A] (float32 bits).  The
@@ -115,6 +119,102 @@ __device__ __forceinline__ void cta_fold(cg::cluster_group& cl,
   }
   __syncwarp();
   push(cl, part, P, gath + (size_t)rank * P, csize);
+}
+
+// ---------------------------------------------------------------------
+// Scoped exchange: a CTA stores its partial straight into each peer's
+// gather row with `st.async`, each store completing its bytes on the
+// peer's own `mbarrier`; a CTA then waits for its own barrier's phase.
+// No CTA waits on a CTA outside its peers (csrc/run_ragged.cu).
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared-memory location in CTA `rank` of the
+// cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// One arrival a phase (the CTA's own, with the bytes it expects).
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the cluster's other CTAs
+// (before the cluster barrier that precedes any store into them).
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The CTA's arrival on its barrier for this phase, expecting `bytes` from
+// its peers' stores (which may land before it: the count goes negative).
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;" ::
+          "r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the barrier's phase of `parity` has completed; the peers'
+// stores of that phase are then visible to the calling thread.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes into a peer's shared memory (`remote`, from peer_addr), their
+// completion counted on the peer's barrier `remote_bar`.
+__device__ __forceinline__ void st_async(uint32_t remote, int4 v,
+                                         uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(remote),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(remote_bar)
+      : "memory");
+}
+
+// 4 bytes, as above.
+__device__ __forceinline__ void st_async(uint32_t remote, int v,
+                                         uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.s32 [%0], %1, "
+      "[%2];" ::"r"(remote),
+      "r"(v), "r"(remote_bar)
+      : "memory");
+}
+
+// One warp: the partial `mine` (P words, 16-byte aligned, at the same
+// offset `mine - row0` in every CTA) stored into each peer of ranks
+// [base, base + n) except `self` (all cluster ranks), each store counted
+// on the peer's barrier `bar` (the same offset in every CTA).
+__device__ __forceinline__ void push_scoped(const int* mine, int P, int base,
+                                            int n, int self, uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  const int n4 = P / 4;
+  const uint32_t src = smem_addr(mine), b = smem_addr(bar);
+  const int4* v = reinterpret_cast<const int4*>(mine);
+  for (int i = lane; i < n * n4; i += 32) {
+    const int q = base + i / n4;
+    if (q == self) continue;
+    st_async(peer_addr(src + 16u * (i % n4), q), v[i % n4], peer_addr(b, q));
+  }
 }
 
 }  // namespace clu

@@ -55,6 +55,28 @@
 //  * Record rows and the snapshot's per-read outputs are written by the
 //    CTA that owns each read; the symbols, record steps, scalars and the
 //    consensus by rank 0.
+//  * The gang kernel's instantiation (kScoped, csrc/run_ragged.cu) runs a
+//    branch on the ranks [base, base + csize) of a larger cluster, beside
+//    other branches, and replaces every cluster barrier by an exchange
+//    among those ranks only: warp 0 folds the CTA's partial straight into
+//    its own gather row of parity p, stores it into the same row of each
+//    peer with st.async, each store completing its bytes on the peer's
+//    mbarrier of parity p, and waits for its own barrier's phase (one
+//    arrival, its own, expecting the peers' bytes).  The fold over the
+//    gathered rows is then the one above, in the branch's own rank order,
+//    so the result is bitwise the solo launch's.  Why the two parities
+//    are enough without a full barrier: a CTA stores its step-j+2 partial
+//    into a peer's parity row only after it has received every step-j+1
+//    partial, and each peer stored its step-j+1 partial only after it had
+//    folded (and so read) its step-j rows; so no store lands on a row
+//    before its owner is done with it, and the barrier of that parity is
+//    then in the phase the store counts toward.  At the end, instead of
+//    the two cluster barriers, one last exchange (the snapshot's band
+//    overflow flag, 4 bytes a peer): a CTA exits only after every peer's
+//    store into it has landed, so no store reaches a CTA that has left.
+//    The barriers live in the partial's words (`part`), which the
+//    instantiation does not otherwise use, and are made visible by one
+//    cluster barrier at the start, before any CTA may leave.
 
 #pragma once
 
@@ -454,17 +476,30 @@ __device__ Dec decide(const Args& a, const Smem& s, const Fold& f,
   return Dec{code, sym_best, reached_here, (int)f.fin_tot};
 }
 
-// The whole run of one branch on the calling thread-block cluster.
-template <bool kOnChip>
-__device__ __forceinline__ void run_branch(const Args& a, char* smem_raw) {
+// The whole run of one branch on the calling thread-block cluster (with
+// kScoped, on its ranks [base, base + a.csize)).
+template <bool kOnChip, bool kScoped = false>
+__device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
+                                           int base = 0) {
   cg::cluster_group cl = cg::this_cluster();
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
+  const Smem s = carve<kOnChip>(smem_raw, a);
+  // the scoped exchange's barriers, one a parity, in the partial's words
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s.part);
+  if constexpr (kScoped) {
+    if (tid == 0) {
+      clu::bar_init(&bars[0]);
+      clu::bar_init(&bars[1]);
+      clu::bar_init_fence();
+    }
+    cl.sync();  // the cluster's one barrier: every CTA's barriers ready
+  }
   const int clen0 = *a.clen_in;
   if (a.len0 >= 0 && clen0 != a.len0) {
     // the caller's consensus and the branch disagree: every CTA of the
-    // cluster sees the same length and leaves before any barrier
-    if (cl.block_rank() == 0 && tid == 0) {
+    // branch sees the same length and leaves before any exchange
+    if ((int)cl.block_rank() == base && tid == 0) {
       a.out[0] = 0;
       a.out[1] = -1;
       a.out[2] = a.out[3] = 0;
@@ -473,9 +508,8 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw) {
     }
     return;
   }
-  const Smem s = carve<kOnChip>(smem_raw, a);
   Ctx x;
-  x.rank = (int)cl.block_rank();
+  x.rank = (int)cl.block_rank() - base;
   x.warp = tid >> 5;
   x.lane = tid & 31;
   x.P = part_words(a.A);
@@ -543,6 +577,31 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw) {
   int steps = 0, clen = clen0, cur = 0, p = 0, rec_count = 0;
   int budget = a.me_budget;
   Dec dec{0, a.first_sym, 0, 0};
+  int phase[2] = {0, 0};  // each scoped barrier's phase parity
+
+  // kScoped: warp 0 stores `words` words of the CTA's gather row of parity
+  // p (already written) into each peer's, then waits until the peers'
+  // rows of that parity have landed in this CTA.
+  auto exchange = [&](int words) {
+    int* mine = s.gath + ((size_t)p * kMaxCluster + x.rank) * x.P;
+    if (x.lane == 0) {
+      clu::bar_expect(&bars[p], 4u * words * (a.csize - 1));
+    }
+    if (words == 1) {
+      const uint32_t src = clu::smem_addr(mine + kFlags);
+      const uint32_t b = clu::smem_addr(&bars[p]);
+      for (int q = x.lane; q < a.csize; q += 32) {
+        if (q != x.rank) {
+          clu::st_async(clu::peer_addr(src, base + q), mine[kFlags],
+                        clu::peer_addr(b, base + q));
+        }
+      }
+    } else {
+      clu::push_scoped(mine, words, base, a.csize, base + x.rank, &bars[p]);
+    }
+    clu::bar_wait(&bars[p], phase[p]);
+    phase[p] ^= 1;
+  };
 
   // After a pass: the warps' partials -> the CTA's partial, stored into
   // every CTA's gather rows of parity p -> the one cluster barrier of the
@@ -551,12 +610,32 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw) {
   // broadcast in the CTA.  Returns whether the pass's column overflowed.
   auto publish = [&](int n_steps, int n_budget, int n_rec, int n_clen) {
     __syncthreads();
-    if (x.warp == 0) {
-      clu::cta_fold<Part>(cl, s.wpart, a.nw, x.P, a.A, s.part,
-                          s.gath + (size_t)p * kMaxCluster * x.P, x.rank,
-                          a.csize);
+    if constexpr (kScoped) {
+      if (x.warp == 0) {
+        // the CTA's partial folded straight into its own gather row
+        int* mine = s.gath + ((size_t)p * kMaxCluster + x.rank) * x.P;
+        unsigned head[kFlags + 1];
+        clu::fold<Part>(s.wpart, a.nw, x.P, a.A, head,
+                        [&](int, int k, int hv, float c) {
+                          mine[Part::has_at(a.A, 0) + k] = hv;
+                          mine[Part::counts_at(a.A, 0) + k] =
+                              __float_as_int(c);
+                        });
+        if (x.lane == 0) {
+#pragma unroll
+          for (int w = 0; w <= kFlags; ++w) mine[w] = (int)head[w];
+        }
+        __syncwarp();
+        exchange(x.P);
+      }
+    } else {
+      if (x.warp == 0) {
+        clu::cta_fold<Part>(cl, s.wpart, a.nw, x.P, a.A, s.part,
+                            s.gath + (size_t)p * kMaxCluster * x.P, x.rank,
+                            a.csize);
+      }
+      cl.sync();
     }
-    cl.sync();
     if (x.warp == 0) {
       const Fold f = cluster_fold(a, s, x, p);
       const Dec d = decide(a, s, f, n_steps, n_budget, n_rec, n_clen);
@@ -646,11 +725,26 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw) {
     a.rmin_out[r] = s.rmin[lr];
     a.er_out[r] = s.er[lr];
   }
-  cl.sync();
+  int fin_ovf = 0;
+  if constexpr (kScoped) {
+    // the last exchange: each CTA's flag into its peers' rows; after it
+    // no store is on its way to this CTA
+    __syncthreads();
+    if (x.warp == 0) {
+      int* row = s.gath + (size_t)p * kMaxCluster * x.P;
+      if (x.lane == 0) row[x.rank * x.P + kFlags] = s.dec[7];
+      __syncwarp();
+      exchange(1);
+      for (int q = 0; q < a.csize; ++q) fin_ovf |= row[q * x.P + kFlags];
+    }
+  } else {
+    cl.sync();
+    if (lead) {
+      for (int q = 0; q < a.csize; ++q)
+        fin_ovf |= *cl.map_shared_rank(&s.dec[7], q);
+    }
+  }
   if (lead) {
-    int fin_ovf = 0;
-    for (int q = 0; q < a.csize; ++q)
-      fin_ovf |= *cl.map_shared_rank(&s.dec[7], q);
     a.out[0] = steps;
     a.out[1] = dec.code;
     a.out[2] = rec_count;
@@ -660,7 +754,7 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw) {
     *a.clen_out = clen;
   }
   // no CTA leaves while rank 0 may still read its shared memory
-  cl.sync();
+  if constexpr (!kScoped) cl.sync();
 }
 
 // Launch shapes already checked on this device (attributes set, at least

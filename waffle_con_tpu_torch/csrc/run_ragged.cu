@@ -18,35 +18,50 @@
 // read).  The gang adds no work to a member; it runs the members side by
 // side instead of one launch after another.
 //
-// Design.  One thread-block cluster per member, each running
-// csrc/run_body.cuh's `run_branch`, the run kernel's own body.  XLA's
-// segment reduces over a pool of member rows become each cluster's own
-// rank-order fold, and the float32 vote fold is the run kernel's bit for
-// bit, so a member's result equals its solo launch from the same state.
+// Design.  Each member runs csrc/run_body.cuh's `run_branch`, the run
+// kernel's own body, on a contiguous range of CTAs of a thread-block
+// cluster: ranks [base, base + c), where c is the cluster of the member's
+// own `plan_run`.  XLA's segment reduces over a pool of member rows become
+// each member's own rank-order fold, and the float32 vote fold is the run
+// kernel's bit for bit, so a member's result equals its solo launch from
+// the same state.
+//  * Member-scoped exchange.  The run body's instantiation for the gang
+//    (kScoped) replaces the whole-cluster barrier of each step by an
+//    exchange among the member's own CTAs: each CTA stores its partial
+//    into its peers' parity-double-buffered gather rows with st.async,
+//    completing bytes on each peer's own mbarrier, and waits on its own
+//    (run_body.cuh says why two parities suffice, and how a CTA leaves).
+//    No CTA waits on another member, so members share a cluster.
+//  * Packing.  `plan_members` in ops/ragged_kernel.py packs the members
+//    by their own c, first fit decreasing, into clusters of the largest
+//    member's c, and gives each its (cluster, base).  A group of one
+//    R 256 / W 514 member (16 CTAs) and seven R 32 / W 130 members (2 CTAs
+//    each) takes 2 clusters, not 8, so it runs in one wave (7 clusters of
+//    16 fit on an H100 at once).  CTAs a packed cluster does not use only
+//    meet the start barrier and leave.  The solo run kernel keeps the
+//    cluster barrier (run_body.cuh's other instantiation).
 //  * Per-member geometry.  Each member carries its own descriptor
 //    (`RaggedMember`, built by the host): its store's addresses at its
 //    slot, R, W (the row stride JAX calls wrow), C, L, A, its reads, its
-//    search constants and its own `plan_run` split of reads over CTAs and
-//    warps (rpc, rpw).  The cluster size, the CTA's threads and the dynamic
-//    shared memory are one per launch, so the launch takes the largest
-//    member's (`plan_members` in ops/ragged_kernel.py).  A smaller member
-//    keeps its own split: the CTAs past its reads and the warps past its
-//    plan hold no read and add identity partials, so its fold is its solo
-//    launch's fold, in the same rank and warp order.
+//    search constants, its own `plan_run` split of reads over CTAs and
+//    warps (rpc, rpw, c) and its place (cluster, base).  The CTA's threads
+//    and the dynamic shared memory are one per launch, so the launch takes
+//    the largest member's; the warps past a member's plan hold no read and
+//    add identity partials, so its fold is its solo launch's fold, in the
+//    same warp order.
 //  * The band's placement is per member: the kernel holds both of
 //    `run_branch`'s instantiations (band in shared memory, band in device
-//    memory with a scratch buffer), and each cluster takes its member's.
+//    memory with a scratch buffer), and each member takes its own.
 //  * Members write either in place (the serving pool: the slot is
 //    advanced, as `run_extend` does) or to deposit rows (the frontier
 //    gang: no slot is touched), as the host's descriptor points.
 //  * A member whose slot does not hold the consensus length the host
 //    expects runs nothing and reports code -1.
 //  * A launch holds at most 8 descriptors (`GangArgs`, passed by value as
-//    a __grid_constant__, 2.4 KB: under the 4 KB launch-parameter limit);
-//    a larger group runs as consecutive launches of 8, which gives the
-//    same results because members are independent.  With 16-CTA clusters
-//    8 members may not all fit on the card at once; they then run in
-//    waves (`run_ragged_max_clusters` gives how many fit).
+//    a __grid_constant__, under the 4 KB launch-parameter limit); a larger
+//    group runs as consecutive launches of 8, which gives the same results
+//    because members are independent.  More clusters than fit on the card
+//    at once run in waves (`run_ragged_max_clusters` gives how many fit).
 
 #include "run_body.cuh"
 
@@ -77,6 +92,8 @@ struct RaggedMember {
   int len0, me_budget, other_cost, other_len, max_steps, first_sym;
   int min_count, l2, wc, et;
   int rpc, rpw, on_chip, stride;
+  int cluster, base, ctas;  // its place: CTAs [base, base + ctas) of
+                            // cluster `cluster` (ctas: its plan's cluster)
 };
 
 namespace {
@@ -86,36 +103,55 @@ constexpr int kMaxGang = 8;  // ragged_kernel.MAX_GANG
 struct GangArgs {
   Args m[kMaxGang];
   int on_chip[kMaxGang];
-  int csize;
+  int cluster[kMaxGang];
+  int base[kMaxGang];
+  int G;
+  int csize;  // CTAs of a cluster of the launch
 };
 
 __global__ void __launch_bounds__(kMaxThreads, 1)
     run_ragged_kernel(const __grid_constant__ GangArgs g) {
   extern __shared__ __align__(16) char smem_raw[];
-  const int member = blockIdx.x / g.csize;
+  const int cluster = blockIdx.x / g.csize;
+  const int rank = blockIdx.x % g.csize;  // the CTA's rank in its cluster
+  int member = -1;
+  for (int k = 0; k < g.G; ++k) {
+    if (g.cluster[k] == cluster && rank >= g.base[k] &&
+        rank < g.base[k] + g.m[k].csize) {
+      member = k;
+    }
+  }
+  if (member < 0) {
+    // a CTA no member uses: the start barrier every CTA meets, then leave
+    cg::this_cluster().sync();
+    return;
+  }
   if (g.on_chip[member])
-    run_branch<true>(g.m[member], smem_raw);
+    run_branch<true, true>(g.m[member], smem_raw, g.base[member]);
   else
-    run_branch<false>(g.m[member], smem_raw);
+    run_branch<false, true>(g.m[member], smem_raw, g.base[member]);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches `G` (1-8) clusters of
-// `csize` CTAs of `threads` threads with `smem` bytes of dynamic shared
-// memory on `stream`, cluster g running member `members[g]`.  Records are
-// never absorbed.  Returns 0 on success, -1 when a member's descriptor
-// does not fit the launch (its split, its shared memory, its output row,
-// its consensus capacity) or G is out of range, -2 when no cluster of that
-// shape fits on the device, else the CUDA error; the launch does not
-// synchronise.
+// Plain C entry point (bound with ctypes).  Launches `nclusters` clusters
+// of `csize` CTAs of `threads` threads with `smem` bytes of dynamic shared
+// memory on `stream`; member k of `members` (G of them, 1-8) runs on CTAs
+// [base, base + ctas) of its cluster.  Records are never absorbed.
+// Returns 0 on success, -1 when a member's descriptor does not fit the
+// launch (its split, its place, its shared memory, its output row, its
+// consensus capacity), two members overlap or G is out of range, -2 when
+// no cluster of that shape fits on the device, else the CUDA error; the
+// launch does not synchronise.
 extern "C" int run_ragged_launch(const RaggedMember* members, int G,
-                                 int csize, int threads, long long smem,
-                                 void* stream) {
-  if (G < 1 || G > kMaxGang || csize < 1 || csize > kMaxCluster ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+                                 int nclusters, int csize, int threads,
+                                 long long smem, void* stream) {
+  if (G < 1 || G > kMaxGang || nclusters < 1 || nclusters > G ||
+      csize < 1 || csize > kMaxCluster || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0)
     return -1;
   GangArgs g;
+  g.G = G;
   g.csize = csize;
   for (int k = 0; k < G; ++k) {
     const RaggedMember& p = members[k];
@@ -151,19 +187,30 @@ extern "C" int run_ragged_launch(const RaggedMember* members, int G,
     a.wc = p.wc;
     a.et = p.et;
     a.allow_records = 0;
-    // the launch's cluster and warps, the member's own split of its reads
-    set_shape(a, p.R, p.W, p.C, p.L, p.A, csize, threads, p.rpc, p.rpw);
+    // the member's own cluster (its fold's CTAs) and split, the launch's
+    // warps
+    set_shape(a, p.R, p.W, p.C, p.L, p.A, p.ctas, threads, p.rpc, p.rpw);
     g.on_chip[k] = p.on_chip != 0;
+    g.cluster[k] = p.cluster;
+    g.base[k] = p.base;
     const bool fits =
-        p.rpc >= 1 && p.rpw >= 1 && (long long)csize * p.rpc >= p.R &&
+        p.ctas >= 1 && p.cluster >= 0 && p.cluster < nclusters &&
+        p.base >= 0 && p.base + p.ctas <= csize && p.rpc >= 1 &&
+        p.rpw >= 1 && (long long)p.ctas * p.rpc >= p.R &&
         (long long)a.nw * p.rpw >= p.rpc && (!p.on_chip || p.rpw <= 32) &&
         p.A >= 1 && p.W >= 4 && (p.on_chip || p.scratch != nullptr) &&
         smem_bytes(p.rpc, a.nw, p.W, p.A, p.on_chip != 0) <= (size_t)smem &&
         a.o_syms + p.max_steps + 1 <= p.stride && p.len0 >= 0 &&
         p.len0 + p.max_steps + 1 < p.C;
     if (!fits) return -1;
+    for (int q = 0; q < k; ++q) {
+      const RaggedMember& o = members[q];
+      if (o.cluster == p.cluster && o.base < p.base + p.ctas &&
+          p.base < o.base + o.ctas)
+        return -1;  // two members on one CTA
+    }
   }
-  return launch_clusters(run_ragged_kernel, g, csize, G, threads,
+  return launch_clusters(run_ragged_kernel, g, csize, nclusters, threads,
                          (size_t)smem, static_cast<cudaStream_t>(stream));
 }
 

@@ -27,7 +27,15 @@ source, ``csrc/branch_step.cu``, in the style of
   launched) and in ``branch_cuda.entries`` (by call and by plan);
 * the dispatch (:func:`root`, :func:`advance`, :func:`stats`,
   :func:`finalize`, :func:`deactivate`): tensors on the CPU take the twin,
-  tensors on a CUDA device launch the kernel or raise.
+  tensors on a CUDA device launch the kernel or raise;
+* the fused calls of a read-sharded store (:func:`root_shards`,
+  :func:`advance_shards`, :func:`stats_shards`, :func:`finalize_shards`):
+  up to :data:`MAX_SHARDS` shards of one geometry on one card in one
+  call, their warps one grid, one overflow word for all of them (the
+  step is all or nothing across the shards inside the kernel), the
+  output over their reads in shard order; the twins
+  (:func:`advance_shards_plain`, ...) are each shard's twin under the
+  same rule.
 
 An advance takes rows ``(src, dst, sym)``: ``sym == -1`` copies slot
 ``src`` into ``dst`` (``_j_clone_batch``), ``src == dst`` pushes in place
@@ -77,6 +85,9 @@ COMMIT_ROWS = 65535
 EPOCH0 = 2 * ts.INF
 #: the plans' names, as ``branch_cuda.entries`` counts them
 PLANS = ("one_launch", "slab")
+#: read shards of one fused call at most (``csrc/branch_step.cu``'s
+#: ``kMaxShards``: the shards' stores ride in the launch's parameter)
+MAX_SHARDS = 16
 
 
 class BranchOut(NamedTuple):
@@ -177,20 +188,22 @@ def plan_branch(n: int, R: int, W: int, A: int, sms: int, per_sm: int,
         head, out)
 
 
-def slab_words(n: int, R: int, W: int, C: int) -> int:
-    """int32 words of the slab plan's scratch for an advance: the new
-    band, the five per-read fields (``e``, ``rmin``, ``er``, ``off``,
-    ``act``), the consensus and the length of every row."""
-    return n * R * W + 5 * n * R + n * C + n
+def slab_words(n: int, R: int, W: int, C: int, shards: int = 1) -> int:
+    """int32 words of the slab plan's scratch for an advance of ``R``
+    reads (over ``shards`` shards): the new band, the five per-read
+    fields (``e``, ``rmin``, ``er``, ``off``, ``act``), and the consensus
+    and the length of every row of every shard."""
+    return n * R * W + 5 * n * R + shards * (n * C + n)
 
 
-def scratch_words(plan: BranchPlan, n: int, R: int, W: int, C: int) -> int:
+def scratch_words(plan: BranchPlan, n: int, R: int, W: int, C: int,
+                  shards: int = 1) -> int:
     """int32 words of a call's scratch: the slab plan's advance slab, or
-    the one-launch plan's staged consensus rows of its copies (``[n,
-    C]``); none for stats and finalize."""
+    the one-launch plan's staged consensus rows of its copies (``[shards,
+    n, C]``); none for stats and finalize."""
     if plan.name == "slab":
-        return slab_words(n, R, W, C) if plan.commit_rows else 0
-    return n * C if plan.commit else 0
+        return slab_words(n, R, W, C, shards) if plan.commit_rows else 0
+    return shards * n * C if plan.commit else 0
 
 
 def unpack(host: np.ndarray, n: int, R: int, A: int, votes: bool,
@@ -266,21 +279,10 @@ def root_plain(state, slot: int, act, rlen) -> None:
 root_plain.calls = 0
 
 
-def advance_plain(state, rows, reads, rlen, wc: int, et: bool,
-                  num_symbols: int, with_stats: bool = True,
-                  force: bool = False):
-    """Rows ``(src, dst, sym)`` (``[3, n]``): slot ``src`` advanced by
-    ``sym`` (``-1``: copied as it is) into slot ``dst``, every src read
-    before any dst written, nothing committed when a pushed read reaches
-    the band (unless ``force``: a read shard's column step commits
-    whatever the overflow says).  Returns the :class:`BranchOut` of the
-    rows at their new lengths (``_j_clone_push_batch``'s stats and
-    overflow), or ``None`` without ``with_stats`` (a batch of copies,
-    ``_j_clone_batch``)."""
-    advance_plain.calls += 1
-    rows = _rows_np(rows)
-    _check_rows(state, rows, with_stats)
-    st = state
+def _advance_parts(st, rows: np.ndarray, reads, rlen, wc: int, et: bool,
+                   num_symbols: int, with_stats: bool):
+    """One store's advance computed and not written: ``(out, overflow,
+    commit)``, ``commit()`` writing the rows into their dst slots."""
     dev = st["D"].device
     W, E = _geometry(st)
     C = st["cons"].shape[1]
@@ -308,7 +310,8 @@ def advance_plain(state, rows, reads, rlen, wc: int, et: bool,
         )
         fin, fin_ovf = ts.finalized(en, rminn, act, E)
         out = _host_out(stats, fin, fin_ovf, overflow)
-    if force or not overflow:
+
+    def commit():
         at = torch.arange(rows.shape[1], device=dev)
         cpos = clen.clamp(0, C - 1).long()
         cons_n = cons.clone()
@@ -317,17 +320,35 @@ def advance_plain(state, rows, reads, rlen, wc: int, et: bool,
                           ("off", off), ("act", act), ("cons", cons_n),
                           ("clen", clenn)):
             st[name][di] = val
+
+    return out, overflow, commit
+
+
+def advance_plain(state, rows, reads, rlen, wc: int, et: bool,
+                  num_symbols: int, with_stats: bool = True,
+                  force: bool = False):
+    """Rows ``(src, dst, sym)`` (``[3, n]``): slot ``src`` advanced by
+    ``sym`` (``-1``: copied as it is) into slot ``dst``, every src read
+    before any dst written, nothing committed when a pushed read reaches
+    the band (unless ``force``: the sharded column step commits whatever
+    the overflow says).  Returns the :class:`BranchOut` of the rows at
+    their new lengths (``_j_clone_push_batch``'s stats and overflow), or
+    ``None`` without ``with_stats`` (a batch of copies,
+    ``_j_clone_batch``)."""
+    advance_plain.calls += 1
+    rows = _rows_np(rows)
+    _check_rows(state, rows, with_stats)
+    out, overflow, commit = _advance_parts(state, rows, reads, rlen, wc, et,
+                                           num_symbols, with_stats)
+    if force or not overflow:
+        commit()
     return out
 
 
 advance_plain.calls = 0
 
 
-def stats_plain(state, slots, reads, rlen, num_symbols: int) -> BranchOut:
-    """The :class:`BranchOut` of each slot in ``slots`` as it stands
-    (``_j_stats``, with the finalized distances bundled); writes
-    nothing."""
-    stats_plain.calls += 1
+def _stats_out(state, slots, reads, rlen, num_symbols: int) -> BranchOut:
     W, E = _geometry(state)
     si = torch.as_tensor(np.asarray(slots, dtype=np.int64),
                          device=state["D"].device)
@@ -340,7 +361,24 @@ def stats_plain(state, slots, reads, rlen, num_symbols: int) -> BranchOut:
     return _host_out(stats, fin, fin_ovf, False)
 
 
+def stats_plain(state, slots, reads, rlen, num_symbols: int) -> BranchOut:
+    """The :class:`BranchOut` of each slot in ``slots`` as it stands
+    (``_j_stats``, with the finalized distances bundled); writes
+    nothing."""
+    stats_plain.calls += 1
+    return _stats_out(state, slots, reads, rlen, num_symbols)
+
+
 stats_plain.calls = 0
+
+
+def _finalized(state, slots):
+    _W, E = _geometry(state)
+    si = torch.as_tensor(np.asarray(slots, dtype=np.int64),
+                         device=state["D"].device)
+    fin, ovf = ts.finalized(state["e"][si], state["rmin"][si],
+                            state["act"][si], E)
+    return fin.cpu().numpy(), ovf.cpu().numpy()
 
 
 def finalize_plain(state, slots):
@@ -348,12 +386,7 @@ def finalize_plain(state, slots):
     distances and whether any active read's is outside the band
     (``_j_finalize``)."""
     finalize_plain.calls += 1
-    _W, E = _geometry(state)
-    si = torch.as_tensor(np.asarray(slots, dtype=np.int64),
-                         device=state["D"].device)
-    fin, ovf = ts.finalized(state["e"][si], state["rmin"][si],
-                            state["act"][si], E)
-    return fin.cpu().numpy(), ovf.cpu().numpy()
+    return _finalized(state, slots)
 
 
 finalize_plain.calls = 0
@@ -371,6 +404,110 @@ def deactivate_plain(state, pairs) -> None:
 deactivate_plain.calls = 0
 
 
+def merge_outs(outs) -> BranchOut:
+    """Several stores' outputs of one call as one, per-read fields in
+    read order (store after store), ``fin_ok`` AND-ed, ``overflow``
+    OR-ed."""
+    if len(outs) == 1:
+        return outs[0]
+    cat = lambda xs: np.concatenate(xs, axis=1)  # noqa: E731
+    votes = outs[0].occ is not None
+    return BranchOut(
+        eds=cat([o.eds for o in outs]),
+        occ=cat([o.occ for o in outs]) if votes else None,
+        split=cat([o.split for o in outs]) if votes else None,
+        reached=cat([o.reached for o in outs]),
+        fin=cat([o.fin for o in outs]),
+        fin_ok=np.logical_and.reduce([o.fin_ok for o in outs]),
+        overflow=any(o.overflow for o in outs),
+    )
+
+
+def _check_shards(states) -> None:
+    if not states:
+        raise ValueError("a fused call needs at least one shard")
+    D0, c0 = states[0]["D"], states[0]["cons"]
+    for st in states[1:]:
+        if (st["D"].shape != D0.shape or st["cons"].shape != c0.shape
+                or st["D"].device != D0.device):
+            raise ValueError("the shards of a fused call need one device "
+                             "and one geometry")
+
+
+def root_shards_plain(states, slot: int, act, rlens) -> None:
+    """:func:`root_plain` on every shard: ``act`` is the ``[S x R]`` mask
+    of the shards' reads in shard order."""
+    root_shards_plain.calls += 1
+    _check_shards(states)
+    act = torch.as_tensor(np.asarray(act, dtype=bool).reshape(len(states),
+                                                              -1))
+    for st, a, rl in zip(states, act, rlens):
+        W, E = _geometry(st)
+        off = torch.zeros_like(st["off"][slot])
+        a = a.to(st["act"].device)
+        D, e, rmin, er = ts.init_col(off, a, rl, E, W)
+        for name, val in (("D", D), ("e", e), ("rmin", rmin), ("er", er),
+                          ("off", off), ("act", a)):
+            st[name][slot] = val
+        st["clen"][slot] = 0
+
+
+root_shards_plain.calls = 0
+
+
+def advance_shards_plain(states, rows, reads, rlens, wc: int, et: bool,
+                         num_symbols: int, with_stats: bool = True,
+                         force: bool = False):
+    """The fused step's twin: every shard's :func:`advance_plain` on the
+    same rows, under the all-or-nothing rule (no shard commits when a
+    pushed read of any shard reaches the band, unless ``force``); the
+    shards' outputs merged in read order (:func:`merge_outs`), or
+    ``None`` without ``with_stats``."""
+    advance_shards_plain.calls += 1
+    _check_shards(states)
+    rows = _rows_np(rows)
+    parts = []
+    for st, rd, rl in zip(states, reads, rlens):
+        _check_rows(st, rows, with_stats)
+        parts.append(_advance_parts(st, rows, rd, rl, wc, et, num_symbols,
+                                    with_stats))
+    overflow = any(ovf for _o, ovf, _c in parts)
+    if force or not overflow:
+        for _o, _ovf, commit in parts:
+            commit()
+    if not with_stats:
+        return None
+    return merge_outs([o for o, _ovf, _c in parts])
+
+
+advance_shards_plain.calls = 0
+
+
+def stats_shards_plain(states, slots, reads, rlens,
+                       num_symbols: int) -> BranchOut:
+    """Every shard's :func:`stats_plain`, merged in read order."""
+    stats_shards_plain.calls += 1
+    _check_shards(states)
+    return merge_outs([_stats_out(st, slots, rd, rl, num_symbols)
+                       for st, rd, rl in zip(states, reads, rlens)])
+
+
+stats_shards_plain.calls = 0
+
+
+def finalize_shards_plain(states, slots):
+    """Every shard's :func:`finalize_plain`: ``fin`` in read order,
+    ``ovf`` OR-ed over the shards."""
+    finalize_shards_plain.calls += 1
+    _check_shards(states)
+    res = [_finalized(st, slots) for st in states]
+    return (np.concatenate([f for f, _o in res], axis=1),
+            np.logical_or.reduce([o for _f, o in res]))
+
+
+finalize_shards_plain.calls = 0
+
+
 def plain_calls() -> int:
     """Calls of every twin of this module since their counts were last
     zeroed."""
@@ -385,8 +522,12 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "rows": [_PTR],
     "root": [_PTR] * 11 + [_INT] * 6 + [_PTR],
+    "root_shards": [_PTR, _INT] + [_PTR] * 3 + [_INT] * 6 + [_PTR],
     "deactivate": [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
+
+#: a store's tensors, in the order of ``csrc/branch_step.cu``'s records
+_STORE = ("D", "e", "rmin", "er", "off", "act", "cons", "clen")
 
 
 class _Call(ctypes.Structure):
@@ -396,20 +537,43 @@ class _Call(ctypes.Structure):
     _fields_ = [(name, _PTR) for name in (
         "D", "e", "rmin", "er", "off", "act", "cons", "clen", "reads",
         "rlen", "rows", "rows_host", "out", "out_host", "flag", "slab",
-        "event", "stream", "part")] + [(name, _INT) for name in (
+        "event", "stream", "part", "shard_ptrs")] + [(name, _INT) for name in (
             "B", "R", "W", "C", "L", "n", "A", "wc", "et", "mode", "votes",
             "epoch", "plan", "cells", "warps", "blocks", "smem",
-            "commit_blocks", "commit_rows", "out_words", "force")]
+            "commit_blocks", "commit_rows", "out_words", "force", "shards",
+            "defer")]
+
+
+class _Shard(ctypes.Structure):
+    """One read shard of a fused call: ``csrc/branch_step.cu``'s
+    ``BranchShard``, field for field."""
+
+    _fields_ = [(name, _PTR) for name in _STORE + ("reads", "rlen")]
+
+
+def _shard_array(states, reads, rlens):
+    """The ``BranchShard`` records of ``states`` (``reads`` may hold
+    ``None``: a root reads none)."""
+    arr = (_Shard * len(states))()
+    for rec, st, rd, rl in zip(arr, states, reads, rlens):
+        for name in _STORE:
+            setattr(rec, name, st[name].data_ptr())
+        rec.reads = None if rd is None else rd.data_ptr()
+        rec.rlen = rl.data_ptr()
+    return arr
 
 
 def branch_cuda(entry: str, launcher: str, *args,
-                plan: Optional[BranchPlan] = None) -> None:
+                plan: Optional[BranchPlan] = None, shards: int = 0) -> None:
     """Call the C entry ``branch_<launcher>_launch`` of
     ``csrc/branch_step.cu`` with ``args``; raises when it refuses the plan
     or the launch fails, never falls back.  Each call adds the kernels it
     launched to ``branch_cuda.launches`` and one to
     ``branch_cuda.entries[entry]`` and, for a call on ``plan``, to
-    ``branch_cuda.entries[plan.name]``."""
+    ``branch_cuda.entries[plan.name]``; a fused call on ``shards`` read
+    shards adds one to ``branch_cuda.entries["fused"]`` and to
+    ``branch_cuda.fused_shards[shards]``, and its kernels to
+    ``branch_cuda.fused_launches``."""
     name = f"branch_{launcher}_launch"
     rc = rpk._bind(name, _ARGTYPES[launcher])(*args)
     rpk._raise_on(rc, f"branch_step {entry}", name)
@@ -418,11 +582,20 @@ def branch_cuda(entry: str, launcher: str, *args,
     if plan is not None:
         branch_cuda.entries[plan.name] += 1
         branch_cuda.last_plan = plan
+    if shards:
+        branch_cuda.entries["fused"] += 1
+        branch_cuda.fused_shards[shards] = (
+            branch_cuda.fused_shards.get(shards, 0) + 1)
+        branch_cuda.fused_launches += 1 if plan is None else plan.kernels
 
 
 branch_cuda.launches = 0
 branch_cuda.entries = dict.fromkeys(
-    ("root", "copy", "advance", "stats", "finalize", "deactivate") + PLANS, 0)
+    ("root", "copy", "advance", "stats", "finalize", "deactivate") + PLANS
+    + ("fused",), 0)
+#: fused calls by their number of read shards, and their kernels
+branch_cuda.fused_shards = {}
+branch_cuda.fused_launches = 0
 branch_cuda.last_plan = None
 
 
@@ -447,26 +620,26 @@ def _check_store(state, reads, rlen):
     return dev, B, R, W
 
 
-_STORE = ("D", "e", "rmin", "er", "off", "act", "cons", "clen")
-#: (device index) -> SMs; (device index, cells, smem) -> one-launch CTAs
-#: an SM holds at once
+#: (device index) -> SMs; (device index, cells, smem, shards > 1) ->
+#: one-launch CTAs an SM holds at once
 _SMS = {}
 _PER_SM = {}
 
 
-def _occupancy(dev, cells: int, smem: int):
+def _occupancy(dev, cells: int, smem: int, shards: int = 1):
     """``(sms, per_sm)`` of the card for the one-launch kernel on
-    ``cells`` cells a lane and ``smem`` bytes (the committing instance,
-    whose CTAs must all be resident), asked once a shape."""
+    ``cells`` cells a lane and ``smem`` bytes (the committing instance for
+    a call on ``shards`` shards, whose CTAs must all be resident), asked
+    once a shape."""
     if dev.index not in _SMS:
         _SMS[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    key = (dev.index, cells, smem)
+    key = (dev.index, cells, smem, shards > 1)
     if key not in _PER_SM:
         per_sm = ctypes.c_int(0)
         fn = rpk._bind("branch_occupancy",
-                       [_INT, _INT, _INT, ctypes.POINTER(_INT)])
-        rc = fn(cells, ONE_WARPS, smem, ctypes.byref(per_sm))
+                       [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)])
+        rc = fn(cells, ONE_WARPS, smem, shards, ctypes.byref(per_sm))
         rpk._raise_on(rc, "branch_step occupancy", "branch_occupancy")
         _PER_SM[key] = per_sm.value
     return _SMS[dev.index], _PER_SM[key]
@@ -535,6 +708,7 @@ class BranchBuffers:
         self._rows = self._rows_host = self._rows_np = None
         self._out = self._out_host = self._out_np = None
         self._scratch = None
+        self._shards = None
         self._plans = {}
         self.pending = False
         self.epoch = EPOCH0
@@ -545,18 +719,41 @@ class BranchBuffers:
     def bind(self, state, reads, rlen) -> _Call:
         """The call record of ``state``: its checks and pointers are made
         again only when a tensor of the store moved or changed shape."""
-        key = (tuple(state[k].data_ptr() for k in _STORE)
-               + (state["D"].shape, state["cons"].shape, reads.data_ptr(),
-                  reads.shape, rlen.data_ptr()))
+        return self.bind_shards([state], [reads], [rlen])
+
+    def bind_shards(self, states, reads, rlens) -> _Call:
+        """The call record of the read shards ``states`` (one store: a
+        list of one), checked to share one card and one geometry: made
+        again only when a tensor of a shard moved or changed shape."""
+        key = tuple(
+            tuple(st[k].data_ptr() for k in _STORE)
+            + (st["D"].shape, st["cons"].shape, rd.data_ptr(), rd.shape,
+               rl.data_ptr())
+            for st, rd, rl in zip(states, reads, rlens))
         if key != self._key:
-            dev, B, R, W = _check_store(state, reads, rlen)
+            if not 1 <= len(states) <= MAX_SHARDS:
+                raise ValueError(f"a fused call takes 1-{MAX_SHARDS} "
+                                 f"shards, not {len(states)}")
+            geo = None
+            for st, rd, rl in zip(states, reads, rlens):
+                dev, B, R, W = _check_store(st, rd, rl)
+                g = (dev, B, R, W, st["cons"].shape[1], rd.shape[1])
+                if geo is not None and g != geo:
+                    raise ValueError("the shards of a fused call need one "
+                                     f"device and one geometry: {g} vs {geo}")
+                geo = g
+            dev, B, R, W, C, L = geo
             self.on(dev)
             c = _Call()
+            st, S = states[0], len(states)
             for name in _STORE:
-                setattr(c, name, state[name].data_ptr())
-            c.reads, c.rlen = reads.data_ptr(), rlen.data_ptr()
-            c.B, c.R, c.W = B, R, W
-            c.C, c.L = state["cons"].shape[1], reads.shape[1]
+                setattr(c, name, st[name].data_ptr())
+            c.reads, c.rlen = reads[0].data_ptr(), rlens[0].data_ptr()
+            self._shards = _shard_array(states, reads, rlens) if S > 1 else None
+            c.shard_ptrs = (None if S == 1
+                            else ctypes.addressof(self._shards))
+            c.shards = S
+            c.B, c.R, c.W, c.C, c.L = B, R, W, C, L
             self.call, self._key = c, key
             self._plans = {}
             self.checks += 1
@@ -639,16 +836,20 @@ class BranchBuffers:
 
     def plan(self, n: int, A: int, commit: bool) -> BranchPlan:
         """:func:`plan_branch` for a call of ``n`` rows on the bound
-        store, with the card's SMs and occupancy (kept a shape)."""
+        store (every (row, shard, read) warp of its shards), with the
+        card's SMs and occupancy (kept a shape)."""
         key = (n, A, commit)
         plan = self._plans.get(key)
         if plan is None:
             c = self.call
             cells = one_launch_cells(c.W)
             smem = one_launch_smem(cells, A)
-            sms, per_sm = (_occupancy(self._dev, cells, smem)
+            # a call on several shards runs the kernel's shard instance
+            shards = (c.shards,) if c.shards > 1 else ()
+            sms, per_sm = (_occupancy(self._dev, cells, smem, *shards)
                            if cells and smem <= ONE_SMEM_MAX else (0, 0))
-            plan = plan_branch(n, c.R, c.W, A, sms, per_sm, commit)
+            plan = plan_branch(n, c.R * c.shards, c.W, A, sms, per_sm,
+                               commit)
             if len(self._plans) < 4096:
                 self._plans[key] = plan
         return plan
@@ -669,7 +870,20 @@ def _rows_cuda(entry, mode, votes, state, rows, reads, rlen, wc, et,
                num_symbols, with_out, bufs, force=False, part=None):
     bufs = shared_buffers() if bufs is None else bufs
     c = bufs.bind(state, reads, rlen)
+    return _launch_rows(entry, mode, votes, bufs, c, rows, wc, et,
+                        num_symbols, with_out, force, part)
+
+
+def _launch_rows(entry, mode, votes, bufs, c, rows, wc, et, num_symbols,
+                 with_out, force=False, part=None, defer=False,
+                 fused=False):
+    """One ``branch_rows_launch`` of the bound call ``c`` (its shards'
+    reads ``c.R * c.shards`` in the output).  Returns the unpacked
+    output, ``None`` without one, or with ``defer`` a function that
+    waits for the output and unpacks it."""
     n = rows.shape[1]
+    S = c.shards
+    Ro = c.R * S
     A = max(int(num_symbols), 1) if votes else 1
     plan = bufs.plan(n, A, mode == 0)
     words = plan.out_words if votes else plan.head_words
@@ -681,7 +895,7 @@ def _rows_cuda(entry, mode, votes, state, rows, reads, rlen, wc, et,
         c.out = c.out_host = c.flag = None
         c.epoch = 0
     c.out_words = words
-    c.slab = bufs.scratch(scratch_words(plan, n, c.R, c.W, c.C))
+    c.slab = bufs.scratch(scratch_words(plan, n, Ro, c.W, c.C, S))
     c.event = bufs.event()
     c.stream = _stream(bufs.device())
     c.n, c.A, c.wc, c.et = n, A, wc, int(et)
@@ -692,11 +906,19 @@ def _rows_cuda(entry, mode, votes, state, rows, reads, rlen, wc, et,
     c.commit_blocks, c.commit_rows = plan.commit_blocks, plan.commit_rows
     c.force = int(force)
     c.part = None if part is None else part.data_ptr()
-    branch_cuda(entry, "rows", ctypes.byref(c), plan=plan)
-    bufs.pending = not with_out
+    c.defer = int(defer and with_out)
+    branch_cuda(entry, "rows", ctypes.byref(c), plan=plan,
+                shards=S if fused else 0)
+    bufs.pending = not with_out or bool(c.defer)
     if not with_out:
         return None
-    return unpack(bufs.fetched(words), n, c.R, A, votes, c.epoch)
+    epoch = c.epoch
+
+    def collect() -> BranchOut:
+        bufs.wait()
+        return unpack(bufs.fetched(words), n, Ro, A, votes, epoch)
+
+    return collect if c.defer else collect()
 
 
 def _act_words(act) -> np.ndarray:
@@ -805,6 +1027,80 @@ def deactivate_cuda(state, pairs, bufs=None) -> None:
     bufs.pending = True
 
 
+def advance_shards_cuda(states, rows, reads, rlens, wc: int, et: bool,
+                        num_symbols: int, with_stats: bool = True,
+                        bufs=None, force: bool = False, part=None,
+                        defer: bool = False):
+    """One fused call of ``csrc/branch_step.cu`` over the read shards
+    ``states`` (each with its ``reads`` and ``rlens``, one card, one
+    geometry, at most :data:`MAX_SHARDS`): one launch on ``one_launch``
+    (two on ``slab``) for every shard, committed in every shard or in
+    none (unless ``force``); :func:`advance_shards_plain` on the card.
+    ``part`` (int32 ``[3]`` on the card, with stats) receives the call's
+    partials; ``defer`` returns a function that waits for the output (so
+    launches on several cards are all queued before the first wait)."""
+    rows = _rows_np(rows)
+    bufs = shared_buffers() if bufs is None else bufs
+    c = bufs.bind_shards(states, reads, rlens)  # one geometry: one check
+    _check_rows(states[0], rows, with_stats)
+    if part is not None:
+        if not with_stats:
+            raise ValueError("partials need the stats")
+        rpk._need(part, torch.int32, states[0]["D"].device, "part", (3,))
+    return _launch_rows("advance" if with_stats else "copy", 0, with_stats,
+                        bufs, c, rows, wc, et, num_symbols, with_stats,
+                        force, part, defer, fused=True)
+
+
+def stats_shards_cuda(states, slots, reads, rlens, num_symbols: int,
+                      bufs=None, defer: bool = False):
+    """The fused call in read mode: :func:`stats_shards_plain` on the
+    card (``defer`` as :func:`advance_shards_cuda`)."""
+    bufs = shared_buffers() if bufs is None else bufs
+    c = bufs.bind_shards(states, reads, rlens)
+    return _launch_rows("stats", 1, True, bufs, c,
+                        _slot_rows(states[0], slots), -2, False, num_symbols,
+                        True, defer=defer, fused=True)
+
+
+def finalize_shards_cuda(states, slots, reads, rlens, bufs=None):
+    """The fused call in read mode without the histogram:
+    :func:`finalize_shards_plain` on the card."""
+    bufs = shared_buffers() if bufs is None else bufs
+    c = bufs.bind_shards(states, reads, rlens)
+    out = _launch_rows("finalize", 1, False, bufs, c,
+                       _slot_rows(states[0], slots), -2, False, 1, True,
+                       fused=True)
+    return out.fin, ~out.fin_ok
+
+
+def root_shards_cuda(states, slot: int, act, rlens, bufs=None) -> None:
+    """Launch ``branch_root`` once over every shard of ``states``:
+    :func:`root_shards_plain` on the card (``act`` the ``[S x R]`` mask
+    in shard order)."""
+    _check_shards(states)
+    if not 1 <= len(states) <= MAX_SHARDS:
+        raise ValueError(f"a fused call takes 1-{MAX_SHARDS} shards")
+    dev, B, R, W = _check_store(states[0], None, rlens[0])
+    for st, rl in zip(states[1:], rlens[1:]):
+        _check_store(st, None, rl)
+    act = np.asarray(act, dtype=bool).reshape(-1)
+    if act.shape != (len(states) * R,):
+        raise ValueError(f"act: need [{len(states) * R}]")
+    if not 0 <= slot < B:
+        raise ValueError(f"slot {slot} outside [0, {B})")
+    bufs = shared_buffers() if bufs is None else bufs
+    bufs.on(dev)
+    act_dev, act_host = bufs.stage(_act_words(act))
+    arr = _shard_array(states, [None] * len(states), rlens)
+    S = len(states)
+    branch_cuda(
+        "root", "root_shards", ctypes.byref(arr), S, _PTR(act_dev),
+        _PTR(act_host), _PTR(bufs.event()), slot, B, R, W, ROW_WARPS,
+        -(-S * R // ROW_WARPS), _PTR(_stream(dev)), shards=S)
+    bufs.pending = True
+
+
 # ---------------------------------------------------------------------
 # dispatch
 
@@ -868,6 +1164,48 @@ def deactivate(state, pairs, bufs=None) -> None:
         deactivate_plain(state, pairs)
 
 
+def root_shards(states, slot: int, act, rlens, bufs=None) -> None:
+    """Dispatch rule: CPU tensors take :func:`root_shards_plain`, CUDA
+    tensors launch :func:`root_shards_cuda`."""
+    if _on_cuda(states[0]["D"]):
+        root_shards_cuda(states, slot, act, rlens, bufs)
+    else:
+        root_shards_plain(states, slot, act, rlens)
+
+
+def advance_shards(states, rows, reads, rlens, wc: int, et: bool,
+                   num_symbols: int, with_stats: bool = True, bufs=None,
+                   force: bool = False, part=None, defer: bool = False):
+    """Dispatch rule: CPU tensors take :func:`advance_shards_plain`
+    (``part`` is the caller's to fill there), CUDA tensors launch
+    :func:`advance_shards_cuda`."""
+    if _on_cuda(states[0]["D"]):
+        return advance_shards_cuda(states, rows, reads, rlens, wc, et,
+                                   num_symbols, with_stats, bufs, force,
+                                   part, defer)
+    return advance_shards_plain(states, rows, reads, rlens, wc, et,
+                                num_symbols, with_stats, force)
+
+
+def stats_shards(states, slots, reads, rlens, num_symbols: int, bufs=None,
+                 defer: bool = False):
+    """Dispatch rule: CPU tensors take :func:`stats_shards_plain`, CUDA
+    tensors launch :func:`stats_shards_cuda`."""
+    if _on_cuda(states[0]["D"]):
+        return stats_shards_cuda(states, slots, reads, rlens, num_symbols,
+                                 bufs, defer)
+    return stats_shards_plain(states, slots, reads, rlens, num_symbols)
+
+
+def finalize_shards(states, slots, reads, rlens, bufs=None):
+    """Dispatch rule: CPU tensors take :func:`finalize_shards_plain`,
+    CUDA tensors launch :func:`finalize_shards_cuda`."""
+    if _on_cuda(states[0]["D"]):
+        return finalize_shards_cuda(states, slots, reads, rlens, bufs)
+    return finalize_shards_plain(states, slots)
+
+
 #: the plain twins, whose calls :func:`plain_calls` sums
 TWINS = (root_plain, advance_plain, stats_plain, finalize_plain,
-         deactivate_plain)
+         deactivate_plain, root_shards_plain, advance_shards_plain,
+         stats_shards_plain, finalize_shards_plain)

@@ -4,9 +4,11 @@ Three pieces, one contract (the JAX package's ``_j_run_ragged``,
 ``waffle_con_tpu/ops/ragged.py``):
 
 * :func:`plan_ragged` / :func:`plan_members` — the launch geometry from
-  the shapes alone: one thread-block cluster per member, each member
-  keeping :func:`plan_run`'s split of its reads, the launch taking the
-  largest member's cluster, threads and shared memory.
+  the shapes alone: each member keeps :func:`plan_run`'s split of its
+  reads over its own ``c`` CTAs, the members are packed first fit
+  decreasing by ``c`` into clusters of the largest member's ``c`` (a
+  member on ranks ``[base, base + c)`` of its cluster), and the launch
+  takes the largest member's threads and shared memory.
 * :func:`run_members_cuda` — the wrapper of the hand-written Hopper
   kernel ``csrc/run_ragged.cu`` (built by
   :mod:`~waffle_con_tpu_torch.ops.cuda_build` and bound with ``ctypes``);
@@ -33,7 +35,7 @@ it names runs nothing and reports code -1.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -97,25 +99,63 @@ class Member(NamedTuple):
 
 
 class RaggedPlan(NamedTuple):
-    """Launch geometry of one gang: ``members`` clusters.  ``run`` is the
-    launch's geometry (its cluster, threads and shared memory; for a gang
-    of one shape exactly :func:`plan_run`'s), ``plans`` each member's own
-    :func:`plan_run` split of its reads (``rpc``, ``rpw``, band)."""
+    """Launch geometry of one gang of ``members``.  ``run`` is the
+    launch's geometry (its cluster size, threads and shared memory; for a
+    gang of one shape exactly :func:`plan_run`'s), ``plans`` each
+    member's own :func:`plan_run` split of its reads (``rpc``, ``rpw``,
+    band, and its ``c`` CTAs), ``slots`` each member's ``(cluster,
+    base)`` and ``spans`` its CTAs: CTAs ``[base, base + span)`` of
+    cluster ``cluster`` (the span is ``c``, or the whole cluster on the
+    unpacked plan, whose CTAs past a member's reads fold identity
+    partials).  ``clusters`` are launched, ``ctas`` of their CTAs hold a
+    member; ``waves`` is ``ceil(clusters / co-resident clusters)`` once a
+    card was asked (0 before)."""
 
     members: int
     run: RunPlan
     plans: tuple = ()
+    slots: tuple = ()
+    spans: tuple = ()
+    clusters: int = 0
+    ctas: int = 0
+    waves: int = 0
 
 
-def plan_members(shapes: Sequence[tuple]) -> RaggedPlan:
+def pack_members(sizes: Sequence[int], csize: int, packed: bool = True):
+    """Each member's ``(cluster, base)`` for members of ``sizes`` CTAs in
+    clusters of ``csize``: first fit decreasing (the largest members
+    first, ties in member order), each member into the first cluster with
+    room; ``packed`` False gives every member a cluster of its own (the
+    layout of one cluster a member).  Returns ``(slots, clusters)``."""
+    if not packed:
+        return tuple((g, 0) for g in range(len(sizes))), len(sizes)
+    used: List[int] = []
+    slots = [None] * len(sizes)
+    for g in sorted(range(len(sizes)), key=lambda g: -sizes[g]):
+        c = sizes[g]
+        if not 1 <= c <= csize:
+            raise ValueError(f"a member of {c} CTAs in clusters of {csize}")
+        at = next((i for i, u in enumerate(used) if u + c <= csize), None)
+        if at is None:
+            at = len(used)
+            used.append(0)
+        slots[g] = (at, used[at])
+        used[at] += c
+    return tuple(slots), len(used)
+
+
+def plan_members(shapes: Sequence[tuple], packed: bool = True) -> RaggedPlan:
     """The gang kernel's geometry for members of shapes ``(R, W, A, C)``:
-    each member's :func:`plan_run`, and a launch of the largest cluster
-    and CTA among them, with the largest shared memory a member needs on
-    the launch's warps.  Raises ``ValueError`` on what the kernel does
-    not take: no member or more than :data:`MAX_GANG`, a consensus
-    capacity below 2, a shape :func:`plan_run` refuses, or a member whose
-    per-warp state on the launch's warps overflows a CTA's shared
-    memory."""
+    each member's :func:`plan_run` (its split and its ``c`` CTAs), the
+    members packed by ``c`` into clusters of the largest ``c``
+    (:func:`pack_members`; ``packed`` False: the layout of one cluster a
+    member, each member on every CTA of its cluster), and a
+    launch of the largest CTA among them, with the largest shared memory
+    a member needs on the launch's warps.  Raises ``ValueError`` on what
+    the kernel does not take: no member or more than :data:`MAX_GANG`, a
+    consensus capacity below 2, a shape :func:`plan_run` refuses, or a
+    member whose per-warp state on the launch's warps overflows a CTA's
+    shared memory."""
     G = len(shapes)
     if not 1 <= G <= MAX_GANG:
         raise ValueError(f"no gang plan for G={G}")
@@ -124,8 +164,13 @@ def plan_members(shapes: Sequence[tuple]) -> RaggedPlan:
         if C < 2:
             raise ValueError(f"no gang plan for C={C}")
         plans.append(plan_run(R, W, A))
+    sizes = [p.cluster for p in plans]
+    slots, clusters = pack_members(sizes, max(sizes), packed)
+    spans = tuple(sizes) if packed else (max(sizes),) * G
+    placed = dict(slots=slots, spans=spans, clusters=clusters,
+                  ctas=sum(spans))
     if len(set(shapes)) == 1:
-        return RaggedPlan(G, plans[0], tuple(plans))
+        return RaggedPlan(G, plans[0], tuple(plans), **placed)
     cluster = max(p.cluster for p in plans)
     threads = max(p.threads for p in plans)
     nw = threads // 32
@@ -142,7 +187,7 @@ def plan_members(shapes: Sequence[tuple]) -> RaggedPlan:
                   max(p.reads_per_warp for p in plans),
                   bands.pop() if len(bands) == 1 else "mixed", smem)
     assert cluster <= MAX_CLUSTER
-    return RaggedPlan(G, run, tuple(plans))
+    return RaggedPlan(G, run, tuple(plans), **placed)
 
 
 def plan_ragged(G: int, R: int, W: int, A: int, C: int) -> RaggedPlan:
@@ -317,7 +362,8 @@ class _Member(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "R", "W", "C", "L", "A", "len0", "me_budget", "other_cost",
             "other_len", "max_steps", "first_sym", "min_count", "l2", "wc",
-            "et", "rpc", "rpw", "on_chip", "stride")]
+            "et", "rpc", "rpw", "on_chip", "stride", "cluster", "base",
+            "ctas")]
 
 
 def _lib_fn(name, argtypes):
@@ -331,18 +377,33 @@ def _lib_fn(name, argtypes):
 def _launcher():
     return _lib_fn("run_ragged_launch", [
         ctypes.POINTER(_Member), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+
+
+#: (device index, cluster, threads, shared bytes) -> co-resident clusters
+_CORESIDENT: Dict[tuple, int] = {}
 
 
 def max_clusters(plan: RaggedPlan) -> int:
-    """How many of the plan's clusters fit on the card at once (members
-    of one launch beyond it run in later waves)."""
+    """How many of the plan's clusters fit on the card at once (clusters
+    of one launch beyond it run in later waves); asked once a shape."""
     rp = plan.run
-    n = _lib_fn("run_ragged_max_clusters", [ctypes.c_int] * 2 + [
-        ctypes.c_longlong])(rp.cluster, rp.threads, rp.smem_bytes)
-    if n < 0:
-        raise RuntimeError(f"cluster occupancy query failed: CUDA error {-n}")
-    return n
+    key = (torch.cuda.current_device(), rp.cluster, rp.threads,
+           rp.smem_bytes)
+    if key not in _CORESIDENT:
+        n = _lib_fn("run_ragged_max_clusters", [ctypes.c_int] * 2 + [
+            ctypes.c_longlong])(rp.cluster, rp.threads, rp.smem_bytes)
+        if n < 0:
+            raise RuntimeError(
+                f"cluster occupancy query failed: CUDA error {-n}")
+        _CORESIDENT[key] = n
+    return _CORESIDENT[key]
+
+
+def waves(plan: RaggedPlan) -> int:
+    """``ceil(clusters / co-resident clusters)`` of the plan on the
+    current card."""
+    return -(-plan.clusters // max(max_clusters(plan), 1))
 
 
 _LAUNCH_ERRORS = {
@@ -376,15 +437,18 @@ def _check_member(m: Member, dev) -> None:
         raise ValueError("rlen: need int32 [R] on the state device")
 
 
-def run_members_cuda(members: Sequence[Member], in_place: bool):
+def run_members_cuda(members: Sequence[Member], in_place: bool,
+                     plan: RaggedPlan = None):
     """Launch the CUDA gang kernel over ``members`` (at most
-    :data:`MAX_GANG`): one thread-block cluster each, reading its slot and
-    writing its slot (``in_place``) or its deposit row.  Returns ``(outs,
-    dep)`` as :func:`run_members_plain`.  Raises on anything the kernel
-    does not take and when the launch is refused; never falls back.  The
-    caller guarantees ``len0 + max_steps + 2 < C`` for every member.  Each
-    launch adds one to ``run_ragged_cuda.launches``;
-    ``run_ragged_cuda.last_plan`` is the last launch's plan."""
+    :data:`MAX_GANG`), packed as :func:`plan_members` packs them (or on
+    ``plan``, one of :func:`plan_members`' for these shapes), each member
+    reading its slot and writing its slot (``in_place``) or its deposit
+    row.  Returns ``(outs, dep)`` as :func:`run_members_plain`.  Raises
+    on anything the kernel does not take and when the launch is refused;
+    never falls back.  The caller guarantees ``len0 + max_steps + 2 < C``
+    for every member.  Each launch adds one to
+    ``run_ragged_cuda.launches``; ``run_ragged_cuda.last_plan`` is the
+    last launch's plan, its ``waves`` filled in."""
     dev = members[0].state["D"].device
     if dev.type != "cuda":
         raise ValueError("the gang kernel needs tensors on a CUDA device")
@@ -392,7 +456,11 @@ def run_members_cuda(members: Sequence[Member], in_place: bool):
         _check_member(m, dev)
     if not in_place:
         _check_one_store(members)
-    plan = plan_members([m.shape() for m in members])
+    shapes = [m.shape() for m in members]
+    if plan is None:
+        plan = plan_members(shapes)
+    elif plan.plans != tuple(plan_run(R, W, A) for R, W, A, _C in shapes):
+        raise ValueError("the plan is not one of these members' shapes")
     rp = plan.run
     lays, offs, total = _layouts(members)
     i32 = torch.int32
@@ -447,8 +515,12 @@ def run_members_cuda(members: Sequence[Member], in_place: bool):
                                          int(m.wc), int(m.et))
         d.rpc, d.rpw, d.on_chip = p.reads_per_cta, p.reads_per_warp, on_chip
         d.stride = lays[g]["syms"][1]
-    rc = _launcher()(arr, len(members), rp.cluster, rp.threads,
-                     rp.smem_bytes, cuda_build.stream_ptr(dev))
+        d.cluster, d.base = plan.slots[g]
+        d.ctas = plan.spans[g]
+    with torch.cuda.device(dev):
+        rc = _launcher()(arr, len(members), plan.clusters, rp.cluster,
+                         rp.threads, rp.smem_bytes,
+                         cuda_build.stream_ptr(dev))
     if rc != 0:
         why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(
@@ -456,7 +528,8 @@ def run_members_cuda(members: Sequence[Member], in_place: bool):
             f"shapes={[m.shape() for m in members]}, {rp})"
         )
     run_ragged_cuda.launches += 1
-    run_ragged_cuda.last_plan = plan
+    with torch.cuda.device(dev):
+        run_ragged_cuda.last_plan = plan._replace(waves=waves(plan))
     return outs, dep
 
 

@@ -5,9 +5,8 @@ The counterpart of ``waffle_con_tpu``'s read-sharded ``JaxScorer``
 (``parallel/mesh.py`` ``shard_scorer``: the scorer's state placed with a
 ``NamedSharding`` over the read axis, every kernel partitioned by
 GSPMD).  Here one process holds the shards (single-controller, as the
-reference is): every store call runs on each shard in mesh order, and
-what crosses shards is merged on the host in read order, or, for a
-column step's three scalars, added in shard order on the mesh's first
+reference is), and what crosses shards is merged on the host in read
+order, or, for a column step's three scalars, added on the mesh's first
 device (:func:`reduce_partials`).  A mesh may list one device more than
 once: the shards then share it.
 
@@ -21,16 +20,25 @@ past the last read are inactive padding.  Slots and handles are
 allocated on every shard in lockstep, so a handle names the same slot
 on each.
 
-A column step of a shard is one call of ``csrc/branch_step.cu``
-(:func:`shard_step`, counted in ``shard_step.launches``); no shard
-commits while any shard's reads overflow the band: a shard that did
-commit goes back to the step's consensus length, every shard's band
-grows and is replayed from that one consensus, and the step is retried.
-A late read's offset scan and activation run on its own shard; a band
-growth replays every shard.  The store exposes no run, dual-run, arena
-or gang path: each would need an exchange between shards at every step,
-so the engines take their per-pop expand path (:class:`FastPaths`),
-which is exact.
+The route (:func:`shard_groups`).  The shards are split into groups,
+and each branch-step call of the store (root, copy, push, clone-push,
+stats, finalize) is one call of ``csrc/branch_step.cu`` a group
+(:func:`shard_step`, ``branch_kernel.advance_shards`` and its kin): one
+launch, one overflow word, so a step commits in every shard of the group
+or in none inside the kernel, and the output comes back in read order.
+Under ``"auto"`` the shards on one CUDA device form one group (one
+launch a card) and a shard on the CPU is a group of its own (its twin
+runs alone); ``"per_shard"`` makes every shard a group of one (the
+comparison route).  Groups are each launched before the first wait; when
+one overflows and another committed, the shards that committed go back
+to the step's consensus length (the host rollback), every shard's band
+grows and is replayed from that one consensus, and the step is retried
+(on distinct cards not run here: the machines this was measured on have
+one card).  A late read's offset scan and activation run on its own
+shard; a band growth replays every shard.  The store exposes no run,
+dual-run, arena or gang path: each would need an exchange between shards
+at every step, so the engines take their per-pop expand path
+(:class:`FastPaths`), which is exact.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import torch
 
 from waffle_con_tpu_torch.config import CdwfaConfig
 from waffle_con_tpu_torch.ops import branch_kernel, replay_kernel
-from waffle_con_tpu_torch.ops.branch_kernel import BranchOut
+from waffle_con_tpu_torch.ops.branch_kernel import BranchOut, merge_outs
 from waffle_con_tpu_torch.ops.scorer import BranchStats, WavefrontScorer
 from waffle_con_tpu_torch.ops.torch_scorer import (
     StoreGeometry,
@@ -51,30 +59,84 @@ from waffle_con_tpu_torch.ops.torch_scorer import (
     _next_pow2,
 )
 
+#: the routes of a sharded store's calls (:func:`shard_groups`)
+ROUTES = ("auto", "per_shard")
 
-def shard_step(state, rows, reads, rlen, wc: int, et: bool,
+
+def _card(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _fuses(device: torch.device) -> bool:
+    """Whether ``"auto"`` puts the shards on ``device`` in one call: on a
+    card, yes (one launch); on the CPU each shard is a group of its own,
+    so the protocol between groups runs there too."""
+    return device.type == "cuda"
+
+
+def shard_groups(devices, route: str = "auto"):
+    """The groups of shard indices that share one call, in mesh order of
+    their first shard: ``[(device, [k, ...]), ...]``.  ``"auto"`` groups
+    the shards of each CUDA device and leaves a shard on the CPU alone;
+    ``"per_shard"`` leaves every shard alone.  Raises ``ValueError`` on
+    another route, and when a group would hold more than
+    ``branch_kernel.MAX_SHARDS`` shards."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} not in {ROUTES}")
+    groups, at = [], {}
+    for k, d in enumerate(devices):
+        d = _card(d)
+        key = str(d) if route == "auto" and _fuses(d) else k
+        if key not in at:
+            at[key] = len(groups)
+            groups.append((d, []))
+        groups[at[key]][1].append(k)
+    for d, ks in groups:
+        if len(ks) > branch_kernel.MAX_SHARDS:
+            raise ValueError(
+                f"{len(ks)} shards on {d}: a call takes at most "
+                f"{branch_kernel.MAX_SHARDS}")
+    return groups
+
+
+def _launched(fn):
+    """``fn()`` and the branch-step kernels it launched (counted in
+    ``shard_step.launches``)."""
+    before = branch_kernel.branch_cuda.launches
+    out = fn()
+    shard_step.launches += branch_kernel.branch_cuda.launches - before
+    return out
+
+
+def shard_step(states, rows, reads, rlens, wc: int, et: bool,
                num_symbols: int, bufs=None, force: bool = False,
-               partials: bool = False, plain: bool = False):
-    """One column step (rows ``(src, dst, sym)``) of one read shard's
-    store: one call of ``csrc/branch_step.cu`` on a CUDA device
-    (``branch_kernel.advance_cuda``, counted in ``shard_step.launches``),
-    ``advance_plain`` on the CPU or with ``plain``.  ``force`` commits
-    an overflowing batch; with ``partials`` the shard's partials come
-    back as an int32 ``[3]`` tensor on the store's device (the active
-    reads' edit-distance sum, any read reached, any pushed read
-    overflowed: the kernel's, or :func:`partials_plain`).  Returns
-    ``(BranchOut, partials or None)``."""
-    dev = state["D"].device
-    if not plain and branch_kernel._on_cuda(state["D"]):
+               partials: bool = False, plain: bool = False,
+               defer: bool = False):
+    """One column step (rows ``(src, dst, sym)``) of every read shard in
+    ``states`` (one device, one geometry; one shard or several) as one
+    call: ``branch_kernel.advance_shards_cuda`` on a card (one launch,
+    every shard committed or none unless ``force``),
+    ``advance_shards_plain`` on the CPU or with ``plain``.  With
+    ``partials`` the call's partials come back as an int32 ``[3]`` tensor
+    on the device (the active reads' edit-distance sum, any read reached,
+    any pushed read overflowed: the kernel's atomics, or
+    :func:`partials_plain`).  Returns ``(BranchOut over the shards' reads
+    in shard order, partials or None)``; with ``defer`` (a card only) the
+    first item is a function that waits for the output.
+    ``shard_step.launches`` counts the kernels of every sharded call."""
+    dev = states[0]["D"].device
+    if not plain and branch_kernel._on_cuda(states[0]["D"]):
         part = (torch.empty(3, dtype=torch.int32, device=dev)
                 if partials else None)
-        out = branch_kernel.advance_cuda(state, rows, reads, rlen, wc, et,
-                                         num_symbols, bufs=bufs,
-                                         force=force, part=part)
-        shard_step.launches += 1
+        out = _launched(lambda: branch_kernel.advance_shards_cuda(
+            states, rows, reads, rlens, wc, et, num_symbols, bufs=bufs,
+            force=force, part=part, defer=defer))
         return out, part
-    out = branch_kernel.advance_plain(state, rows, reads, rlen, wc, et,
-                                      num_symbols, force=force)
+    out = branch_kernel.advance_shards_plain(states, rows, reads, rlens, wc,
+                                             et, num_symbols, force=force)
     return out, partials_plain(out, dev) if partials else None
 
 
@@ -94,44 +156,41 @@ partials_plain.calls = 0
 
 
 def reduce_partials(parts: Sequence[torch.Tensor], device):
-    """The shards' partials added in shard order on ``device`` (the
-    mesh's first): a peer copy where a shard lives on another device, a
-    plain add where it is the same.  Returns ``(total, reached_any,
-    overflow)`` as 0-d tensors on ``device``."""
+    """The groups' partials added in order on ``device`` (the mesh's
+    first): a peer copy where a group lives on another device, a plain
+    add where it is the same; the integer sums are exact, so any order
+    gives the same words.  Returns ``(total, reached_any, overflow)`` as
+    0-d tensors on ``device``."""
     acc = parts[0].to(device)
     for p in parts[1:]:
         acc = acc + p.to(device)
     return acc[0], acc[1] > 0, acc[2] > 0
 
 
-def merge_outs(outs: Sequence[BranchOut]) -> BranchOut:
-    """The shards' outputs of one call as one, per-read fields in read
-    order (shard after shard), ``fin_ok`` AND-ed, ``overflow`` OR-ed."""
-    cat = lambda xs: np.concatenate(xs, axis=1)  # noqa: E731
-    votes = outs[0].occ is not None
-    return BranchOut(
-        eds=cat([o.eds for o in outs]),
-        occ=cat([o.occ for o in outs]) if votes else None,
-        split=cat([o.split for o in outs]) if votes else None,
-        reached=cat([o.reached for o in outs]),
-        fin=cat([o.fin for o in outs]),
-        fin_ok=np.logical_and.reduce([o.fin_ok for o in outs]),
-        overflow=any(o.overflow for o in outs),
-    )
+def _slice_reads(out: BranchOut, lo: int, hi: int) -> BranchOut:
+    """Reads ``[lo, hi)`` of an output (the row flags kept whole)."""
+    cut = lambda x: None if x is None else x[:, lo:hi]  # noqa: E731
+    return out._replace(eds=cut(out.eds), occ=cut(out.occ),
+                        split=cut(out.split), reached=cut(out.reached),
+                        fin=cut(out.fin))
 
 
 class ShardedScorer(WavefrontScorer):
     """A branch store whose reads are split over ``devices`` (in mesh
     order; a device may repeat), built by
-    :func:`waffle_con_tpu_torch.parallel.mesh.shard_scorer`."""
+    :func:`waffle_con_tpu_torch.parallel.mesh.shard_scorer`; ``route``
+    groups the shards' calls (:func:`shard_groups`)."""
 
     def __init__(self, reads: Sequence[bytes], config: CdwfaConfig,
-                 devices: Sequence) -> None:
+                 devices: Sequence, route: str = "auto") -> None:
         super().__init__(reads, config)
         self.devices = tuple(torch.device(d) for d in devices)
         n = len(self.devices)
         if n < 1:
             raise ValueError("a sharded store needs at least one device")
+        #: ``[(device, [shard, ...]), ...]``: the shards of one call
+        self.groups = shard_groups(self.devices, route)
+        self._gbk = [branch_kernel.BranchBuffers() for _ in self.groups]
         R = max(_next_pow2(max(self.num_reads, 1)), TorchScorer.MIN_R)
         self._R = n * -(-R // n)
         self._Rs = self._R // n
@@ -202,9 +261,6 @@ class ShardedScorer(WavefrontScorer):
             raise RuntimeError(f"shards out of lockstep: {values}")
         return values[0]
 
-    def _alloc(self) -> Tuple[int, int]:
-        return self._same([sh._alloc() for sh in self.shards])
-
     def _grow_e(self) -> None:
         """Every shard's band doubled and replayed from its recorded
         consensus (one column-replay launch a shard on a card)."""
@@ -226,15 +282,37 @@ class ShardedScorer(WavefrontScorer):
 
     # -- interface -----------------------------------------------------
 
+    def _group(self, gi):
+        """A group's shards and their states, reads and rlen."""
+        shs = [self.shards[k] for k in self.groups[gi][1]]
+        return (shs, [sh._state for sh in shs], [sh._reads for sh in shs],
+                [sh._rlen for sh in shs])
+
+    def _by_read(self, outs) -> BranchOut:
+        """The groups' outputs of one call in read order (shard order)."""
+        if len(outs) == 1:
+            return outs[0]
+        per = [None] * len(self.shards)
+        Rs = self._Rs
+        for (_d, ks), out in zip(self.groups, outs):
+            for i, k in enumerate(ks):
+                per[k] = _slice_reads(out, i * Rs, (i + 1) * Rs)
+        return merge_outs(per)
+
     def root(self, active: np.ndarray) -> int:
         full = np.zeros(self._R, dtype=bool)
         full[: len(active)] = active
         Rs = self._Rs
-        hs = []
-        for k, sh in enumerate(self.shards):
-            with self._on(sh):
-                hs.append(sh.root(full[k * Rs:(k + 1) * Rs]))
-        return self._same(hs)
+        masks = [full[k * Rs:(k + 1) * Rs] for k in range(len(self.shards))]
+        handle, slot = self._same([sh._root_slot(m)
+                                   for sh, m in zip(self.shards, masks)])
+        for gi, (_d, ks) in enumerate(self.groups):
+            shs, states, _rd, rlens = self._group(gi)
+            act = np.concatenate([masks[k] for k in ks])
+            with self._on(shs[0]):
+                _launched(lambda: branch_kernel.root_shards(
+                    states, slot, act, rlens, bufs=self._gbk[gi]))
+        return handle
 
     def clone(self, h: int) -> int:
         return self.clone_many([h])[0]
@@ -243,11 +321,17 @@ class ShardedScorer(WavefrontScorer):
         if not hs:
             return []
         self.counters["clone_calls"] += 1
-        out = []
-        for sh in self.shards:
-            with self._on(sh):
-                out.append(sh.clone_many(hs))
-        return self._same(out)
+        handles, srcs, dsts = self._same(
+            [sh._copy_slots(hs) for sh in self.shards])
+        rows = np.asarray([srcs, dsts, [-1] * len(hs)], dtype=np.int32)
+        for gi in range(len(self.groups)):
+            shs, states, reads, rlens = self._group(gi)
+            sh0 = shs[0]
+            with self._on(sh0):
+                _launched(lambda: branch_kernel.advance_shards(
+                    states, rows, reads, rlens, sh0._wc, sh0._et,
+                    self.num_symbols, with_stats=False, bufs=self._gbk[gi]))
+        return handles
 
     def free(self, h: int) -> None:
         for sh in self.shards:
@@ -282,17 +366,11 @@ class ShardedScorer(WavefrontScorer):
                 self._fit_cons(consensus)
         rows, handles = [], []
         for src_h, consensus, in_place in specs:
-            src = self._slot(src_h)
-            if in_place:
-                handle, dst = src_h, src
-            else:
-                handle, dst = self._alloc()
+            handle, src, dst = self._same(
+                [sh._push_slot(src_h, in_place) for sh in self.shards])
             handles.append(handle)
             sym = -1 if consensus is None else self.sym_id[consensus[-1]]
             rows.append((src, dst, sym))
-            for sh in self.shards:
-                sh._off_host[dst] = sh._off_host[src]
-                sh._act_host[dst] = sh._act_host[src]
         if len({d for _, d, _ in rows}) != len(rows):
             raise ValueError("clone_push_many: duplicate destination slots")
         stats = self._advance_rows(rows)
@@ -301,44 +379,60 @@ class ShardedScorer(WavefrontScorer):
             for i, h in enumerate(handles)
         ]
 
+    def _step_group(self, gi, packed, defer):
+        """One column step of group ``gi``: one call for its shards."""
+        shs, states, reads, rlens = self._group(gi)
+        sh = shs[0]
+        with self._on(sh):
+            return shard_step(states, packed, reads, rlens, sh._wc, sh._et,
+                              self.num_symbols, bufs=self._gbk[gi],
+                              defer=defer)[0]
+
     def _advance_rows(self, rows) -> List[BranchStats]:
-        """One column step of ``(src, dst, sym)`` rows on every shard
-        (:func:`shard_step`).  When a shard overflows, the shards that
-        committed get back the consensus length their sources had before
-        the step (an overflowing shard committed nothing, so it still
-        holds them), every shard's band grows and is replayed from that
-        consensus, and the step is retried."""
+        """One column step of ``(src, dst, sym)`` rows on every shard: one
+        call a group, every group's queued before the first wait.  A
+        group commits all or nothing inside its call, so one group needs
+        no rollback: on an overflow the band grows and the step is
+        retried.  Across groups, when one overflows, the shards of the
+        groups that committed get back the consensus length their sources
+        had before the step (an overflowing group committed nothing, so
+        it still holds them), every shard's band grows and is replayed
+        from that consensus, and the step is retried."""
         packed = np.ascontiguousarray(np.array(rows, dtype=np.int32).T)
+        many = len(self.groups) > 1
         while True:
-            outs = []
-            for sh in self.shards:
-                with self._on(sh):
-                    outs.append(shard_step(
-                        sh._state, packed, sh._reads, sh._rlen, sh._wc,
-                        sh._et, self.num_symbols, bufs=sh._bk)[0])
+            queued = [self._step_group(gi, packed, many)
+                      for gi in range(len(self.groups))]
+            outs = [q() if callable(q) else q for q in queued]
             if not any(o.overflow for o in outs):
-                return self._stats_batch(merge_outs(outs))
-            held = next(sh for sh, o in zip(self.shards, outs) if o.overflow)
-            srcs = torch.as_tensor(packed[0].astype(np.int64),
-                                   device=held.device)
-            pre = held._state["clen"][srcs].cpu()
-            dsts = torch.as_tensor(packed[1].astype(np.int64))
-            for sh, o in zip(self.shards, outs):
-                if not o.overflow:
-                    sh._state["clen"][dsts.to(sh.device)] = pre.to(sh.device)
-            self.counters["shard_overflow_rollbacks"] += 1
+                return self._stats_batch(self._by_read(outs))
+            committed = [gi for gi, o in enumerate(outs) if not o.overflow]
+            if committed:
+                held = self.shards[self.groups[
+                    next(gi for gi, o in enumerate(outs) if o.overflow)][1][0]]
+                srcs = torch.as_tensor(packed[0].astype(np.int64),
+                                       device=held.device)
+                pre = held._state["clen"][srcs].cpu()
+                dsts = torch.as_tensor(packed[1].astype(np.int64))
+                for gi in committed:
+                    for k in self.groups[gi][1]:
+                        sh = self.shards[k]
+                        sh._state["clen"][dsts.to(sh.device)] = pre.to(
+                            sh.device)
+                self.counters["shard_overflow_rollbacks"] += 1
             self._grow_e()
 
     def stats(self, h: int, consensus: bytes) -> BranchStats:
         self.counters["stats_calls"] += 1
         slot = self._slot(h)
-        outs = []
-        for sh in self.shards:
-            with self._on(sh):
-                outs.append(branch_kernel.stats(
-                    sh._state, [slot], sh._reads, sh._rlen,
-                    self.num_symbols, bufs=sh._bk))
-        m = merge_outs(outs)
+        queued = []
+        for gi in range(len(self.groups)):
+            shs, states, reads, rlens = self._group(gi)
+            with self._on(shs[0]):
+                queued.append(_launched(lambda: branch_kernel.stats_shards(
+                    states, [slot], reads, rlens, self.num_symbols,
+                    bufs=self._gbk[gi], defer=len(self.groups) > 1)))
+        m = self._by_read([q() if callable(q) else q for q in queued])
         return self._stats_np(m.eds[0], m.occ[0], m.split[0], m.reached[0])
 
     def best_activation_offset(self, consensus: bytes, seq_index: int,
@@ -389,14 +483,18 @@ class ShardedScorer(WavefrontScorer):
         self.counters["finalize_calls"] += 1
         slot = self._slot(h)
         while True:
-            outs = []
-            for sh in self.shards:
-                with self._on(sh):
-                    outs.append(branch_kernel.finalize(
-                        sh._state, [slot], sh._reads, sh._rlen,
-                        bufs=sh._bk))
-            if not any(ovf[0] for _fin, ovf in outs):
-                fin = np.concatenate([f[0] for f, _ovf in outs])
+            fins, ovf = [None] * len(self.shards), False
+            for gi, (_d, ks) in enumerate(self.groups):
+                shs, states, reads, rlens = self._group(gi)
+                with self._on(shs[0]):
+                    fin, o = _launched(lambda: branch_kernel.finalize_shards(
+                        states, [slot], reads, rlens, bufs=self._gbk[gi]))
+                ovf = ovf or bool(o[0])
+                Rs = self._Rs
+                for i, k in enumerate(ks):
+                    fins[k] = fin[0, i * Rs:(i + 1) * Rs]
+            if not ovf:
+                fin = np.concatenate(fins)
                 return fin[: self.num_reads].astype(np.int64)
             self._grow_e()
 

@@ -494,14 +494,48 @@ class TorchScorer(WavefrontScorer):
 
     # -- interface -----------------------------------------------------
 
-    def root(self, active: np.ndarray) -> int:
+    def _root_slot(self, act_np: np.ndarray) -> Tuple[int, int]:
+        """A slot allocated for a root over the ``[R]`` mask ``act_np``,
+        its host mirrors set: ``(handle, slot)``.  The root launch is the
+        caller's (``root``, or a sharded store's one call for its
+        shards)."""
         handle, slot = self._alloc()
-        act_np = np.zeros(self._R, dtype=bool)
-        act_np[: len(active)] = active
-        branch_kernel.root(self._state, slot, act_np, self._rlen,
-                           bufs=self._bk)
         self._off_host[slot] = 0
         self._act_host[slot] = act_np
+        return handle, slot
+
+    def _copy_slots(self, hs: List[int]):
+        """Slots allocated for copies of the branches ``hs``, their host
+        mirrors copied, counted as one clone call: ``(handles, srcs,
+        dsts)``.  The copy launch is the caller's."""
+        self.counters["clone_calls"] += 1
+        srcs = [self._slot_of[h] for h in hs]
+        alloc = [self._alloc() for _ in hs]
+        dsts = [a[1] for a in alloc]
+        self._off_host[dsts] = self._off_host[srcs]
+        self._act_host[dsts] = self._act_host[srcs]
+        return [a[0] for a in alloc], srcs, dsts
+
+    def _push_slot(self, src_h: int, in_place: bool) -> Tuple[int, int, int]:
+        """The slot a clone-push of ``src_h`` writes (its own when
+        ``in_place``, else a new one), its host mirrors copied: ``(handle,
+        src, dst)``.  The launch is the caller's."""
+        src = self._slot_of[src_h]
+        if in_place:
+            self._spec_drop(src_h)
+            handle, dst = src_h, src
+        else:
+            handle, dst = self._alloc()
+        self._off_host[dst] = self._off_host[src]
+        self._act_host[dst] = self._act_host[src]
+        return handle, src, dst
+
+    def root(self, active: np.ndarray) -> int:
+        act_np = np.zeros(self._R, dtype=bool)
+        act_np[: len(active)] = active
+        handle, slot = self._root_slot(act_np)
+        branch_kernel.root(self._state, slot, act_np, self._rlen,
+                           bufs=self._bk)
         return handle
 
     def clone(self, h: int) -> int:
@@ -511,18 +545,13 @@ class TorchScorer(WavefrontScorer):
         """One batched row copy for a list of branch clones."""
         if not hs:
             return []
-        self.counters["clone_calls"] += 1
-        srcs = [self._slot_of[h] for h in hs]
-        alloc = [self._alloc() for _ in hs]
-        dsts = [a[1] for a in alloc]
+        handles, srcs, dsts = self._copy_slots(hs)
         branch_kernel.advance(
             self._state, [srcs, dsts, [-1] * len(hs)], self._reads,
             self._rlen, self._wc, self._et, self.num_symbols,
             with_stats=False, bufs=self._bk,
         )
-        self._off_host[dsts] = self._off_host[srcs]
-        self._act_host[dsts] = self._act_host[srcs]
-        return [a[0] for a in alloc]
+        return handles
 
     def free(self, h: int) -> None:
         self._spec_drop(h)
@@ -568,17 +597,10 @@ class TorchScorer(WavefrontScorer):
         rows = []
         handles = []
         for src_h, consensus, in_place in specs:
-            src = self._slot_of[src_h]
-            if in_place:
-                self._spec_drop(src_h)
-                handle, dst = src_h, src
-            else:
-                handle, dst = self._alloc()
+            handle, src, dst = self._push_slot(src_h, in_place)
             handles.append(handle)
             sym = -1 if consensus is None else self.sym_id[consensus[-1]]
             rows.append((src, dst, sym))
-            self._off_host[dst] = self._off_host[src]
-            self._act_host[dst] = self._act_host[src]
         if len({d for _, d, _ in rows}) != len(rows):
             raise ValueError("clone_push_many: duplicate destination slots")
         stats = self._advance_rows(rows)

@@ -19,9 +19,10 @@ No process group is made and no ``torch.distributed`` call runs.
   ``"torch"`` backend when ``config.mesh_shards`` is set, so the
   supervisor's fallback construction shards as ``make_scorer`` does.
 * :func:`sharded_col_step` is JAX's explicit ``shard_map`` column step:
-  each shard's body is one call of the branch step
-  (``csrc/branch_step.cu``) on a one-slot view of the shard's state,
-  then the three partials are added in shard order.
+  the shards on one card are one fused call of the branch step
+  (``csrc/branch_step.cu``: one launch, the partials summed in the
+  kernel) on one-slot copies of their state, a launch a card, then the
+  cards' partials are added on the mesh's first device.
 * :class:`DeviceSet`, :func:`device_slices`, :func:`use_device_set` and
   :func:`current_device_set` pin slices of the local devices to threads.
 
@@ -38,10 +39,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+import numpy as np
+
 from waffle_con_tpu_torch.ops import branch_kernel
 from waffle_con_tpu_torch.ops.sharded_scorer import (
     ShardedScorer,
     reduce_partials,
+    shard_groups,
     shard_step,
 )
 
@@ -266,7 +270,8 @@ def shard_for_config(reads, config) -> Optional[ShardedScorer]:
 
 
 def sharded_col_step(mesh: Mesh, read_axis: str = "read",
-                     num_symbols: int = 32, plain: bool = False):
+                     num_symbols: int = 32, plain: bool = False,
+                     route: str = "auto"):
     """The explicit column step of one branch over the mesh's read axis.
 
     Returns ``step(D, e, rmin, er, off, act, cons, clen, reads, rlen,
@@ -276,51 +281,76 @@ def sharded_col_step(mesh: Mesh, read_axis: str = "read",
     one tensor a shard, in mesh order, each on its shard's device
     (``ops/state_io.py``'s :func:`split_reads` makes them); ``cons``
     ``[C]`` and the scalars are the same for every shard.  The per-read
-    outputs come back the same way (``occ [R/n, num_symbols]``), the
-    inputs untouched; ``total``, ``reached_any`` and ``overflow`` are 0-d
-    tensors on the mesh's first device.
+    outputs come back the same way (``occ [R/n, num_symbols]``), as new
+    tensors, the inputs untouched; ``total``, ``reached_any`` and
+    ``overflow`` are 0-d tensors on the mesh's first device.
 
-    A shard's body is one call of ``csrc/branch_step.cu`` (a forced
-    commit, its partials on: :func:`shard_step`) on a one-slot store of
-    copies of its state; ``plain`` takes ``advance_plain`` and the
-    partials' twin instead on every device (the plain version the card's
-    kernel is held to).  The partials are added in shard order
+    The shards are grouped as the sharded store groups them
+    (:func:`~waffle_con_tpu_torch.ops.sharded_scorer.shard_groups`,
+    ``route``): each group is one call of ``csrc/branch_step.cu``
+    (:func:`shard_step`: a forced commit, the group's partials summed by
+    the kernel's atomics) on one-slot copies of its shards' state stacked
+    in one tensor a field.  ``plain`` takes the twins instead on every
+    device (the plain version the card's kernel is held to).  The groups'
+    partials are added on the mesh's first device
     (:func:`reduce_partials`)."""
     devices = _read_devices(mesh, read_axis)
-    bufs = [branch_kernel.BranchBuffers() for _ in devices]
+    groups = shard_groups(devices, route)
+    bufs = [branch_kernel.BranchBuffers() for _ in groups]
+    i32 = torch.int32
+
+    def group(ks, dev, gi, D, e, rmin, er, off, act, cons, clen, reads,
+              rlen, rows, wc, et):
+        m = len(ks)
+        # one copy a field type (the bands, the four per-read words, act)
+        # into one-slot stores, a view a shard of each
+        band = torch.stack([D[k].to(dev, i32) for k in ks])
+        words = torch.stack([x[k].to(dev, i32) for x in (e, rmin, er, off)
+                             for k in ks])
+        Rs = band.shape[1]
+        f = {"D": band.view(m, 1, Rs, -1).unbind(0),
+             "act": torch.stack([act[k].to(dev, torch.bool)
+                                 for k in ks]).view(m, 1, Rs).unbind(0),
+             "cons": torch.as_tensor(cons, dtype=i32).to(dev).reshape(
+                 1, 1, -1).repeat(m, 1, 1).unbind(0),
+             "clen": torch.full((m, 1), int(clen), dtype=i32,
+                                device=dev).unbind(0)}
+        per_word = words.view(4, m, 1, Rs)
+        for i, name in enumerate(("e", "rmin", "er", "off")):
+            f[name] = per_word[i].unbind(0)
+        states = [{name: t[i] for name, t in f.items()} for i in range(m)]
+        out, part = shard_step(
+            states, rows, [reads[k].to(dev, torch.int16).contiguous()
+                           for k in ks],
+            [rlen[k].to(dev, i32).contiguous() for k in ks], wc, et,
+            num_symbols, bufs=bufs[gi], force=True, partials=True,
+            plain=plain)
+        # occ and split of every shard in one upload
+        A = out.occ.shape[2]
+        host = np.concatenate([out.occ[0].reshape(-1), out.split[0]])
+        up = torch.from_numpy(host.astype(np.int32, copy=False)).to(dev)
+        occ = up[:m * Rs * A].view(m, Rs, A).unbind(0)
+        split = up[m * Rs * A:].view(m, Rs).unbind(0)
+        bands = band.unbind(0)
+        w = per_word[:3, :, 0].unbind(1)  # (e, rmin, er) a shard
+        return [(bands[i], w[i][0], w[i][1], w[i][2], occ[i], split[i])
+                for i in range(m)], part
 
     def step(D, e, rmin, er, off, act, cons, clen, reads, rlen, sym, wc,
              et):
-        outs, parts = [], []
-        for k, dev in enumerate(devices):
-            view = {
-                "D": D[k].to(dev, torch.int32).clone()[None],
-                "e": e[k].to(dev, torch.int32).clone()[None],
-                "rmin": rmin[k].to(dev, torch.int32).clone()[None],
-                "er": er[k].to(dev, torch.int32).clone()[None],
-                "off": off[k].to(dev, torch.int32).clone()[None],
-                "act": act[k].to(dev, torch.bool).clone()[None],
-                "cons": torch.as_tensor(cons, dtype=torch.int32).to(
-                    dev).clone()[None],
-                "clen": torch.as_tensor(clen, dtype=torch.int32).to(
-                    dev).reshape(1).clone(),
-            }
-            rows = [[0], [0], [int(sym)]]
+        rows = np.asarray([[0], [0], [int(sym)]], dtype=np.int32)
+        per, parts = [None] * len(devices), []
+        for gi, (dev, ks) in enumerate(groups):
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
-                out, part = shard_step(
-                    view, rows, reads[k].to(dev, torch.int16).contiguous(),
-                    rlen[k].to(dev, torch.int32).contiguous(), int(wc),
-                    bool(et), num_symbols, bufs=bufs[k], force=True,
-                    partials=True, plain=plain)
-            occ = torch.from_numpy(out.occ[0].copy()).to(dev)
-            split = torch.from_numpy(out.split[0].copy()).to(dev)
-            outs.append((view, occ, split))
+                got, part = group(ks, dev, gi, D, e, rmin, er, off, act,
+                                  cons, clen, reads, rlen, rows, int(wc),
+                                  bool(et))
+            for k, o in zip(ks, got):
+                per[k] = o
             parts.append(part)
         total, reached_any, overflow = reduce_partials(parts, devices[0])
-        pick = lambda name: [v[name][0] for v, _o, _s in outs]  # noqa: E731
-        return (pick("D"), pick("e"), pick("rmin"), pick("er"),
-                [o for _v, o, _s in outs], [s for _v, _o, s in outs],
-                total, reached_any, overflow)
+        return tuple([o[i] for o in per] for i in range(6)) + (
+            total, reached_any, overflow)
 
     return step
