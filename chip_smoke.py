@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases mesh_kernel --small  # sharded step check
     python3 chip_smoke.py --phases main,priority_main,mesh_kernel,mesh_main
     python3 chip_smoke.py --phases serve_kernel,serve_main
+    python3 chip_smoke.py --phases serve_main,replica_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -329,6 +330,26 @@ deployment's own recorded calls (scans, activations and growths).
     the 16-job wall beside the solo warm walls summed, batch and gang
     occupancy, the pool's counters (mixed-width groups, admits,
     exhaustion, recenters), probes refused by reason, launches by kernel.
+26. replica_main: placement and replicas — a ``ReplicatedService`` of two
+    replicas over ``("cuda:0",) * 4`` (each replica's ``DeviceSet`` is
+    ``(cuda:0, cuda:0)``, its own dispatcher thread and pool of
+    ``serve_main``'s geometry, 8 workers, a queue of 16) with a
+    ``PlacementPolicy(large_read_threshold=256, mesh_shards=2)`` answers
+    ``serve_main``'s 16 jobs submitted at once: the 256-read single and
+    late jobs are placed on two co-resident shards (8 jobs), the dual
+    (64 reads) and priority (32 chains) jobs stay on their replica's
+    pool.  Every result must equal its solo unserved run on ``"torch"``
+    (``serve_main``'s when it ran in the same process), seed 0 of each
+    kind the C++ engine.  Fails unless 8 jobs were placed, both replicas
+    routed a job, the fused sharded branch step launched with no plain
+    partials, a pool launched the gang kernel with members of two or
+    more jobs, no planner refusal, placement error or twin call happened,
+    and every pool has its pages back after ``close()``.  Then a learned
+    policy over a perf database of 3 ``arena`` and 3 slower ``mesh``
+    records at bucket 256 keeps the seed-0 single job on the pool (and
+    equal to its solo run).  One line: the wall beside the solo walls
+    summed, jobs routed and placed per replica, launches by kernel, the
+    card's name and power limit.
 
 The last three lines are the card's name and power limit,
 the kernel table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -339,6 +360,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -5649,6 +5671,12 @@ def _launch_counts():
     return launches, twins
 
 
+#: (kind, seed) -> (the solo unserved result, its warm wall) of
+#: ``serve_main``'s jobs; kinds whose seed-0 job was held to C++ there
+SERVE_SOLO = {}
+SERVE_CPP = set()
+
+
 def phase_serve_main():
     """The in-process serving path on the card: one ``ConsensusService``
     (8 workers, a queue of 16, the pool of :data:`SERVE_POOL`) answers
@@ -5699,6 +5727,8 @@ def phase_serve_main():
     twins = twins1 - twins0
     # each request alone, unserved, after the service (warm)
     want, warm_walls = solo_pass()
+    for (kind, seed, _req), w, wall in zip(reqs, want, warm_walls):
+        SERVE_SOLO[(kind, seed)] = (w, wall)
     for (kind, seed, _req), res, w in zip(reqs, results, want):
         if _serve_key(kind, res) != w:
             raise AssertionError(f"serve_main: {kind} seed {seed}: the "
@@ -5715,6 +5745,7 @@ def phase_serve_main():
         if got != w:
             raise AssertionError(f"serve_main: {kind} seed 0 != C++")
         cpp[kind] = round(cpp_s, 3)
+        SERVE_CPP.add(kind)
     pool, disp = stats["ragged"], stats["dispatch"]
     refusals = {k: sum(c.get(k, 0) for c in counters) for k in PLAN_KEYS}
     line = dict(
@@ -5754,6 +5785,199 @@ def phase_serve_main():
     if pool["pages_used"]:
         raise AssertionError("serve_main: pages still held after close")
     return launches["run_ragged"]
+
+
+#: the seeds of ``serve_requests`` that ``replica_main`` serves
+REPLICA_SEEDS = (0, 1, 2, 3)
+#: the replicated door of ``replica_main``: two replicas of two
+#: co-resident shards each on the first card
+REPLICA_DEVICES = ("cuda:0",) * 4
+
+
+def _solo(kind, seed, req):
+    """The solo unserved result of one of ``serve_requests``' jobs and its
+    wall: ``serve_main``'s when it ran in this process, else run now."""
+    import torch
+    from waffle_con_tpu_torch.serve.service import _build_engine
+
+    if (kind, seed) in SERVE_SOLO:
+        return SERVE_SOLO[(kind, seed)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = _build_engine(req).consensus()
+    torch.cuda.synchronize()
+    SERVE_SOLO[(kind, seed)] = (_serve_key(kind, res),
+                                time.perf_counter() - t)
+    return SERVE_SOLO[(kind, seed)]
+
+
+def _learned_pass(req, want):
+    """The seed-0 single job through a learned policy whose perf database
+    (a temporary file) holds 3 ``arena`` and 3 slower ``mesh`` records at
+    its reads bucket: it must stay on the pool and equal its solo run.
+    Returns the pass's numbers."""
+    import tempfile
+
+    from waffle_con_tpu_torch.obs import perfdb
+    from waffle_con_tpu_torch.parallel import DeviceSet
+    from waffle_con_tpu_torch.serve import (
+        ConsensusService,
+        PlacementPolicy,
+        ServeConfig,
+    )
+    from waffle_con_tpu_torch.serve import placement
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "perfdb.jsonl")
+        n = len(req.reads)
+        for substrate, wall in (("arena", 1.0), ("mesh", 5.0)):
+            for _ in range(placement.MIN_PROFILE_SAMPLES):
+                placement.record_outcome(substrate, n, wall, path=path)
+        placement.reset_profile_cache()
+        policy = PlacementPolicy(large_read_threshold=256, mesh_shards=2,
+                                 learned=True, perfdb_path=path)
+        cfg = ServeConfig(workers=2, queue_limit=4, placement=policy,
+                          **SERVE_POOL)
+        with ConsensusService(cfg, device_set=DeviceSet(
+                "learned", REPLICA_DEVICES[:2])) as svc:
+            got = _serve_key("single", svc.submit(req).result(timeout=600))
+            jobs = svc.stats()["jobs"]
+        records = perfdb.load_records(path, kind=perfdb.PLACEMENT_KIND)
+    if jobs["mesh_placed"] or jobs["placement_errors"]:
+        raise AssertionError(f"replica_main learned: jobs {jobs}")
+    if got != want:
+        raise AssertionError("replica_main learned: the result != solo")
+    if len(records) != 2 * placement.MIN_PROFILE_SAMPLES + 1 \
+            or records[-1]["substrate"] != "arena":
+        raise AssertionError(f"replica_main learned: records {records}")
+    return dict(mesh_placed=jobs["mesh_placed"], records=len(records),
+                recorded=records[-1]["substrate"],
+                bucket=records[-1]["reads_bucket"])
+
+
+def phase_replica_main():
+    """Placement and replicas on the card: ``serve_requests``' jobs at
+    :data:`REPLICA_SEEDS` through a ``ReplicatedService`` of two replicas
+    over :data:`REPLICA_DEVICES` with a ``PlacementPolicy(256, 2)``.
+    Every result must equal its solo run (and seed 0 of each kind the C++
+    engine); fails unless the single and late jobs were all placed, both
+    replicas routed, the fused sharded step launched with no plain
+    partials, a pool ganged two or more jobs, nothing was refused, no
+    placement error or twin call happened, and every pool has its pages
+    back after ``close()``.  Then the learned pass.  Prints one line;
+    returns the launches by kernel."""
+    import torch
+    from waffle_con_tpu_torch.ops import branch_kernel as bk
+    from waffle_con_tpu_torch.ops import ragged as ops_ragged
+    from waffle_con_tpu_torch.ops import sharded_scorer as ss
+    from waffle_con_tpu_torch.serve import (
+        PlacementPolicy,
+        ReplicatedConfig,
+        ReplicatedService,
+        ServeConfig,
+    )
+
+    reqs = [r for r in serve_requests() if r[1] in REPLICA_SEEDS]
+    solo = [_solo(kind, seed, req) for kind, seed, req in reqs]
+    placeable = sum(kind in ("single", "late") for kind, _s, _r in reqs)
+    policy = PlacementPolicy(large_read_threshold=256, mesh_shards=2)
+    cfg = ReplicatedConfig(
+        replicas=2, devices=REPLICA_DEVICES,
+        base=ServeConfig(workers=8, queue_limit=16, placement=policy,
+                         **SERVE_POOL))
+    ops_ragged.reset_arena()
+    launches0, twins0 = _launch_counts()
+    fused0, shard0 = bk.branch_cuda.fused_launches, ss.shard_step.launches
+    partials0 = ss.partials_plain.calls
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with ReplicatedService(cfg) as door:
+        handles = door.submit_all([req for _k, _s, req in reqs])
+        results = [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        stats = door.stats()
+        arenas = [rep.arena for rep in door._replicas]
+        counters = [h.search_report.dispatch_counts if h.search_report
+                    else {} for h in handles]
+        served_by = [h.trace.trace_id.split("/")[0] for h in handles]
+    pools = [a.stats() for a in arenas]  # after close()
+    launches1, twins1 = _launch_counts()
+    launches = {k: launches1[k] - launches0[k] for k in launches1}
+    twins = twins1 - twins0
+    fused = bk.branch_cuda.fused_launches - fused0
+    shard_steps = ss.shard_step.launches - shard0
+    partials = ss.partials_plain.calls - partials0
+    launches["sharded_col_step"] = shard_steps
+    for (kind, seed, _req), res, (w, _wall) in zip(reqs, results, solo):
+        if _serve_key(kind, res) != w:
+            raise AssertionError(f"replica_main: {kind} seed {seed}: the "
+                                 "served result != the solo result")
+    cpp = {}
+    for (kind, seed, req), (w, _wall) in zip(reqs, solo):
+        if seed != 0 or kind in SERVE_CPP:
+            continue
+        spec = dict(reads=list(req.reads), offsets=(
+            list(req.offsets) if req.offsets else None),
+            chains=[list(c) for c in req.reads], config=req.config)
+        got, cpp_s = _cpp_run("dual" if kind == "dual" else "priority"
+                              if kind == "priority" else "single", spec)
+        if got != w:
+            raise AssertionError(f"replica_main: {kind} seed 0 != C++")
+        cpp[kind] = round(cpp_s, 3)
+    learned = _learned_pass(reqs[0][2], solo[0][0])
+    jobs = stats["jobs"]
+    refusals = {k: sum(c.get(k, 0) for c in counters) for k in PLAN_KEYS}
+    per_replica = [dict(
+        replica=r["replica"], routed=r["routed"],
+        mesh_placed=r["jobs"]["mesh_placed"], done=r["jobs"]["done"],
+        kinds=sorted({f"{k}{s}" for (k, s, _r), by in zip(reqs, served_by)
+                      if by == r["replica"]}),
+        pool={k: p[k] for k in (
+            "groups", "members", "occupancy_max", "mixed_w_groups",
+            "admits", "releases", "pages_used", "launches",
+            "group_failures", "plan_refused")},
+        probes_refused=p["refused"])
+        for r, p in zip(stats["replicas"], pools)]
+    line = dict(
+        card=smi_line(), jobs=len(reqs), seeds=list(REPLICA_SEEDS),
+        replicas=len(pools), devices=list(REPLICA_DEVICES),
+        serve_wall_s=round(wall, 3),
+        solo_warm_sum_s=round(sum(w for _k, w in solo), 3),
+        mesh_placed=jobs["mesh_placed"],
+        placement_errors=jobs["placement_errors"],
+        per_replica=per_replica, launches=launches,
+        fused_branch_launches=fused, partials_plain_calls=partials,
+        **refusals, twin_calls=twins, cpp_s=cpp,
+        cpp_checked_by_serve_main=sorted(SERVE_CPP),
+        learned=learned, jobs_done=jobs["done"],
+    )
+    print("replica_main", json.dumps(line), flush=True)
+    if jobs["done"] != len(reqs) or jobs["failed"]:
+        raise AssertionError(f"replica_main: jobs {jobs}")
+    if jobs["mesh_placed"] != placeable or jobs["placement_errors"]:
+        raise AssertionError(f"replica_main: placed {jobs['mesh_placed']} "
+                             f"of {placeable}, errors "
+                             f"{jobs['placement_errors']}")
+    if not all(r["routed"] for r in stats["replicas"]):
+        raise AssertionError("replica_main: a replica routed no job")
+    if not fused or not shard_steps or partials:
+        raise AssertionError(f"replica_main: fused launches {fused}, shard "
+                             f"steps {shard_steps}, plain partials "
+                             f"{partials}")
+    if twins:
+        raise AssertionError(f"replica_main: {twins} twin calls")
+    if any(refusals.values()) or any(p["plan_refused"] for p in pools):
+        raise AssertionError(f"replica_main: planner refusals {refusals}")
+    if any(p["group_failures"] for p in pools):
+        raise AssertionError("replica_main: a gang launch failed")
+    if not launches["run_ragged"] or not any(
+            p["groups"] and p["occupancy_max"] >= 2 for p in pools):
+        raise AssertionError("replica_main: no cross-job gang launch")
+    for p in pools:
+        if p["admits"] != p["releases"] or p["pages_used"]:
+            raise AssertionError(f"replica_main: a pool kept pages {p}")
+    return launches
 
 
 def kernel_row(name, source, replaces, check, launches, status=None):
@@ -5806,7 +6030,7 @@ def main(argv=None) -> int:
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
                 "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
                 "obs_main,runtime_main,mesh_kernel,mesh_main,"
-                "serve_kernel,serve_main",
+                "serve_kernel,serve_main,replica_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -5908,9 +6132,11 @@ def main(argv=None) -> int:
     mesh_launches = timed("mesh_main", phase_mesh_main)
     serve_check = timed("serve_kernel", phase_serve_kernel, opts.small)
     serve_launches = timed("serve_main", phase_serve_main)
+    replica = timed("replica_main", phase_replica_main) or {}
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
-                     checkpoint_main=ckpt.get("run_extend"))
+                     checkpoint_main=ckpt.get("run_extend"),
+                     replica_main=replica.get("run_extend"))
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
                    run_check, run_paths),
@@ -5918,17 +6144,21 @@ def main(argv=None) -> int:
                    "pallas_run.py:976", dual_check,
                    dict(dual_main=dual_launches[0],
                         priority_main=prio_launches[1],
-                        checkpoint_main=ckpt.get("run_extend_dual"))),
+                        checkpoint_main=ckpt.get("run_extend_dual"),
+                        replica_main=replica.get("run_extend_dual"))),
         kernel_row("offset_scan", "offset_scan.cu", "jax_scorer.py:2637",
                    scan_check, dict(late_main=late_launches[0],
-                                    checkpoint_main=ckpt.get("offset_scan"))),
+                                    checkpoint_main=ckpt.get("offset_scan"),
+                                    replica_main=replica.get("offset_scan"))),
         kernel_row("col_replay", "col_replay.cu", "jax_scorer.py:773,2688",
                    replay_check, dict(late_main=late_launches[1],
-                                      checkpoint_main=ckpt.get("col_replay"))),
+                                      checkpoint_main=ckpt.get("col_replay"),
+                                      replica_main=replica.get("col_replay"))),
         kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
                    dict({path: ARENA_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main", "late_main")},
-                        checkpoint_main=ckpt.get("arena"))),
+                        checkpoint_main=ckpt.get("arena"),
+                        replica_main=replica.get("arena"))),
         # the megastep is the run kernel under a step cap: its launches
         # are the run kernel's, its numbers the capped launch's
         kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",
@@ -5938,7 +6168,8 @@ def main(argv=None) -> int:
                    dict({path: GANG_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main",
                           "late_main")}, gang_main=gang_main_launches,
-                        serve_main=serve_launches),
+                        serve_main=serve_launches,
+                        replica_main=replica.get("run_ragged")),
                    status="redesigned: members packed by their own "
                           "cluster size, a member-scoped st.async exchange "
                           "instead of the cluster barrier"),
@@ -5947,14 +6178,16 @@ def main(argv=None) -> int:
                    dict({path: BRANCH_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main", "late_main",
                           "plan_gate")},
-                        checkpoint_main=ckpt.get("branch_step")),
+                        checkpoint_main=ckpt.get("branch_step"),
+                        replica_main=replica.get("branch_step")),
                    status="redesigned: one launch a batch with the band in "
                           "registers (one_launch), else the slab plan"),
         # the shards of a card are one fused branch-step call: its
         # launches are the sharded store's calls on mesh_main
         kernel_row("sharded_col_step", "branch_step.cu",
                    "parallel/mesh.py:284", mesh_check,
-                   dict(mesh_main=mesh_launches),
+                   dict(mesh_main=mesh_launches,
+                        replica_main=replica.get("sharded_col_step")),
                    status="redesigned: one fused branch_step.cu launch for "
                           "every shard on a card, the partials summed in "
                           "the kernel"),
@@ -5966,7 +6199,7 @@ def main(argv=None) -> int:
         by = row["launches_by_path"]
         if row["name"] == "run_ragged":
             by = {k: v for k, v in by.items()
-                  if k in ("gang_main", "serve_main")}
+                  if k in ("gang_main", "serve_main", "replica_main")}
         if by and not sum(by.values()) and not ARENA_OFF:
             return fail(f"{row['name']}: no launch on the main paths "
                         f"{row['launches_by_path']}")

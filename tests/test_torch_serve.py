@@ -11,7 +11,9 @@ against the JAX package's.
   ``AdmissionQueue``; priorities, full-queue rejection, cancel (queued
   and mid-run), deadlines (in the queue and mid-run), a supervised job
   demoting inside the service with the port's ``faults``, metrics, the
-  stats file, and the placement field that is not ported yet.
+  stats file, and a service built with a placement policy.
+* The pool-release order: a job's pages are back before its handle is
+  finished.
 """
 
 import json
@@ -37,6 +39,7 @@ from waffle_con_tpu_torch.serve import (
     JobCancelled,
     JobRequest,
     JobStatus,
+    PlacementPolicy,
     ServeConfig,
     ServiceClosed,
     ServiceOverloaded,
@@ -177,6 +180,29 @@ def test_mixed_geometry_jobs_gang_and_equal_serial():
     assert pool["admits"] == pool["releases"]
     assert pool["pages_used"] == 0
     assert pool["group_failures"] == 0 == pool["plan_refused"]
+
+
+def test_pool_pages_are_back_when_result_returns(monkeypatch):
+    """A job is finished only once its pool pages are released: with every
+    release slowed by 0.2 s, ``stats()`` read right after the last
+    ``result()`` (before ``close()``) shows every admission released."""
+    release = ragged.release_job
+
+    def slow_release(job_id, arena=None):
+        time.sleep(0.2)
+        release(job_id, arena=arena)
+
+    monkeypatch.setattr(ragged, "release_job", slow_release)
+    reqs = _mixed_geometry("port")[:4]
+    with ConsensusService(ServeConfig(workers=4, batch_window_s=0.05,
+                                      max_batch=4)) as svc:
+        handles = svc.submit_all(reqs)
+        for h in handles:
+            h.result(timeout=WAIT_S)
+        pool = svc.stats()["ragged"]
+    assert pool["admits"] >= 2
+    assert pool["admits"] == pool["releases"]
+    assert pool["pages_used"] == 0
 
 
 def test_tiny_pool_still_equal_to_serial():
@@ -426,5 +452,7 @@ def test_config_fields_replace_the_jax_knobs():
                 dict(ragged_e=4), dict(queue_limit=0)):
         with pytest.raises(ValueError):
             ServeConfig(**bad)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ConsensusService(ServeConfig(placement=object()), autostart=False)
+    svc = ConsensusService(ServeConfig(placement=PlacementPolicy()),
+                           autostart=False)
+    svc.close()
+    assert svc.stats()["jobs"]["mesh_placed"] == 0

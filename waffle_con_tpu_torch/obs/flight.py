@@ -29,7 +29,10 @@ Incidents are deduplicated on ``(reason, trace_id)`` within a rolling
 time window (default 300 s; 0 disables dedupe; :func:`configure`) —
 a retry storm produces one dump, not hundreds, but a recurring incident
 re-fires once the window expires.  The ring holds 2,048 records by
-default.
+default.  Trigger listeners (:func:`add_trigger_listener`) see every
+trigger before dedupe: the replicated front door
+(:mod:`waffle_con_tpu_torch.serve.replicas`) drains and sheds replicas
+from them.
 
 Overhead: the engines' scorer calls make no call into this module
 (recording happens at the serve layer's dispatch and job boundaries and
@@ -262,6 +265,41 @@ class FlightRecorder:
 
 _RECORDER = FlightRecorder()
 
+#: trigger listeners: called with ``(reason, trace_id, detail)`` on every
+#: module-level trigger, before dedupe (the replicated front door's
+#: health logic needs each occurrence, not each unique incident).  A
+#: listener that raises is skipped: it never breaks the trigger path.
+_LISTENERS: List = []
+_LISTENER_LOCK = lockcheck.make_lock("obs.flight.LISTENERS")
+
+
+def add_trigger_listener(fn) -> None:
+    """Register ``fn(reason, trace_id, detail)`` on every trigger (once:
+    a second registration of the same callable is ignored)."""
+    with _LISTENER_LOCK:
+        if fn not in _LISTENERS:
+            _LISTENERS.append(fn)
+
+
+def remove_trigger_listener(fn) -> None:
+    with _LISTENER_LOCK:
+        try:
+            _LISTENERS.remove(fn)
+        except ValueError:
+            pass
+
+
+def _notify_listeners(reason: str, trace_id: Optional[str],
+                      detail: Dict) -> None:
+    with _LISTENER_LOCK:
+        listeners = list(_LISTENERS)
+    for fn in listeners:
+        try:
+            fn(reason, trace_id, detail)
+        except Exception:  # noqa: BLE001 - listeners must never break
+            pass
+
+
 def get_recorder() -> FlightRecorder:
     return _RECORDER
 
@@ -272,6 +310,7 @@ def record(kind: str, /, trace_id: Optional[str] = None, **fields) -> None:
 
 def trigger(reason: str, trace_id: Optional[str] = None,
             **detail) -> Optional[Dict]:
+    _notify_listeners(reason, trace_id, detail)
     return _RECORDER.trigger(reason, trace_id=trace_id, **detail)
 
 

@@ -53,6 +53,7 @@ the next call on those buffers (``TorchScorer`` converts them at once).
 from __future__ import annotations
 
 import ctypes
+import threading
 import weakref
 from typing import NamedTuple, Optional
 
@@ -577,7 +578,9 @@ def branch_cuda(entry: str, launcher: str, *args,
     name = f"branch_{launcher}_launch"
     rc = rpk._bind(name, _ARGTYPES[launcher])(*args)
     rpk._raise_on(rc, f"branch_step {entry}", name)
-    branch_cuda.launches += 1 if plan is None else plan.kernels
+    kernels = 1 if plan is None else plan.kernels
+    branch_cuda.launches += kernels
+    _THREAD.launches = thread_launches() + kernels
     branch_cuda.entries[entry] += 1
     if plan is not None:
         branch_cuda.entries[plan.name] += 1
@@ -597,6 +600,16 @@ branch_cuda.entries = dict.fromkeys(
 branch_cuda.fused_shards = {}
 branch_cuda.fused_launches = 0
 branch_cuda.last_plan = None
+
+#: this thread's branch-step kernels (the services' dispatcher threads
+#: launch at the same time: a count taken around one thread's call reads
+#: this, not the process-wide ``branch_cuda.launches``)
+_THREAD = threading.local()
+
+
+def thread_launches() -> int:
+    """The branch-step kernels this thread has launched."""
+    return getattr(_THREAD, "launches", 0)
 
 
 def _check_store(state, reads, rlen):

@@ -786,7 +786,13 @@ class BandArena:
         is a cap: any member with ``W <= pool W`` gangs at its own row
         stride; without, the widths must be equal.  The capacity check
         mirrors the solo path's growth condition, so a ganged run never
-        needs a consensus growth."""
+        needs a consensus growth.  A read-sharded store never takes part
+        (``"sharded"``): a placed job's reads span several stores, so the
+        mesh and the pool stay exclusive."""
+        from waffle_con_tpu_torch.ops.sharded_scorer import ShardedScorer
+
+        if isinstance(scorer, ShardedScorer):
+            return "sharded"
         try:
             n = scorer.num_reads
             if n < 1 or n > self.rows:

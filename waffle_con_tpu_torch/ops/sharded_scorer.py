@@ -103,11 +103,12 @@ def shard_groups(devices, route: str = "auto"):
 
 
 def _launched(fn):
-    """``fn()`` and the branch-step kernels it launched (counted in
-    ``shard_step.launches``)."""
-    before = branch_kernel.branch_cuda.launches
+    """``fn()`` and the branch-step kernels it launched on this thread
+    (counted in ``shard_step.launches``; another thread's launches in the
+    meantime are not this call's)."""
+    before = branch_kernel.thread_launches()
     out = fn()
-    shard_step.launches += branch_kernel.branch_cuda.launches - before
+    shard_step.launches += branch_kernel.thread_launches() - before
     return out
 
 

@@ -190,6 +190,12 @@ class BackendSupervisor(WavefrontScorer):
         #: bumped on every backend swap, so :func:`fast_paths` snapshots
         #: over this scorer (or a view of it) re-resolve
         self.fastpath_gen = 0
+        #: the device set pinned where the supervisor is built (a served
+        #: job's worker thread): every backend it builds later, on
+        #: whichever thread the failing call runs, is built under it
+        from waffle_con_tpu_torch.parallel.mesh import current_device_set
+
+        self._device_set = current_device_set()
 
         self._pos = None
         last_exc: Optional[Exception] = None
@@ -230,8 +236,10 @@ class BackendSupervisor(WavefrontScorer):
 
     def _new_backend(self, backend: str) -> WavefrontScorer:
         from waffle_con_tpu_torch.ops.scorer import construct_backend
+        from waffle_con_tpu_torch.parallel.mesh import use_device_set
 
-        return construct_backend(self.reads, self.config, backend)
+        with use_device_set(self._device_set):
+            return construct_backend(self.reads, self.config, backend)
 
     def _adopt_counters(self, scorer: WavefrontScorer) -> None:
         # accumulate across backends, then share one dict so both the

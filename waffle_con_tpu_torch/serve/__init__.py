@@ -20,9 +20,16 @@ The port of ``waffle_con_tpu``'s ``serve`` package (its in-process path):
 * :class:`~waffle_con_tpu_torch.serve.dispatcher.CoalescingScorer` —
   the per-job transparent scorer proxy that routes calls into the shared
   dispatcher.
+* :class:`~waffle_con_tpu_torch.serve.placement.PlacementPolicy` — routes
+  a large ``"torch"`` job at admission to a read-sharded store over the
+  service's devices instead of the serving pool (static threshold, or
+  learned from perf-database profiles).
+* :class:`~waffle_con_tpu_torch.serve.replicas.ReplicatedService` — N
+  services, each with its own dispatcher, pool and device slice, behind
+  one least-outstanding, health-aware door.
 
-Not ported yet (A9b): mesh placement, replicated services, the consensus
-cache and out-of-process workers.
+Not ported yet: the consensus cache (A9c) and out-of-process workers
+(A9d).
 """
 
 from waffle_con_tpu_torch.ops.ragged import ArenaExhausted
@@ -41,6 +48,11 @@ from waffle_con_tpu_torch.serve.job import (
     ServiceClosed,
     ServiceOverloaded,
 )
+from waffle_con_tpu_torch.serve.placement import PlacementPolicy
+from waffle_con_tpu_torch.serve.replicas import (
+    ReplicatedConfig,
+    ReplicatedService,
+)
 from waffle_con_tpu_torch.serve.scheduler import AdmissionQueue, WorkerPool
 from waffle_con_tpu_torch.serve.service import ConsensusService, ServeConfig
 
@@ -55,6 +67,9 @@ __all__ = [
     "JobHandle",
     "JobRequest",
     "JobStatus",
+    "PlacementPolicy",
+    "ReplicatedConfig",
+    "ReplicatedService",
     "ServeConfig",
     "ServeError",
     "ServiceClosed",

@@ -29,12 +29,22 @@ here (the port reads no environment variable): the pool's switches and
 geometry (``WAFFLE_RAGGED*``), ``checkpoint_interval_s``
 (``WAFFLE_CKPT_INTERVAL_S``), ``checkpoint_max_bytes``
 (``WAFFLE_CKPT_MAX_BYTES``), ``stats_file`` (``WAFFLE_STATS_FILE``) and
-``flight_dir`` (``WAFFLE_FLIGHT_DIR``).  Mesh placement, replicas, the
-consensus cache and out-of-process workers are not ported yet.
+``flight_dir`` (``WAFFLE_FLIGHT_DIR``).
+
+Placement (:mod:`waffle_con_tpu_torch.serve.placement`): with
+``ServeConfig.placement`` set, :meth:`ConsensusService.submit` rewrites a
+large ``"torch"`` job's config with ``mesh_shards`` at admission; the job
+then builds a read-sharded store on the service's ``device_set`` (pinned
+on the worker thread around the whole job body) instead of joining the
+serving pool.  A job counts as finished only once its pool pages are back
+and the dispatcher has let it go, so ``stats()`` read right after the
+last ``result()`` shows every admission released.  The consensus cache
+and out-of-process workers are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -45,6 +55,7 @@ from waffle_con_tpu_torch.analysis import lockcheck
 from waffle_con_tpu_torch.obs import audit as obs_audit
 from waffle_con_tpu_torch.obs import flight as obs_flight
 from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs import phases as obs_phases
 from waffle_con_tpu_torch.obs import slo as obs_slo
 from waffle_con_tpu_torch.obs import trace as obs_trace
 from waffle_con_tpu_torch.ops import ragged as ops_ragged
@@ -62,6 +73,7 @@ from waffle_con_tpu_torch.serve.job import (
     ServiceClosed,
     ServiceOverloaded,
 )
+from waffle_con_tpu_torch.serve import placement as serve_placement
 from waffle_con_tpu_torch.serve.scheduler import AdmissionQueue, WorkerPool
 
 
@@ -81,8 +93,9 @@ class ServeConfig:
     * ``aging_s`` — admission anti-starvation: the oldest queued job
       pops regardless of priority class after waiting this long
       (``None`` = strict priority).
-    * ``placement`` — mesh placement of large jobs; not ported yet, so
-      anything but ``None`` raises ``NotImplementedError``.
+    * ``placement`` — an optional
+      :class:`~waffle_con_tpu_torch.serve.placement.PlacementPolicy`
+      routing large admitted jobs to a read-sharded store.
     * ``ragged`` … ``ragged_gang`` — the serving pool
       (:class:`~waffle_con_tpu_torch.ops.ragged.ArenaConfig`): the
       ragged pass on or off, mixed band widths in one group, pool rows,
@@ -180,6 +193,9 @@ class ConsensusService:
     timing dependence); call :meth:`start` to begin serving.  ``arena``
     pins the ragged pass to one serving pool; by default the service
     uses the process pool, rebuilt to this config's geometry.
+    ``device_set`` pins the service's jobs to one
+    :class:`~waffle_con_tpu_torch.parallel.mesh.DeviceSet`: a placed job
+    shards its reads over it (and placement counts its devices).
     """
 
     def __init__(
@@ -187,13 +203,10 @@ class ConsensusService:
         config: Optional[ServeConfig] = None,
         autostart: bool = True,
         arena=None,
+        device_set=None,
     ) -> None:
         self.config = config if config is not None else ServeConfig()
-        if self.config.placement is not None:
-            raise NotImplementedError(
-                "ServeConfig.placement (mesh placement of large jobs) is "
-                "not ported yet: it comes with A9b (serve/placement.py)"
-            )
+        self._device_set = device_set
         if self.config.flight_dir is not None:
             obs_flight.set_incident_dir(self.config.flight_dir)
         self._arena = (
@@ -224,7 +237,8 @@ class ConsensusService:
         self._controllers: Dict[int, object] = {}
         self._counts = {
             "submitted": 0, "rejected": 0, "done": 0, "failed": 0,
-            "cancelled": 0, "expired": 0,
+            "cancelled": 0, "expired": 0, "mesh_placed": 0,
+            "placement_errors": 0,
         }
         self._ckpt_counts = {"snapshots": 0, "bytes": 0}
         self._stats_published_at = 0.0
@@ -283,6 +297,7 @@ class ConsensusService:
             raise TypeError(
                 f"expected JobRequest, got {type(request).__name__}"
             )
+        request = self._place(request)
         with self._lock:
             if self._closed:
                 raise ServiceClosed("service is closed to new jobs")
@@ -318,6 +333,59 @@ class ConsensusService:
 
     def submit_all(self, requests: Sequence[JobRequest]) -> List[JobHandle]:
         return [self.submit(r) for r in requests]
+
+    def _place(self, request: JobRequest) -> JobRequest:
+        """The configured placement policy at admission: a large
+        ``"torch"`` job gets ``mesh_shards`` written into its config, so
+        its scorer is built sharded over the service's devices (the
+        pinned device set's, else the local devices of the job's device
+        type).  Placement only ever routes: an error while placing is
+        counted (``stats()["jobs"]["placement_errors"]``), recorded as a
+        ``placement_failed`` event, and the job stays on the pool."""
+        policy = self.config.placement
+        if policy is None:
+            return request
+        try:
+            placed = policy.place(request, self._available_devices(request))
+        except Exception as exc:  # noqa: BLE001 - counted, never silent
+            with self._lock:
+                self._counts["placement_errors"] += 1
+            events.record(
+                "placement_failed", job_kind=request.kind,
+                reads=len(request.reads), service=self.config.name,
+                error=repr(exc),
+            )
+            return request
+        if placed is None:
+            return request
+        with self._lock:
+            self._counts["mesh_placed"] += 1
+        events.record(
+            "job_placed_mesh", job_kind=request.kind,
+            reads=len(request.reads),
+            shards=placed.config.mesh_shards,
+            service=self.config.name,
+        )
+        if obs_metrics.metrics_enabled():
+            obs_metrics.registry().counter(
+                "waffle_serve_mesh_placed_total",
+                service=self.config.name,
+            ).inc()
+        return placed
+
+    def _available_devices(self, request: JobRequest) -> int:
+        """The devices a placed job may shard over: the pinned device
+        set's size, else the local device count of the job's device
+        type."""
+        if self._device_set is not None:
+            return len(self._device_set)
+        import torch
+
+        from waffle_con_tpu_torch.parallel import mesh as par_mesh
+
+        device = (request.config.device if request.config is not None
+                  else "cuda")
+        return par_mesh.probe_device_count(torch.device(device).type)
 
     def outstanding(self) -> int:
         """Admitted-but-unfinished job count (queued + running)."""
@@ -358,6 +426,12 @@ class ConsensusService:
         previous = set_scorer_decorator(
             lambda scorer: CoalescingScorer(scorer, dispatcher, ticket)
         )
+        policy = self.config.placement
+        learn = policy is not None and policy.learned
+        phases_before = (obs_phases.totals()
+                         if learn and obs_phases.profiling_enabled()
+                         else None)
+        job_t0 = time.monotonic()
         ctrl = ckpt_mod.CheckpointController(
             interval_s=self.config.checkpoint_interval_s,
             max_bytes=self.config.checkpoint_max_bytes,
@@ -367,15 +441,20 @@ class ConsensusService:
         )
         with self._lock:
             self._controllers[handle.job_id] = ctrl
+        failure: Optional[BaseException] = None
         try:
-            with obs_trace.span(
-                "serve:job", "serve",
-                kind=handle.request.kind, job_id=handle.job_id,
-            ):
-                # serve scope: scorers built for this job floor their
-                # consensus capacity to the pool's (see
-                # ops.ragged.geometry_hint), and engines do not self-gang
-                with ops_ragged.serve_scope(self._arena.cfg):
+            try:
+                with obs_trace.span(
+                    "serve:job", "serve",
+                    kind=handle.request.kind, job_id=handle.job_id,
+                ), self._device_scope(), \
+                        ops_ragged.serve_scope(self._arena.cfg):
+                    # serve scope: scorers built for this job floor their
+                    # consensus capacity to the pool's (see
+                    # ops.ragged.geometry_hint), and engines do not
+                    # self-gang; the device scope pins every scorer the
+                    # job builds (a restart's and a supervisor's fallback
+                    # included) to the service's device set
                     engine = self._make_engine(handle)
                     try:
                         with ckpt_mod.installed(ctrl):
@@ -388,26 +467,76 @@ class ConsensusService:
                         engine = _build_engine(handle.request)
                         with ckpt_mod.installed(ctrl):
                             result = engine.consensus()
-        except BaseException as exc:
-            self._finalize(handle, exc)
-        else:
-            handle._finish(
-                JobStatus.DONE, result=result,
-                report=getattr(engine, "last_search_report", None),
-            )
-            self._account(handle, "done")
+            except BaseException as exc:
+                failure = exc
+            finally:
+                with self._lock:
+                    self._controllers.pop(handle.job_id, None)
+                set_scorer_decorator(previous)
+                self._end_residency(handle)
+            # the job is finished only now, with its pages back: a client
+            # woken by result() reads a pool with this job released
+            if failure is not None:
+                self._finalize(handle, failure)
+            else:
+                handle._finish(
+                    JobStatus.DONE, result=result,
+                    report=getattr(engine, "last_search_report", None),
+                )
+                self._account(handle, "done")
+                if learn:
+                    self._record_placement_outcome(
+                        handle, time.monotonic() - job_t0, phases_before)
         finally:
-            with self._lock:
-                self._controllers.pop(handle.job_id, None)
-            set_scorer_decorator(previous)
-            # page-table residency ends with the job: whatever scorers it
-            # admitted into the serving pool free their pages now
-            try:
-                ops_ragged.release_job(handle.job_id, arena=self._arena)
-            except Exception:  # noqa: BLE001 - never block teardown
-                pass
-            self._dispatcher.job_finished()
             obs_trace.set_current_context(prev_ctx)
+
+    def _end_residency(self, handle: JobHandle) -> None:
+        """Page-table residency ends with the job: whatever scorers it
+        admitted into the serving pool free their pages (idempotent: a
+        second release finds nothing), then the dispatcher lets the job
+        go.  Runs once a job, before its handle is finished."""
+        try:
+            ops_ragged.release_job(handle.job_id, arena=self._arena)
+        except Exception:  # noqa: BLE001 - never block teardown
+            pass
+        self._dispatcher.job_finished()
+
+    def _device_scope(self):
+        """Pins this worker thread to the service's device set for one
+        job (a no-op when none is pinned)."""
+        if self._device_set is None:
+            return contextlib.nullcontext()
+        from waffle_con_tpu_torch.parallel import mesh as par_mesh
+
+        return par_mesh.use_device_set(self._device_set)
+
+    def _record_placement_outcome(self, handle: JobHandle, wall_s: float,
+                                  phases_before) -> None:
+        """Append one placement-profile record of a finished job to the
+        learned policy's perf database: its substrate (mesh iff
+        :meth:`_place` wrote ``mesh_shards`` into its config), reads and
+        wall, and with phase profiling on the process phase totals'
+        change over the job.  A failed write is recorded as an event and
+        never fails the job."""
+        config = handle.request.config
+        substrate = (
+            "mesh" if getattr(config, "mesh_shards", 0) >= 2 else "arena"
+        )
+        phases = None
+        if phases_before is not None:
+            after = obs_phases.totals()
+            phases = {
+                k: max(0.0, after.get(k, 0.0) - phases_before.get(k, 0.0))
+                for k in ("host_prep", "device_compute", "transfer")
+            }
+        try:
+            serve_placement.record_outcome(
+                substrate, len(handle.request.reads), wall_s,
+                phases=phases, path=self.config.placement.perfdb_path,
+            )
+        except OSError as exc:
+            events.record("placement_profile_failed",
+                          service=self.config.name, error=repr(exc))
 
     def _make_engine(self, handle: JobHandle):
         """Build the job's engine, resuming from the handle's attached
