@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases main,priority_main,mesh_kernel,mesh_main
     python3 chip_smoke.py --phases serve_kernel,serve_main
     python3 chip_smoke.py --phases serve_main,replica_main
+    python3 chip_smoke.py --phases serve_main,cache_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -350,6 +351,26 @@ deployment's own recorded calls (scans, activations and growths).
     equal to its solo run).  One line: the wall beside the solo walls
     summed, jobs routed and placed per replica, launches by kernel, the
     card's name and power limit.
+27. cache_main (after ``serve_main``, whose solo results it reuses): the
+    consensus cache — a ``ConsensusService`` of ``serve_main``'s pool
+    geometry with ``cache=True``, a temporary ``cache_dir`` and a
+    snapshot every 0.25 s answers the seed-0 single, late, dual and
+    priority jobs (misses, each deposited), then the same jobs with the
+    reads reversed (priority in chain order) as ``CACHED`` hits with no
+    kernel launch (a priority job with its chains reversed misses), the
+    single job plus its consensus as a ``CERTIFIED`` hit (one exact
+    scoring pass: branch-step launches), and plus a read of its truth at
+    30 % error as a failed certification searched ``DONE``; a second
+    service (``cache_proposals=False``, a snapshot every poll) deposits
+    a bound-free snapshot of the single job's first 255 reads and
+    resumes the 256-read job from it with 1 extra read; a restarted
+    service on the first directory serves the reversed single job from
+    its file, and searches the reversed late job whose file has a byte
+    flipped (quarantined, a ``cache_quarantine`` incident).  Every
+    result must equal its solo unserved run, the single ones C++ too.
+    One line: each tier's status, wall and launches by kernel, the
+    certify pass's ms and a ``cProfile`` of it run again, the snapshot's
+    pops, the card's name and power limit.
 
 The last three lines are the card's name and power limit,
 the kernel table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -5980,6 +6001,343 @@ def phase_replica_main():
     return launches
 
 
+#: ``cache_main``'s first service: ``serve_main``'s pool geometry with the
+#: consensus cache on (its ``cache_dir`` a temporary directory)
+CACHE_SNAPSHOT_S = 0.25
+#: the checkpoint tier's service snapshots at every poll
+CACHE_CKPT_SNAPSHOT_S = 0.0001
+
+
+def _reversed_request(req):
+    """``req`` with its reads (and offsets) in reverse order."""
+    import dataclasses
+
+    return dataclasses.replace(
+        req, reads=tuple(reversed(req.reads)),
+        offsets=(tuple(reversed(req.offsets)) if req.offsets else None))
+
+
+def _reversed_key(kind, key):
+    """The solo result ``key`` (``_serve_key`` form) as a search of the
+    reversed reads gives it: every per-read score vector reversed (a dual
+    result's per-side vectors too, since reversing keeps each side's
+    reads in reversed relative order)."""
+    if kind == "dual":
+        rev = lambda c: None if c is None else (c[0], c[1][::-1])  # noqa: E731
+        return [(rev(c1), rev(c2), s[::-1], a[::-1], b[::-1])
+                for c1, c2, s, a, b in key]
+    if kind == "priority":
+        return key
+    return [(seq, scores[::-1]) for seq, scores in key]
+
+
+def _cache_cpp(req, want, where):
+    """The C++ engine on a single job's reads must equal ``want``."""
+    got, cpp_s = _cpp_run("single", dict(
+        reads=list(req.reads), offsets=None, config=req.config))
+    if got != want:
+        raise AssertionError(f"cache_main {where}: the result != C++")
+    return round(cpp_s, 3)
+
+
+def _cache_step(svc, req, expect, want, where, wait=600):
+    """Submit ``req``, wait for it and check its status against
+    ``expect`` and its result against ``want`` (``_serve_key`` form).
+    Returns ``(handle, result key, wall s, launches by kernel, submit
+    ms)``; fails on any plain twin call."""
+    import torch
+
+    launches0, twins0 = _launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    handle = svc.submit(req)
+    submit_ms = (time.perf_counter() - t) * 1e3
+    res = handle.result(timeout=wait)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches1, twins1 = _launch_counts()
+    launches = {k: launches1[k] - launches0[k] for k in launches1}
+    if twins1 - twins0:
+        raise AssertionError(f"cache_main {where}: {twins1 - twins0} twin "
+                             "calls")
+    if handle.status.value != expect:
+        raise AssertionError(f"cache_main {where}: status "
+                             f"{handle.status.value}, expected {expect}")
+    kind = "dual" if req.kind == "dual" else (
+        "priority" if req.kind == "priority" else "single")
+    key = _serve_key(kind, res)
+    if want is not None and key != want:
+        raise AssertionError(f"cache_main {where}: the result != solo")
+    return handle, key, wall, launches, round(submit_ms, 3)
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_cache_main():
+    """The consensus cache on the card (``serve/cache``): one
+    ``ConsensusService`` of ``serve_main``'s pool geometry with the cache
+    on, a ``cache_dir`` in a temporary directory and a snapshot every
+    :data:`CACHE_SNAPSHOT_S`, then a second one for the checkpoint tier,
+    then a restart.  The seed-0 jobs of :func:`serve_requests` (single
+    north star, late, dual, priority):
+
+    1. misses: the four jobs at once, each equal to its solo run, each
+       deposited;
+    2. exact hits: the same four with the reads reversed (priority in
+       chain order), each ``CACHED`` with ``started_at`` None and no
+       launch of any kernel, equal to its solo result with the scores in
+       the reversed order; the priority job with its chains reversed
+       misses;
+    3. certified: the single job plus one read equal to its consensus,
+       ``CERTIFIED``, equal to its solo search and to C++;
+    4. certify failed: the single job plus one read of its truth at 30 %
+       error, ``DONE`` with ``certify_failed`` counted, equal to its solo
+       search and to C++;
+    5. checkpoint tier (a service with ``cache_proposals=False``, a
+       snapshot every poll, no ``cache_dir``): the first 255 reads of the
+       single job deposit a bound-free snapshot (the phase fails if none
+       is), then the 256-read job resumes from it with 1 extra read,
+       equal to its solo search and to C++;
+    6. restart: a new service on the first ``cache_dir`` serves the
+       reversed single job ``CACHED``; a byte of the late job's stored
+       entry flipped, the reversed late job is searched ``DONE``, equal,
+       the entry quarantined with a ``cache_quarantine`` incident.
+
+    Prints one line; returns the service steps' launches by kernel (the
+    solo and C++ reference runs are not counted)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from waffle_con_tpu_torch.obs import flight as obs_flight
+    from waffle_con_tpu_torch.ops import ragged as ops_ragged
+    from waffle_con_tpu_torch.serve import (
+        ConsensusService,
+        JobRequest,
+        ServeConfig,
+    )
+    from waffle_con_tpu_torch.serve.cache import keys as cache_keys
+    from waffle_con_tpu_torch.serve.cache import proposal
+    from waffle_con_tpu_torch.serve.service import _build_engine
+    from waffle_con_tpu_torch.utils.example_gen import corrupt
+
+    reqs = {kind: req for kind, seed, req in serve_requests() if seed == 0}
+    solo = {kind: _solo(kind, 0, req)[0] for kind, req in reqs.items()}
+    single = reqs["single"]
+    # the single north star's consensus is its truth (``main`` checks it)
+    noisy = corrupt(solo["single"][0][0], 0.3, np.random.default_rng(99))
+
+    def solo_of(req):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        key = _serve_key("single", _build_engine(req).consensus())
+        torch.cuda.synchronize()
+        return key, round(time.perf_counter() - t, 3)
+
+    triggered = []
+
+    def on_trigger(reason, _trace_id, detail):
+        if reason == "cache_quarantine":
+            triggered.append(detail)
+
+    obs_flight.add_trigger_listener(on_trigger)
+    total, tiers, cpp = {}, {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as cache_dir:
+            cfg = ServeConfig(workers=8, queue_limit=16, cache=True,
+                              cache_dir=cache_dir,
+                              checkpoint_interval_s=CACHE_SNAPSHOT_S,
+                              **SERVE_POOL)
+            ops_ragged.reset_arena()
+            with ConsensusService(cfg) as svc:
+                # 1. misses, at once
+                launches0, twins0 = _launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                order = ("single", "late", "dual", "priority")
+                handles = svc.submit_all([reqs[k] for k in order])
+                results = [h.result(timeout=600) for h in handles]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches1, twins1 = _launch_counts()
+                launches = {k: launches1[k] - launches0[k] for k in launches1}
+                if twins1 - twins0:
+                    raise AssertionError("cache_main misses: twin calls")
+                for kind, h, res in zip(order, handles, results):
+                    if h.status.value != "done":
+                        raise AssertionError(f"cache_main misses: {kind} "
+                                             f"{h.status.value}")
+                    if _serve_key(kind, res) != solo[kind]:
+                        raise AssertionError(f"cache_main misses: {kind} != "
+                                             "solo")
+                _add_launches(total, launches)
+                stats = svc.stats()["cache"]
+                if stats["deposits"] != 4 or stats["misses"] != 4:
+                    raise AssertionError(f"cache_main misses: cache {stats}")
+                tiers["miss"] = dict(status="done", wall_s=round(wall, 3),
+                                     launches=launches)
+
+                # 2. exact hits: reversed reads, priority in chain order
+                exact = {}
+                for kind in order:
+                    req = (reqs[kind] if kind == "priority"
+                           else _reversed_request(reqs[kind]))
+                    h, _key, wall, launches, sub_ms = _cache_step(
+                        svc, req, "cached", _reversed_key(kind, solo[kind]),
+                        f"exact {kind}")
+                    if h.started_at is not None or any(launches.values()):
+                        raise AssertionError(
+                            f"cache_main exact {kind}: started "
+                            f"{h.started_at}, launches {launches}")
+                    exact[kind] = dict(wall_ms=round(wall * 1e3, 3),
+                                       launches=sum(launches.values()))
+                h, _key, wall, launches, _ms = _cache_step(
+                    svc, JobRequest("priority", tuple(reversed(
+                        reqs["priority"].reads)),
+                        config=reqs["priority"].config), "done", None,
+                    "exact priority permuted")
+                _add_launches(total, launches)
+                tiers["exact"] = dict(status="cached", by_kind=exact,
+                                      permuted_priority=dict(
+                                          status=h.status.value,
+                                          wall_s=round(wall, 3)))
+
+                # 3. certified: one extra read equal to the consensus
+                plus = JobRequest("single", single.reads + (
+                    solo["single"][0][0],), config=single.config)
+                want, solo_s = solo_of(plus)
+                h, _key, wall, launches, sub_ms = _cache_step(
+                    svc, plus, "certified", want, "certified")
+                if h.started_at is not None or not launches["branch_step"]:
+                    raise AssertionError(f"cache_main certified: launches "
+                                         f"{launches}")
+                _add_launches(total, launches)
+                cpp["certified"] = _cache_cpp(plus, want, "certified")
+                # where the pass's host time goes: the same pass again
+                # under cProfile, on the entry it certified
+                entry = svc._cache._results.get(
+                    cache_keys.request_key(single))
+
+                def certify_again():
+                    proposal.certify(plus, entry)
+                    torch.cuda.synchronize()
+
+                tiers["certified"] = dict(
+                    status="certified", pass_ms=sub_ms,
+                    wall_s=round(wall, 3), solo_search_s=solo_s,
+                    launches=launches,
+                    profile=host_profile(certify_again, top=10))
+
+                # 4. certify failed: one read of the truth at 30 % error
+                before = svc.stats()["cache"]
+                bad = JobRequest("single", single.reads + (noisy,),
+                                 config=single.config)
+                want, solo_s = solo_of(bad)
+                h, _key, wall, launches, sub_ms = _cache_step(
+                    svc, bad, "done", want, "certify failed")
+                after = svc.stats()["cache"]
+                failed = after["certify_failed"] - before["certify_failed"]
+                if failed < 1:
+                    raise AssertionError("cache_main: no certify failure")
+                _add_launches(total, launches)
+                cpp["certify_failed"] = _cache_cpp(bad, want,
+                                                   "certify failed")
+                tiers["certify_failed"] = dict(
+                    status="done", certify_failed=failed,
+                    # a bound-free snapshot of step 1's single job, when
+                    # one was taken, resumes this superset
+                    checkpoint_hit=after["checkpoint"] - before["checkpoint"],
+                    pass_ms=sub_ms, wall_s=round(wall, 3),
+                    solo_search_s=solo_s, launches=launches)
+                first_stats = svc.stats()
+
+            # 5. the checkpoint tier
+            ckpt_cfg = ServeConfig(
+                workers=8, queue_limit=16, cache=True, cache_proposals=False,
+                checkpoint_interval_s=CACHE_CKPT_SNAPSHOT_S, **SERVE_POOL)
+            ops_ragged.reset_arena()
+            with ConsensusService(ckpt_cfg) as svc:
+                # all but the last read: 255 of the north star's 256
+                cut = JobRequest("single", single.reads[:-1],
+                                 config=single.config)
+                cut_want, _s = solo_of(cut)
+                h, _key, wall_cut, launches_cut, _ms = _cache_step(
+                    svc, cut, "done", cut_want, "checkpoint cut")
+                _add_launches(total, launches_cut)
+                stats = svc.stats()
+                if not stats["cache"]["ckpt_deposits"]:
+                    raise AssertionError("cache_main: the 255-read job "
+                                         "deposited no bound-free snapshot "
+                                         f"({stats['checkpoints']})")
+                snap = svc._cache._checkpoints.items()[-1][1]["checkpoint"]
+                state = snap["body"]["state"]
+                h, _key, wall, launches, sub_ms = _cache_step(
+                    svc, single, "done", solo["single"], "checkpoint resume")
+                _add_launches(total, launches)
+                stats = svc.stats()
+                if stats["cache"]["checkpoint"] != 1 \
+                        or stats["checkpoints"]["resumed"] < 1:
+                    raise AssertionError(f"cache_main checkpoint: {stats}")
+                cpp["resumed"] = _cache_cpp(single, solo["single"],
+                                            "checkpoint resume")
+                tiers["checkpoint"] = dict(
+                    status="done", snapshot_pops=state.get("pops"),
+                    snapshot_entries=len(state["entries"]),
+                    snapshot_bytes=len(json.dumps(snap)),
+                    cut_wall_s=round(wall_cut, 3),
+                    cut_snapshots=stats["checkpoints"]["snapshots"],
+                    resume_wall_s=round(wall, 3),
+                    resumed=stats["checkpoints"]["resumed"],
+                    launches=launches)
+
+            # 6. restart on the first cache_dir, then a corrupt entry
+            ops_ragged.reset_arena()
+            with ConsensusService(cfg) as svc:
+                h, _key, wall_hit, launches, _ms = _cache_step(
+                    svc, _reversed_request(single), "cached",
+                    _reversed_key("single", solo["single"]),
+                    "restart single")
+                if any(launches.values()):
+                    raise AssertionError(f"cache_main restart: launches "
+                                         f"{launches}")
+                late = reqs["late"]
+                victim = os.path.join(
+                    cache_dir, cache_keys.request_key(late) + ".json")
+                with open(victim, "rb") as fh:
+                    blob = bytearray(fh.read())
+                blob[len(blob) // 2] ^= 0x01
+                with open(victim, "wb") as fh:
+                    fh.write(bytes(blob))
+                h, _key, wall, launches, _ms = _cache_step(
+                    svc, _reversed_request(late), "done",
+                    _reversed_key("late", solo["late"]), "restart late")
+                _add_launches(total, launches)
+                stats = svc.stats()["cache"]
+                quarantined = os.path.exists(os.path.join(
+                    cache_dir, "_quarantine", os.path.basename(victim)))
+                if stats["quarantined"] != 1 or not quarantined \
+                        or not triggered:
+                    raise AssertionError(
+                        f"cache_main restart: quarantined "
+                        f"{stats['quarantined']}, moved {quarantined}, "
+                        f"incidents {len(triggered)}")
+                tiers["restart"] = dict(
+                    status="cached", wall_ms=round(wall_hit * 1e3, 3),
+                    quarantined=dict(status="done", wall_s=round(wall, 3),
+                                     incidents=len(triggered),
+                                     launches=launches))
+    finally:
+        obs_flight.remove_trigger_listener(on_trigger)
+    line = dict(card=smi_line(), tiers=tiers, cpp_s=cpp,
+                cache=first_stats["cache"], jobs=first_stats["jobs"],
+                checkpoints=first_stats["checkpoints"], launches=total)
+    print("cache_main", json.dumps(line), flush=True)
+    return total
+
+
 def kernel_row(name, source, replaces, check, launches, status=None):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -6030,7 +6388,7 @@ def main(argv=None) -> int:
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
                 "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
                 "obs_main,runtime_main,mesh_kernel,mesh_main,"
-                "serve_kernel,serve_main,replica_main",
+                "serve_kernel,serve_main,replica_main,cache_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -6133,10 +6491,12 @@ def main(argv=None) -> int:
     serve_check = timed("serve_kernel", phase_serve_kernel, opts.small)
     serve_launches = timed("serve_main", phase_serve_main)
     replica = timed("replica_main", phase_replica_main) or {}
+    cached = timed("cache_main", phase_cache_main) or {}
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
                      checkpoint_main=ckpt.get("run_extend"),
-                     replica_main=replica.get("run_extend"))
+                     replica_main=replica.get("run_extend"),
+                     cache_main=cached.get("run_extend"))
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
                    run_check, run_paths),
@@ -6145,20 +6505,24 @@ def main(argv=None) -> int:
                    dict(dual_main=dual_launches[0],
                         priority_main=prio_launches[1],
                         checkpoint_main=ckpt.get("run_extend_dual"),
-                        replica_main=replica.get("run_extend_dual"))),
+                        replica_main=replica.get("run_extend_dual"),
+                        cache_main=cached.get("run_extend_dual"))),
         kernel_row("offset_scan", "offset_scan.cu", "jax_scorer.py:2637",
                    scan_check, dict(late_main=late_launches[0],
                                     checkpoint_main=ckpt.get("offset_scan"),
-                                    replica_main=replica.get("offset_scan"))),
+                                    replica_main=replica.get("offset_scan"),
+                        cache_main=cached.get("offset_scan"))),
         kernel_row("col_replay", "col_replay.cu", "jax_scorer.py:773,2688",
                    replay_check, dict(late_main=late_launches[1],
                                       checkpoint_main=ckpt.get("col_replay"),
-                                      replica_main=replica.get("col_replay"))),
+                                      replica_main=replica.get("col_replay"),
+                        cache_main=cached.get("col_replay"))),
         kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
                    dict({path: ARENA_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main", "late_main")},
                         checkpoint_main=ckpt.get("arena"),
-                        replica_main=replica.get("arena"))),
+                        replica_main=replica.get("arena"),
+                        cache_main=cached.get("arena"))),
         # the megastep is the run kernel under a step cap: its launches
         # are the run kernel's, its numbers the capped launch's
         kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",
@@ -6169,7 +6533,8 @@ def main(argv=None) -> int:
                          ("main", "dual_main", "priority_main",
                           "late_main")}, gang_main=gang_main_launches,
                         serve_main=serve_launches,
-                        replica_main=replica.get("run_ragged")),
+                        replica_main=replica.get("run_ragged"),
+                        cache_main=cached.get("run_ragged")),
                    status="redesigned: members packed by their own "
                           "cluster size, a member-scoped st.async exchange "
                           "instead of the cluster barrier"),
@@ -6179,7 +6544,8 @@ def main(argv=None) -> int:
                          ("main", "dual_main", "priority_main", "late_main",
                           "plan_gate")},
                         checkpoint_main=ckpt.get("branch_step"),
-                        replica_main=replica.get("branch_step")),
+                        replica_main=replica.get("branch_step"),
+                        cache_main=cached.get("branch_step")),
                    status="redesigned: one launch a batch with the band in "
                           "registers (one_launch), else the slab plan"),
         # the shards of a card are one fused branch-step call: its

@@ -14,6 +14,10 @@ against the JAX package's.
   stats file, and a service built with a placement policy.
 * The pool-release order: a job's pages are back before its handle is
   finished.
+* The superset resume: a job submitted with a snapshot of a subset of
+  its reads resumes with the missing reads as extras and equals the
+  serial superset search and JAX's; ``stats()["checkpoints"]`` counts
+  ``resumed`` and ``rejected`` as JAX's does.
 """
 
 import json
@@ -30,6 +34,7 @@ from waffle_con_tpu.serve.job import JobHandle as JJobHandle
 from waffle_con_tpu.serve.scheduler import AdmissionQueue as JAdmissionQueue
 from waffle_con_tpu.utils import fixtures as jfixtures
 from waffle_con_tpu_torch import CdwfaConfigBuilder
+from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
 from waffle_con_tpu_torch.obs import metrics as obs_metrics
 from waffle_con_tpu_torch.ops import ragged
 from waffle_con_tpu_torch.runtime import events, faults, supervisor
@@ -48,7 +53,7 @@ from waffle_con_tpu_torch.serve.job import JobHandle
 from waffle_con_tpu_torch.serve.scheduler import AdmissionQueue
 from waffle_con_tpu_torch.serve.service import _build_engine
 from waffle_con_tpu_torch.utils import fixtures
-from waffle_con_tpu_torch.utils.example_gen import generate_test
+from waffle_con_tpu_torch.utils.example_gen import corrupt, generate_test
 
 pytestmark = pytest.mark.serve
 
@@ -456,3 +461,77 @@ def test_config_fields_replace_the_jax_knobs():
                            autostart=False)
     svc.close()
     assert svc.stats()["jobs"]["mesh_placed"] == 0
+
+
+def _subset_snapshot(reads, cfg, at=5):
+    """A bound-free snapshot of the serial search of ``reads``, taken at
+    poll ``at`` (the search runs on to its end)."""
+    snaps = []
+    ctrl = ckpt_mod.CheckpointController(snapshot_at_pops={at},
+                                         on_snapshot=snaps.append)
+    with ckpt_mod.installed(ctrl):
+        _build_engine(JobRequest("single", reads, config=cfg)).consensus()
+    assert len(snaps) == 1
+    state = snaps[0].body["state"]
+    assert state["maximum_error"] is None and not state["results"]
+    return snaps[0]
+
+
+def test_superset_resume_through_submit_checkpoint():
+    """``submit(superset, checkpoint=<snapshot of a subset>)`` searches
+    the superset: the request's reads missing from the checkpoint join
+    the resumed search.  The parent's service resumed the checkpoint's
+    reads alone and returned the subset's consensus."""
+    truth, reads = generate_test(4, 160, 8, 0.03, seed=21)
+    reads = tuple(reads)
+    extra = corrupt(truth, 0.05, np.random.default_rng(22))
+    cfg = _cfg(min_count=2)
+    snap = _subset_snapshot(reads, cfg)
+    superset = JobRequest("single", reads + (extra,), config=cfg)
+    want = _build_engine(superset).consensus()
+    jreq = JJobRequest("single", reads + (extra,), config=_jcfg(min_count=2))
+    assert _key("single", want) == _key(
+        "single", jservice._build_engine(jreq).consensus())
+    # the subset's own result differs: the extra read changes the answer
+    subset = _build_engine(JobRequest("single", reads, config=cfg))
+    assert _key("single", subset.consensus()) != _key("single", want)
+    events.clear_events()
+    with ConsensusService(ServeConfig(workers=2)) as svc:
+        handle = svc.submit(superset, checkpoint=snap.to_wire())
+        got = handle.result(timeout=WAIT_S)
+        ckpts = svc.stats()["checkpoints"]
+    assert got == want
+    assert handle._resumed_from_checkpoint
+    assert ckpts["resumed"] == 1 and ckpts["rejected"] == 0
+    assert set(ckpts) == {"snapshots", "bytes", "resumed", "rejected"}
+    assert [e["extra_reads"] for e in events.get_events("job_resumed")] == [1]
+
+
+def test_rejected_checkpoints_counted_and_resumed_taken_back():
+    """A body that fails when the engine consumes it (a node's priority
+    edited, the CRC re-signed) restarts the job from scratch: ``rejected``
+    counts it and ``resumed`` is taken back to 0.  A body that fails its
+    CRC is rejected before any resume."""
+    reads = tuple(generate_test(4, 160, 8, 0.03, seed=21)[1])
+    cfg = _cfg(min_count=2)
+    snap = _subset_snapshot(reads, cfg)
+    body = json.loads(json.dumps(snap.body))
+    body["state"]["entries"][0]["priority"][0] += 7
+    edited = ckpt_mod.SearchCheckpoint("single", body).to_wire()
+    torn = snap.to_wire()
+    torn["crc"] ^= 1
+    req = JobRequest("single", reads, config=cfg)
+    want = _build_engine(req).consensus()
+    events.clear_events()
+    with ConsensusService(ServeConfig(workers=1)) as svc:
+        first = svc.submit(req, checkpoint=edited)
+        assert first.result(timeout=WAIT_S) == want
+        after_deferred = svc.stats()["checkpoints"]
+        # it resumed first, and was rejected inside consensus()
+        assert len(events.get_events("job_resumed")) == 1
+        assert len(events.get_events("checkpoint_rejected")) == 1
+        second = svc.submit(req, checkpoint=torn)
+        assert second.result(timeout=WAIT_S) == want
+        after_torn = svc.stats()["checkpoints"]
+    assert (after_deferred["resumed"], after_deferred["rejected"]) == (0, 1)
+    assert (after_torn["resumed"], after_torn["rejected"]) == (0, 2)

@@ -13,7 +13,8 @@ Triggers (see :data:`TRIGGER_REASONS`): ``deadline_exceeded``,
 ``backend_demoted``, ``service_overloaded``,
 ``watchdog_budget_exceeded``, the SLO layer's ``slow_search`` (current
 search > k x rolling p95, :mod:`waffle_con_tpu_torch.obs.slo`),
-``checkpoint_rejected`` and the lock checker's
+``checkpoint_rejected``, the consensus cache's ``cache_quarantine`` (a
+corrupt stored entry moved aside) and the lock checker's
 ``lock_order_inversion``.
 
 On a trigger the recorder assembles a self-contained JSON **incident**:
@@ -54,6 +55,7 @@ from waffle_con_tpu_torch.analysis import lockcheck
 TRIGGER_REASONS = (
     "deadline_exceeded",
     "backend_demoted",
+    "cache_quarantine",
     "service_overloaded",
     "watchdog_budget_exceeded",
     "slow_search",

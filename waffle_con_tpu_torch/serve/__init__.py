@@ -27,9 +27,17 @@ The port of ``waffle_con_tpu``'s ``serve`` package (its in-process path):
 * :class:`~waffle_con_tpu_torch.serve.replicas.ReplicatedService` — N
   services, each with its own dispatcher, pool and device slice, behind
   one least-outstanding, health-aware door.
+* :class:`~waffle_con_tpu_torch.serve.cache.ConsensusCache` — the
+  content-addressed consensus cache (``ServeConfig.cache``): exact hits
+  and certified near-misses served without a search (``CACHED``,
+  ``CERTIFIED``), read supersets resumed from a cached bound-free
+  checkpoint, results optionally kept in hash-sealed files.
+* :mod:`~waffle_con_tpu_torch.serve.procs.wire` — the out-of-process
+  wire codec (frames, and the config, request and result codecs the
+  cache stores results in).
 
-Not ported yet: the consensus cache (A9c) and out-of-process workers
-(A9d).
+Not ported yet: out-of-process workers (A9d: the worker process, the
+front door and worker liveness).
 """
 
 from waffle_con_tpu_torch.ops.ragged import ArenaExhausted

@@ -61,10 +61,17 @@ class JobStatus(enum.Enum):
     FAILED = "failed"
     CANCELLED = "cancelled"
     EXPIRED = "expired"
+    #: Served from the consensus cache's exact-hit tier: the job never
+    #: ran (``started_at`` stays ``None``) and no worker was touched.
+    CACHED = "cached"
+    #: Served from a cached near-miss consensus certified at the
+    #: optimal cost by one exact scoring pass (propose-then-verify).
+    CERTIFIED = "certified"
 
 
 _TERMINAL = (
     JobStatus.DONE, JobStatus.FAILED, JobStatus.CANCELLED, JobStatus.EXPIRED,
+    JobStatus.CACHED, JobStatus.CERTIFIED,
 )
 
 

@@ -29,7 +29,10 @@ here (the port reads no environment variable): the pool's switches and
 geometry (``WAFFLE_RAGGED*``), ``checkpoint_interval_s``
 (``WAFFLE_CKPT_INTERVAL_S``), ``checkpoint_max_bytes``
 (``WAFFLE_CKPT_MAX_BYTES``), ``stats_file`` (``WAFFLE_STATS_FILE``) and
-``flight_dir`` (``WAFFLE_FLIGHT_DIR``).
+``flight_dir`` (``WAFFLE_FLIGHT_DIR``), and the consensus cache's
+``cache`` (``WAFFLE_CACHE``), ``cache_max_results`` (``WAFFLE_CACHE_MAX``),
+``cache_max_checkpoints`` (``WAFFLE_CACHE_CKPTS``), ``cache_proposals``
+(``WAFFLE_CACHE_PROPOSALS``) and ``cache_dir`` (``WAFFLE_CACHE_DIR``).
 
 Placement (:mod:`waffle_con_tpu_torch.serve.placement`): with
 ``ServeConfig.placement`` set, :meth:`ConsensusService.submit` rewrites a
@@ -38,8 +41,15 @@ then builds a read-sharded store on the service's ``device_set`` (pinned
 on the worker thread around the whole job body) instead of joining the
 serving pool.  A job counts as finished only once its pool pages are back
 and the dispatcher has let it go, so ``stats()`` read right after the
-last ``result()`` shows every admission released.  The consensus cache
-and out-of-process workers are not ported yet.
+last ``result()`` shows every admission released.
+
+The consensus cache (:mod:`waffle_con_tpu_torch.serve.cache`, on with
+``ServeConfig.cache``) sits between admission and dispatch: an exact or
+certified hit finishes the handle in :meth:`ConsensusService.submit`
+(``CACHED`` / ``CERTIFIED``, never queued, no kernel of a search
+launched), a checkpoint hit attaches a cached bound-free snapshot that
+the job resumes with its extra reads.  Out-of-process workers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -73,7 +83,9 @@ from waffle_con_tpu_torch.serve.job import (
     ServiceClosed,
     ServiceOverloaded,
 )
+from waffle_con_tpu_torch.serve import cache as serve_cache
 from waffle_con_tpu_torch.serve import placement as serve_placement
+from waffle_con_tpu_torch.serve.procs import wire
 from waffle_con_tpu_torch.serve.scheduler import AdmissionQueue, WorkerPool
 
 
@@ -107,6 +119,11 @@ class ServeConfig:
       (atomically, at most every 0.25 s) as jobs finish.
     * ``flight_dir`` — when set, the flight recorder also writes each
       incident there (otherwise incidents stay in memory).
+    * ``cache`` … ``cache_dir`` — the consensus cache
+      (:class:`~waffle_con_tpu_torch.serve.cache.ConsensusCache`): on or
+      off (off by default), results and checkpoints kept (LRU), the
+      proposal-certify tier on or off, and an optional directory of
+      hash-sealed result files that outlives the service.
     """
 
     workers: int = 4
@@ -129,6 +146,11 @@ class ServeConfig:
     checkpoint_max_bytes: int = 8 * 1024 * 1024
     stats_file: Optional[str] = None
     flight_dir: Optional[str] = None
+    cache: bool = False
+    cache_max_results: int = 256
+    cache_max_checkpoints: int = 64
+    cache_proposals: bool = True
+    cache_dir: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.workers < 1:
@@ -143,6 +165,10 @@ class ServeConfig:
             raise ValueError("aging_s must be > 0 (or None)")
         if self.checkpoint_max_bytes < 0:
             raise ValueError("checkpoint_max_bytes must be >= 0")
+        if self.cache_max_results < 1:
+            raise ValueError("cache_max_results must be >= 1")
+        if self.cache_max_checkpoints < 1:
+            raise ValueError("cache_max_checkpoints must be >= 1")
         self.arena_config()  # the pool's ranges
 
     def arena_config(self) -> ops_ragged.ArenaConfig:
@@ -238,9 +264,15 @@ class ConsensusService:
         self._counts = {
             "submitted": 0, "rejected": 0, "done": 0, "failed": 0,
             "cancelled": 0, "expired": 0, "mesh_placed": 0,
-            "placement_errors": 0,
+            "placement_errors": 0, "cached": 0, "certified": 0,
         }
-        self._ckpt_counts = {"snapshots": 0, "bytes": 0}
+        self._ckpt_counts = {
+            "snapshots": 0, "bytes": 0, "resumed": 0, "rejected": 0,
+        }
+        #: the consensus cache, or None when ServeConfig.cache is off
+        self._cache = serve_cache.ConsensusCache.from_config(
+            self.config.name, self.config
+        )
         self._stats_published_at = 0.0
         if autostart:
             self.start()
@@ -290,9 +322,14 @@ class ConsensusService:
         """Admit one job; raises :class:`ServiceOverloaded` when the
         bounded queue is full and :class:`ServiceClosed` after close.
         ``checkpoint`` optionally resumes a previously snapshotted search
-        (a wire dict from :attr:`JobHandle.checkpoint`); a checkpoint
-        that does not resume degrades to a fresh search with a
-        ``checkpoint_rejected`` incident, never a failed job."""
+        (a wire dict from :attr:`JobHandle.checkpoint`), with the
+        request's reads missing from the checkpoint's joining the resumed
+        search (single, unseeded jobs); a checkpoint that does not resume
+        degrades to a fresh search with a ``checkpoint_rejected``
+        incident, never a failed job.  With the cache on, a job without a
+        checkpoint is looked up first (the certify pass inside the
+        service's device scope): an exact or certified hit is finished
+        here without being queued."""
         if not isinstance(request, JobRequest):
             raise TypeError(
                 f"expected JobRequest, got {type(request).__name__}"
@@ -307,6 +344,25 @@ class ConsensusService:
             self._next_id += 1
         if checkpoint is not None:
             handle._attach_checkpoint(checkpoint)
+        elif self._cache is not None:
+            with self._device_scope():
+                hit = self._cache.lookup(
+                    request, trace_id=handle.trace.trace_id
+                )
+            if isinstance(hit, serve_cache.CacheHit):
+                status = (
+                    JobStatus.CACHED if hit.tier == "exact"
+                    else JobStatus.CERTIFIED
+                )
+                handle._finish(status, result=hit.result)
+                with self._lock:
+                    self._counts["submitted"] += 1
+                    self._handles.append(handle)
+                self._account(handle, status.value)
+                return handle
+            if isinstance(hit, serve_cache.CheckpointHit):
+                handle._attach_checkpoint(hit.checkpoint)
+                handle._from_cache_checkpoint = True
         try:
             self._queue.put(handle)
         except ServiceOverloaded:
@@ -392,7 +448,8 @@ class ConsensusService:
         with self._lock:
             counts = dict(self._counts)
         finished = (counts["done"] + counts["failed"]
-                    + counts["cancelled"] + counts["expired"])
+                    + counts["cancelled"] + counts["expired"]
+                    + counts["cached"] + counts["certified"])
         return max(0, counts["submitted"] - finished)
 
     # -- worker --------------------------------------------------------
@@ -463,6 +520,9 @@ class ConsensusService:
                         # a checkpoint body is validated when the engine
                         # consumes it: restart from scratch, never fail
                         self._record_ckpt_rejection(handle, exc)
+                        with self._lock:
+                            # it never actually resumed
+                            self._ckpt_counts["resumed"] -= 1
                         handle._drop_checkpoint()
                         engine = _build_engine(handle.request)
                         with ckpt_mod.installed(ctrl):
@@ -479,6 +539,9 @@ class ConsensusService:
             if failure is not None:
                 self._finalize(handle, failure)
             else:
+                # deposited before the handle finishes, so a duplicate
+                # submitted right after result() finds the entry
+                self._deposit(handle, result)
                 handle._finish(
                     JobStatus.DONE, result=result,
                     report=getattr(engine, "last_search_report", None),
@@ -538,10 +601,35 @@ class ConsensusService:
             events.record("placement_profile_failed",
                           service=self.config.name, error=repr(exc))
 
+    def _deposit(self, handle: JobHandle, result) -> None:
+        """Feed a finished job back into the consensus cache: its wire
+        result under the canonical key, plus its last *bound-free*
+        mid-search checkpoint for superset resume (a bound-tightened
+        snapshot prunes with subset-only costs and must never seed a
+        superset search).  Jobs that themselves resumed from a
+        checkpoint never deposit (their search did not cover the full
+        space from scratch — fail-closed for parity).  Cache IO never
+        fails a job."""
+        if self._cache is None:
+            return
+        if getattr(handle, "_resumed_from_checkpoint", False):
+            return
+        try:
+            self._cache.deposit_result(
+                handle.request,
+                wire.encode_result(handle.request.kind, result),
+            )
+            last = getattr(handle, "_cache_ckpt", None)
+            if last is not None:
+                self._cache.deposit_checkpoint(handle.request, last)
+        except Exception:  # noqa: BLE001 - cache must never fail a job
+            pass
+
     def _make_engine(self, handle: JobHandle):
         """Build the job's engine, resuming from the handle's attached
-        checkpoint when one is present.  A rejected checkpoint degrades
-        to a fresh search with a ``checkpoint_rejected`` incident."""
+        checkpoint when one is present (with the request's reads the
+        checkpoint lacks as extras).  A rejected checkpoint degrades to a
+        fresh search with a ``checkpoint_rejected`` incident."""
         from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
 
         wire_ckpt = handle.checkpoint
@@ -553,18 +641,53 @@ class ConsensusService:
                         f"{handle.request.kind} job cannot resume a "
                         f"{checkpoint.kind!r} checkpoint"
                     )
-                engine = ckpt_mod.resume_engine(checkpoint)
+                extras = self._checkpoint_extras(handle.request, checkpoint)
+                engine = ckpt_mod.resume_engine(
+                    checkpoint, extra_reads=extras
+                )
             except ckpt_mod.CheckpointRejected as exc:
                 self._record_ckpt_rejection(handle, exc)
             else:
+                handle._resumed_from_checkpoint = True
+                with self._lock:
+                    self._ckpt_counts["resumed"] += 1
                 events.record(
                     "job_resumed", job_id=handle.job_id,
                     job_kind=handle.request.kind, service=self.config.name,
+                    extra_reads=len(extras),
                 )
                 return engine
         return _build_engine(handle.request)
 
+    @staticmethod
+    def _checkpoint_extras(request: JobRequest, checkpoint) -> tuple:
+        """The request reads missing from a checkpoint's read multiset
+        (the superset resume): the engine restores the recorded frontier
+        and joins these at offset 0.  Empty when the multisets match (a
+        plain resume), for any job but a single unseeded one, and
+        whenever the overlap cannot be established (a malformed body) —
+        never a reason to reject the checkpoint."""
+        from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
+
+        if request.kind != "single" or request.offsets is not None:
+            return ()
+        try:
+            body_reads = [
+                ckpt_mod.unb64(r) for r in checkpoint.body["reads"]
+            ]
+            extras = serve_cache.keys.multiset_extras(
+                request.reads, body_reads
+            )
+        except Exception:  # noqa: BLE001 - malformed body: plain resume
+            return ()
+        return extras or ()
+
     def _record_ckpt_rejection(self, handle: JobHandle, exc) -> None:
+        """Account one rejected checkpoint (counter, event log, typed
+        flight incident, metric): the construction-time and the deferred
+        (mid-``consensus()``) paths both come here."""
+        with self._lock:
+            self._ckpt_counts["rejected"] += 1
         events.record(
             "checkpoint_rejected", job_id=handle.job_id,
             service=self.config.name, why=str(exc),
@@ -575,12 +698,22 @@ class ConsensusService:
             job_id=handle.job_id, job_kind=handle.request.kind,
             service=self.config.name, why=str(exc),
         )
+        if obs_metrics.metrics_enabled():
+            obs_metrics.registry().counter(
+                "waffle_ckpt_rejected_total", service=self.config.name,
+            ).inc()
 
     def _deliver_checkpoint(self, handle: JobHandle, checkpoint) -> None:
         """Controller snapshot hook: attach the wire form to the handle
-        and count."""
+        and count.  With the cache on, a bound-free snapshot also becomes
+        the job's checkpoint deposit candidate (only those resume a read
+        superset exactly, see
+        :func:`waffle_con_tpu_torch.serve.cache.resumable_wire`)."""
         size = checkpoint.byte_size()
-        handle._attach_checkpoint(checkpoint.to_wire())
+        wire_ckpt = checkpoint.to_wire()
+        handle._attach_checkpoint(wire_ckpt)
+        if self._cache is not None and serve_cache.resumable_wire(wire_ckpt):
+            handle._cache_ckpt = wire_ckpt
         with self._lock:
             self._ckpt_counts["snapshots"] += 1
             self._ckpt_counts["bytes"] += size
@@ -678,12 +811,12 @@ class ConsensusService:
     # -- introspection -------------------------------------------------
 
     def stats(self) -> Dict:
-        """Point-in-time counters, the dispatcher's batching stats and the
-        serving pool's."""
+        """Point-in-time counters, the dispatcher's batching stats, the
+        serving pool's and (when on) the consensus cache's."""
         with self._lock:
             counts = dict(self._counts)
             ckpt_counts = dict(self._ckpt_counts)
-        return {
+        payload = {
             "jobs": counts,
             "checkpoints": ckpt_counts,
             "queue_depth": self._queue.depth(),
@@ -691,3 +824,6 @@ class ConsensusService:
             "dispatch": self._dispatcher.stats(),
             "ragged": ops_ragged.arena_stats(self._arena),
         }
+        if self._cache is not None:
+            payload["cache"] = self._cache.stats()
+        return payload
