@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases serve_kernel,serve_main
     python3 chip_smoke.py --phases serve_main,replica_main
     python3 chip_smoke.py --phases serve_main,cache_main
+    python3 chip_smoke.py --phases serve_main,procs_main
 
 Phases, one line each (every failure exits non-zero):
 
@@ -371,6 +372,31 @@ deployment's own recorded calls (scans, activations and growths).
     One line: each tier's status, wall and launches by kernel, the
     certify pass's ms and a ``cProfile`` of it run again, the snapshot's
     pops, the card's name and power limit.
+28. procs_main (after ``serve_main``, whose solo results it reuses):
+    out-of-process serving — a ``ProcFrontDoor`` of two worker processes
+    (child processes running ``waffle_con_tpu_torch.serve.procs.worker``'s
+    ``main`` under this script's ``_procs_worker`` wrapper, which writes each worker's launch
+    counts, twin calls, planner refusals, pool counters and peak device
+    memory to a file when it exits), both on the first card, 4 slots each,
+    ``serve_main``'s pool geometry and a snapshot every 0.25 s, answers
+    ``serve_main``'s 16 jobs submitted at once; every result, decoded from
+    the wire, must equal its solo in-process run, seed 0 of each kind the
+    C++ engine.  Fails unless both workers routed jobs and their counters
+    show ``run_extend``, ``arena`` and the gang kernel's cross-job
+    launches, with no twin call, planner refusal or failed job.  The same
+    again with no snapshot (each worker's record gives the host seconds
+    its searches spent taking snapshots).  Then the SIGKILL drill: 8 copies of the dual north star's seed-0 job on workers
+    of one slot, a snapshot every 0.1 s; the first worker to stream a
+    ``CHECKPOINT`` of a job it runs is killed; every result must equal the
+    solo one, the victim must be ``lost``, a started job must have migrated
+    with its checkpoint (the survivor's ``col_replay`` launches are the
+    restore's activations) and exactly one ``worker_lost`` incident fire.
+    Every surviving worker exits 0 and no child process is left.  One line:
+    both 16-job walls beside the solo walls summed and ``serve_main``'s
+    in-process wall, each worker's start (spawn to HELLO), jobs, launches
+    and peak memory, the card's memory with the workers up, CHECKPOINT
+    frames and bytes, the drill's detection time and migrations, the
+    card's name and power limit.
 
 The last three lines are the card's name and power limit,
 the kernel table (JSON), and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -5693,9 +5719,20 @@ def _launch_counts():
 
 
 #: (kind, seed) -> (the solo unserved result, its warm wall) of
-#: ``serve_main``'s jobs; kinds whose seed-0 job was held to C++ there
+#: ``serve_main``'s jobs; kinds whose seed-0 job was held to C++ there;
+#: the in-process service's wall for the 16 jobs
 SERVE_SOLO = {}
 SERVE_CPP = set()
+SERVE_WALL = {}
+
+
+def _serve_cpp(kind, req):
+    """The C++ engine on one of ``serve_requests``' jobs: ``(result as
+    plain data, seconds)``."""
+    spec = dict(reads=list(req.reads), offsets=(
+        list(req.offsets) if req.offsets else None),
+        chains=[list(c) for c in req.reads], config=req.config)
+    return _cpp_run("single" if kind == "late" else kind, spec)
 
 
 def phase_serve_main():
@@ -5740,6 +5777,7 @@ def phase_serve_main():
         results = [h.result(timeout=600) for h in handles]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t
+        SERVE_WALL["s"] = serve_s
         stats = svc.stats()
         counters = [h.search_report.dispatch_counts if h.search_report
                     else {} for h in handles]
@@ -5758,11 +5796,7 @@ def phase_serve_main():
     for (kind, seed, req), w in zip(reqs, want):
         if seed != 0:
             continue
-        spec = dict(reads=list(req.reads), offsets=(
-            list(req.offsets) if req.offsets else None),
-            chains=[list(c) for c in req.reads], config=req.config)
-        got, cpp_s = _cpp_run("dual" if kind == "dual" else "priority"
-                              if kind == "priority" else "single", spec)
+        got, cpp_s = _serve_cpp(kind, req)
         if got != w:
             raise AssertionError(f"serve_main: {kind} seed 0 != C++")
         cpp[kind] = round(cpp_s, 3)
@@ -5938,11 +5972,7 @@ def phase_replica_main():
     for (kind, seed, req), (w, _wall) in zip(reqs, solo):
         if seed != 0 or kind in SERVE_CPP:
             continue
-        spec = dict(reads=list(req.reads), offsets=(
-            list(req.offsets) if req.offsets else None),
-            chains=[list(c) for c in req.reads], config=req.config)
-        got, cpp_s = _cpp_run("dual" if kind == "dual" else "priority"
-                              if kind == "priority" else "single", spec)
+        got, cpp_s = _serve_cpp(kind, req)
         if got != w:
             raise AssertionError(f"replica_main: {kind} seed 0 != C++")
         cpp[kind] = round(cpp_s, 3)
@@ -6338,6 +6368,365 @@ def phase_cache_main():
     return total
 
 
+#: ``procs_main``: two worker processes on the first card, four jobs at a
+#: time in each, snapshots every 0.25 s; the drill's one job a worker,
+#: snapshots every 0.1 s
+PROCS_WORKERS = 2
+PROCS_SLOTS = 4
+PROCS_SNAPSHOT_S = 0.25
+DRILL_SNAPSHOT_S = 0.1
+DRILL_JOBS = 8
+
+
+def procs_worker_main(argv):
+    """``chip_smoke.py _procs_worker OUT <worker arguments>``: the port's
+    worker process (``serve.procs.worker.main``) under a wrapper that, when
+    the worker exits, writes its kernels' launch counts, its plain twins'
+    calls, its planner refusals, its serving pool's counters and its peak
+    device memory to the JSON file ``OUT`` (a SIGKILLed worker writes
+    nothing), with the seconds its imports took and the host seconds its
+    searches spent taking snapshots.  Its stdout is the door's stderr."""
+    t0 = time.perf_counter()
+    out_path, worker_argv = argv[0], argv[1:]
+    from waffle_con_tpu_torch.models import checkpoint as ckpt_mod
+    from waffle_con_tpu_torch.ops import ragged as ops_ragged
+    from waffle_con_tpu_torch.ops import torch_scorer
+    from waffle_con_tpu_torch.serve.procs import worker
+
+    import_s = time.perf_counter() - t0
+    refused = {"n": 0}
+    refuses = torch_scorer.planner_refuses
+
+    def counting(device, planner, *shape):
+        got = refuses(device, planner, *shape)
+        refused["n"] += int(got)
+        return got
+
+    # host seconds in the search threads' snapshots: the body built, its
+    # size taken, the wire form attached and the CHECKPOINT frame sent
+    snap = {"n": 0, "s": 0.0}
+    build = ckpt_mod.CheckpointController._build
+
+    def timed_build(ctrl, builder):
+        t = time.perf_counter()
+        try:
+            return build(ctrl, builder)
+        finally:
+            snap["n"] += 1
+            snap["s"] += time.perf_counter() - t
+
+    torch_scorer.planner_refuses = counting
+    ckpt_mod.CheckpointController._build = timed_build
+    try:
+        rc = worker.main(worker_argv)
+    finally:
+        import torch
+
+        launches, twins = _launch_counts()
+        pool = ops_ragged.arena_stats(ops_ragged.peek_arena())
+        with open(out_path + ".tmp", "w") as fh:
+            json.dump(dict(
+                launches=launches, twin_calls=twins,
+                plan_refused=refused["n"], import_s=import_s,
+                snapshots=snap["n"], snapshot_s=snap["s"],
+                pool={k: pool.get(k) for k in (
+                    "groups", "members", "mixed_w_groups", "admits",
+                    "releases", "launches", "group_failures",
+                    "plan_refused")},
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                max_memory_reserved=torch.cuda.max_memory_reserved(),
+            ), fh)
+        os.replace(out_path + ".tmp", out_path)
+    return rc
+
+
+class _ProcsLauncher:
+    """The ``ProcConfig.launcher`` of ``procs_main``: each worker runs under
+    :func:`procs_worker_main`, its counters written to ``<dir>/<name>.json``
+    when it exits."""
+
+    def __init__(self, out_dir):
+        self.out_dir = out_dir
+        self.procs = {}
+
+    def out(self, name):
+        return os.path.join(self.out_dir, name.replace(":", "_") + ".json")
+
+    def __call__(self, socket_path, name, spec):
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "_procs_worker",
+             self.out(name), "--socket", socket_path, "--worker", name,
+             "--spec", spec],
+            stdin=subprocess.DEVNULL, stdout=2)
+        self.procs[name] = proc
+        return proc
+
+    def counters(self):
+        """Each worker's exit record (``None`` for a worker that wrote
+        none: the drill's victim)."""
+        out = {}
+        for name in self.procs:
+            try:
+                with open(self.out(name)) as fh:
+                    out[name] = json.load(fh)
+            except FileNotFoundError:
+                out[name] = None
+        return out
+
+
+def _children():
+    """Processes whose parent is this one (from ``/proc``)."""
+    me, kids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me:
+            kids.append(int(entry))
+    return kids
+
+
+def _card_memory_used_mib():
+    return float(smi_line("memory.used").split()[0])
+
+
+def _sum_launches(records):
+    total = {}
+    for rec in records:
+        if rec is None:
+            continue
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _procs_door(out_dir, slots, snapshot_s):
+    """A ``ProcFrontDoor`` of :data:`PROCS_WORKERS` workers on the first
+    card with ``serve_main``'s pool geometry, and its launcher (the
+    workers' exit records go to ``out_dir``)."""
+    from waffle_con_tpu_torch.serve import (
+        ProcConfig,
+        ProcFrontDoor,
+        ServeConfig,
+    )
+
+    os.makedirs(out_dir)
+    launcher = _ProcsLauncher(out_dir)
+    door = ProcFrontDoor(ProcConfig(
+        workers=PROCS_WORKERS, worker_slots=slots, queue_limit=16,
+        name="procs", launcher=launcher,
+        serve=ServeConfig(checkpoint_interval_s=snapshot_s, **SERVE_POOL)))
+    return door, launcher
+
+
+def _procs_jobs(out_dir, reqs, solo, snapshot_s):
+    """``serve_requests``' 16 jobs at once through a door of
+    :data:`PROCS_WORKERS` workers of :data:`PROCS_SLOTS` slots, a snapshot
+    every ``snapshot_s`` (0: none), each result held to its solo run, the
+    workers' records checked (``procs_main`` step 1).  Returns the wall,
+    the card's memory before and with the workers up, the door's stats,
+    the per-worker rows and the launches by kernel."""
+    import torch
+
+    mem0 = _card_memory_used_mib()
+    door, launcher = _procs_door(out_dir, PROCS_SLOTS, snapshot_s)
+    with door:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        handles = door.submit_all([req for _k, _s, req in reqs])
+        results = [h.result(timeout=900) for h in handles]
+        wall = time.perf_counter() - t
+        mem_up = _card_memory_used_mib()
+        stats = door.stats()
+    records = launcher.counters()
+    exits = {n: p.returncode for n, p in launcher.procs.items()}
+    for (kind, seed, _req), h, res, (w, _wall) in zip(
+            reqs, handles, results, solo):
+        if h.status.value != "done" or _serve_key(kind, res) != w:
+            raise AssertionError(f"procs_main: {kind} seed {seed}: the "
+                                 "served result != solo")
+    rows = stats["workers"]
+    if not all(r["routed"] for r in rows):
+        raise AssertionError(f"procs_main: a worker routed no job "
+                             f"{[r['routed'] for r in rows]}")
+    if any(v != 0 for v in exits.values()) or None in records.values():
+        raise AssertionError(f"procs_main: worker exits {exits}")
+    launches = _sum_launches(records.values())
+    twins = sum(r["twin_calls"] for r in records.values())
+    refused = sum(r["plan_refused"] + (r["pool"]["plan_refused"] or 0)
+                  for r in records.values())
+    if twins or refused:
+        raise AssertionError(f"procs_main: twin calls {twins}, planner "
+                             f"refusals {refused}")
+    if not (launches["run_extend"] and launches["arena"]
+            and launches["run_ragged"]):
+        raise AssertionError(f"procs_main: launches {launches}")
+    if any(r["pool"]["group_failures"] for r in records.values()):
+        raise AssertionError("procs_main: a gang launch failed")
+    workers = []
+    for r in rows:
+        rec = records[r["worker"]]
+        workers.append(dict(
+            worker=r["worker"], start_s=round(r["start_s"], 3),
+            import_s=round(rec["import_s"], 3), routed=r["routed"],
+            ckpt_frames=r["ckpt_frames"], ckpt_bytes=r["ckpt_bytes"],
+            snapshots=rec["snapshots"],
+            snapshot_s=round(rec["snapshot_s"], 3),
+            launches=rec["launches"], pool_groups=rec["pool"]["groups"],
+            mixed_w_groups=rec["pool"]["mixed_w_groups"],
+            max_memory_allocated_mib=round(
+                rec["max_memory_allocated"] / 2**20, 1),
+            max_memory_reserved_mib=round(
+                rec["max_memory_reserved"] / 2**20, 1)))
+    return dict(wall_s=round(wall, 3), snapshot_every_s=snapshot_s,
+                card_memory_used_mib=dict(before=mem0, workers_up=mem_up),
+                checkpoints=stats["checkpoints"], per_worker=workers,
+                launches=launches)
+
+
+def phase_procs_main():
+    """Out-of-process serving on the card (``serve/procs``): a
+    ``ProcFrontDoor`` whose workers are processes of their own, each with
+    its own CUDA context on the first card.
+
+    1. :data:`PROCS_WORKERS` workers of :data:`PROCS_SLOTS` slots with
+       ``serve_main``'s pool geometry, a snapshot every
+       :data:`PROCS_SNAPSHOT_S`, answer :func:`serve_requests`' 16 jobs
+       submitted at once.  Every result, decoded from the wire, must equal
+       the same request run alone in process on ``"torch"`` (``serve_main``'s
+       when it ran), seed 0 of each kind the C++ engine.  Fails unless both
+       workers routed jobs, the workers' counters show ``run_extend``,
+       ``arena`` and the gang kernel's cross-job launches, and no twin call,
+       planner refusal or failed job happened.  Then the same with no
+       snapshot: what the snapshots cost.
+    2. The SIGKILL drill: :data:`DRILL_JOBS` copies of the dual north star's
+       seed-0 job on workers of one slot, a snapshot every
+       :data:`DRILL_SNAPSHOT_S`; once a worker has streamed a ``CHECKPOINT``
+       frame of a job it runs, it gets ``SIGKILL``.  Every result must
+       equal the solo one, the victim must be ``lost``, a started job must
+       have migrated with its checkpoint (the survivor's counters show
+       column-replay launches: the restore's activations), and exactly one
+       ``worker_lost`` incident must fire.
+    3. ``close()`` drains; every surviving worker exits 0 and no child
+       process is left.
+
+    Prints one line: both 16-job walls beside the solo walls summed and
+    ``serve_main``'s in-process wall, each worker's start (spawn to HELLO)
+    and imports, jobs routed, snapshots and their host seconds, launches
+    by kernel and peak device memory, the card's memory with the workers
+    up, CHECKPOINT frames and bytes, the drill's detection time (kill to
+    ``worker_lost``) and migrations, the card's name and power limit.
+    Returns the launches by kernel of every worker that wrote its record
+    (the drill's victim does not)."""
+    import signal
+    import tempfile
+
+    from waffle_con_tpu_torch.obs import flight as obs_flight
+
+    reqs = serve_requests()
+    solo = [_solo(kind, seed, req) for kind, seed, req in reqs]
+    cpp = {}
+    for (kind, seed, req), (w, _wall) in zip(reqs, solo):
+        if seed != 0 or kind in SERVE_CPP:
+            continue
+        got, cpp_s = _serve_cpp(kind, req)
+        if got != w:
+            raise AssertionError(f"procs_main: {kind} seed 0 != C++")
+        cpp[kind] = round(cpp_s, 3)
+    lost_at = []
+
+    def on_trigger(reason, _trace_id, _detail):
+        if reason == "worker_lost":
+            lost_at.append(time.monotonic())
+
+    obs_flight.add_trigger_listener(on_trigger)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # 1. the 16 jobs, with snapshots and without
+            served = _procs_jobs(os.path.join(tmp, "jobs"), reqs, solo,
+                                 PROCS_SNAPSHOT_S)
+            dark = _procs_jobs(os.path.join(tmp, "no_snapshot"), reqs, solo,
+                               0.0)
+
+            # 2. the SIGKILL drill
+            dual = next(req for kind, seed, req in reqs
+                        if kind == "dual" and seed == 0)
+            want = solo[[i for i, (k, s, _r) in enumerate(reqs)
+                         if k == "dual" and s == 0][0]][0]
+            lost_at.clear()
+            obs_flight.reset()
+            door, drill = _procs_door(os.path.join(tmp, "drill"), 1,
+                                      DRILL_SNAPSHOT_S)
+            with door:
+                t = time.perf_counter()
+                handles = door.submit_all([dual] * DRILL_JOBS)
+                victim = None
+                deadline = time.monotonic() + 600
+                while victim is None and time.monotonic() < deadline:
+                    victim = next((r for r in door.worker_stats()
+                                   if r["ckpt_frames"] and r["started"]),
+                                  None)
+                    time.sleep(0.005)
+                if victim is None:
+                    raise AssertionError("procs_main drill: no checkpoint "
+                                         f"{door.worker_stats()}")
+                killed_at = time.monotonic()
+                os.kill(victim["pid"], signal.SIGKILL)
+                results = [h.result(timeout=900) for h in handles]
+                drill_wall = time.perf_counter() - t
+                drill_stats = door.stats()
+            drill_exits = {n: p.returncode for n, p in drill.procs.items()}
+            drill_records = drill.counters()
+            drill_rows = {r["worker"]: r for r in drill_stats["workers"]}
+            survivor = next(n for n in drill_rows if n != victim["worker"])
+            if any(_serve_key("dual", r) != want for r in results):
+                raise AssertionError("procs_main drill: a result != solo")
+            if drill_rows[victim["worker"]]["state"] != "lost" \
+                    or not drill_rows[victim["worker"]]["migrations"]:
+                raise AssertionError(f"procs_main drill: {drill_rows}")
+            incidents = [i for i in obs_flight.incidents()
+                         if i["reason"] == "worker_lost"]
+            if len(incidents) != 1 or not lost_at:
+                raise AssertionError(f"procs_main drill: {len(incidents)} "
+                                     "worker_lost incidents")
+            if drill_exits[survivor] != 0 or drill_records[survivor] is None:
+                raise AssertionError(f"procs_main drill: exits {drill_exits}")
+            surv = drill_records[survivor]
+            if not surv["launches"]["col_replay"] or surv["twin_calls"] \
+                    or surv["plan_refused"]:
+                raise AssertionError(f"procs_main drill: survivor {surv}")
+    finally:
+        obs_flight.remove_trigger_listener(on_trigger)
+    left = _children()
+    if left:
+        raise AssertionError(f"procs_main: child processes left {left}")
+    total = _sum_launches([served, dark, surv])
+    line = dict(
+        card=smi_line(), jobs=len(reqs), workers=PROCS_WORKERS,
+        slots=PROCS_SLOTS,
+        solo_sum_s=round(sum(w for _r, w in solo), 3),
+        in_process_wall_s=(round(SERVE_WALL["s"], 3) if SERVE_WALL
+                           else None),
+        served=served, no_snapshot=dark, cpp_s=cpp,
+        drill=dict(
+            jobs=DRILL_JOBS, wall_s=round(drill_wall, 3),
+            victim=victim["worker"], victim_exit=drill_exits[victim["worker"]],
+            detect_s=round(lost_at[0] - killed_at, 4),
+            migrations=drill_rows[victim["worker"]]["migrations"],
+            requeues=drill_rows[victim["worker"]]["requeues"],
+            restarts=drill_rows[victim["worker"]]["restarts"],
+            checkpoints=drill_stats["checkpoints"],
+            survivor_launches=surv["launches"]),
+        drill_exits=drill_exits,
+    )
+    print("procs_main", json.dumps(line), flush=True)
+    return total
+
+
 def kernel_row(name, source, replaces, check, launches, status=None):
     """One kernel's entry of the kernel table, from its kernel phase's
     ``(timing, max_err)`` and its launch count on each main path that ran
@@ -6388,7 +6777,8 @@ def main(argv=None) -> int:
                 "late_oracle,arena_kernel,native_baseline,plan_gate,"
                 "gang_kernel,gang_main,branch_kernel,checkpoint_main,"
                 "obs_main,runtime_main,mesh_kernel,mesh_main,"
-                "serve_kernel,serve_main,replica_main,cache_main",
+                "serve_kernel,serve_main,replica_main,cache_main,"
+                "procs_main",
         help="phases after the build, comma-separated")
     ap.add_argument("--small", action="store_true",
                     help="kernel phases on the small geometry only")
@@ -6492,11 +6882,13 @@ def main(argv=None) -> int:
     serve_launches = timed("serve_main", phase_serve_main)
     replica = timed("replica_main", phase_replica_main) or {}
     cached = timed("cache_main", phase_cache_main) or {}
+    procs = timed("procs_main", phase_procs_main) or {}
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
                      checkpoint_main=ckpt.get("run_extend"),
                      replica_main=replica.get("run_extend"),
-                     cache_main=cached.get("run_extend"))
+                     cache_main=cached.get("run_extend"),
+                     procs_main=procs.get("run_extend"))
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
                    run_check, run_paths),
@@ -6506,23 +6898,27 @@ def main(argv=None) -> int:
                         priority_main=prio_launches[1],
                         checkpoint_main=ckpt.get("run_extend_dual"),
                         replica_main=replica.get("run_extend_dual"),
-                        cache_main=cached.get("run_extend_dual"))),
+                        cache_main=cached.get("run_extend_dual"),
+                        procs_main=procs.get("run_extend_dual"))),
         kernel_row("offset_scan", "offset_scan.cu", "jax_scorer.py:2637",
                    scan_check, dict(late_main=late_launches[0],
                                     checkpoint_main=ckpt.get("offset_scan"),
                                     replica_main=replica.get("offset_scan"),
-                        cache_main=cached.get("offset_scan"))),
+                                    cache_main=cached.get("offset_scan"),
+                                    procs_main=procs.get("offset_scan"))),
         kernel_row("col_replay", "col_replay.cu", "jax_scorer.py:773,2688",
                    replay_check, dict(late_main=late_launches[1],
                                       checkpoint_main=ckpt.get("col_replay"),
                                       replica_main=replica.get("col_replay"),
-                        cache_main=cached.get("col_replay"))),
+                                      cache_main=cached.get("col_replay"),
+                                      procs_main=procs.get("col_replay"))),
         kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
                    dict({path: ARENA_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main", "late_main")},
                         checkpoint_main=ckpt.get("arena"),
                         replica_main=replica.get("arena"),
-                        cache_main=cached.get("arena"))),
+                        cache_main=cached.get("arena"),
+                        procs_main=procs.get("arena"))),
         # the megastep is the run kernel under a step cap: its launches
         # are the run kernel's, its numbers the capped launch's
         kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",
@@ -6534,7 +6930,8 @@ def main(argv=None) -> int:
                           "late_main")}, gang_main=gang_main_launches,
                         serve_main=serve_launches,
                         replica_main=replica.get("run_ragged"),
-                        cache_main=cached.get("run_ragged")),
+                        cache_main=cached.get("run_ragged"),
+                        procs_main=procs.get("run_ragged")),
                    status="redesigned: members packed by their own "
                           "cluster size, a member-scoped st.async exchange "
                           "instead of the cluster barrier"),
@@ -6545,7 +6942,8 @@ def main(argv=None) -> int:
                           "plan_gate")},
                         checkpoint_main=ckpt.get("branch_step"),
                         replica_main=replica.get("branch_step"),
-                        cache_main=cached.get("branch_step")),
+                        cache_main=cached.get("branch_step"),
+                        procs_main=procs.get("branch_step")),
                    status="redesigned: one launch a batch with the band in "
                           "registers (one_launch), else the slab plan"),
         # the shards of a card are one fused branch-step call: its
@@ -6565,7 +6963,8 @@ def main(argv=None) -> int:
         by = row["launches_by_path"]
         if row["name"] == "run_ragged":
             by = {k: v for k, v in by.items()
-                  if k in ("gang_main", "serve_main", "replica_main")}
+                  if k in ("gang_main", "serve_main", "replica_main",
+                           "procs_main")}
         if by and not sum(by.values()) and not ARENA_OFF:
             return fail(f"{row['name']}: no launch on the main paths "
                         f"{row['launches_by_path']}")
@@ -6585,4 +6984,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["_procs_worker"]:
+        sys.exit(procs_worker_main(sys.argv[2:]))
     sys.exit(main())

@@ -23,6 +23,7 @@ from test_torch_checkpoint import _engine, _key
 from waffle_con_tpu.obs import audit as jaudit
 from waffle_con_tpu_torch.models import checkpoint as tck
 from waffle_con_tpu_torch.obs import audit as obs_audit
+from waffle_con_tpu_torch.obs import flight as obs_flight
 from waffle_con_tpu_torch.obs import metrics as obs_metrics
 from waffle_con_tpu_torch.ops.scorer import construct_backend
 from waffle_con_tpu_torch.runtime import faults
@@ -302,6 +303,34 @@ def test_seeded_flip_vote_aborts_shadow_once(fault_plan):
     assert detail["value_a"] != detail["value_b"]
     assert obs_audit.stats_snapshot()["divergences"] == 1
     assert fault_plan.specs[0].fired == 1
+
+
+def test_divergence_fires_one_flight_incident(fault_plan):
+    # the clean shadow fires none; the flip-vote draw exactly one,
+    # however many records both sides stream past the divergence
+    obs_flight.reset()
+    with obs_audit.shadow_override("python"):
+        _single("torch").consensus()
+    assert [i for i in obs_flight.incidents()
+            if i["reason"] == "parity_divergence"] == []
+    with obs_audit.capture(strict_align=True) as sinks:
+        _single("torch").consensus()
+    length = next(r["len"] for r in sinks[0].records
+                  if r["kind"] == "run" and r.get("forced"))
+    fault_plan.add("flip_vote", backend="torch", op="vote", at=length,
+                   count=1)
+    obs_flight.reset()
+    try:
+        with pytest.raises(obs_audit.ParityDivergence) as err:
+            with obs_audit.shadow_override("python"):
+                _single("torch").consensus()
+        incidents = [i for i in obs_flight.incidents()
+                     if i["reason"] == "parity_divergence"]
+        assert len(incidents) == 1
+        key = err.value.detail["key"]
+        assert incidents[0]["detail"]["key"][:2] == [key[0], key[1]]
+    finally:
+        obs_flight.reset()
 
 
 # ----------------------------------------------------- metrics & status

@@ -55,7 +55,9 @@ import zlib
 from contextlib import contextmanager
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+from waffle_con_tpu_torch.obs import flight as obs_flight
 from waffle_con_tpu_torch.obs import metrics as obs_metrics
+from waffle_con_tpu_torch.obs import trace as obs_trace
 
 #: engines the lockstep shadow knows how to twin (priority searches are
 #: shadowed per inner dual-engine group solve, which flows through the
@@ -382,12 +384,14 @@ class _LockstepComparator:
     """Streaming decision-map comparison between the primary ("a") and
     the shadow oracle ("b").  Each emitted record's units are checked
     against the other side's accumulated map; the first conflicting unit
-    is counted exactly once (``divergences`` in :func:`stats_snapshot`)
-    and raises :class:`ParityDivergence` in the feeding thread (the other
-    side aborts at its next emit)."""
+    is counted exactly once (``divergences`` in :func:`stats_snapshot`),
+    fires one ``parity_divergence`` flight incident under the search's
+    trace id, and raises :class:`ParityDivergence` in the feeding thread
+    (the other side aborts at its next emit)."""
 
-    def __init__(self) -> None:
+    def __init__(self, trace_id: Optional[str]) -> None:
         self._lock = threading.Lock()
+        self._trace_id = trace_id
         self._maps: Dict[str, Dict[Tuple, Tuple]] = {"a": {}, "b": {}}
         self.divergence: Optional[Dict] = None
         self.abort = False
@@ -430,6 +434,9 @@ class _LockstepComparator:
         self.divergence = detail
         with _STATS_LOCK:
             _STATS["divergences"] += 1
+        obs_flight.trigger(
+            "parity_divergence", trace_id=self._trace_id, **detail
+        )
 
 
 class _ShadowRun:
@@ -440,7 +447,7 @@ class _ShadowRun:
     def __init__(self, engine, engine_label: str) -> None:
         self.engine = engine
         self.label = engine_label
-        self.comparator = _LockstepComparator()
+        self.comparator = _LockstepComparator(obs_trace.current_trace_id())
         self.shadow_engine = _clone_to_python(engine)
         self._shadow_results = None
         self._shadow_exc: Optional[BaseException] = None

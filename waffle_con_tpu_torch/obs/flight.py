@@ -14,8 +14,11 @@ Triggers (see :data:`TRIGGER_REASONS`): ``deadline_exceeded``,
 ``watchdog_budget_exceeded``, the SLO layer's ``slow_search`` (current
 search > k x rolling p95, :mod:`waffle_con_tpu_torch.obs.slo`),
 ``checkpoint_rejected``, the consensus cache's ``cache_quarantine`` (a
-corrupt stored entry moved aside) and the lock checker's
-``lock_order_inversion``.
+corrupt stored entry moved aside), the out-of-process front door's
+``worker_lost`` (a worker process crashed or went silent past the
+liveness lapse, :mod:`waffle_con_tpu_torch.serve.procs.door`), the
+lockstep shadow's ``parity_divergence`` (:mod:`waffle_con_tpu_torch.obs.
+audit`) and the lock checker's ``lock_order_inversion``.
 
 On a trigger the recorder assembles a self-contained JSON **incident**:
 the triggering job's records (filtered from the ring by trace id),
@@ -33,7 +36,9 @@ re-fires once the window expires.  The ring holds 2,048 records by
 default.  Trigger listeners (:func:`add_trigger_listener`) see every
 trigger before dedupe: the replicated front door
 (:mod:`waffle_con_tpu_torch.serve.replicas`) drains and sheds replicas
-from them.
+from them.  Incident listeners (:func:`add_incident_listener`) see each
+incident dedupe admitted, and :func:`ingest_remote` takes in one built by
+another process (a worker's, forwarded to the front door).
 
 Overhead: the engines' scorer calls make no call into this module
 (recording happens at the serve layer's dispatch and job boundaries and
@@ -59,7 +64,9 @@ TRIGGER_REASONS = (
     "service_overloaded",
     "watchdog_budget_exceeded",
     "slow_search",
+    "worker_lost",
     "checkpoint_rejected",
+    "parity_divergence",
     "lock_order_inversion",
 )
 
@@ -234,6 +241,36 @@ class FlightRecorder:
         incident = self._build_incident(seq, reason, trace_id, detail)
         return self._dump_and_keep(incident, seq, reason)
 
+    def ingest_remote(self, incident: Dict,
+                      worker: Optional[str] = None) -> Optional[Dict]:
+        """Re-ingest an incident built by another process's recorder (a
+        worker's ``INCIDENT`` frame): run this side's ``(reason,
+        trace_id)`` dedupe at fleet scope, re-stamp the sequence number,
+        attribute the originating worker, and dump through the normal
+        path.  Returns the ingested incident, or ``None`` when suppressed
+        (or the payload is not an incident object)."""
+        if not isinstance(incident, dict):
+            return None
+        reason = str(incident.get("reason") or "unknown")
+        trace_id = incident.get("trace_id")
+        if trace_id is not None:
+            trace_id = str(trace_id)
+        seq = self._admit(reason, trace_id)
+        if seq is None:
+            return None
+        ingested = dict(incident)
+        ingested["seq"] = seq
+        ingested["reason"] = reason
+        ingested["origin"] = "remote"
+        ingested["ingested_unix_time"] = time.time()
+        if worker is not None:
+            ingested["worker"] = worker
+        # a shipped path names a file in the worker's incident directory:
+        # kept as provenance, this side's path is set by the dump
+        if "path" in ingested:
+            ingested["worker_path"] = ingested.pop("path")
+        return self._dump_and_keep(ingested, seq, reason)
+
     def _build_incident(self, seq: int, reason: str,
                         trace_id: Optional[str], detail: Dict) -> Dict:
         from waffle_con_tpu_torch.obs import metrics as obs_metrics
@@ -302,6 +339,37 @@ def _notify_listeners(reason: str, trace_id: Optional[str],
             pass
 
 
+#: incident listeners: called with the built incident after dedupe
+#: admitted it (the worker process forwards each to the front door as an
+#: ``INCIDENT`` frame: one frame a unique incident, not an occurrence)
+_INCIDENT_LISTENERS: List = []
+
+
+def add_incident_listener(fn) -> None:
+    """Register ``fn(incident)`` on every incident a trigger builds."""
+    with _LISTENER_LOCK:
+        if fn not in _INCIDENT_LISTENERS:
+            _INCIDENT_LISTENERS.append(fn)
+
+
+def remove_incident_listener(fn) -> None:
+    with _LISTENER_LOCK:
+        try:
+            _INCIDENT_LISTENERS.remove(fn)
+        except ValueError:
+            pass
+
+
+def _notify_incident_listeners(incident: Dict) -> None:
+    with _LISTENER_LOCK:
+        listeners = list(_INCIDENT_LISTENERS)
+    for fn in listeners:
+        try:
+            fn(incident)
+        except Exception:  # noqa: BLE001 - listeners must never break
+            pass
+
+
 def get_recorder() -> FlightRecorder:
     return _RECORDER
 
@@ -313,7 +381,16 @@ def record(kind: str, /, trace_id: Optional[str] = None, **fields) -> None:
 def trigger(reason: str, trace_id: Optional[str] = None,
             **detail) -> Optional[Dict]:
     _notify_listeners(reason, trace_id, detail)
-    return _RECORDER.trigger(reason, trace_id=trace_id, **detail)
+    incident = _RECORDER.trigger(reason, trace_id=trace_id, **detail)
+    if incident is not None:
+        _notify_incident_listeners(incident)
+    return incident
+
+
+def ingest_remote(incident: Dict,
+                  worker: Optional[str] = None) -> Optional[Dict]:
+    """Module-level :meth:`FlightRecorder.ingest_remote` passthrough."""
+    return _RECORDER.ingest_remote(incident, worker=worker)
 
 
 def incidents() -> List[Dict]:

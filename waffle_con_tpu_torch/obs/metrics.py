@@ -26,6 +26,7 @@ Example::
 from __future__ import annotations
 
 import bisect
+import re
 import threading
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -154,6 +155,16 @@ def _format_labels(key: _LabelKey, extra: str = "") -> str:
     return "{" + ",".join(parts) + "}" if parts else ""
 
 
+_LABEL_RE = re.compile(r'(\w+)="([^"]*)"')
+
+
+def _parse_labels(label_str: str) -> Dict[str, str]:
+    """Inverse of :func:`_format_labels` for the label values this
+    registry emits (identifiers, backend and service names, never an
+    embedded quote)."""
+    return dict(_LABEL_RE.findall(label_str or ""))
+
+
 class MetricsRegistry:
     """Thread-safe named-metric store with labelled children.
 
@@ -222,6 +233,63 @@ class MetricsRegistry:
     def reset(self) -> None:
         with self._lock:
             self._families.clear()
+
+    # -- federation ----------------------------------------------------
+
+    def merge_snapshot(self, snap: Dict, **extra_labels) -> int:
+        """Take in another process's :meth:`snapshot` under added labels:
+        the front door merges each worker's periodic ``STATS`` snapshot
+        with ``worker=<name>``, so one exposition covers the fleet.
+
+        A remote snapshot is cumulative, so each child is **set** to the
+        shipped value (the latest snapshot of a worker wins), not
+        incremented.  A malformed series, or a family whose type collides
+        with this registry's, is skipped, never raised: a worker's
+        snapshot cannot stop the door's reader.  Returns the number of
+        series merged."""
+        if not isinstance(snap, dict):
+            return 0
+        merged = 0
+        for name, family in snap.items():
+            if not isinstance(family, dict):
+                continue
+            kind = family.get("type")
+            series = family.get("series")
+            if kind not in ("counter", "gauge", "histogram") \
+                    or not isinstance(series, dict):
+                continue
+            for label_str, value in series.items():
+                labels = _parse_labels(str(label_str))
+                labels.update(extra_labels)
+                try:
+                    if kind == "histogram":
+                        ordered = sorted(
+                            (float(b), int(c))
+                            for b, c in value.get("buckets", {}).items()
+                        )
+                        if not ordered:
+                            continue
+                        counts = ([c for _b, c in ordered]
+                                  + [int(value.get("overflow", 0))])
+                        h_sum = float(value.get("sum", 0.0))
+                        h_count = int(value.get("count", 0))
+                        child = self._child(
+                            "histogram", name, labels,
+                            bounds=[b for b, _c in ordered],
+                        )
+                        with child._lock:
+                            child.counts = counts
+                            child.sum = h_sum
+                            child.count = h_count
+                    else:
+                        number = float(value)
+                        child = self._child(kind, name, labels)
+                        with child._lock:
+                            child.value = number
+                    merged += 1
+                except (ValueError, TypeError, AttributeError):
+                    continue
+        return merged
 
     # -- exposition ----------------------------------------------------
 

@@ -26,6 +26,16 @@ of open span ids carrying parent linkage.  :func:`set_current_context`
 activates one for the calling thread; :func:`current_trace_id` is what
 search reports and audit records carry.
 
+Across processes (:mod:`waffle_con_tpu_torch.serve.procs`): the front
+door ships a job's context on its ``SUBMIT`` frame
+(:func:`context_to_wire`), the worker adopts it
+(:func:`context_from_wire`: same trace id and Chrome pid, disjoint span
+ids, root spans parented under the door's per-job span), drains the
+job's events (:meth:`Tracer.drain_events`) onto its result frames, and
+the door merges them onto its own clock
+(:meth:`Tracer.ingest_remote_events`); :meth:`Tracer.flow` draws the
+socket hops and :meth:`Tracer.record_span` the door's own phases.
+
 Example::
 
     from waffle_con_tpu_torch.obs import trace
@@ -107,6 +117,38 @@ class TraceContext:
 #: Chrome pids for trace contexts start here so they can never collide
 #: with a real process pid on the same timeline
 JOB_PID_BASE = 1_000_000
+
+
+def context_to_wire(ctx: TraceContext,
+                    parent_span_id: Optional[int] = None,
+                    span_base: int = 0,
+                    flow_id: Optional[int] = None) -> Dict:
+    """A :class:`TraceContext` as the plain-JSON dict a ``SUBMIT`` frame
+    carries to a worker process (``serve.procs.wire.decode_trace``
+    validates it on the receiving side)."""
+    return {
+        "trace_id": ctx.trace_id,
+        "chrome_pid": ctx.chrome_pid,
+        "label": ctx.label,
+        "parent_span_id": parent_span_id,
+        "span_base": int(span_base),
+        "flow_id": flow_id,
+    }
+
+
+def context_from_wire(obj: Dict) -> TraceContext:
+    """Rebuild an adopted :class:`TraceContext` from a wire dict: the
+    minting process's trace id and Chrome pid, span ids allocated from the
+    shipped disjoint base, stack-root spans parented under the minting
+    side's per-job root span."""
+    return TraceContext(
+        str(obj["trace_id"]),
+        int(obj["chrome_pid"]),
+        label=str(obj.get("label") or ""),
+        span_base=int(obj.get("span_base") or 0),
+        root_parent=(int(obj["parent_span_id"])
+                     if obj.get("parent_span_id") is not None else None),
+    )
 
 
 _CTX = threading.local()
@@ -245,16 +287,144 @@ class Tracer:
             event["args"] = args
         dt = (end_ns - start_ns) / 1e9
         with self._lock:
-            if ctx is not None and ctx.chrome_pid not in self._named_pids:
-                self._named_pids.add(ctx.chrome_pid)
-                self._events.append({
-                    "name": "process_name",
-                    "ph": "M",
-                    "pid": ctx.chrome_pid,
-                    "args": {"name": ctx.label},
-                })
+            if ctx is not None:
+                self._name_pid(ctx)
             self._events.append(event)
             self._totals[span.cat] = self._totals.get(span.cat, 0.0) + dt
+
+    def _name_pid(self, ctx: TraceContext) -> None:
+        """The process-name metadata event of ``ctx``'s Chrome pid, once
+        (call with the lock held)."""
+        if ctx.chrome_pid not in self._named_pids:
+            self._named_pids.add(ctx.chrome_pid)
+            self._events.append({
+                "name": "process_name",
+                "ph": "M",
+                "pid": ctx.chrome_pid,
+                "args": {"name": ctx.label},
+            })
+
+    def flow(self, phase: str, flow_id: int, name: str = "coalesce",
+             ctx: Optional[TraceContext] = None) -> None:
+        """Append a Chrome flow event (``phase`` ``"s"`` where the hop
+        starts, ``"f"`` where it ends), so a hop between threads or across
+        the worker socket renders as an arrow in Perfetto.  ``ctx``
+        overrides the thread's context (the front door and the worker
+        draw socket-hop arrows from threads that never activate the
+        job's context).  No-op when tracing is off."""
+        if not self.enabled:
+            return
+        if ctx is None:
+            ctx = current_context()
+        event = {
+            "name": name,
+            "cat": "flow",
+            "ph": phase,
+            "id": int(flow_id),
+            "ts": (time.perf_counter_ns() - self._t0_ns) / 1e3,
+            "pid": self._pid if ctx is None else ctx.chrome_pid,
+            "tid": threading.get_ident() % 2**31,
+        }
+        if phase == "f":
+            event["bp"] = "e"  # bind the finish to the enclosing slice
+        with self._lock:
+            self._events.append(event)
+
+    def record_span(self, ctx: TraceContext, name: str, cat: str,
+                    start_mono_s: float, end_mono_s: float,
+                    span_id: Optional[int] = None,
+                    parent_id: Optional[int] = None, **args) -> None:
+        """Append one complete event under ``ctx`` after the fact (the
+        front door's queue wait and its whole per-job envelope):
+        ``start_mono_s`` / ``end_mono_s`` are ``time.monotonic()``
+        readings, mapped onto this tracer's clock through a paired sample
+        of both clocks.  No-op when tracing is off."""
+        if not self.enabled:
+            return
+        now_us = (time.perf_counter_ns() - self._t0_ns) / 1e3
+        now_mono = time.monotonic()
+        event = {
+            "name": name,
+            "cat": cat,
+            "ph": "X",
+            "ts": now_us - (now_mono - start_mono_s) * 1e6,
+            "dur": max(0.0, (end_mono_s - start_mono_s) * 1e6),
+            "pid": ctx.chrome_pid,
+            "tid": threading.get_ident() % 2**31,
+            "args": dict(args, trace_id=ctx.trace_id, span_id=span_id,
+                         parent_id=parent_id),
+        }
+        dt = max(0.0, end_mono_s - start_mono_s)
+        with self._lock:
+            self._name_pid(ctx)
+            self._events.append(event)
+            self._totals[cat] = self._totals.get(cat, 0.0) + dt
+
+    # -- cross-process stitching ---------------------------------------
+
+    def unix_origin_us(self) -> float:
+        """Unix-epoch microseconds at ``ts == 0`` of this tracer's clock,
+        shipped beside a drained span buffer so another process can rebase
+        it onto its own timeline."""
+        return time.time() * 1e6 - (
+            time.perf_counter_ns() - self._t0_ns
+        ) / 1e3
+
+    def drain_events(self, pid: int,
+                     limit: Optional[int] = None) -> List[Dict]:
+        """Remove and return this tracer's events of one Chrome pid (a
+        served job's): the worker-side span buffer a ``RESULT`` /
+        ``ERROR`` / ``CHECKPOINT`` frame carries back to the door.
+
+        Process-name metadata stays (the door names the pid on its side).
+        ``limit`` keeps only the latest events: spans complete children
+        first, so the tail holds the enclosing spans and the job's root.
+        """
+        kept: List[Dict] = []
+        out: List[Dict] = []
+        with self._lock:
+            for event in self._events:
+                if event.get("pid") == pid and event.get("ph") != "M":
+                    out.append(event)
+                else:
+                    kept.append(event)
+            self._events[:] = kept
+        if limit is not None and limit >= 0 and len(out) > limit:
+            out = out[len(out) - limit:]
+        return out
+
+    def ingest_remote_events(self, events: List[Dict],
+                             origin_us: Optional[float] = None,
+                             worker: Optional[str] = None) -> int:
+        """Merge another process's drained span events into this tracer,
+        rebasing their timestamps onto this tracer's clock (``origin_us``
+        is the remote :meth:`unix_origin_us`) and tagging each with
+        ``worker``.  Returns the number of events kept."""
+        if not self.enabled or not events:
+            return 0
+        shift = 0.0
+        if origin_us is not None:
+            try:
+                shift = float(origin_us) - self.unix_origin_us()
+            except (TypeError, ValueError):
+                shift = 0.0
+        stitched: List[Dict] = []
+        for event in events:
+            if not isinstance(event, dict):
+                continue
+            event = dict(event)
+            try:
+                event["ts"] = float(event.get("ts", 0.0)) + shift
+            except (TypeError, ValueError):
+                continue
+            if worker:
+                args = dict(event.get("args") or {})
+                args.setdefault("worker", worker)
+                event["args"] = args
+            stitched.append(event)
+        with self._lock:
+            self._events.extend(stitched)
+        return len(stitched)
 
     # -- export --------------------------------------------------------
 
@@ -297,3 +467,8 @@ def span(name: str, cat: str = "host", **args):
 
 def tracing_enabled() -> bool:
     return _TRACER.enabled
+
+
+def unix_origin_us() -> float:
+    """Module-level :meth:`Tracer.unix_origin_us` passthrough."""
+    return _TRACER.unix_origin_us()

@@ -13,5 +13,13 @@
 * :mod:`~waffle_con_tpu_torch.runtime.watchdog` — dispatch budgets and
   deadlines;
 * :mod:`~waffle_con_tpu_torch.runtime.events` — the process-wide event
-  log the others record into.
+  log the others record into;
+* :mod:`~waffle_con_tpu_torch.runtime.liveness` — the out-of-process
+  front door's heartbeat ledger (:class:`Heartbeats`) and the typed
+  :class:`WorkerLost` a job fails with when its worker dies.
 """
+
+from waffle_con_tpu_torch.runtime.liveness import (  # noqa: F401
+    Heartbeats,
+    WorkerLost,
+)

@@ -1,6 +1,6 @@
-"""Multi-tenant consensus serving with cross-job batching, in process.
+"""Multi-tenant consensus serving with cross-job batching.
 
-The port of ``waffle_con_tpu``'s ``serve`` package (its in-process path):
+The port of ``waffle_con_tpu``'s ``serve`` package:
 
 * :class:`~waffle_con_tpu_torch.serve.service.ConsensusService` —
   accepts many independent jobs (single, dual, priority), a bounded
@@ -32,12 +32,14 @@ The port of ``waffle_con_tpu``'s ``serve`` package (its in-process path):
   and certified near-misses served without a search (``CACHED``,
   ``CERTIFIED``), read supersets resumed from a cached bound-free
   checkpoint, results optionally kept in hash-sealed files.
-* :mod:`~waffle_con_tpu_torch.serve.procs.wire` — the out-of-process
-  wire codec (frames, and the config, request and result codecs the
+* :class:`~waffle_con_tpu_torch.serve.procs.door.ProcFrontDoor` — the
+  out-of-process front door: N worker processes
+  (``python -m waffle_con_tpu_torch.serve.procs.worker``), each one
+  service with its own GIL and CUDA context, behind admission, routing,
+  health and liveness, a lost worker's started jobs migrating with their
+  latest checkpoint; :mod:`~waffle_con_tpu_torch.serve.procs.wire` is
+  its wire codec (frames, and the config, request and result codecs the
   cache stores results in).
-
-Not ported yet: out-of-process workers (A9d: the worker process, the
-front door and worker liveness).
 """
 
 from waffle_con_tpu_torch.ops.ragged import ArenaExhausted
@@ -57,6 +59,7 @@ from waffle_con_tpu_torch.serve.job import (
     ServiceOverloaded,
 )
 from waffle_con_tpu_torch.serve.placement import PlacementPolicy
+from waffle_con_tpu_torch.serve.procs.door import ProcConfig, ProcFrontDoor
 from waffle_con_tpu_torch.serve.replicas import (
     ReplicatedConfig,
     ReplicatedService,
@@ -76,6 +79,8 @@ __all__ = [
     "JobRequest",
     "JobStatus",
     "PlacementPolicy",
+    "ProcConfig",
+    "ProcFrontDoor",
     "ReplicatedConfig",
     "ReplicatedService",
     "ServeConfig",

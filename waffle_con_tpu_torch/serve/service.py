@@ -48,8 +48,9 @@ The consensus cache (:mod:`waffle_con_tpu_torch.serve.cache`, on with
 certified hit finishes the handle in :meth:`ConsensusService.submit`
 (``CACHED`` / ``CERTIFIED``, never queued, no kernel of a search
 launched), a checkpoint hit attaches a cached bound-free snapshot that
-the job resumes with its extra reads.  Out-of-process workers are not
-ported yet.
+the job resumes with its extra reads.  Out of process, one service runs
+in each worker process behind the front door
+(:mod:`waffle_con_tpu_torch.serve.procs`).
 """
 
 from __future__ import annotations
@@ -318,7 +319,8 @@ class ConsensusService:
 
     # -- client API ----------------------------------------------------
 
-    def submit(self, request: JobRequest, checkpoint=None) -> JobHandle:
+    def submit(self, request: JobRequest, checkpoint=None,
+               trace=None) -> JobHandle:
         """Admit one job; raises :class:`ServiceOverloaded` when the
         bounded queue is full and :class:`ServiceClosed` after close.
         ``checkpoint`` optionally resumes a previously snapshotted search
@@ -329,7 +331,14 @@ class ConsensusService:
         incident, never a failed job.  With the cache on, a job without a
         checkpoint is looked up first (the certify pass inside the
         service's device scope): an exact or certified hit is finished
-        here without being queued."""
+        here without being queued.
+
+        ``trace`` replaces the handle's own
+        :class:`~waffle_con_tpu_torch.obs.trace.TraceContext`: a worker
+        process adopts the front door's context here, so its spans join
+        the door's per-job trace tree.  It is installed before the queue
+        put, because a pool worker may take the handle (and its
+        ``trace``) the moment it is queued."""
         if not isinstance(request, JobRequest):
             raise TypeError(
                 f"expected JobRequest, got {type(request).__name__}"
@@ -341,6 +350,8 @@ class ConsensusService:
             handle = JobHandle(
                 self._next_id, request, service=self.config.name
             )
+            if trace is not None:
+                handle.trace = trace
             self._next_id += 1
         if checkpoint is not None:
             handle._attach_checkpoint(checkpoint)
