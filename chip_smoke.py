@@ -294,16 +294,26 @@ deployment's own recorded calls (scans, activations and growths).
     Each line gives the shards a device, ms a step (CUDA events around
     the call, host work included), its device ms (``torch.profiler``:
     every activity, and the branch-step kernels alone), the plain
-    version's ms and the bound.
+    version's ms and the bound.  Then the shard instances of the run,
+    dual-run and arena kernels (``run_extend_shards_cuda`` and kin: one
+    launch for every shard of a store on one card) at 1, 2 and 4 shards of
+    ``cuda:0``, each launch bitwise against its plain version on the same
+    shards and against the unsharded kernel on the unsharded store: the
+    single north star's root run capped at 100 steps, a dual north-star
+    run (300 steps from just past the second SNP), the dual north star's
+    first arena call, and a run whose band of E=8 overflows.  Each line
+    gives the events ms and device ms of the sharded and the unsharded
+    launch, the plain version's ms and the unsharded kernel's bound.
 23. mesh_main: the engines through ``mesh_shards=4`` (a pinned
     ``DeviceSet`` of 4 shard devices, round-robin over the cards): the
     single north star (cold and warm), the priority north star and the
-    dual engine on 64 reads x 1 kb at the dual north star's settings
-    (depth cut from 5 kb).  Each result equals the unsharded ``"torch"``
-    search's and the C++ engine's byte for byte; on the sharded store the
-    run, dual-run, arena and gang kernels launch 0 times, the branch step
-    more, and no plain twin runs.  One line a draw: the placement, the
-    sharded and unsharded walls, launches by kernel, shard steps.
+    dual north star (64 reads x 5 kb).  Each result equals the unsharded
+    ``"torch"`` search's and the C++ engine's byte for byte; on
+    co-resident shards the run, dual-run and arena kernels launch their
+    shard instances as often as the unsharded search launches the
+    kernels, the gang kernel 0 times, no plain version runs and no
+    planner refuses.  One line a draw: the placement, the sharded and
+    unsharded walls, launches by kernel, shard steps.
 
 24. serve_kernel: the gang kernel (``csrc/run_ragged.cu``) with members
     from different branch stores in one launch, in place as the serving
@@ -411,6 +421,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 #: the card's HBM rate (NVIDIA H100 SXM data sheet), bytes/s
 PEAK_BYTES_S = 3.35e12
@@ -558,7 +569,8 @@ def gang_counters(c):
 #: the launch planners' refusals: a shape a planner refuses takes the
 #: engines' host path (the arena: not engaged)
 PLAN_KEYS = ("plan_refused_arena", "plan_refused_run",
-             "plan_refused_run_dual", "plan_refused_ragged")
+             "plan_refused_run_dual", "plan_refused_ragged",
+             "plan_refused_cross_card")
 
 
 def plan_refusals(where, c):
@@ -5133,7 +5145,341 @@ def phase_mesh_kernel(small_only: bool):
                              device_ms=line["device_ms"],
                              kernels_device_ms=round(kern_ms / reps, 5),
                              per_shard_ms=round(per_ms, 4))
+    # the shard instances of the run, dual-run and arena kernels
+    phase_mesh_run_kernels(small_only, smi, 3 if small_only else 5)
     return first, worst
+
+
+# the shard instances of the run, dual-run and arena kernels: one launch
+# for every shard of a read-sharded store on one card
+
+#: kernel -> its 4-shard numbers in ``mesh_kernel`` (for the kernel table)
+MESH_RUN_CHECKS = {}
+
+
+def _mesh_split(st, rd, rl, k):
+    """A one-store state, its reads and lengths split over ``k``
+    co-resident shards of ``cuda:0``: ``(states, reads, rlens)``."""
+    from waffle_con_tpu_torch.ops.state_io import (
+        split_reads, split_state, state_to_numpy)
+
+    devs = ("cuda:0",) * k
+    return (split_state(state_to_numpy(st), devs), split_reads(rd, devs),
+            split_reads(rl, devs))
+
+
+def _np_store(st):
+    """A copy of a store (one dict, or the shards' dicts gathered in read
+    order) as numpy arrays."""
+    import numpy as np
+    from waffle_con_tpu_torch.ops.state_io import gather_state, state_to_numpy
+
+    got = gather_state(st) if isinstance(st, list) else state_to_numpy(st)
+    return {k: np.array(v) for k, v in got.items()}
+
+
+def _np_err(a, b):
+    """Max abs difference of two lists of numpy arrays (raises on a shape
+    that differs)."""
+    err = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            raise AssertionError(f"shape {x.shape} vs {y.shape}")
+        if x.size:
+            err = max(err, int(abs(x.astype("int64")
+                                   - y.astype("int64")).max()))
+    return err
+
+
+def _slot_rows_err(a, b, slots):
+    """Max abs difference of the rows of ``slots`` in two numpy stores:
+    band, folds, offsets, activity, length and the consensus up to it."""
+    err = 0
+    for slot in slots:
+        err = max(err, _np_err([a[k][slot] for k in ("D", "e", "rmin", "er",
+                                                     "off", "act", "clen")],
+                               [b[k][slot] for k in ("D", "e", "rmin", "er",
+                                                     "off", "act", "clen")]))
+        n = int(a["clen"][slot])
+        err = max(err, _np_err([a["cons"][slot, :n]], [b["cons"][slot, :n]]))
+    return err
+
+
+class MeshRunCase(NamedTuple):
+    """One call of a kernel held as a shard instance: ``kind`` (``run``,
+    ``dual`` or ``arena``), the unsharded store, reads and lengths, the
+    call's other inputs after the reads (``pre`` are the run's and the
+    dual's slots, which come before them), and the kernel's
+    ``RunArgs`` / ``DualRunArgs`` / ``ArenaArgs``."""
+
+    label: str
+    kind: str
+    state: dict
+    reads: object
+    rlen: object
+    pre: tuple
+    post: tuple
+    args: object
+
+
+def _mesh_fns(kind):
+    """``(shard instance, its plain version, the unsharded kernel, the
+    kernel's device name, its fetch)`` of a kind."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    return {
+        "run": (rk.run_extend_shards_cuda, rk.run_extend_shards_plain,
+                rk.run_extend_cuda, "run_extend_kernel"),
+        "dual": (rdk.run_extend_dual_shards_cuda,
+                 rdk.run_extend_dual_shards_plain, rdk.run_extend_dual_cuda,
+                 "run_extend_dual_kernel"),
+        "arena": (ak.arena_shards_cuda, ak.arena_shards_plain, ak.arena_cuda,
+                  "arena_kernel"),
+    }[kind]
+
+
+def _mesh_call(case, fn, st, rd, rl):
+    """``fn`` on a store (or the shards' stores) in the argument order of
+    its kind: the run's and the dual's slots before the reads, the
+    arena's inputs after them."""
+    if case.kind == "arena":
+        return fn(st, rd, rl, *case.post, case.args)
+    return fn(st, *case.pre, rd, rl, *case.post, case.args)
+
+
+def _mesh_result(case, outs, R, A):
+    """A call's outputs as numpy arrays (the run's packed fields as
+    ``unpack`` gives them, the records up to their count) and what its
+    line reports: ``(arrays, steps, code, result)``."""
+    import numpy as np
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    none = np.zeros(0, np.int64)
+    if case.kind == "run":
+        res, rs, rf = rk.fetch(*outs, R, A, case.args.max_steps)
+        arrays = [np.array([res.steps, res.code, res.rec_count,
+                            int(res.fin_ovf), res.clen])]
+        arrays += [np.asarray(getattr(res, f)) for f in
+                   ("eds", "split", "reached", "fin", "occ", "syms")]
+        arrays += [none if rs is None else rs, none if rf is None else rf]
+        return arrays, res.steps, res.code, res
+    if case.kind == "dual":
+        res, rs, rp = rdk.fetch(*outs, R, A, case.args.max_steps)
+        arrays = [outs[0].cpu().numpy(), none if rs is None else rs,
+                  none if rp is None else rp]
+        return arrays, res.steps, res.code, res
+    K = len(case.post[1])
+    res = ak.unpack(outs.cpu().numpy(), K, R, A, case.args.max_steps)
+    return [outs.cpu().numpy()], res.nsteps, res.code, res
+
+
+def _mesh_touched(case, res):
+    """The slots a call changed, whose rows the plain version must match."""
+    if case.kind == "arena":
+        return _arena_real_rows(res, case.post[0], case.args)
+    return list(case.pre)
+
+
+def _mesh_bound(case, steps, R, W, out_words):
+    """The unsharded kernel's bound for the same work (the kernel table's
+    rows: ``phase_kernel``'s, ``dual_bound``, ``arena_bound``)."""
+    import numpy as np
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+
+    if case.kind == "run":
+        nbytes = 2 * R * W * 4 + R * (steps + W) * 2
+        return bound(nbytes, steps * R * W * OPS_PER_CELL)
+    if case.kind == "dual":
+        act = [int(case.state["act"][sl].sum()) for sl in case.pre]
+        unlocked = [not case.args.lock1, not case.args.lock2]
+        return dual_bound(R, W, steps,
+                          sum(a for a, u in zip(act, unlocked) if u))
+    (_slots, kinds, lc, _pc, _tr, mc_tab, imb_tab) = case.post
+    lay_in = ak.arena_in_layout(len(kinds), np.asarray(lc).shape[1],
+                                len(mc_tab), len(imb_tab))
+    return arena_bound(ak.arena_plain.stepped_rows, W, lay_in["imb_tab"][1],
+                       out_words)
+
+
+def mesh_run_case(case, reps, smi):
+    """One call through the shard instance at 1, 2 and 4 co-resident
+    shards of ``cuda:0``, each launch held bitwise against the plain
+    version on the same shards and against the unsharded kernel on the
+    unsharded store (every output, and the whole store gathered in read
+    order; the plain version's rows of the slots the call changed).  One
+    line a shard count: launches, events ms and device ms of the sharded
+    and of the unsharded launch, the plain version's ms, the bound of the
+    unsharded kernel's row.  Returns ``(numbers at 4 shards, max err, the
+    stop code)``."""
+    import torch
+
+    fused, plain, unsharded, kname = _mesh_fns(case.kind)
+    R, W = case.state["D"].shape[1:]
+    A = case.args.a_real
+    st_u = _copy_state(case.state)
+    outs_u = _mesh_call(case, unsharded, st_u, case.reads, case.rlen)
+    want, steps, code, res = _mesh_result(case, outs_u, R, A)
+    want_store = _np_store(st_u)
+    it = iter([_copy_state(case.state) for _ in range(reps)])
+    u_ms = _time_cuda(lambda: _mesh_call(case, unsharded, next(it),
+                                         case.reads, case.rlen), reps)
+    it = iter([_copy_state(case.state) for _ in range(reps)])
+    u_dev, u_by = _device_ms(lambda: [_mesh_call(
+        case, unsharded, next(it), case.reads, case.rlen)
+        for _ in range(reps)])
+    worst, numbers = 0, None
+    for k in (1, 2, MESH_SHARDS):
+        states, rds, rls = _mesh_split(case.state, case.reads, case.rlen, k)
+        st_k = [_copy_state(s) for s in states]
+        st_p = [_copy_state(s) for s in states]
+        before = fused.launches
+        outs_k = _mesh_call(case, fused, st_k, rds, rls)
+        launches = fused.launches - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_p = _mesh_call(case, plain, st_p, rds, rls)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        got, _s, _c, _r = _mesh_result(case, outs_k, R, A)
+        ref, _s, _c, _r = _mesh_result(case, outs_p, R, A)
+        got_store, ref_store = _np_store(st_k), _np_store(st_p)
+        err_plain = max(_np_err(got, ref), _slot_rows_err(
+            got_store, ref_store, _mesh_touched(case, res)))
+        err_unsharded = max(_np_err(got, want), _np_err(
+            list(got_store.values()), list(want_store.values())))
+        if err_plain or err_unsharded or launches != 1:
+            raise AssertionError(
+                f"mesh_kernel {case.label} shards={k}: {launches} launches, "
+                f"vs plain {err_plain}, vs the unsharded kernel "
+                f"{err_unsharded}")
+        bms, by = _mesh_bound(case, steps, R, W, want[0].size)
+        copies = [[_copy_state(s) for s in states] for _ in range(2 * reps)]
+        it = iter(copies)
+        ms = _time_cuda(lambda: _mesh_call(case, fused, next(it), rds, rls),
+                        reps)
+        dev, by_name = _device_ms(lambda: [
+            _mesh_call(case, fused, next(it), rds, rls) for _ in range(reps)])
+        line = dict(
+            case=case.label, kernel=kname, shards=k, rows_per_shard=R // k,
+            R=R, W=W, A=A, steps=steps, code=code, launches=launches,
+            max_abs_err=err_plain, max_abs_err_vs_unsharded=err_unsharded,
+            ms=round(ms, 4),
+            # None where the profiler saw no device activity
+            device_ms=None if dev is None else round(dev / reps, 5),
+            kernel_device_ms=None if dev is None
+            else round(_kernel_ms(by_name, kname) / reps, 5),
+            unsharded_ms=round(u_ms, 4),
+            unsharded_device_ms=None if u_dev is None
+            else round(u_dev / reps, 5),
+            unsharded_kernel_device_ms=None if u_dev is None
+            else round(_kernel_ms(u_by, kname) / reps, 5),
+            plain_ms=round(p_ms, 3), bound_ms=bms, bound_by=by, smi=smi)
+        print("mesh_kernel", json.dumps(line), flush=True)
+        worst = max(worst, err_plain, err_unsharded)
+        if k == MESH_SHARDS:
+            numbers = dict(
+                shard_instance_case=case.label, shard_instance_ms=line["ms"],
+                shard_instance_device_ms=line["device_ms"],
+                shard_instance_kernel_device_ms=line["kernel_device_ms"],
+                shard_instance_unsharded_ms=line["unsharded_ms"],
+                shard_instance_plain_ms=line["plain_ms"],
+                shard_instance_bound_ms=bms)
+        del st_k, st_p, copies
+    return numbers, worst, code
+
+
+def _first_arena_call(reads, **cfg):
+    """The first arena call of a dual search of ``reads`` on the card."""
+    from waffle_con_tpu_torch import CdwfaConfigBuilder, DualConsensusDWFA
+
+    b = CdwfaConfigBuilder().backend("torch").device("cuda")
+    for k, v in cfg.items():
+        b = getattr(b, k)(v)
+    eng = DualConsensusDWFA(b.build())
+    for r in reads:
+        eng.add_sequence(r)
+    with ArenaRecorder(1) as rec:
+        eng.consensus()
+    return rec.calls[0]
+
+
+def mesh_run_cases(small_only: bool):
+    """The shard instances' cases: the single north star's root run
+    (R=256, W=514, A=4, capped at 100 steps: ``north_star/step_cap``),
+    a dual north-star run (split sides from just past the second SNP, 300
+    steps), the dual north star's first arena call, and a run whose band
+    of E=8 overflows (R=16); with ``small_only`` a small draw of each
+    kind instead of the north stars."""
+    from waffle_con_tpu_torch.utils.example_gen import generate_test
+
+    cases = []
+    small = lambda seed: lambda: generate_test(4, 120, 10, 0.0, seed=seed)  # noqa: E731
+    run_draws = [("run/overflow_E8", _one_random_read(small(5)), {},
+                  dict(max_steps=120), 5)]
+    if not small_only:
+        ns = lambda: generate_test(4, 10000, 256, 0.01, seed=0)  # noqa: E731
+        run_draws.insert(0, ("run/north_star_step_cap", ns,
+                             dict(initial_band=216, min_count=64),
+                             dict(max_steps=100, min_count=64), 4))
+    for label, make, cfg, kw, want_code in run_draws:
+        truth, reads = make()
+        sc = _scorer(reads, **cfg)
+        h = _case_state(sc)
+        args = _run_args(sc, 0, first_sym=sc.sym_id[truth[0]], **kw)
+        cases.append((MeshRunCase(label, "run", _copy_state(sc._state),
+                                  sc._reads, sc._rlen, (sc._slot_of[h],), (),
+                                  args), want_code))
+    if small_only:
+        t1, t2, reads = _small_dual(51, 0.0)
+        cfg, spec = dict(min_count=3), dict(min_count=3)
+        kw = dict(min_count=3, max_steps=60)
+    else:
+        t1, t2, reads = dual_north_star()
+        cfg = dict(min_count=16, initial_band=116)
+        spec, kw = dict(min_count=16, advance=2570), dict(min_count=16,
+                                                          max_steps=300)
+    sc = _scorer(reads, **cfg)
+    ha, hb, c1, c2 = _dual_state(sc, t1, t2, spec)
+    args, mc, imb = _dual_args(sc, c1, c2, kw)
+    cases.append((MeshRunCase(
+        "dual/north_star_run" if not small_only else "dual/small", "dual",
+        _copy_state(sc._state), sc._reads, sc._rlen,
+        (sc._slot_of[ha], sc._slot_of[hb]), (mc, imb), args), None))
+    if small_only:
+        rec = _first_arena_call([r for r, _o in _dual_workload()],
+                                min_count=3)
+        label = "arena/dual_split_first_call"
+    else:
+        # dual_main's recording when that phase ran
+        rec = (ARENA_RECORDS.get("dual_main") or [None])[0] or (
+            _first_arena_call(reads, min_count=16, initial_band=116))
+        label = "arena/dual_north_star_first_call"
+    (rd, rl, *post, args) = rec["inputs"]
+    cases.append((MeshRunCase(label, "arena", _copy_state(rec["state"]), rd,
+                              rl, (), tuple(post), args), None))
+    return cases
+
+
+def phase_mesh_run_kernels(small_only: bool, smi, reps):
+    """Every shard-instance case (:func:`mesh_run_cases`); keeps each
+    kernel's 4-shard numbers of its first case in
+    :data:`MESH_RUN_CHECKS`.  Returns the max error."""
+    worst = 0
+    names = dict(run="run_extend", dual="run_extend_dual", arena="arena")
+    for case, want_code in mesh_run_cases(small_only):
+        numbers, err, code = mesh_run_case(case, reps, smi)
+        worst = max(worst, err)
+        if want_code is not None and code != want_code:
+            raise AssertionError(f"mesh_kernel {case.label}: code {code}, "
+                                 f"want {want_code}")
+        name = names[case.kind]
+        if name not in MESH_RUN_CHECKS:
+            MESH_RUN_CHECKS[name] = (numbers, err)
+    return worst
 
 
 def _mesh_search(kind, spec, cfg):
@@ -5148,6 +5494,7 @@ def _mesh_search(kind, spec, cfg):
     reset_launch_counts()
     ss.shard_step.launches = 0
     ss.partials_plain.calls = 0
+    shards0 = _shard_instance_launches()
     events.clear_events()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5159,6 +5506,7 @@ def _mesh_search(kind, spec, cfg):
     counts["branch_entries"] = branch_launches()[1]
     counts["fused_shards"] = _fused_shards()
     counts["fused_launches"] = _fused_launches()
+    counts["shard_instances"] = _shard_instance_launches() - shards0
     placed = events.get_events("scorer_sharded")
     return (_result_key(kind, res), wall, counts, ss.shard_step.launches,
             placed[-1] if placed else None, eng)
@@ -5181,6 +5529,21 @@ def _per_shard_search(kind, spec, cfg):
         tmesh.ShardedScorer = ShardedScorer
     c = eng.last_search_stats.get("scorer_counters", {})
     return got, wall, counts, c.get("shard_overflow_rollbacks", 0)
+
+
+#: the kernels a sharded store runs as shard instances (launch-count keys)
+RUN_KERNELS = ("run_extend", "run_extend_dual", "arena")
+
+
+def _shard_instance_launches():
+    """Launches of the run, dual-run and arena kernels' shard instances."""
+    from waffle_con_tpu_torch.ops import arena_kernel as ak
+    from waffle_con_tpu_torch.ops import run_dual_kernel as rdk
+    from waffle_con_tpu_torch.ops import run_kernel as rk
+
+    return (rk.run_extend_shards_cuda.launches
+            + rdk.run_extend_dual_shards_cuda.launches
+            + ak.arena_shards_cuda.launches)
 
 
 def _fused_shards():
@@ -5226,15 +5589,16 @@ def phase_mesh_main():
     """The engines on a read-sharded store (``mesh_shards=4``, the shards
     co-resident on a one-card machine through a pinned ``DeviceSet``):
     the single north star (256 x 10 kb at 1 %, cold and warm), the
-    priority north star and the dual engine on 64 reads x 1 kb at the
-    dual north star's settings (depth cut from 5 kb: without the arena
-    every pop makes store calls).  Each result must equal the unsharded
-    ``"torch"`` search's and the C++ engine's byte for byte; on the
-    sharded store the run, dual-run, arena and gang kernels must not
-    launch, the branch step must, and no plain twin may run; on
-    co-resident shards every branch-step call of the store must be one
-    fused launch over the four shards, with no host rollback.  Returns the
-    shard-step launches of the three searches (warm where run twice)."""
+    priority north star and the dual north star (64 reads x 5 kb).  Each
+    result must equal the unsharded ``"torch"`` search's and the C++
+    engine's byte for byte.  On co-resident shards the run, dual-run and
+    arena kernels launch their shard instances (one launch a call for the
+    four shards) exactly as often as the unsharded search launches the
+    kernels, the gang kernel never (the store offers no gang), no plain
+    version runs and no planner refuses; every branch-step call of the
+    store is one fused launch over the four shards, with no host
+    rollback.  Returns the shard-step launches of the three searches
+    (warm where run twice) and the run kernels' launches by kernel."""
     import dataclasses
 
     from waffle_con_tpu_torch import CdwfaConfigBuilder
@@ -5257,14 +5621,17 @@ def phase_mesh_main():
         for k, v in PRIORITY_CFG.items():
             b = getattr(b, k)(v)
         prio = dict(chains=chains, config=b.build())
-    _t1, _t2, dual_reads = dual_north_star(64, 1000, 0.01)
-    dual = dict(reads=dual_reads, offsets=None, config=(
-        CdwfaConfigBuilder().backend("torch").device("cuda")
-        .min_count(16).initial_band(116).build()))
+    dual = BASELINE.get("dual")
+    if dual is None:
+        _t1, _t2, dual_reads = dual_north_star()
+        dual = dict(reads=dual_reads, offsets=None, config=(
+            CdwfaConfigBuilder().backend("torch").device("cuda")
+            .min_count(16).initial_band(116).build()))
     draws = [("single", "single", single, ("cold", "warm")),
              ("priority", "priority", prio, ("cold",)),
-             ("dual_1kb", "dual", dual, ("cold",))]
+             ("dual", "dual", dual, ("cold",))]
     total = 0
+    runs_total = dict.fromkeys(RUN_KERNELS, 0)
     for name, kind, spec, runs in draws:
         cfg = spec["config"]
         want, wall_plain, counts_plain, _n, _ev, _e = _mesh_search(
@@ -5286,14 +5653,22 @@ def phase_mesh_main():
                 if got != want:
                     raise AssertionError(f"mesh_main {name} {run}: the "
                                          "sharded result differs")
-                off_path = {k: counts[k] for k in (
-                    "run_extend", "run_extend_dual", "arena", "run_ragged")}
-                if (any(off_path.values()) or counts["branch_step"] <= 0
-                        or counts["plain"] or shard_launches <= 0):
-                    raise AssertionError(
-                        f"mesh_main {name} {run}: launches {counts}, "
-                        f"shard steps {shard_launches}")
                 c = eng.last_search_stats.get("scorer_counters", {})
+                plan_refusals(f"mesh_main {name} {run}", c)
+                runs = {k: counts[k] for k in RUN_KERNELS}
+                want_runs = {k: counts_plain[k] for k in RUN_KERNELS}
+                if (runs != want_runs or counts["run_ragged"]
+                        or counts["branch_step"] <= 0 or counts["plain"]
+                        or shard_launches <= 0):
+                    raise AssertionError(
+                        f"mesh_main {name} {run}: launches {counts} against "
+                        f"the unsharded search's {counts_plain}, shard "
+                        f"steps {shard_launches}")
+                if len(set(devs)) == 1 and counts["shard_instances"] != sum(
+                        runs.values()):
+                    raise AssertionError(
+                        f"mesh_main {name} {run}: {counts['shard_instances']}"
+                        f" shard-instance launches of {runs}")
                 if len(set(devs)) == 1:
                     # co-resident: one fused call a store call, no rollback
                     fused = one_launch_a_call(name, counts, MESH_SHARDS)
@@ -5314,6 +5689,8 @@ def phase_mesh_main():
                 raise AssertionError(f"mesh_main {name}: the per-shard "
                                      "route's result differs")
         total += shard_launches
+        for k in RUN_KERNELS:
+            runs_total[k] += counts[k]
         print("mesh_main", json.dumps(dict(
             deployment=name, shards=MESH_SHARDS,
             placement=None if placed is None else dict(
@@ -5340,7 +5717,7 @@ def phase_mesh_main():
                 rollbacks=per_shard[3]),
             profile=prof, smi=smi,
         )), flush=True)
-    return total
+    return total, runs_total
 
 
 # ---------------------------------------------------------------------
@@ -6753,6 +7130,19 @@ def kernel_row(name, source, replaces, check, launches, status=None):
     return row
 
 
+def _with_shards(check, name):
+    """A kernel's ``(timing, max_err)`` with its shard instance's
+    ``mesh_kernel`` numbers beside it (keys ``shard_instance_*``) and the
+    larger max error."""
+    if name not in MESH_RUN_CHECKS:
+        return check
+    numbers, err = MESH_RUN_CHECKS[name]
+    timing, max_err = check or (None, None)
+    return (dict(timing or {}, **(numbers or {}),
+                 shard_instance_max_abs_err=err),
+            err if max_err is None else max(err, max_err))
+
+
 def _merge_checks(gang, serve):
     """The gang kernel's row numbers: ``gang_kernel``'s (the frontier
     gang's launch) with ``serve_kernel``'s cross-store launch beside them
@@ -6877,7 +7267,8 @@ def main(argv=None) -> int:
     timed("obs_main", phase_obs_main)
     timed("runtime_main", phase_runtime_main)
     mesh_check = timed("mesh_kernel", phase_mesh_kernel, opts.small)
-    mesh_launches = timed("mesh_main", phase_mesh_main)
+    mesh_launches, mesh_runs = (timed("mesh_main", phase_mesh_main)
+                                or (None, {}))
     serve_check = timed("serve_kernel", phase_serve_kernel, opts.small)
     serve_launches = timed("serve_main", phase_serve_main)
     replica = timed("replica_main", phase_replica_main) or {}
@@ -6886,20 +7277,26 @@ def main(argv=None) -> int:
     run_paths = dict(main=run_launches, dual_main=dual_launches[1],
                      priority_main=prio_launches[0],
                      checkpoint_main=ckpt.get("run_extend"),
+                     mesh_main=mesh_runs.get("run_extend"),
                      replica_main=replica.get("run_extend"),
                      cache_main=cached.get("run_extend"),
                      procs_main=procs.get("run_extend"))
+    sharded = "sharded: one launch for every shard on a card"
     rows = [
         kernel_row("run_extend", "run_extend.cu", "pallas_run.py:495",
-                   run_check, run_paths),
+                   _with_shards(run_check, "run_extend"), run_paths,
+                   status=sharded),
         kernel_row("run_extend_dual", "run_extend_dual.cu",
-                   "pallas_run.py:976", dual_check,
+                   "pallas_run.py:976",
+                   _with_shards(dual_check, "run_extend_dual"),
                    dict(dual_main=dual_launches[0],
                         priority_main=prio_launches[1],
                         checkpoint_main=ckpt.get("run_extend_dual"),
+                        mesh_main=mesh_runs.get("run_extend_dual"),
                         replica_main=replica.get("run_extend_dual"),
                         cache_main=cached.get("run_extend_dual"),
-                        procs_main=procs.get("run_extend_dual"))),
+                        procs_main=procs.get("run_extend_dual")),
+                   status=sharded),
         kernel_row("offset_scan", "offset_scan.cu", "jax_scorer.py:2637",
                    scan_check, dict(late_main=late_launches[0],
                                     checkpoint_main=ckpt.get("offset_scan"),
@@ -6912,13 +7309,16 @@ def main(argv=None) -> int:
                                       replica_main=replica.get("col_replay"),
                                       cache_main=cached.get("col_replay"),
                                       procs_main=procs.get("col_replay"))),
-        kernel_row("arena", "arena.cu", "jax_scorer.py:1731", arena_check,
+        kernel_row("arena", "arena.cu", "jax_scorer.py:1731",
+                   _with_shards(arena_check, "arena"),
                    dict({path: ARENA_LAUNCHES.get(path) for path in
                          ("main", "dual_main", "priority_main", "late_main")},
                         checkpoint_main=ckpt.get("arena"),
+                        mesh_main=mesh_runs.get("arena"),
                         replica_main=replica.get("arena"),
                         cache_main=cached.get("arena"),
-                        procs_main=procs.get("arena"))),
+                        procs_main=procs.get("arena")),
+                   status=sharded),
         # the megastep is the run kernel under a step cap: its launches
         # are the run kernel's, its numbers the capped launch's
         kernel_row("run_mega", "run_extend.cu", "jax_scorer.py:1272",

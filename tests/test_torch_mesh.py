@@ -30,7 +30,12 @@ from waffle_con_tpu.ops.jax_scorer import _col_step, _init_col
 from waffle_con_tpu.parallel import make_mesh as jmake_mesh
 from waffle_con_tpu.parallel import sharded_col_step as jsharded_col_step
 from waffle_con_tpu_torch.models import checkpoint as tck
-from waffle_con_tpu_torch.ops import branch_kernel, sharded_scorer
+from waffle_con_tpu_torch.ops import (
+    arena_kernel,
+    branch_kernel,
+    run_kernel,
+    sharded_scorer,
+)
 from waffle_con_tpu_torch.ops.sharded_scorer import ShardedScorer
 from waffle_con_tpu_torch.ops.state_io import (
     gather_reads,
@@ -422,9 +427,9 @@ def test_engines_sharded_match_jax_mesh_and_oracle(draw):
     assert got == want
     assert len(events.get_events("scorer_sharded")) > constructions
     c = eng.last_search_stats["scorer_counters"]
-    # no run, dual-run or arena path on the sharded store
-    assert not c.get("run_calls") and not c.get("arena_calls")
-    assert not c.get("run_dual_calls")
+    # the sharded store takes the run, dual-run and arena paths
+    assert c["run_calls"] + c["run_dual_calls"] + c["arena_calls"] > 0
+    assert not any(k.startswith("plan_refused") for k in c)
     if kind == "priority":
         assert len(got[0]) == 2
 
@@ -461,22 +466,30 @@ def test_late_reads_and_band_growth_sharded(shards):
     assert c["offset_scan_calls"] == cp["offset_scan_calls"] >= 1
 
 
-def test_one_shard_overflow_draw_single_engine():
+def test_one_shard_overflow_draw_single_engine(monkeypatch):
+    """The store's shards placed as on two cards (the run paths refused,
+    so every pop expands through the branch step and one shard's
+    overflow rolls the others back)."""
     truth, reads = _overflow_draw()
     want, _ = _result(J, "single", "python", reads, min_count=4)
+    monkeypatch.setattr(sharded_scorer, "placement",
+                        lambda devices: "cross_card")
     with use_device_set(DeviceSet("cpu2", ("cpu", "cpu"))):
         got, eng = _result(T, "single", "torch", reads, min_count=4,
                            mesh_shards=2)
     assert got == want
     assert got[0][0] == truth
-    assert eng.last_search_stats["scorer_counters"][
-        "shard_overflow_rollbacks"] >= 1
+    c = eng.last_search_stats["scorer_counters"]
+    assert c["shard_overflow_rollbacks"] >= 1
+    assert c["plan_refused_cross_card"] >= 1 and c["run_calls"] == 0
 
 
 def test_supervised_sharded_search_demotes_on_device_loss(monkeypatch):
-    """Device loss at the middle ``clone_push`` call and its two retries
-    demote the sharded store to native once, mid-search; the result is
-    the unsupervised sharded search's."""
+    """Device loss at the middle store call of the run, dual-run, arena
+    and ``clone_push`` kinds and its two retries demote the sharded store
+    to native once, mid-search; the result is the unsupervised sharded
+    search's, and the search leaves the sharded store's run paths with
+    the demotion."""
     _, reads = generate_test(4, 90, 6, 0.08, seed=1)
     data = list(reads)
     with use_device_set(DeviceSet("cpu4", ("cpu",) * 4)):
@@ -494,23 +507,37 @@ def test_supervised_sharded_search_demotes_on_device_loss(monkeypatch):
         with monkeypatch.context() as m:
             m.setattr(supervisor.BackendSupervisor, "_supervised", spy)
             assert _result(T, "single", "torch", data, **kw)[0] == want
-        hits = [i for op, i in seen if op == "clone_push"]
+        hits = [i for op, i in seen
+                if op in ("clone_push", "run", "arena")]
         assert len(hits) >= 2
         at = hits[len(hits) // 2]
         events.clear_events()
         plan = faults.install(faults.FaultPlan())
         for k in range(3):
             plan.add("device_loss", backend="torch", at=at + k, count=None)
+        sharded_runs = []  # per sharded run call: demoted already?
+        for mod, name in ((run_kernel, "run_extend_shards_plain"),
+                          (arena_kernel, "arena_shards_plain")):
+            def spy_run(*a, _fn=getattr(mod, name), **k):
+                sharded_runs.append(
+                    bool(events.get_events("backend_demoted")))
+                return _fn(*a, **k)
+
+            monkeypatch.setattr(mod, name, spy_run)
         got, eng = _result(T, "single", "torch", data, **kw)
     assert got == want
     demoted = [(d["from_backend"], d["to_backend"])
                for d in events.get_events("backend_demoted")]
     assert demoted == [("torch", "native")]
     assert eng.last_search_stats["backend"] == "native"
+    # sharded runs before the demotion, none after it
+    assert sharded_runs and not any(sharded_runs)
 
 
 def test_checkpoint_resume_of_a_sharded_search():
-    _, reads = generate_test(4, 120, 8, 0.03, seed=7)
+    # 6 % error: the search stops its runs often enough to be preempted
+    # half way (at 3 % it is two pops)
+    _, reads = generate_test(4, 120, 8, 0.06, seed=7)
     data = list(reads)
     with use_device_set(DeviceSet("cpu4", ("cpu",) * 4)):
         make = lambda: _engine(T, "single", "torch", data, min_count=2,  # noqa: E731

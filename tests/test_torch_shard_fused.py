@@ -39,6 +39,7 @@ from waffle_con_tpu.ops.jax_scorer import _col_step, _init_col
 from waffle_con_tpu.parallel import make_mesh as jmake_mesh
 from waffle_con_tpu.parallel import sharded_col_step as jsharded_col_step
 from waffle_con_tpu_torch.ops import branch_kernel as bk
+from waffle_con_tpu_torch.ops import run_kernel as rk
 from waffle_con_tpu_torch.ops import sharded_scorer as ss
 from waffle_con_tpu_torch.ops.state_io import (
     gather_reads,
@@ -384,13 +385,15 @@ def test_search_on_fused_route_matches_jax_mesh(draw, monkeypatch,
 
     monkeypatch.setattr(tmesh, "ShardedScorer", fused_store)
     one = bk.advance_plain.calls
-    fused = bk.advance_shards_plain.calls
+    # the store's pushes: fused branch steps, or inside its sharded runs
+    fused = bk.advance_shards_plain.calls + rk.run_extend_shards_plain.calls
     with use_device_set(DeviceSet("cpu4", ("cpu",) * 4)):
         got, eng = _run(T, kind, "torch", data, min_count=mc, mesh_shards=4)
     assert got == want
     assert built and all(len(st.groups) == 1 for st in built)
     assert bk.advance_plain.calls == one
-    assert bk.advance_shards_plain.calls > fused
+    assert (bk.advance_shards_plain.calls
+            + rk.run_extend_shards_plain.calls) > fused
     c = eng.last_search_stats["scorer_counters"]
     assert not c.get("shard_overflow_rollbacks")
     if draw == "overflow":

@@ -57,6 +57,14 @@
 //    stepped in device memory through a scratch row (`band`, W beyond
 //    the staging limit); the records' vote rows and the trackers in
 //    shared memory, or in a per-CTA copy in device memory.
+//  * The shard instance (`arena_shards_launch`) runs the same kernel on a
+//    read-sharded store whose shards share the card, one launch for all of
+//    them: the node slots and the creation pool are the same slot indices
+//    on every shard, each (side, read) row is read and written in its own
+//    shard (csrc/store_shards.cuh), consensus rows and lengths in every
+//    shard; the CTAs' reads, the fold and the outputs stay over the
+//    store's global reads, so the call is the one-store call of the
+//    gathered store bit for bit.
 // The vote fold sums in another order than the plain twin (a CTA's reads
 // in order, then the ranks); every vote decision the arena takes is exact
 // (dyadic tip splits) or has a VOTE_EPS margin, the contract of the run
@@ -72,6 +80,7 @@
 
 #include "band_ops.cuh"
 #include "cluster_ops.cuh"
+#include "store_shards.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -213,6 +222,11 @@ struct Args {
   // profiled variant: per-part clock64 totals (ops/arena_kernel.py
   // `PROF_FIELDS`)
   long long* prof;
+  // a read-sharded store (csrc/store_shards.cuh): `nsh` shard records in
+  // device memory, `Rs` reads each; the store pointers above (D .. rlen)
+  // are then unused.  Null: one store.
+  const StoreShard* sh;
+  int nsh, Rs;
 };
 
 // Shared memory of one CTA (and the device-memory copies it owns).
@@ -299,9 +313,32 @@ __device__ __forceinline__ int node_len(const Smem& s, int n) {
                         : s.clen[2 * n];
 }
 
-__device__ __forceinline__ size_t store_row(const Args& a, const Smem& s,
-                                           int f, int r) {
-  return (size_t)s.pin[kParams + f] * a.R + r;
+// The words of read r of store slot `slot`: the one store's, or read r's
+// shard's.
+__device__ __forceinline__ shards::Cell slot_cell(const Args& a, int slot,
+                                                  int r) {
+  const StoreShard own{a.D,   a.e,    a.rmin, a.er,    a.off,
+                       a.act, a.cons, a.clen, a.reads, a.rlen};
+  return shards::cell(a.sh, a.Rs, own, a.R, a.W, a.L, slot, r);
+}
+
+// The words of side f's row of read r.
+__device__ __forceinline__ shards::Cell store_row(const Args& a,
+                                                  const Smem& s, int f,
+                                                  int r) {
+  return slot_cell(a, s.pin[kParams + f], r);
+}
+
+// The store's consensus rows and lengths in copy k (every shard holds
+// one; the one store is copy 0).
+__device__ __forceinline__ int copies(const Args& a) {
+  return a.sh ? a.nsh : 1;
+}
+__device__ __forceinline__ int32_t* cons_of(const Args& a, int k) {
+  return a.sh ? a.sh[k].cons : a.cons;
+}
+__device__ __forceinline__ int32_t* clen_of(const Args& a, int k) {
+  return a.sh ? a.sh[k].clen : a.clen;
 }
 
 // A 4-byte copy from device memory into shared memory that bypasses the
@@ -318,7 +355,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Symbol of read r at position i (-1 outside [0, L)), from device memory.
 __device__ __forceinline__ int read_sym(const Args& a, int r, int i) {
-  return i >= 0 && i < a.L ? a.reads[(size_t)r * a.L + i] : -1;
+  return i >= 0 && i < a.L ? slot_cell(a, 0, r).rd[i] : -1;
 }
 
 // Warp 0: the pop winner by (cost asc, length desc, FIFO rank asc); dead
@@ -592,42 +629,43 @@ __device__ __forceinline__ void zero_stats(const Args& a, int oi) {
 __device__ void stats_row(const Args& a, const Smem& s, int f, int r, int* w,
                           int* hist) {
   const int lane = threadIdx.x & 31;
-  const size_t row = store_row(a, s, f, r);
-  const bool act = a.act[row];
+  const shards::Cell c = store_row(a, s, f, r);
+  const bool act = *c.act;
   for (int x = lane; x < a.A; x += 32) hist[x] = 0;
   __syncwarp();
   int split = 0;
   if (act) {
-    split = band::tip_histogram_win(
-        a.D + row * a.W, band::GlobalWindow{a.reads + (size_t)r * a.L, a.L},
-        a.W, a.rlen[r], s.clen[f] - a.off[row] - a.E, a.e[row], hist);
+    split = band::tip_histogram_win(c.D, band::GlobalWindow{c.rd, a.L}, a.W,
+                                    *c.rlen, s.clen[f] - *c.off - a.E, *c.e,
+                                    hist);
   }
   if (lane == 0) {
-    w[RW_E] = act ? a.e[row] : 0;
+    w[RW_E] = act ? *c.e : 0;
     w[RW_RMIN] = 0;
-    w[RW_ER] = act ? a.er[row] : kInf;
+    w[RW_ER] = act ? *c.er : kInf;
     w[RW_SPLIT] = split;
     w[RW_ACT] = act;
   }
   __syncwarp();
 }
 
-// One warp: the source row (slot row `row`, read r) into column 0 of a
+// One warp: the source row (its words `c`, read r) into column 0 of a
 // staging area (two [W] columns and a symbol ring) and the folds, offset,
 // activity and read length beside it: the column copied asynchronously
 // while the row's words load, then the read window from position i0 - 1
 // into the ring (active rows).  Returns the activity.
 __device__ __forceinline__ int stage_row(const Args& a, const Smem& s,
-                                         size_t row, int r, int fs,
-                                         int32_t* stage, band::Folds3& f,
-                                         int& off, int& rl, int& i0) {
+                                         const shards::Cell& c, int r,
+                                         int fs, int32_t* stage,
+                                         band::Folds3& f, int& off, int& rl,
+                                         int& i0) {
   const int lane = threadIdx.x & 31;
   const int W = a.W;
-  for (int t = lane; t < W; t += 32) cp_async4(stage + t, a.D + row * W + t);
-  const int act = a.act[row];
-  f = band::Folds3{a.e[row], a.rmin[row], a.er[row]};
-  off = a.off[row];
-  rl = a.rlen[r];
+  for (int t = lane; t < W; t += 32) cp_async4(stage + t, c.D + t);
+  const int act = *c.act;
+  f = band::Folds3{*c.e, *c.rmin, *c.er};
+  off = *c.off;
+  rl = *c.rlen;
   i0 = s.clen[fs] + 1 - off - a.E;
   if (act) {
     int16_t* ring = reinterpret_cast<int16_t*>(stage + 2 * W);
@@ -652,20 +690,20 @@ __device__ band::Folds3 push_row(const Args& a, const Smem& s, int fs,
                                  int* split, int32_t* stage) {
   const int lane = threadIdx.x & 31;
   const int W = a.W;
-  const size_t row = store_row(a, s, fs, r);
+  const shards::Cell c = store_row(a, s, fs, r);
   const int wc = s.pin[P_WC], et = s.pin[P_ET];
   for (int x = lane; x < a.A; x += 32) hist[x] = 0;
   if (stage == nullptr) {
-    const band::Folds3 f{a.e[row], a.rmin[row], a.er[row]};
-    const int i0 = s.clen[fs] + 1 - a.off[row] - a.E;
+    const band::Folds3 f{*c.e, *c.rmin, *c.er};
+    const int i0 = s.clen[fs] + 1 - *c.off - a.E;
     __syncwarp();
     return band::column_step_runs<band::GlobalWindow, true>(
-        a.D + row * W, Dn, band::GlobalWindow{a.reads + (size_t)r * a.L, a.L},
-        W, a.rlen[r], i0, sym, wc, et, f, hist, split);
+        c.D, Dn, band::GlobalWindow{c.rd, a.L}, W, *c.rlen, i0, sym, wc, et,
+        f, hist, split);
   }
   band::Folds3 f;
   int off, rl, i0;
-  stage_row(a, s, row, r, fs, stage, f, off, rl, i0);
+  stage_row(a, s, c, r, fs, stage, f, off, rl, i0);
   const band::RingWindow win{reinterpret_cast<int16_t*>(stage + 2 * W),
                              band::ring_len(W) - 1};
   const band::Folds3 nf = band::column_step_runs<band::RingWindow, true>(
@@ -716,8 +754,7 @@ __device__ __forceinline__ void step_commit(const Args& a, const Ctx& x,
     int split;
     band::Folds3 nf;
     if (!a.staged) {
-      const size_t row = store_row(a, s, fs, r);
-      if (!a.act[row]) {
+      if (!*store_row(a, s, fs, r).act) {
         if (x.lane == 0) w[RW_ACT] = 0;
         continue;
       }
@@ -743,7 +780,7 @@ __device__ __forceinline__ void step_commit(const Args& a, const Ctx& x,
         }
       } else {
         int off;
-        act = stage_row(a, s, (size_t)slot * a.R + r, r, fs, stage, f, off,
+        act = stage_row(a, s, slot_cell(a, slot, r), r, fs, stage, f, off,
                         rl, i0);
         cur = 0;
         if (x.lane == 0) {
@@ -791,29 +828,30 @@ __device__ void step_children(const Args& a, const Ctx& x, const Smem& s,
     const int r = x.r0 + ri.lr;
     const int fs = ri.sd == 0 || single ? 2 * win : 2 * win + 1;
     const int fd = 2 * (pool + t) + ri.sd;
-    const size_t rs = store_row(a, s, fs, r), rd = store_row(a, s, fd, r);
+    const shards::Cell cs = store_row(a, s, fs, r);
+    const shards::Cell cd = store_row(a, s, fd, r);
     int* w = s.rw + q * RW_N;
-    if (a.act[rs]) {
+    if (*cs.act) {
       int split;
       const band::Folds3 nf = push_row(
-          a, s, fs, r, d[(ri.sd ? D_SPEC_B : D_SPEC_A) + t], a.D + rd * W,
+          a, s, fs, r, d[(ri.sd ? D_SPEC_B : D_SPEC_A) + t], cd.D,
           s.rh + q * a.A, &split, stage);
       if (x.lane == 0) {
-        a.e[rd] = nf.e;
-        a.rmin[rd] = nf.rmin;
-        a.er[rd] = nf.er;
+        *cd.e = nf.e;
+        *cd.rmin = nf.rmin;
+        *cd.er = nf.er;
         put_row(w, nf, split, 1);
       }
     } else {
-      for (int i = x.lane; i < W; i += 32) a.D[rd * W + i] = a.D[rs * W + i];
+      for (int i = x.lane; i < W; i += 32) cd.D[i] = cs.D[i];
       if (x.lane == 0) {
-        a.e[rd] = a.e[rs];
-        a.rmin[rd] = a.rmin[rs];
-        a.er[rd] = a.er[rs];
+        *cd.e = *cs.e;
+        *cd.rmin = *cs.rmin;
+        *cd.er = *cs.er;
         w[RW_ACT] = 0;
       }
     }
-    if (x.lane == 0) a.off[rd] = a.off[rs];
+    if (x.lane == 0) *cd.off = *cs.off;
     __syncwarp();
   }
 }
@@ -1111,7 +1149,7 @@ __device__ __forceinline__ void emit_row(const Args& a, const Smem& s, int f,
     a.out[a.o_eds + oi] = keep ? e : 0;
     a.out[a.o_split + oi] = keep ? w[RW_SPLIT] : 0;
     a.out[a.o_reached + oi] = keep && er < kInf && e == er;
-    if (child) a.act[store_row(a, s, f, r)] = keep;
+    if (child) *store_row(a, s, f, r).act = keep;
   }
 }
 
@@ -1142,17 +1180,17 @@ __device__ __forceinline__ void write_commit(const Args& a, const Ctx& x,
     const int* w = s.rw + q * RW_N;
     if (!w[RW_ACT]) continue;
     const int r = x.r0 + ri.lr, f = 2 * win + ri.sd;
-    const size_t row = store_row(a, s, f, r);
+    const shards::Cell cr = store_row(a, s, f, r);
     int* c = s.cache + q * C_N;
     const int32_t* src =
         a.staged ? s.stage + q * stage_words(W) + (c[C_CUR] ^ 1) * W
                  : a.scratch + ((size_t)ri.sd * a.R + r) * W;
-    for (int t = x.lane; t < W; t += 32) a.D[row * W + t] = src[t];
+    for (int t = x.lane; t < W; t += 32) cr.D[t] = src[t];
     if (x.lane == 0) {
-      a.e[row] = w[RW_E];
-      a.rmin[row] = w[RW_RMIN];
-      a.er[row] = w[RW_ER];
-      a.act[row] = w[RW_ACTF];
+      *cr.e = w[RW_E];
+      *cr.rmin = w[RW_RMIN];
+      *cr.er = w[RW_ER];
+      *cr.act = w[RW_ACTF];
       if (a.keep) {
         c[C_CUR] ^= 1;
         pend = read_sym(a, r, c[C_I0] + W);
@@ -1170,11 +1208,12 @@ __device__ __forceinline__ void append_symbols(const Args& a, const Smem& s,
   for (int sd = 0; sd < d[D_NSIDES]; ++sd) {
     const int f = 2 * d[D_WIN] + sd;
     const int slot = s.pin[kParams + f];
-    if (lead)
-      a.cons[(size_t)slot * a.C + min(max(s.clen[f], 0), a.C - 1)] =
-          d[D_CSYM1 + sd];
+    const int at = min(max(s.clen[f], 0), a.C - 1);
     s.clen[f] += 1;
-    if (lead) a.clen[slot] = s.clen[f];
+    for (int k = 0; lead && k < copies(a); ++k) {
+      cons_of(a, k)[(size_t)slot * a.C + at] = d[D_CSYM1 + sd];
+      clen_of(a, k)[slot] = s.clen[f];
+    }
   }
 }
 
@@ -1190,7 +1229,10 @@ __device__ void child_cons(const Args& a, const Smem& s) {
     const size_t ss = (size_t)s.pin[kParams + fs] * C;
     const size_t sd = (size_t)s.pin[kParams + d[D_CS_DST + ci]] * C;
     const int at = min(max(s.clen[fs], 0), C - 1);
-    a.cons[sd + k] = k == at ? d[D_CS_SYM + ci] : a.cons[ss + k];
+    for (int m = 0; m < copies(a); ++m) {
+      int32_t* cons = cons_of(a, m);
+      cons[sd + k] = k == at ? d[D_CS_SYM + ci] : cons[ss + k];
+    }
   }
 }
 
@@ -1218,8 +1260,11 @@ __device__ void register_children(const Args& a, const Smem& s, bool lead) {
     lc[kt * Lw + min(max(nl, 0), Lw - 1)] += 1;
     tr[4 * kt + 1] += nl >= tr[4 * kt];
     if (!lead) continue;
-    a.clen[s.pin[kParams + 2 * c]] = s.clen[2 * c];
-    if (kt == 1) a.clen[s.pin[kParams + 2 * c + 1]] = s.clen[2 * c + 1];
+    for (int m = 0; m < copies(a); ++m) {
+      clen_of(a, m)[s.pin[kParams + 2 * c]] = s.clen[2 * c];
+      if (kt == 1)
+        clen_of(a, m)[s.pin[kParams + 2 * c + 1]] = s.clen[2 * c + 1];
+    }
     a.out[a.o_hist + min(max(d[D_NSTEPS] + 1 + t, 0), a.max_steps - 1)] =
         3 * K + cre + t;
     const int j = min(cre + t, kCreCap - 1);
@@ -1363,7 +1408,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) arena_kernel(Args a) {
     s.fresh[n] = n != 0;
   }
   for (int f = tid; f < 2 * K; f += nthreads)
-    s.clen[f] = a.clen[P[a.i_slots + f]];
+    s.clen[f] = clen_of(a, 0)[P[a.i_slots + f]];
   for (int i = tid; i < kParams + 2 * K; i += nthreads) s.pin[i] = P[i];
   for (int i = tid; i < kMcCache; i += nthreads)
     s.mcc[i] = P[a.i_mc + min(i, a.MCN - 1)];
@@ -1556,27 +1601,15 @@ int launch(const Args& a, int threads, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  The store (D, e, rmin, er,
-// off, act, cons, clen) is stepped in place at the slots of the packed
-// input `in` (ops/arena_kernel.py `arena_in_layout`; not modified), the
-// results go to the packed `out` (`arena_out_layout`).  One cluster of
-// `csize` CTAs of `threads` threads with the plan's geometry
-// (`plan_arena`): `rpc` reads per CTA, `gn` node records folded per
-// cluster barrier, the band staged in shared memory (`staged`) or stepped
-// through `scratch`, the records' vote rows (`rec_smem`) and the trackers
-// (`trk_smem`) in shared memory or in per-CTA copies in `scratch`, `smem`
-// bytes of dynamic shared memory.  `prof` non-null launches the profiled
-// variant, which fills it.  Returns 0 on success, -1 when the plan does
-// not match the kernel, -2 when no cluster of that shape fits on the
-// device, else the CUDA error; the launch does not synchronise.
-extern "C" int arena_launch(void* D, void* e, void* rmin, void* er,
-                            void* off, void* act, void* cons, void* clen,
-                            void* reads, void* rlen, void* in, void* out,
-                            void* scratch, int B, int R, int W, int C, int L,
-                            int A, int K, int Lw, int MCN, int IMBN,
-                            int max_steps, int csize, int threads, int rpc,
-                            int gn, int staged, int rec_smem, int trk_smem,
-                            long long smem, void* prof, void* stream) {
+namespace {
+
+// The plan, shape and layouts into `a` (its store set by the caller),
+// then the launch.
+int launch_arena(Args& a, void* in, void* out, void* scratch, int B, int R,
+                 int W, int C, int L, int A, int K, int Lw, int MCN,
+                 int IMBN, int max_steps, int csize, int threads, int rpc,
+                 int gn, int staged, int rec_smem, int trk_smem,
+                 long long smem, void* prof, void* stream) {
   const int nw = threads / 32;
   const bool plan_ok =
       csize >= 1 && csize <= kMaxCluster && threads % 32 == 0 &&
@@ -1586,19 +1619,8 @@ extern "C" int arena_launch(void* D, void* e, void* rmin, void* er,
                              rec_smem != 0, trk_smem != 0);
   if (!plan_ok || K < 1 || K > kMaxK || A < 1 || A > kMaxA || R < 1 ||
       W < 4 || W % 2 || Lw < 1 || C < 2 || MCN < 1 || IMBN < 1 ||
-      max_steps < 1 || B < 2 * K)
+      max_steps < 1 || B < 2 * K || !shards::cover(a.sh, a.nsh, a.Rs, R))
     return -1;
-  Args a;
-  a.D = static_cast<int32_t*>(D);
-  a.e = static_cast<int32_t*>(e);
-  a.rmin = static_cast<int32_t*>(rmin);
-  a.er = static_cast<int32_t*>(er);
-  a.off = static_cast<int32_t*>(off);
-  a.act = static_cast<uint8_t*>(act);
-  a.cons = static_cast<int32_t*>(cons);
-  a.clen = static_cast<int32_t*>(clen);
-  a.reads = static_cast<const int16_t*>(reads);
-  a.rlen = static_cast<const int32_t*>(rlen);
   a.in = static_cast<const int32_t*>(in);
   a.out = static_cast<int32_t*>(out);
   a.scratch = static_cast<int32_t*>(scratch);
@@ -1642,4 +1664,75 @@ extern "C" int arena_launch(void* D, void* e, void* rmin, void* er,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return prof ? launch<true>(a, threads, (size_t)smem, st)
               : launch<false>(a, threads, (size_t)smem, st);
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  The store (D, e, rmin, er,
+// off, act, cons, clen) is stepped in place at the slots of the packed
+// input `in` (ops/arena_kernel.py `arena_in_layout`; not modified), the
+// results go to the packed `out` (`arena_out_layout`).  One cluster of
+// `csize` CTAs of `threads` threads with the plan's geometry
+// (`plan_arena`): `rpc` reads per CTA, `gn` node records folded per
+// cluster barrier, the band staged in shared memory (`staged`) or stepped
+// through `scratch`, the records' vote rows (`rec_smem`) and the trackers
+// (`trk_smem`) in shared memory or in per-CTA copies in `scratch`, `smem`
+// bytes of dynamic shared memory.  `prof` non-null launches the profiled
+// variant, which fills it.  Returns 0 on success, -1 when the plan does
+// not match the kernel, -2 when no cluster of that shape fits on the
+// device, else the CUDA error; the launch does not synchronise.
+extern "C" int arena_launch(void* D, void* e, void* rmin, void* er,
+                            void* off, void* act, void* cons, void* clen,
+                            void* reads, void* rlen, void* in, void* out,
+                            void* scratch, int B, int R, int W, int C, int L,
+                            int A, int K, int Lw, int MCN, int IMBN,
+                            int max_steps, int csize, int threads, int rpc,
+                            int gn, int staged, int rec_smem, int trk_smem,
+                            long long smem, void* prof, void* stream) {
+  Args a;
+  a.D = static_cast<int32_t*>(D);
+  a.e = static_cast<int32_t*>(e);
+  a.rmin = static_cast<int32_t*>(rmin);
+  a.er = static_cast<int32_t*>(er);
+  a.off = static_cast<int32_t*>(off);
+  a.act = static_cast<uint8_t*>(act);
+  a.cons = static_cast<int32_t*>(cons);
+  a.clen = static_cast<int32_t*>(clen);
+  a.reads = static_cast<const int16_t*>(reads);
+  a.rlen = static_cast<const int32_t*>(rlen);
+  a.sh = nullptr;
+  a.nsh = 1; a.Rs = R;
+  return launch_arena(a, in, out, scratch, B, R, W, C, L, A, K, Lw, MCN,
+                      IMBN, max_steps, csize, threads, rpc, gn, staged,
+                      rec_smem, trk_smem, smem, prof, stream);
+}
+
+// The shard instance: the same call on a read-sharded store whose `nsh`
+// shards (`Rs` reads each, R = nsh Rs; B slots each, allocated in
+// lockstep) share this card, one launch for all of them.  `shards` is the
+// device copy of the shards' records (csrc/store_shards.cuh
+// `StoreShard`); every row is stepped in place in its own shard, every
+// consensus row and length written to every shard.  Inputs, outputs,
+// scratch and plan are the one-store call's at the store's R.  Returns as
+// `arena_launch`, and -1 too when the shards do not cover R.
+extern "C" int arena_shards_launch(const void* shards, int nsh, int Rs,
+                                   void* in, void* out, void* scratch, int B,
+                                   int R, int W, int C, int L, int A, int K,
+                                   int Lw, int MCN, int IMBN, int max_steps,
+                                   int csize, int threads, int rpc, int gn,
+                                   int staged, int rec_smem, int trk_smem,
+                                   long long smem, void* prof,
+                                   void* stream) {
+  if (shards == nullptr) return -1;
+  Args a;
+  a.D = a.e = a.rmin = a.er = a.off = nullptr;
+  a.act = nullptr;
+  a.cons = a.clen = nullptr;
+  a.reads = nullptr;
+  a.rlen = nullptr;
+  a.sh = static_cast<const StoreShard*>(shards);
+  a.nsh = nsh; a.Rs = Rs;
+  return launch_arena(a, in, out, scratch, B, R, W, C, L, A, K, Lw, MCN,
+                      IMBN, max_steps, csize, threads, rpc, gn, staged,
+                      rec_smem, trk_smem, smem, prof, stream);
 }

@@ -77,6 +77,14 @@
 //    The barriers live in the partial's words (`part`), which the
 //    instantiation does not otherwise use, and are made visible by one
 //    cluster barrier at the start, before any CTA may leave.
+//  * The shard instance (csrc/store_shards.cuh; `run_extend_shards_launch`
+//    in csrc/run_extend.cu) runs one branch of a read-sharded store whose
+//    shards share the card: `Args.sh` lists the shards, and each read's
+//    rows, folds and symbols are taken from its own shard, in place.  The
+//    CTAs' blocks of reads, the fold and the outputs stay over the store's
+//    global reads, so the run is the one-store run of the gathered store
+//    bit for bit; rank 0 writes each symbol and the final length into
+//    every shard's consensus row.
 
 #pragma once
 
@@ -88,6 +96,7 @@
 
 #include "band_ops.cuh"
 #include "cluster_ops.cuh"
+#include "store_shards.cuh"
 
 namespace {
 
@@ -154,6 +163,12 @@ struct Args {
   // consensus length the caller expects at the start (-1: not checked); a
   // branch that disagrees runs nothing and reports code -1
   int len0;
+  // a read-sharded store (csrc/store_shards.cuh): `nsh` shard records in
+  // device memory, `Rs` reads each, the branch at slot `slot` of every
+  // shard; the store rows above (Ds .. clen_out, reads, rlen) are then
+  // unused.  Null: one store.
+  const StoreShard* sh;
+  int nsh, Rs, slot;
   int csize, nw, rpc, rpw;  // the launch plan
   // offsets of the packed output fields
   int o_eds, o_split, o_reached, o_fin, o_occ, o_syms;
@@ -164,6 +179,8 @@ inline void set_shape(Args& a, int R, int W, int C, int L, int A, int csize,
                       int threads, int rpc, int rpw) {
   a.R = R; a.W = W; a.C = C; a.L = L; a.A = A;
   a.E = (W - 2) / 2;
+  a.sh = nullptr;  // one store unless the caller lists shards after this
+  a.nsh = 1; a.Rs = R; a.slot = 0;
   a.csize = csize; a.nw = threads / 32; a.rpc = rpc; a.rpw = rpw;
   // packed output layout (mirrors run_kernel.out_layout)
   a.o_eds = 8;
@@ -236,18 +253,38 @@ struct Ctx {
   int ring_mask;
 };
 
+// Read r's words of the branch on a sharded store: row r % Rs of slot
+// `slot` in shard r / Rs.
+__device__ __forceinline__ shards::Cell shard_cell(const Args& a, int r) {
+  const int k = r / a.Rs;
+  return shards::cell_of(a.sh[k], a.Rs, a.W, a.L, a.slot, r - k * a.Rs);
+}
+
+// Band row of read r at the start and at the end (the same row on a
+// sharded store).
+__device__ __forceinline__ const int32_t* start_row(const Args& a, int r) {
+  return a.sh ? shard_cell(a, r).D : a.Ds + (size_t)r * a.W;
+}
+__device__ __forceinline__ int32_t* home_row(const Args& a, int r) {
+  return a.sh ? shard_cell(a, r).D : a.Dh + (size_t)r * a.W;
+}
+
+// Read r's symbols [L].
+__device__ __forceinline__ const int16_t* read_row(const Args& a, int r) {
+  return a.sh ? shard_cell(a, r).rd : a.reads + (size_t)r * a.L;
+}
+
 // Band row of local read lr (global r) in buffer buf.
 template <bool kOnChip>
 __device__ __forceinline__ int32_t* row(const Args& a, const Smem& s,
                                         int buf, int lr, int r) {
   if (kOnChip) return s.band + ((size_t)buf * a.rpc + lr) * a.W;
-  int32_t* base = buf == 0 ? a.Dh : a.scratch;
-  return base + (size_t)r * a.W;
+  return buf == 0 ? home_row(a, r) : a.scratch + (size_t)r * a.W;
 }
 
 // Symbol of read r at position i (-1 outside [0, L)), from device memory.
 __device__ __forceinline__ int read_sym(const Args& a, int r, int i) {
-  return i >= 0 && i < a.L ? a.reads[(size_t)r * a.L + i] : -1;
+  return i >= 0 && i < a.L ? read_row(a, r)[i] : -1;
 }
 
 struct Fold {
@@ -299,7 +336,7 @@ __device__ int warp_pass(const Args& a, const Smem& s, const Ctx& x,
     const int16_t* ring = kOnChip ? s.ring + (size_t)lr * (x.ring_mask + 1)
                                   : nullptr;
     const band::RingWindow rwin{ring, x.ring_mask};
-    const band::GlobalWindow gwin{a.reads + (size_t)r * a.L, a.L};
+    const band::GlobalWindow gwin{read_row(a, r), a.L};
     int split = 0;
     if (step) {
       int32_t* Dn = row<kOnChip>(a, s, cur ^ 1, lr, r);
@@ -495,7 +532,7 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
     }
     cl.sync();  // the cluster's one barrier: every CTA's barriers ready
   }
-  const int clen0 = *a.clen_in;
+  const int clen0 = a.sh ? a.sh[0].clen[a.slot] : *a.clen_in;
   if (a.len0 >= 0 && clen0 != a.len0) {
     // the caller's consensus and the branch disagree: every CTA of the
     // branch sees the same length and leaves before any exchange
@@ -523,12 +560,22 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
 
   for (int lr = tid; lr < x.nloc; lr += nthreads) {
     const int r = x.r0 + lr;
-    s.e[lr] = a.e_in[r];
-    s.rmin[lr] = a.rmin_in[r];
-    s.er[lr] = a.er_in[r];
-    s.off[lr] = a.off[r];
-    s.act[lr] = a.act[r] != 0;
-    s.rlen[lr] = a.rlen[r];
+    if (a.sh) {
+      const shards::Cell c = shard_cell(a, r);
+      s.e[lr] = *c.e;
+      s.rmin[lr] = *c.rmin;
+      s.er[lr] = *c.er;
+      s.off[lr] = *c.off;
+      s.act[lr] = *c.act != 0;
+      s.rlen[lr] = *c.rlen;
+    } else {
+      s.e[lr] = a.e_in[r];
+      s.rmin[lr] = a.rmin_in[r];
+      s.er[lr] = a.er_in[r];
+      s.off[lr] = a.off[r];
+      s.act[lr] = a.act[r] != 0;
+      s.rlen[lr] = a.rlen[r];
+    }
     s.fin[lr] = 0;
   }
   if (x.rank == 0 && a.cons_in != a.cons_out) {
@@ -543,16 +590,16 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
   const int RS = x.ring_mask + 1;
   for (int lr = x.lo; lr < x.hi; ++lr) {
     const int r = x.r0 + lr;
-    const bool active = a.act[r] != 0;
-    const int32_t* src = a.Ds + (size_t)r * a.W;
+    const bool active = (a.sh ? *shard_cell(a, r).act : a.act[r]) != 0;
+    const int32_t* src = start_row(a, r);
     if (moves && (!kOnChip || !active)) {
-      int32_t* dst = a.Dh + (size_t)r * a.W;
+      int32_t* dst = home_row(a, r);
       for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
     }
     if (!kOnChip || !active) continue;
     int32_t* dst = row<kOnChip>(a, s, 0, lr, r);
     for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
-    const int base = clen0 - a.off[r] - a.E;
+    const int base = clen0 - (a.sh ? *shard_cell(a, r).off : a.off[r]) - a.E;
     for (int k = x.lane; k <= a.W; k += 32) {
       const int i = base + k;
       s.ring[(size_t)lr * RS + (i & x.ring_mask)] =
@@ -691,7 +738,12 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
       if (lead) a.rec_steps[ri] = steps;
     }
     if (lead) {
-      a.cons_out[clen] = cur_dec.sym;
+      if (a.sh) {
+        for (int k = 0; k < a.nsh; ++k)
+          a.sh[k].cons[(size_t)a.slot * a.C + clen] = cur_dec.sym;
+      } else {
+        a.cons_out[clen] = cur_dec.sym;
+      }
       a.out[a.o_syms + steps] = cur_dec.sym;
     }
     for (int lr = x.lo + x.lane; lr < x.hi; lr += 32) {
@@ -716,14 +768,21 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
     const int r = x.r0 + lr;
     if (!s.act[lr] || (!kOnChip && cur == 0)) continue;
     const int32_t* src = row<kOnChip>(a, s, cur, lr, r);
-    int32_t* dst = a.Dh + (size_t)r * a.W;
+    int32_t* dst = home_row(a, r);
     for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
   }
   for (int lr = x.lo + x.lane; lr < x.hi; lr += 32) {
     const int r = x.r0 + lr;
-    a.e_out[r] = s.e[lr];
-    a.rmin_out[r] = s.rmin[lr];
-    a.er_out[r] = s.er[lr];
+    if (a.sh) {
+      const shards::Cell c = shard_cell(a, r);
+      *c.e = s.e[lr];
+      *c.rmin = s.rmin[lr];
+      *c.er = s.er[lr];
+    } else {
+      a.e_out[r] = s.e[lr];
+      a.rmin_out[r] = s.rmin[lr];
+      a.er_out[r] = s.er[lr];
+    }
   }
   int fin_ovf = 0;
   if constexpr (kScoped) {
@@ -751,7 +810,11 @@ __device__ __forceinline__ void run_branch(const Args& a, char* smem_raw,
     a.out[3] = fin_ovf;
     a.out[4] = clen;
     a.out[5] = a.out[6] = a.out[7] = 0;
-    *a.clen_out = clen;
+    if (a.sh) {
+      for (int k = 0; k < a.nsh; ++k) a.sh[k].clen[a.slot] = clen;
+    } else {
+      *a.clen_out = clen;
+    }
   }
   // no CTA leaves while rank 0 may still read its shared memory
   if constexpr (!kScoped) cl.sync();

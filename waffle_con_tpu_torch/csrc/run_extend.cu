@@ -16,7 +16,10 @@
 // step, partials folded in rank order) are in csrc/run_body.cuh, which the
 // frontier-gang kernel (csrc/run_ragged.cu) shares.  One SM, as on the
 // TPU's one core, spends ~100 us on a step at the north star; one cluster
-// of 16 CTAs about 6 us.
+// of 16 CTAs about 6 us (NVIDIA H100 80GB HBM3, 700 W).  The shard
+// instance (`run_extend_shards_launch`) runs the same kernel on a
+// read-sharded store whose shards share the card, one launch for all of
+// them (csrc/store_shards.cuh).
 
 #include "run_body.cuh"
 
@@ -26,6 +29,37 @@ template <bool kOnChip>
 __global__ void __launch_bounds__(kMaxThreads, 1) run_extend_kernel(Args a) {
   extern __shared__ __align__(16) char smem_raw[];
   run_branch<kOnChip>(a, smem_raw);
+}
+
+}  // namespace
+
+namespace {
+
+// The scalars of a run and the plan into `a` (its store set by the
+// caller), then the launch.
+int launch_run(Args& a, int R, int W, int C, int L, int A, int me_budget,
+               int other_cost, int other_len, int min_count, int l2,
+               int max_steps, int first_sym, int allow_records, int wc,
+               int et, int csize, int threads, int rpc, int rpw, int on_chip,
+               long long smem, void* scratch, void* stream) {
+  a.scratch = static_cast<int32_t*>(scratch);
+  a.me_budget = me_budget; a.other_cost = other_cost;
+  a.other_len = other_len; a.min_count = min_count; a.l2 = l2;
+  a.max_steps = max_steps; a.first_sym = first_sym;
+  a.allow_records = allow_records; a.wc = wc; a.et = et;
+  a.len0 = -1;
+  const StoreShard* sh = a.sh;
+  const int nsh = a.nsh, Rs = a.Rs, slot = a.slot;
+  set_shape(a, R, W, C, L, A, csize, threads, rpc, rpw);
+  a.sh = sh; a.nsh = nsh; a.Rs = Rs; a.slot = slot;
+  if (!plan_ok(a, threads, on_chip, (size_t)smem) ||
+      (!on_chip && scratch == nullptr))
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return on_chip ? launch_clusters(run_extend_kernel<true>, a, csize, 1,
+                                   threads, (size_t)smem, st)
+                 : launch_clusters(run_extend_kernel<false>, a, csize, 1,
+                                   threads, (size_t)smem, st);
 }
 
 }  // namespace
@@ -61,22 +95,52 @@ extern "C" int run_extend_launch(
   a.clen_in = a.clen_out = static_cast<int32_t*>(clen) + h;
   a.reads = static_cast<const int16_t*>(reads);
   a.rlen = static_cast<const int32_t*>(rlen);
-  a.scratch = static_cast<int32_t*>(scratch);
   a.out = static_cast<int32_t*>(out);
   a.rec_steps = static_cast<int32_t*>(rec_steps);
   a.rec_fins = static_cast<int32_t*>(rec_fins);
-  a.me_budget = me_budget; a.other_cost = other_cost;
-  a.other_len = other_len; a.min_count = min_count; a.l2 = l2;
-  a.max_steps = max_steps; a.first_sym = first_sym;
-  a.allow_records = allow_records; a.wc = wc; a.et = et;
-  a.len0 = -1;
-  set_shape(a, R, W, C, L, A, csize, threads, rpc, rpw);
-  if (!plan_ok(a, threads, on_chip, (size_t)smem) ||
-      (!on_chip && scratch == nullptr))
+  a.sh = nullptr;
+  a.nsh = 1; a.Rs = R; a.slot = 0;
+  return launch_run(a, R, W, C, L, A, me_budget, other_cost, other_len,
+                    min_count, l2, max_steps, first_sym, allow_records, wc,
+                    et, csize, threads, rpc, rpw, on_chip, smem, scratch,
+                    stream);
+}
+
+// The shard instance: the same run on slot `h` of a read-sharded store
+// whose `nsh` shards (`Rs` reads each, R = nsh Rs) share this card, one
+// launch for all of them.  `shards` is the device copy of the shards'
+// records (csrc/store_shards.cuh `StoreShard`, ops/branch_kernel.py
+// `_Shard`); each read's rows are read and updated in place in its own
+// shard, and each symbol and the final length go to every shard.  The
+// plan, `scratch`, `out` and the record buffers are the one-store launch's
+// at the store's R.  Returns as `run_extend_launch`, and -1 too when the
+// shards do not cover R.
+extern "C" int run_extend_shards_launch(
+    const void* shards, int nsh, int Rs, void* scratch, void* out,
+    void* rec_steps, void* rec_fins, int h, int R, int W, int C, int L,
+    int A, int me_budget, int other_cost, int other_len, int min_count,
+    int l2, int max_steps, int first_sym, int allow_records, int wc, int et,
+    int csize, int threads, int rpc, int rpw, int on_chip, long long smem,
+    void* stream) {
+  if (shards == nullptr || !shards::cover(shards, nsh, Rs, R) || h < 0)
     return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_chip ? launch_clusters(run_extend_kernel<true>, a, csize, 1,
-                                   threads, (size_t)smem, st)
-                 : launch_clusters(run_extend_kernel<false>, a, csize, 1,
-                                   threads, (size_t)smem, st);
+  Args a;
+  a.Ds = a.Dh = nullptr;
+  a.e_in = a.rmin_in = a.er_in = nullptr;
+  a.e_out = a.rmin_out = a.er_out = nullptr;
+  a.off = nullptr;
+  a.act = nullptr;
+  a.cons_in = a.cons_out = nullptr;
+  a.clen_in = a.clen_out = nullptr;
+  a.reads = nullptr;
+  a.rlen = nullptr;
+  a.out = static_cast<int32_t*>(out);
+  a.rec_steps = static_cast<int32_t*>(rec_steps);
+  a.rec_fins = static_cast<int32_t*>(rec_fins);
+  a.sh = static_cast<const StoreShard*>(shards);
+  a.nsh = nsh; a.Rs = Rs; a.slot = h;
+  return launch_run(a, R, W, C, L, A, me_budget, other_cost, other_len,
+                    min_count, l2, max_steps, first_sym, allow_records, wc,
+                    et, csize, threads, rpc, rpw, on_chip, smem, scratch,
+                    stream);
 }

@@ -60,6 +60,12 @@
 //  * The kernel writes the whole packed output itself (rank 0 the
 //    scalars; every CTA a share of the unused symbol slots, zeroed), so a
 //    launch needs no memset.
+//  * The shard instance (`run_extend_dual_shards_launch`) runs the same
+//    kernel on a read-sharded store whose shards share the card, one
+//    launch for all of them: each (side, read) row is read and updated in
+//    its own shard (csrc/store_shards.cuh), the CTAs' reads, the fold and
+//    the outputs stay over the store's global reads, so the launch is the
+//    one-store launch of the gathered store bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -69,6 +75,7 @@
 
 #include "band_ops.cuh"
 #include "cluster_ops.cuh"
+#include "store_shards.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -131,7 +138,43 @@ struct Args {
   int csize, nw, rpc, rpw;  // the launch plan (rpw: rows per warp)
   // offsets of the packed output fields, per side
   int o_eds[2], o_split[2], o_reached[2], o_act[2], o_occ[2], o_syms[2];
+  // a read-sharded store (csrc/store_shards.cuh): `nsh` shard records in
+  // device memory, `Rs` reads each, slots h[] on every shard; the store
+  // pointers above (D .. rlen) are then unused.  Null: one store.
+  const StoreShard* sh;
+  int nsh, Rs;
 };
+
+// The words of (side sd, read r): slot h[sd] of the one store, or of read
+// r's shard.
+__device__ __forceinline__ shards::Cell cell(const Args& a, int sd, int r) {
+  const StoreShard own{a.D,    a.e,   a.rmin,
+                       a.er,   const_cast<int32_t*>(a.off),
+                       a.act,  a.cons, a.clen,
+                       a.reads, a.rlen};
+  return shards::cell(a.sh, a.Rs, own, a.R, a.W, a.L, a.h[sd], r);
+}
+
+// Read r's symbols [L].
+__device__ __forceinline__ const int16_t* read_row(const Args& a, int r) {
+  if (a.sh) {
+    const int k = r / a.Rs;
+    return a.sh[k].reads + (size_t)(r - k * a.Rs) * a.L;
+  }
+  return a.reads + (size_t)r * a.L;
+}
+
+// Slot h[sd]'s consensus row and length word in copy k of the store
+// (every shard holds one; the one store is copy 0).
+__device__ __forceinline__ int copies(const Args& a) {
+  return a.sh ? a.nsh : 1;
+}
+__device__ __forceinline__ int32_t* cons_row(const Args& a, int k, int sd) {
+  return (a.sh ? a.sh[k].cons : a.cons) + (size_t)a.h[sd] * a.C;
+}
+__device__ __forceinline__ int32_t* clen_at(const Args& a, int k, int sd) {
+  return (a.sh ? a.sh[k].clen : a.clen) + a.h[sd];
+}
 
 // The per-read words of a CTA: field k of side sd at rd[(2k + sd) * rpc].
 enum Field {
@@ -224,9 +267,8 @@ template <bool kOnChip>
 __device__ __forceinline__ int32_t* row(const Args& a, const Smem& s, int sd,
                                         int buf, int lr, int r) {
   if (kOnChip) return s.band + ((size_t)(2 * sd + buf) * a.rpc + lr) * a.W;
-  int32_t* base = buf == 0 ? a.D + (size_t)a.h[sd] * a.R * a.W
-                           : a.scratch + (size_t)sd * a.R * a.W;
-  return base + (size_t)r * a.W;
+  if (buf == 0) return cell(a, sd, r).D;
+  return a.scratch + ((size_t)sd * a.R + r) * a.W;
 }
 
 __device__ __forceinline__ int16_t* ring_of(const Smem& s, const Ctx& x,
@@ -236,7 +278,7 @@ __device__ __forceinline__ int16_t* ring_of(const Smem& s, const Ctx& x,
 
 // Symbol of read r at position i (-1 outside [0, L)), from device memory.
 __device__ __forceinline__ int read_sym(const Args& a, int r, int i) {
-  return i >= 0 && i < a.L ? a.reads[(size_t)r * a.L + i] : -1;
+  return i >= 0 && i < a.L ? read_row(a, r)[i] : -1;
 }
 
 __device__ __forceinline__ unsigned cost_of(int x, int l2) {
@@ -270,7 +312,7 @@ __device__ __forceinline__ int tips(const Args& a, const Smem& s,
     const band::RingWindow win{ring_of(s, x, a, sd, lr), x.ring_mask};
     return band::tip_histogram_win(Dv, win, a.W, rl, i0, e, hist);
   }
-  const band::GlobalWindow win{a.reads + (size_t)r * a.L, a.L};
+  const band::GlobalWindow win{read_row(a, r), a.L};
   return band::tip_histogram_win(Dv, win, a.W, rl, i0, e, hist);
 }
 
@@ -316,7 +358,7 @@ __device__ void warp_pass(const Args& a, const Smem& s, const Ctx& x,
         f = band::column_step_runs(Dv, Dn, win, a.W, rl, i0, sym, a.wc, a.et,
                                    f0, hist, &split[sd]);
       } else {
-        const band::GlobalWindow win{a.reads + (size_t)r * a.L, a.L};
+        const band::GlobalWindow win{read_row(a, r), a.L};
         f = band::column_step_runs(Dv, Dn, win, a.W, rl, i0, sym, a.wc, a.et,
                                    f0, hist, &split[sd]);
       }
@@ -572,22 +614,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
   x.ring_mask = ring_len(a.W) - 1;
   const bool lead = x.rank == 0 && tid == 0;
-  int clen0 = a.clen[a.h[0]], clen1 = a.clen[a.h[1]];
+  int clen0 = *clen_at(a, 0, 0), clen1 = *clen_at(a, 0, 1);
   // every CTA of the cluster is running before any partial is pushed: the
   // barrier's wait comes after the state is loaded
   cluster_arrive_relaxed();
 
   for (int lr = tid; lr < x.nloc; lr += nthreads) {
     for (int k = 0; k < 2; ++k) {
-      const size_t hr = (size_t)a.h[k] * a.R + x.r0 + lr;
-      s.f(kE, k)[lr] = s.f(kE2, k)[lr] = a.e[hr];
-      s.f(kRmin, k)[lr] = s.f(kRmin2, k)[lr] = a.rmin[hr];
-      s.f(kEr, k)[lr] = s.f(kEr2, k)[lr] = a.er[hr];
-      s.f(kOff, k)[lr] = a.off[hr];
-      s.f(kAct, k)[lr] = s.f(kAct2, k)[lr] = a.act[hr] != 0;
+      const shards::Cell c = cell(a, k, x.r0 + lr);
+      s.f(kE, k)[lr] = s.f(kE2, k)[lr] = *c.e;
+      s.f(kRmin, k)[lr] = s.f(kRmin2, k)[lr] = *c.rmin;
+      s.f(kEr, k)[lr] = s.f(kEr2, k)[lr] = *c.er;
+      s.f(kOff, k)[lr] = *c.off;
+      s.f(kAct, k)[lr] = s.f(kAct2, k)[lr] = *c.act != 0;
       s.f(kFin, k)[lr] = s.f(kFin2, k)[lr] = 0;
+      if (k == 0) s.rlen[lr] = *c.rlen;
     }
-    s.rlen[lr] = a.rlen[x.r0 + lr];
   }
   for (int i = tid; i < a.nw * 2 * a.A; i += nthreads) s.hist[i] = 0;
   if (tid < 8) s.dec[tid] = 0;
@@ -597,13 +639,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const int r = x.r0 + lr;
 #pragma unroll
       for (int sd = 0; sd < 2; ++sd) {
-        const size_t hr = (size_t)a.h[sd] * a.R + r;
-        if (!x.mine(sd) || !a.act[hr]) continue;
-        const int32_t* src = a.D + hr * a.W;
+        const shards::Cell c = cell(a, sd, r);
+        if (!x.mine(sd) || !*c.act) continue;
+        const int32_t* src = c.D;
         int32_t* dst = row<kOnChip>(a, s, sd, 0, lr, r);
         for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
         int16_t* rg = ring_of(s, x, a, sd, lr);
-        const int base = (sd ? clen1 : clen0) - a.off[hr] - a.E;
+        const int base = (sd ? clen1 : clen0) - *c.off - a.E;
         for (int k = x.lane; k <= a.W; k += 32) {
           const int i = base + k;
           rg[i & x.ring_mask] = (int16_t)read_sym(a, r, i);
@@ -700,14 +742,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (lead) a.rec_steps[ri] = steps;
     }
     if (lead) {
-      if (!a.lock[0]) {
-        a.cons[(size_t)a.h[0] * a.C + clen0] = dec.sym0;
-        a.out[a.o_syms[0] + steps] = dec.sym0;
+      for (int k = 0; k < copies(a); ++k) {
+        if (!a.lock[0]) cons_row(a, k, 0)[clen0] = dec.sym0;
+        if (!a.lock[1]) cons_row(a, k, 1)[clen1] = dec.sym1;
       }
-      if (!a.lock[1]) {
-        a.cons[(size_t)a.h[1] * a.C + clen1] = dec.sym1;
-        a.out[a.o_syms[1] + steps] = dec.sym1;
-      }
+      if (!a.lock[0]) a.out[a.o_syms[0] + steps] = dec.sym0;
+      if (!a.lock[1]) a.out[a.o_syms[1] + steps] = dec.sym1;
     }
     // a read pruned now is no longer stepped: its new row goes into the
     // side's other buffer too
@@ -788,10 +828,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       const int r = x.r0 + lr;
 #pragma unroll
       for (int sd = 0; sd < 2; ++sd) {
-        const size_t hr = (size_t)a.h[sd] * a.R + r;
-        if (!x.mine(sd) || a.lock[sd] || !a.act[hr]) continue;
+        const shards::Cell c = cell(a, sd, r);
+        if (!x.mine(sd) || a.lock[sd] || !*c.act) continue;
         const int32_t* src = row<kOnChip>(a, s, sd, cur, lr, r);
-        int32_t* dst = a.D + hr * a.W;
+        int32_t* dst = c.D;
         for (int t = x.lane; t < a.W; t += 32) dst[t] = src[t];
       }
     }
@@ -799,11 +839,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   __syncwarp();
   for (int i = x.lane; i < (x.hi - x.lo) * x.ns; i += 32) {
     const int lr = x.lo + i / x.ns, sd = x.s0 + i % x.ns;
-    const size_t hr = (size_t)a.h[sd] * a.R + x.r0 + lr;
-    a.e[hr] = s.f(kE, sd)[lr];
-    a.rmin[hr] = s.f(kRmin, sd)[lr];
-    a.er[hr] = s.f(kEr, sd)[lr];
-    a.act[hr] = (uint8_t)(s.f(kAct, sd)[lr] != 0);
+    const shards::Cell c = cell(a, sd, x.r0 + lr);
+    *c.e = s.f(kE, sd)[lr];
+    *c.rmin = s.f(kRmin, sd)[lr];
+    *c.er = s.f(kEr, sd)[lr];
+    *c.act = (uint8_t)(s.f(kAct, sd)[lr] != 0);
   }
   // symbol slots past each side's commits (all of a locked side's) are 0
   {
@@ -821,8 +861,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     a.out[3] = clen0;
     a.out[4] = clen1;
     a.out[5] = a.out[6] = a.out[7] = 0;
-    a.clen[a.h[0]] = clen0;
-    a.clen[a.h[1]] = clen1;
+    for (int k = 0; k < copies(a); ++k) {
+      *clen_at(a, k, 0) = clen0;
+      *clen_at(a, k, 1) = clen1;
+    }
   }
   cluster_wait();
 }
@@ -892,43 +934,16 @@ int launch(const Args& a, int threads, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches one cluster of
-// `csize` CTAs of `threads` threads on `stream`, with the geometry of the
-// plan (`plan_run_dual` in ops/run_dual_kernel.py): `rpc` reads per CTA,
-// `rpw` rows per warp (1: a warp pair per read; an even number: both
-// sides of rpw / 2 reads per warp), the band on chip (`on_chip`) or in
-// device memory (`scratch` then holds each side's second buffer), `smem`
-// bytes of dynamic shared memory.  Returns 0 on success, -1 when the plan
-// does not cover the shape or its shared memory disagrees with the
-// kernel's layout, -2 when no cluster of that shape fits on the device,
-// else the CUDA error; the launch does not synchronise.
-extern "C" int run_extend_dual_launch(
-    void* D, void* e, void* rmin, void* er, void* off, void* act, void* cons,
-    void* clen, void* reads, void* rlen, void* mc_tab, void* imb_tab,
-    void* scratch, void* out, void* rec_steps, void* rec_planes, int h1,
-    int h2, int R, int W, int C, int L, int A, int MCN, int IMBN,
-    int me_budget, int other_cost, int other_len, int delta, int l2,
-    int weighted, int max_steps, int lock1, int lock2, int allow_records,
-    int rec_min, int mc_dyn, int wc, int et, int csize, int threads, int rpc,
-    int rpw, int on_chip, long long smem, void* stream) {
-  Args a;
-  a.D = static_cast<int32_t*>(D);
-  a.e = static_cast<int32_t*>(e);
-  a.rmin = static_cast<int32_t*>(rmin);
-  a.er = static_cast<int32_t*>(er);
-  a.off = static_cast<const int32_t*>(off);
-  a.act = static_cast<uint8_t*>(act);
-  a.cons = static_cast<int32_t*>(cons);
-  a.clen = static_cast<int32_t*>(clen);
-  a.reads = static_cast<const int16_t*>(reads);
-  a.rlen = static_cast<const int32_t*>(rlen);
-  a.mc_tab = static_cast<const int32_t*>(mc_tab);
-  a.imb_tab = static_cast<const int32_t*>(imb_tab);
-  a.scratch = static_cast<int32_t*>(scratch);
-  a.out = static_cast<int32_t*>(out);
-  a.rec_steps = static_cast<int32_t*>(rec_steps);
-  a.rec_planes = static_cast<int32_t*>(rec_planes);
-  a.h[0] = h1; a.h[1] = h2;
+namespace {
+
+// The scalars of a dual run and the plan into `a` (its store, slots,
+// tables and outputs set by the caller), then the launch.
+int launch_dual(Args& a, int R, int W, int C, int L, int A, int MCN,
+                int IMBN, int me_budget, int other_cost, int other_len,
+                int delta, int l2, int weighted, int max_steps, int lock1,
+                int lock2, int allow_records, int rec_min, int mc_dyn, int wc,
+                int et, int csize, int threads, int rpc, int rpw,
+                int on_chip, long long smem, void* stream) {
   a.lock[0] = lock1; a.lock[1] = lock2;
   a.R = R; a.W = W; a.C = C; a.L = L; a.A = A; a.MCN = MCN; a.IMBN = IMBN;
   a.E = (W - 2) / 2;
@@ -961,10 +976,97 @@ extern "C" int run_extend_dual_launch(
       csize >= 1 && csize <= kMaxCluster && threads >= 32 &&
       threads <= kMaxThreads && threads % 32 == 0 && rpc >= 1 && rpw >= 1 &&
       rows_ok && (long long)csize * rpc >= R && A >= 1 && W >= 4 &&
-      MCN >= 1 && IMBN >= 1 && (on_chip || scratch != nullptr) &&
-      (size_t)smem == smem_bytes(rpc, nw, W, A, on_chip != 0);
+      MCN >= 1 && IMBN >= 1 && (on_chip || a.scratch != nullptr) &&
+      (size_t)smem == smem_bytes(rpc, nw, W, A, on_chip != 0) &&
+      shards::cover(a.sh, a.nsh, a.Rs, R);
   if (!plan_ok) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return on_chip ? launch<true>(a, threads, (size_t)smem, st)
                  : launch<false>(a, threads, (size_t)smem, st);
+}
+
+// The launch's tables and outputs into `a`.
+void set_io(Args& a, void* mc_tab, void* imb_tab, void* scratch, void* out,
+            void* rec_steps, void* rec_planes, int h1, int h2) {
+  a.mc_tab = static_cast<const int32_t*>(mc_tab);
+  a.imb_tab = static_cast<const int32_t*>(imb_tab);
+  a.scratch = static_cast<int32_t*>(scratch);
+  a.out = static_cast<int32_t*>(out);
+  a.rec_steps = static_cast<int32_t*>(rec_steps);
+  a.rec_planes = static_cast<int32_t*>(rec_planes);
+  a.h[0] = h1; a.h[1] = h2;
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  Launches one cluster of
+// `csize` CTAs of `threads` threads on `stream`, with the geometry of the
+// plan (`plan_run_dual` in ops/run_dual_kernel.py): `rpc` reads per CTA,
+// `rpw` rows per warp (1: a warp pair per read; an even number: both
+// sides of rpw / 2 reads per warp), the band on chip (`on_chip`) or in
+// device memory (`scratch` then holds each side's second buffer), `smem`
+// bytes of dynamic shared memory.  Returns 0 on success, -1 when the plan
+// does not cover the shape or its shared memory disagrees with the
+// kernel's layout, -2 when no cluster of that shape fits on the device,
+// else the CUDA error; the launch does not synchronise.
+extern "C" int run_extend_dual_launch(
+    void* D, void* e, void* rmin, void* er, void* off, void* act, void* cons,
+    void* clen, void* reads, void* rlen, void* mc_tab, void* imb_tab,
+    void* scratch, void* out, void* rec_steps, void* rec_planes, int h1,
+    int h2, int R, int W, int C, int L, int A, int MCN, int IMBN,
+    int me_budget, int other_cost, int other_len, int delta, int l2,
+    int weighted, int max_steps, int lock1, int lock2, int allow_records,
+    int rec_min, int mc_dyn, int wc, int et, int csize, int threads, int rpc,
+    int rpw, int on_chip, long long smem, void* stream) {
+  Args a;
+  a.D = static_cast<int32_t*>(D);
+  a.e = static_cast<int32_t*>(e);
+  a.rmin = static_cast<int32_t*>(rmin);
+  a.er = static_cast<int32_t*>(er);
+  a.off = static_cast<const int32_t*>(off);
+  a.act = static_cast<uint8_t*>(act);
+  a.cons = static_cast<int32_t*>(cons);
+  a.clen = static_cast<int32_t*>(clen);
+  a.reads = static_cast<const int16_t*>(reads);
+  a.rlen = static_cast<const int32_t*>(rlen);
+  a.sh = nullptr;
+  a.nsh = 1; a.Rs = R;
+  set_io(a, mc_tab, imb_tab, scratch, out, rec_steps, rec_planes, h1, h2);
+  return launch_dual(a, R, W, C, L, A, MCN, IMBN, me_budget, other_cost,
+                     other_len, delta, l2, weighted, max_steps, lock1, lock2,
+                     allow_records, rec_min, mc_dyn, wc, et, csize, threads,
+                     rpc, rpw, on_chip, smem, stream);
+}
+
+// The shard instance: the same dual run on slots h1, h2 of a read-sharded
+// store whose `nsh` shards (`Rs` reads each, R = nsh Rs) share this card,
+// one launch for all of them.  `shards` is the device copy of the shards'
+// records (csrc/store_shards.cuh `StoreShard`); each row is read and
+// updated in its own shard, each symbol and length written to every
+// shard.  Tables, outputs and plan are the one-store launch's at the
+// store's R.  Returns as `run_extend_dual_launch`, and -1 too when the
+// shards do not cover R.
+extern "C" int run_extend_dual_shards_launch(
+    const void* shards, int nsh, int Rs, void* mc_tab, void* imb_tab,
+    void* scratch, void* out, void* rec_steps, void* rec_planes, int h1,
+    int h2, int R, int W, int C, int L, int A, int MCN, int IMBN,
+    int me_budget, int other_cost, int other_len, int delta, int l2,
+    int weighted, int max_steps, int lock1, int lock2, int allow_records,
+    int rec_min, int mc_dyn, int wc, int et, int csize, int threads, int rpc,
+    int rpw, int on_chip, long long smem, void* stream) {
+  if (shards == nullptr) return -1;
+  Args a;
+  a.D = a.e = a.rmin = a.er = nullptr;
+  a.off = nullptr;
+  a.act = nullptr;
+  a.cons = a.clen = nullptr;
+  a.reads = nullptr;
+  a.rlen = nullptr;
+  a.sh = static_cast<const StoreShard*>(shards);
+  a.nsh = nsh; a.Rs = Rs;
+  set_io(a, mc_tab, imb_tab, scratch, out, rec_steps, rec_planes, h1, h2);
+  return launch_dual(a, R, W, C, L, A, MCN, IMBN, me_budget, other_cost,
+                     other_len, delta, l2, weighted, max_steps, lock1, lock2,
+                     allow_records, rec_min, mc_dyn, wc, et, csize, threads,
+                     rpc, rpw, on_chip, smem, stream);
 }

@@ -28,6 +28,9 @@ Pieces, in the style of :mod:`~waffle_con_tpu_torch.ops.run_kernel`:
   ``arena_cuda.launches``.
 * :func:`arena` — the dispatch rule: CPU tensors take the twin, CUDA
   tensors launch the kernel or raise.
+* :func:`arena_shards` — the same on a read-sharded store whose shards
+  share one device: one launch of the kernel's shard instance on a card
+  (:func:`arena_shards_cuda`), :func:`arena_shards_plain` on the CPU.
 
 Node ``n`` owns side rows ``2n`` and ``2n + 1`` (``slots[2n + s]`` of the
 store).  ``kinds[n]`` is 0 (single), 1 (dual) or -1 (dead, or a creation
@@ -50,9 +53,11 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from waffle_con_tpu_torch.ops import cuda_build
+from waffle_con_tpu_torch.ops import branch_kernel, cuda_build, state_io
 from waffle_con_tpu_torch.ops.run_kernel import (
     MAX_CLUSTER,
+    _ptr,
+    shard_placement,
     MAX_WARPS,
     SMEM_LIMIT,
     _ring_len,
@@ -843,6 +848,72 @@ PROF_FIELDS = ("decide", "step", "write_back", "fold", "finish", "total",
                "events")
 
 
+def _shards_launcher():
+    fn = cuda_build.library().arena_shards_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+                       + [ctypes.c_longlong, ctypes.c_void_p,
+                          ctypes.c_void_p])
+    return fn
+
+
+def _launch_io(slots, kinds, lc, pc, tr, mc_tab, imb_tab, args: ArenaArgs,
+               B: int, R: int, W: int, C: int, dev, profile):
+    """Checks a call's slots and profile buffer, plans it and packs its
+    host inputs: ``(plan, in buffer, out, scratch, the C entries' ints from
+    R on)``; the caller passes ``B`` and the store in front of them."""
+    slots = np.asarray(slots, dtype=np.int64)
+    K = len(kinds)
+    if slots.shape != (2 * K,) or len(set(slots.tolist())) != 2 * K or (
+            slots.min() < 0 or slots.max() >= B):
+        raise ValueError(f"slots: need {2 * K} distinct slots < {B}")
+    if profile is not None and (
+            profile.dtype != torch.int64 or profile.device != dev
+            or profile.shape != (len(PROF_FIELDS),)):
+        raise ValueError(f"profile: need int64 [{len(PROF_FIELDS)}] on {dev}")
+    lc = np.asarray(lc)
+    Lw = lc.shape[1]
+    A = args.a_real
+    plan = plan_arena(K, R, W, A, Lw, C)
+    mc_tab = np.asarray(mc_tab, dtype=np.int64)
+    imb_tab = np.asarray(imb_tab, dtype=np.int64)
+    lay_in = arena_in_layout(K, Lw, len(mc_tab), len(imb_tab))
+    host = np.empty(lay_in["imb_tab"][1], dtype=np.int32)
+    for name, value in (("params", _params(args)), ("slots", slots),
+                        ("kinds", kinds), ("tr", tr), ("lc", lc),
+                        ("pc", pc), ("mc_tab", mc_tab),
+                        ("imb_tab", imb_tab)):
+        a, b = lay_in[name]
+        host[a:b] = np.asarray(value, dtype=np.int64).reshape(-1)
+    buf = torch.from_numpy(host).to(dev, non_blocking=False)
+    lay = arena_out_layout(K, R, A, args.max_steps)
+    out = torch.empty(lay["cre_len"][1], dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_words(plan, K, R, W, A, Lw),
+                          dtype=torch.int32, device=dev)
+    return plan, buf, out, scratch, (
+        len(mc_tab), len(imb_tab), args.max_steps, plan.cluster,
+        plan.threads, plan.reads_per_cta, plan.fold_nodes,
+        int(plan.band == "smem"), int(plan.records == "smem"),
+        int(plan.trackers == "smem"), plan.smem_bytes)
+
+
+def _raise_on(rc: int, K: int, R: int, W: int, A: int, plan,
+              shards: int = 0) -> None:
+    if rc != 0:
+        why = _ERRORS.get(rc, f"CUDA error {rc}")
+        on = f", {shards} shards" if shards else ""
+        raise RuntimeError(f"arena kernel launch failed: {why} (K={K}, "
+                           f"R={R}, W={W}, A={A}{on}, {plan})")
+
+
+def _counted(plan: ArenaPlan) -> None:
+    arena_cuda.launches += 1
+    arena_cuda.placements[plan.band] += 1
+    arena_cuda.last_plan = plan
+
+
 def arena_cuda(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
                imb_tab, args: ArenaArgs, profile=None):
     """Launch ``csrc/arena.cu``: one thread-block cluster of the
@@ -874,60 +945,96 @@ def arena_cuda(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab,
         raise ValueError("reads: need contiguous int16 [R, L] on the state device")
     if rlen.dtype != torch.int32 or rlen.device != dev or rlen.shape != (R,):
         raise ValueError("rlen: need int32 [R] on the state device")
-    slots = np.asarray(slots, dtype=np.int64)
-    K = len(kinds)
-    if slots.shape != (2 * K,) or len(set(slots.tolist())) != 2 * K or (
-            slots.min() < 0 or slots.max() >= B):
-        raise ValueError(f"slots: need {2 * K} distinct slots < {B}")
-    if profile is not None and (
-            profile.dtype != torch.int64 or profile.device != dev
-            or profile.shape != (len(PROF_FIELDS),)):
-        raise ValueError(f"profile: need int64 [{len(PROF_FIELDS)}] on {dev}")
-    lc = np.asarray(lc)
-    Lw = lc.shape[1]
-    A = args.a_real
-    plan = plan_arena(K, R, W, A, Lw, C)
-    mc_tab = np.asarray(mc_tab, dtype=np.int64)
-    imb_tab = np.asarray(imb_tab, dtype=np.int64)
-    lay_in = arena_in_layout(K, Lw, len(mc_tab), len(imb_tab))
-    host = np.empty(lay_in["imb_tab"][1], dtype=np.int32)
-    for name, value in (("params", _params(args)), ("slots", slots),
-                        ("kinds", kinds), ("tr", tr), ("lc", lc),
-                        ("pc", pc), ("mc_tab", mc_tab),
-                        ("imb_tab", imb_tab)):
-        a, b = lay_in[name]
-        host[a:b] = np.asarray(value, dtype=np.int64).reshape(-1)
-    buf = torch.from_numpy(host).to(dev, non_blocking=False)
-    lay = arena_out_layout(K, R, A, args.max_steps)
-    out = torch.empty(lay["cre_len"][1], dtype=torch.int32, device=dev)
-    scratch = torch.empty(scratch_words(plan, K, R, W, A, Lw),
-                          dtype=torch.int32, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    K, A = len(kinds), args.a_real
+    plan, buf, out, scratch, ints = _launch_io(
+        slots, kinds, lc, pc, tr, mc_tab, imb_tab, args, B, R, W, C, dev,
+        profile)
     rc = _launcher()(
-        ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
-        ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
-        ptr(state["clen"]), ptr(reads), ptr(rlen), ptr(buf), ptr(out),
-        ptr(scratch),
-        B, R, W, C, reads.shape[1], A, K, Lw, len(mc_tab), len(imb_tab),
-        args.max_steps, plan.cluster, plan.threads, plan.reads_per_cta,
-        plan.fold_nodes, int(plan.band == "smem"),
-        int(plan.records == "smem"), int(plan.trackers == "smem"),
-        plan.smem_bytes, None if profile is None else ptr(profile),
+        _ptr(D), _ptr(state["e"]), _ptr(state["rmin"]), _ptr(state["er"]),
+        _ptr(state["off"]), _ptr(state["act"]), _ptr(state["cons"]),
+        _ptr(state["clen"]), _ptr(reads), _ptr(rlen), _ptr(buf), _ptr(out),
+        _ptr(scratch), B, R, W, C, reads.shape[1], A, K,
+        np.asarray(lc).shape[1], *ints, _ptr(profile),
         cuda_build.stream_ptr(dev),
     )
-    if rc != 0:
-        why = _ERRORS.get(rc, f"CUDA error {rc}")
-        raise RuntimeError(f"arena kernel launch failed: {why} (K={K}, "
-                           f"R={R}, W={W}, A={A}, {plan})")
-    arena_cuda.launches += 1
-    arena_cuda.placements[plan.band] += 1
-    arena_cuda.last_plan = plan
+    _raise_on(rc, K, R, W, A, plan)
+    _counted(plan)
     return out
 
 
 arena_cuda.launches = 0
 arena_cuda.placements = {"smem": 0, "global": 0}
 arena_cuda.last_plan = None
+
+
+def arena_shards_cuda(states, reads, rlens, slots, kinds, lc, pc, tr,
+                      mc_tab, imb_tab, args: ArenaArgs, profile=None):
+    """The arena kernel's shard instance: the call on a read-sharded
+    store whose shards (``states``, ``Rs`` reads each and the same slots,
+    with their ``reads`` and ``rlens``) share one card, in one launch for
+    all of them: every row stepped in place in its own shard, every
+    consensus row and length written to every shard.  Plan, inputs and
+    output are those of :func:`arena_cuda` at the store's ``R = n Rs``, so
+    the result is the unsharded kernel's on the gathered store, bit for
+    bit.  Raises like :func:`arena_cuda`; never falls back.  Each launch
+    adds one to ``arena_cuda.launches`` and to
+    ``arena_shards_cuda.launches``."""
+    table = branch_kernel.shard_records(states, reads, rlens)
+    B, Rs, W = states[0]["D"].shape
+    n = len(states)
+    R = n * Rs
+    C = states[0]["cons"].shape[1]
+    dev = states[0]["D"].device
+    K, A = len(kinds), args.a_real
+    plan, buf, out, scratch, ints = _launch_io(
+        slots, kinds, lc, pc, tr, mc_tab, imb_tab, args, B, R, W, C, dev,
+        profile)
+    rc = _shards_launcher()(
+        _ptr(table), n, Rs, _ptr(buf), _ptr(out), _ptr(scratch), B, R, W, C,
+        reads[0].shape[1], A, K, np.asarray(lc).shape[1], *ints,
+        _ptr(profile), cuda_build.stream_ptr(dev),
+    )
+    _raise_on(rc, K, R, W, A, plan, n)
+    _counted(plan)
+    arena_shards_cuda.launches += 1
+    return out
+
+
+arena_shards_cuda.launches = 0
+
+
+def arena_shards_plain(states, reads, rlens, slots, kinds, lc, pc, tr,
+                       mc_tab, imb_tab, args: ArenaArgs):
+    """The shard instance's plain version: the call's ``2K`` slots of the
+    shards gathered into one store (``state_io.gather_slots``, slot ``i``
+    of it ``slots[i]``), :func:`arena_plain` on it, the result split back
+    into the shards in place (``state_io.scatter_slots``)."""
+    arena_shards_plain.calls += 1
+    slots = [int(x) for x in slots]
+    state, rd, rl = state_io.gather_slots(states, slots, reads, rlens)
+    out = arena_plain(state, rd, rl, list(range(len(slots))), kinds, lc, pc,
+                      tr, mc_tab, imb_tab, args)
+    state_io.scatter_slots(states, slots, state)
+    return out
+
+
+arena_shards_plain.calls = 0
+
+
+def arena_shards(states, reads, rlens, slots, kinds, lc, pc, tr, mc_tab,
+                 imb_tab, args: ArenaArgs):
+    """Dispatch rule of a sharded store's arena (as
+    ``run_kernel.run_extend_shards``'s)."""
+    faults.check_kernel("arena")
+    kind = shard_placement(states)
+    if kind == "fused":
+        fn = arena_shards_cuda
+    elif kind == "plain":
+        fn = arena_shards_plain
+    else:
+        raise ValueError("no arena kernel for shards on several devices")
+    return fn(states, reads, rlens, slots, kinds, lc, pc, tr, mc_tab,
+              imb_tab, args)
 
 
 def arena(state, reads, rlen, slots, kinds, lc, pc, tr, mc_tab, imb_tab,

@@ -564,6 +564,46 @@ def _shard_array(states, reads, rlens):
     return arr
 
 
+#: the dtype of each field of a store
+_DTYPES = dict.fromkeys(_STORE, torch.int32) | {"act": torch.bool}
+
+
+def shard_records(states, reads, rlens) -> torch.Tensor:
+    """The shards' ``BranchShard`` records (``csrc/store_shards.cuh``'s
+    ``StoreShard``, the same layout) copied into device memory on their
+    card: the table the shard instances of the run, dual-run and arena
+    kernels read (their kernel parameter holds only its address).  Raises
+    unless the 1 to ``MAX_SHARDS`` shards are contiguous stores of one
+    geometry on one CUDA device, each with its ``int16 [Rs, L]`` reads and
+    ``int32 [Rs]`` lengths there."""
+    _check_shards(states)
+    if len(states) > MAX_SHARDS:
+        raise ValueError(f"{len(states)} shards: a launch takes at most "
+                         f"{MAX_SHARDS}")
+    dev = states[0]["D"].device
+    if dev.type != "cuda":
+        raise ValueError("a shard instance needs its shards on a CUDA device")
+    Rs = states[0]["D"].shape[1]
+    for st, rd, rl in zip(states, reads, rlens):
+        for name, dt in _DTYPES.items():
+            t = st[name]
+            if t.dtype != dt or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"state[{name!r}]: need contiguous {dt} on "
+                                 f"{dev}")
+        if (rd.dtype != torch.int16 or rd.device != dev or rd.dim() != 2
+                or rd.shape[0] != Rs or not rd.is_contiguous()):
+            raise ValueError("reads: need contiguous int16 [Rs, L] on the "
+                             "shards' device")
+        if (rl.dtype != torch.int32 or rl.device != dev or rl.shape != (Rs,)
+                or not rl.is_contiguous()):
+            raise ValueError("rlen: need int32 [Rs] on the shards' device")
+    if len({rd.shape[1] for rd in reads}) != 1:
+        raise ValueError("the shards' reads need one length L")
+    host = torch.frombuffer(bytearray(_shard_array(states, reads, rlens)),
+                            dtype=torch.int64)
+    return host.to(dev)
+
+
 def branch_cuda(entry: str, launcher: str, *args,
                 plan: Optional[BranchPlan] = None, shards: int = 0) -> None:
     """Call the C entry ``branch_<launcher>_launch`` of

@@ -15,6 +15,10 @@ Four pieces, one contract, as in :mod:`~waffle_con_tpu_torch.ops.run_kernel`:
 * :func:`run_extend_dual` — the dispatch rule: a state on the CPU runs
   the plain loop, a state on a CUDA device launches the kernel (or
   raises).
+* :func:`run_extend_dual_shards` — the same on a read-sharded store
+  whose shards share one device: one launch of the kernel's shard
+  instance on a card (:func:`run_extend_dual_shards_cuda`),
+  :func:`run_extend_dual_shards_plain` on the CPU.
 
 The contract is the one of ``waffle_con_tpu``'s ``_j_run_dual_pallas``
 (``ops/pallas_run.py``) and ``_j_run_dual`` (``ops/jax_scorer.py``): the
@@ -45,9 +49,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from waffle_con_tpu_torch.ops import cuda_build
+from waffle_con_tpu_torch.ops import branch_kernel, cuda_build, state_io
 from waffle_con_tpu_torch.ops.run_kernel import (
     _LAUNCH_ERRORS,
+    _ptr,
+    shard_placement,
     MAX_CLUSTER,
     MAX_WARPS,
     SMEM_LIMIT,
@@ -486,6 +492,67 @@ def _launcher():
     return fn
 
 
+def _shards_launcher():
+    fn = cuda_build.library().run_extend_dual_shards_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+    return fn
+
+
+def _check_tables(mc_tab, imb_tab, dev) -> None:
+    for name, tab in (("mc_tab", mc_tab), ("imb_tab", imb_tab)):
+        if tab.dtype != torch.int32 or tab.device != dev or tab.dim() != 1 \
+                or tab.shape[0] < 1 or not tab.is_contiguous():
+            raise ValueError(f"{name}: need a non-empty contiguous int32 "
+                             f"vector on {dev}")
+
+
+def _buffers(R: int, W: int, args: DualRunArgs, plan: DualRunPlan, dev):
+    """A launch's packed output (the kernel writes every field, the unused
+    symbol slots included), record buffers and (band in device memory)
+    scratch rows."""
+    lay = dual_out_layout(R, args.a_real, args.max_steps)
+    out = torch.empty(lay["syms2"][1], dtype=torch.int32, device=dev)
+    rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
+    rec_planes = torch.empty((4, REC_CAP, R), dtype=torch.int32, device=dev)
+    scratch = (None if plan.band == "smem"
+               else torch.empty((2, R, W), dtype=torch.int32, device=dev))
+    return out, rec_steps, rec_planes, scratch
+
+
+def _scalars(h1, h2, R, W, C, L, mc_tab, imb_tab, args: DualRunArgs,
+             plan: DualRunPlan):
+    """The ints of the C entries from the slots on, in their order, then
+    the shared memory."""
+    return (h1, h2, R, W, C, L, args.a_real, mc_tab.shape[0],
+            imb_tab.shape[0], args.me_budget, args.other_cost,
+            args.other_len, args.delta, int(args.l2), int(args.weighted),
+            args.max_steps, int(args.lock1), int(args.lock2),
+            int(args.allow_records), args.rec_min, int(args.mc_dyn), args.wc,
+            int(args.et), plan.cluster, plan.threads, plan.reads_per_cta,
+            plan.rows_per_warp, int(plan.band == "smem"), plan.smem_bytes)
+
+
+def _raise_on(rc: int, R: int, W: int, args: DualRunArgs, plan,
+              shards: int = 0) -> None:
+    if rc != 0:
+        why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
+        on = f", {shards} shards" if shards else ""
+        raise RuntimeError(
+            f"run_extend_dual kernel launch failed: {why} (R={R}, W={W}, "
+            f"A={args.a_real}{on}, {plan})"
+        )
+
+
+def _counted(plan: DualRunPlan) -> None:
+    run_extend_dual_cuda.launches += 1
+    run_extend_dual_cuda.placements[plan.band] += 1
+    run_extend_dual_cuda.last_plan = plan
+
+
 def run_extend_dual_cuda(state, h1: int, h2: int, reads, rlen, mc_tab,
                          imb_tab, args: DualRunArgs):
     """Launch the CUDA dual run kernel on slots ``h1``/``h2``: one
@@ -517,55 +584,104 @@ def run_extend_dual_cuda(state, h1: int, h2: int, reads, rlen, mc_tab,
         raise ValueError("reads: need contiguous int16 [R, L] on the state device")
     if rlen.dtype != torch.int32 or rlen.device != dev or rlen.shape != (R,):
         raise ValueError("rlen: need int32 [R] on the state device")
-    for name, tab in (("mc_tab", mc_tab), ("imb_tab", imb_tab)):
-        if tab.dtype != torch.int32 or tab.device != dev or tab.dim() != 1 \
-                or tab.shape[0] < 1:
-            raise ValueError(f"{name}: need a non-empty int32 vector on {dev}")
-    if not all(t.is_contiguous() for t in (reads, rlen, mc_tab, imb_tab)):
-        raise ValueError("reads/rlen/mc_tab/imb_tab must be contiguous")
+    _check_tables(mc_tab, imb_tab, dev)
+    if not all(t.is_contiguous() for t in (reads, rlen)):
+        raise ValueError("reads/rlen must be contiguous")
     if not (0 <= h1 < B and 0 <= h2 < B) or h1 == h2:
         raise ValueError(f"slots {h1}, {h2}: need two distinct slots < {B}")
     plan = plan_run_dual(R, W, args.a_real)
     launch = _launcher()
-    lay = dual_out_layout(R, args.a_real, args.max_steps)
-    # the kernel writes every field, the unused symbol slots included
-    out = torch.empty(lay["syms2"][1], dtype=torch.int32, device=dev)
-    rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
-    rec_planes = torch.empty((4, REC_CAP, R), dtype=torch.int32, device=dev)
-    on_chip = plan.band == "smem"
-    scratch = None if on_chip else torch.empty((2, R, W), dtype=torch.int32,
-                                               device=dev)
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    out, rec_steps, rec_planes, scratch = _buffers(R, W, args, plan, dev)
+    ptr = _ptr
     rc = launch(
         ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
         ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
         ptr(state["clen"]), ptr(reads), ptr(rlen), ptr(mc_tab),
         ptr(imb_tab), ptr(scratch), ptr(out), ptr(rec_steps),
         ptr(rec_planes),
-        h1, h2, R, W, C, reads.shape[1], args.a_real, mc_tab.shape[0],
-        imb_tab.shape[0],
-        args.me_budget, args.other_cost, args.other_len, args.delta,
-        int(args.l2), int(args.weighted), args.max_steps, int(args.lock1),
-        int(args.lock2), int(args.allow_records), args.rec_min,
-        int(args.mc_dyn), args.wc, int(args.et),
-        plan.cluster, plan.threads, plan.reads_per_cta, plan.rows_per_warp,
-        int(on_chip), plan.smem_bytes, cuda_build.stream_ptr(dev),
+        *_scalars(h1, h2, R, W, C, reads.shape[1], mc_tab, imb_tab, args,
+                  plan),
+        cuda_build.stream_ptr(dev),
     )
-    if rc != 0:
-        why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
-        raise RuntimeError(
-            f"run_extend_dual kernel launch failed: {why} (R={R}, W={W}, "
-            f"A={args.a_real}, {plan})"
-        )
-    run_extend_dual_cuda.launches += 1
-    run_extend_dual_cuda.placements[plan.band] += 1
-    run_extend_dual_cuda.last_plan = plan
+    _raise_on(rc, R, W, args, plan)
+    _counted(plan)
     return out, rec_steps, rec_planes
 
 
 run_extend_dual_cuda.launches = 0
 run_extend_dual_cuda.placements = {"smem": 0, "global": 0}
 run_extend_dual_cuda.last_plan = None
+
+
+def run_extend_dual_shards_cuda(states, h1: int, h2: int, reads, rlens,
+                                mc_tab, imb_tab, args: DualRunArgs):
+    """The dual kernel's shard instance: the dual run of slots ``h1``,
+    ``h2`` of a read-sharded store whose shards (``states``, ``Rs`` reads
+    each, with their ``reads`` and ``rlens``) share one card, in one
+    launch for all of them, every row updated in place in its own shard
+    and every symbol and length written to every shard.  Plan, tables
+    (``mc_tab`` over the store's ``R + 1`` vote totals) and outputs are
+    those of :func:`run_extend_dual_cuda` at the store's ``R = n Rs``, so
+    the result is the unsharded kernel's on the gathered store, bit for
+    bit.  Raises like :func:`run_extend_dual_cuda`; never falls back.
+    Each launch adds one to ``run_extend_dual_cuda.launches`` and to
+    ``run_extend_dual_shards_cuda.launches``."""
+    table = branch_kernel.shard_records(states, reads, rlens)
+    B, Rs, W = states[0]["D"].shape
+    n = len(states)
+    R = n * Rs
+    C = states[0]["cons"].shape[1]
+    dev = states[0]["D"].device
+    _check_tables(mc_tab, imb_tab, dev)
+    if not (0 <= h1 < B and 0 <= h2 < B) or h1 == h2:
+        raise ValueError(f"slots {h1}, {h2}: need two distinct slots < {B}")
+    plan = plan_run_dual(R, W, args.a_real)
+    out, rec_steps, rec_planes, scratch = _buffers(R, W, args, plan, dev)
+    rc = _shards_launcher()(
+        _ptr(table), n, Rs, _ptr(mc_tab), _ptr(imb_tab), _ptr(scratch),
+        _ptr(out), _ptr(rec_steps), _ptr(rec_planes),
+        *_scalars(h1, h2, R, W, C, reads[0].shape[1], mc_tab, imb_tab, args,
+                  plan),
+        cuda_build.stream_ptr(dev),
+    )
+    _raise_on(rc, R, W, args, plan, n)
+    _counted(plan)
+    run_extend_dual_shards_cuda.launches += 1
+    return out, rec_steps, rec_planes
+
+
+run_extend_dual_shards_cuda.launches = 0
+
+
+def run_extend_dual_shards_plain(states, h1: int, h2: int, reads, rlens,
+                                 mc_tab, imb_tab, args: DualRunArgs):
+    """The shard instance's plain version: slots ``h1``, ``h2`` of the
+    shards gathered into one store (``state_io.gather_slots``), the plain
+    dual loop on it, the result split back into the shards in place
+    (``state_io.scatter_slots``)."""
+    run_extend_dual_shards_plain.calls += 1
+    state, rd, rl = state_io.gather_slots(states, [h1, h2], reads, rlens)
+    out = run_extend_dual_plain(state, 0, 1, rd, rl, mc_tab, imb_tab, args)
+    state_io.scatter_slots(states, [h1, h2], state)
+    return out
+
+
+run_extend_dual_shards_plain.calls = 0
+
+
+def run_extend_dual_shards(states, h1: int, h2: int, reads, rlens, mc_tab,
+                           imb_tab, args: DualRunArgs):
+    """Dispatch rule of a sharded store's dual run (as
+    ``run_kernel.run_extend_shards``'s)."""
+    faults.check_kernel("run_dual")
+    kind = shard_placement(states)
+    if kind == "fused":
+        return run_extend_dual_shards_cuda(states, h1, h2, reads, rlens,
+                                           mc_tab, imb_tab, args)
+    if kind == "plain":
+        return run_extend_dual_shards_plain(states, h1, h2, reads, rlens,
+                                            mc_tab, imb_tab, args)
+    raise ValueError("no dual run kernel for shards on several devices")
 
 
 def run_extend_dual(state, h1: int, h2: int, reads, rlen, mc_tab, imb_tab,

@@ -16,6 +16,12 @@ Four pieces, one contract:
   ``run_extend_cuda.launches``.
 * :func:`run_extend` — the dispatch rule: a state on the CPU runs the
   plain loop, a state on a CUDA device launches the kernel (or raises).
+* :func:`run_extend_shards` — the same run on a read-sharded store
+  (``ops/sharded_scorer.py``) whose shards share one device: on a card
+  one launch of the kernel's shard instance for every shard
+  (:func:`run_extend_shards_cuda`, ``run_extend_shards_launch``), on the
+  CPU :func:`run_extend_shards_plain` (the shards' slot gathered into one
+  store, the plain loop, the result split back).
 
 The contract is the one of ``waffle_con_tpu``'s ``_j_run_pallas``
 (``ops/pallas_run.py``) and ``_j_run`` (``ops/jax_scorer.py``): a forced
@@ -40,7 +46,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from waffle_con_tpu_torch.ops import cuda_build
+from waffle_con_tpu_torch.ops import branch_kernel, cuda_build, state_io
 from waffle_con_tpu_torch.ops.cuda_build import BUILD_DIR, build, build_info  # noqa: F401
 from waffle_con_tpu_torch.ops.torch_scorer import (
     REC_CAP,
@@ -414,6 +420,50 @@ _LAUNCH_ERRORS = {
 }
 
 
+def _shards_launcher():
+    fn = cuda_build.library().run_extend_shards_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+    return fn
+
+
+def _scalars(args: RunArgs):
+    """The run's scalars in the C entries' order."""
+    return (args.me_budget, args.other_cost, args.other_len, args.min_count,
+            int(args.l2), args.max_steps, args.first_sym,
+            int(args.allow_records), args.wc, int(args.et))
+
+
+def _buffers(R: int, W: int, args: RunArgs, plan: RunPlan, dev):
+    """A launch's packed output, record buffers and (band in device
+    memory) scratch rows."""
+    out = torch.empty(out_layout(R, args.a_real, args.max_steps)["syms"][1],
+                      dtype=torch.int32, device=dev)
+    rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
+    rec_fins = torch.empty((REC_CAP, R), dtype=torch.int32, device=dev)
+    scratch = (None if plan.band == "smem"
+               else torch.empty((R, W), dtype=torch.int32, device=dev))
+    return out, rec_steps, rec_fins, scratch
+
+
+def _plan_args(plan: RunPlan):
+    return (plan.cluster, plan.threads, plan.reads_per_cta,
+            plan.reads_per_warp, int(plan.band == "smem"), plan.smem_bytes)
+
+
+def _counted(plan: RunPlan) -> None:
+    run_extend_cuda.launches += 1
+    run_extend_cuda.placements[plan.band] += 1
+    run_extend_cuda.last_plan = plan
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
 def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
     """Launch the CUDA run kernel on slot ``h``: one thread-block cluster
     of the geometry :func:`plan_run` gives, the whole run loop inside.
@@ -449,41 +499,110 @@ def run_extend_cuda(state, h: int, reads, rlen, args: RunArgs):
         raise ValueError(f"slot {h} out of range")
     plan = plan_run(R, W, args.a_real)
     launch = _launcher()
-    lay = out_layout(R, args.a_real, args.max_steps)
-    out = torch.empty(lay["syms"][1], dtype=torch.int32, device=dev)
-    rec_steps = torch.empty(REC_CAP, dtype=torch.int32, device=dev)
-    rec_fins = torch.empty((REC_CAP, R), dtype=torch.int32, device=dev)
-    on_chip = plan.band == "smem"
-    scratch = None if on_chip else torch.empty((R, W), dtype=torch.int32,
-                                               device=dev)
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    out, rec_steps, rec_fins, scratch = _buffers(R, W, args, plan, dev)
+    ptr = _ptr
     rc = launch(
         ptr(D), ptr(state["e"]), ptr(state["rmin"]), ptr(state["er"]),
         ptr(state["off"]), ptr(state["act"]), ptr(state["cons"]),
         ptr(state["clen"]), ptr(reads), ptr(rlen), ptr(scratch), ptr(out),
         ptr(rec_steps), ptr(rec_fins),
-        h, R, W, C, reads.shape[1], args.a_real,
-        args.me_budget, args.other_cost, args.other_len, args.min_count,
-        int(args.l2), args.max_steps, args.first_sym,
-        int(args.allow_records), args.wc, int(args.et),
-        plan.cluster, plan.threads, plan.reads_per_cta, plan.reads_per_warp,
-        int(on_chip), plan.smem_bytes, cuda_build.stream_ptr(dev),
+        h, R, W, C, reads.shape[1], args.a_real, *_scalars(args),
+        *_plan_args(plan), cuda_build.stream_ptr(dev),
     )
+    _raise_on(rc, R, W, args, plan)
+    _counted(plan)
+    return out, rec_steps, rec_fins
+
+
+def _raise_on(rc: int, R: int, W: int, args: RunArgs, plan: RunPlan,
+              shards: int = 0) -> None:
     if rc != 0:
         why = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
+        on = f", {shards} shards" if shards else ""
         raise RuntimeError(
             f"run_extend kernel launch failed: {why} (R={R}, W={W}, "
-            f"A={args.a_real}, {plan})"
+            f"A={args.a_real}{on}, {plan})"
         )
-    run_extend_cuda.launches += 1
-    run_extend_cuda.placements[plan.band] += 1
-    run_extend_cuda.last_plan = plan
-    return out, rec_steps, rec_fins
 
 
 run_extend_cuda.launches = 0
 run_extend_cuda.placements = {"smem": 0, "global": 0}
 run_extend_cuda.last_plan = None
+
+
+def run_extend_shards_cuda(states, h: int, reads, rlens, args: RunArgs):
+    """The run kernel's shard instance: the run of slot ``h`` of a
+    read-sharded store whose shards (``states``, one store of ``Rs``
+    reads each, with their ``reads`` and ``rlens``) share one card, in
+    one launch for all of them, each read's rows updated in place in its
+    own shard and each symbol written to every shard.  The plan, the
+    output and the records are those of :func:`run_extend_cuda` at the
+    store's ``R = n Rs``, so the result is the unsharded kernel's on the
+    gathered store, bit for bit.  Raises like :func:`run_extend_cuda`;
+    never falls back.  Each launch adds one to
+    ``run_extend_cuda.launches`` (the kernel's count) and to
+    ``run_extend_shards_cuda.launches``."""
+    table = branch_kernel.shard_records(states, reads, rlens)
+    B, Rs, W = states[0]["D"].shape
+    n = len(states)
+    R = n * Rs
+    C = states[0]["cons"].shape[1]
+    if not 0 <= h < B:
+        raise ValueError(f"slot {h} out of range")
+    dev = states[0]["D"].device
+    plan = plan_run(R, W, args.a_real)
+    out, rec_steps, rec_fins, scratch = _buffers(R, W, args, plan, dev)
+    rc = _shards_launcher()(
+        _ptr(table), n, Rs, _ptr(scratch), _ptr(out), _ptr(rec_steps),
+        _ptr(rec_fins), h, R, W, C, reads[0].shape[1], args.a_real,
+        *_scalars(args), *_plan_args(plan), cuda_build.stream_ptr(dev),
+    )
+    _raise_on(rc, R, W, args, plan, n)
+    _counted(plan)
+    run_extend_shards_cuda.launches += 1
+    return out, rec_steps, rec_fins
+
+
+run_extend_shards_cuda.launches = 0
+
+
+def run_extend_shards_plain(states, h: int, reads, rlens, args: RunArgs):
+    """The shard instance's plain version: slot ``h`` of the shards
+    gathered into one store (``state_io.gather_slots``), the plain loop
+    on it, the result split back into the shards in place
+    (``state_io.scatter_slots``).  Same outputs as
+    :func:`run_extend_shards_cuda`."""
+    run_extend_shards_plain.calls += 1
+    state, rd, rl = state_io.gather_slots(states, [h], reads, rlens)
+    out = run_extend_plain(state, 0, rd, rl, args)
+    state_io.scatter_slots(states, [h], state)
+    return out
+
+
+run_extend_shards_plain.calls = 0
+
+
+def run_extend_shards(states, h: int, reads, rlens, args: RunArgs):
+    """Dispatch rule of a sharded store's run: shards on one CUDA device
+    launch :func:`run_extend_shards_cuda`, shards on the CPU take
+    :func:`run_extend_shards_plain`; anything else (the shards on several
+    devices) raises, and so does an armed ``pallas_compile`` fault."""
+    faults.check_kernel("run")
+    kind = shard_placement(states)
+    if kind == "fused":
+        return run_extend_shards_cuda(states, h, reads, rlens, args)
+    if kind == "plain":
+        return run_extend_shards_plain(states, h, reads, rlens, args)
+    raise ValueError("no run kernel for shards on several devices")
+
+
+def shard_placement(states) -> str:
+    """Where the shards' stores are, as ``sharded_scorer.placement``
+    names it: ``"fused"`` (one CUDA device), ``"plain"`` (the CPU) or
+    ``"cross_card"``."""
+    from waffle_con_tpu_torch.ops.sharded_scorer import placement
+
+    return placement([st["D"].device for st in states])
 
 
 def run_extend(state, h: int, reads, rlen, args: RunArgs):

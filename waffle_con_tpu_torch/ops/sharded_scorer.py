@@ -35,10 +35,28 @@ to the step's consensus length (the host rollback), every shard's band
 grows and is replayed from that one consensus, and the step is retried
 (on distinct cards not run here: the machines this was measured on have
 one card).  A late read's offset scan and activation run on its own
-shard; a band growth replays every shard.  The store exposes no run,
-dual-run, arena or gang path: each would need an exchange between shards
-at every step, so the engines take their per-pop expand path
-(:class:`FastPaths`), which is exact.
+shard; a band growth replays every shard.
+
+The run paths.  The store has ``TorchScorer``'s ``run_extend``,
+``run_extend_dual`` and ``run_arena`` (their host side is
+``TorchScorer``'s: slot choice, scratch slots and the creation pool taken
+on every shard in lockstep, capacity growth, the band grown on an
+overflow, records, counters), and its planners ``run_takes``,
+``run_dual_takes`` and ``arena_takes``.  Where the shards are
+(:func:`placement`) decides what runs, whatever the route: shards on
+one CUDA device are one launch of the kernel's shard instance for all of
+them (``run_kernel.run_extend_shards_cuda`` and kin: one overflow word,
+the CTAs' reads and the vote fold over the store's global reads, so the
+result is the unsharded kernel's bit for bit); shards on the CPU take the
+plain versions (the shards' slots gathered into one store, the unsharded
+plain loop, the result split back); shards on more than one device are
+refused by the three planners (each refusal counted as
+``plan_refused_cross_card``), so the engines take their per-pop expand
+path there, which is exact: a run across cards would need an exchange
+between the cards at every step.  An overflow (code 5) grows every
+shard's band and replays it from the one consensus, as a branch step's
+does.  The store offers no frontier gang (:meth:`ragged_run_probe`), as
+the JAX package's ``ops/ragged.py`` refuses a sharded scorer.
 """
 
 from __future__ import annotations
@@ -50,7 +68,13 @@ import numpy as np
 import torch
 
 from waffle_con_tpu_torch.config import CdwfaConfig
-from waffle_con_tpu_torch.ops import branch_kernel, replay_kernel
+from waffle_con_tpu_torch.ops import (
+    arena_kernel,
+    branch_kernel,
+    replay_kernel,
+    run_dual_kernel,
+    run_kernel,
+)
 from waffle_con_tpu_torch.ops.branch_kernel import BranchOut, merge_outs
 from waffle_con_tpu_torch.ops.scorer import BranchStats, WavefrontScorer
 from waffle_con_tpu_torch.ops.torch_scorer import (
@@ -66,8 +90,26 @@ ROUTES = ("auto", "per_shard")
 def _card(d) -> torch.device:
     d = torch.device(d)
     if d.type == "cuda" and d.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cuda", torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
     return d
+
+
+#: where a sharded store's shards are (:func:`placement`)
+PLACEMENTS = ("fused", "plain", "cross_card")
+
+
+def placement(devices) -> str:
+    """What a sharded store on ``devices`` runs for its run, dual-run and
+    arena calls: ``"fused"`` when every shard is on one CUDA device (one
+    launch of a kernel's shard instance for all of them), ``"plain"``
+    when every shard is on the CPU (the plain versions), ``"cross_card"``
+    when the shards are on more than one device (the planners refuse).
+    A pure function of the devices' names."""
+    cards = {str(_card(d)) for d in devices}
+    if len(cards) != 1:
+        return "cross_card"
+    return "fused" if _card(next(iter(devices))).type == "cuda" else "plain"
 
 
 def _fuses(device: torch.device) -> bool:
@@ -209,8 +251,15 @@ class ShardedScorer(WavefrontScorer):
         #: shards span more than one CUDA device
         cards = {d for d in self.devices if d.type == "cuda"}
         self._switch = len(cards) > 1
+        #: what the run, dual-run and arena calls run (:func:`placement`)
+        self.placement = placement(self.devices)
         self.counters = {
             "push_calls": 0,
+            "run_calls": 0,
+            "run_steps": 0,
+            "arena_calls": 0,
+            "run_dual_calls": 0,
+            "run_dual_steps": 0,
             "stats_calls": 0,
             "clone_calls": 0,
             "clone_push_calls": 0,
@@ -231,6 +280,31 @@ class ShardedScorer(WavefrontScorer):
     @property
     def _C(self) -> int:
         return self.shards[0]._C
+
+    @property
+    def _B(self) -> int:
+        return self.shards[0]._B
+
+    @property
+    def _L(self) -> int:
+        return self.shards[0]._L
+
+    @property
+    def _W(self) -> int:
+        return 2 * self._E + 2
+
+    @property
+    def _wc(self) -> int:
+        return self.shards[0]._wc
+
+    @property
+    def _et(self) -> bool:
+        return self.shards[0]._et
+
+    @property
+    def _slot_of(self):
+        """Handle -> slot (every shard's: the slots are in lockstep)."""
+        return self.shards[0]._slot_of
 
     @property
     def _off_host(self) -> np.ndarray:
@@ -273,10 +347,13 @@ class ShardedScorer(WavefrontScorer):
         self.counters["replayed_cols"] += (
             self.shards[0].counters["replayed_cols"] - before)
 
+    def _grow_cons(self) -> None:
+        for sh in self.shards:
+            sh._grow_cons()
+
     def _fit_cons(self, consensus: bytes) -> None:
         while len(consensus) >= self._C - 1:
-            for sh in self.shards:
-                sh._grow_cons()
+            self._grow_cons()
 
     def live_handles(self) -> int:
         return self.shards[0].live_handles()
@@ -503,3 +580,81 @@ class ShardedScorer(WavefrontScorer):
     # merged reads
     _stats_batch = TorchScorer._stats_batch
     _stats_np = TorchScorer._stats_np
+
+    # -- the run paths: TorchScorer's host side, the launches below -----
+
+    run_args = TorchScorer.run_args
+    dual_run_args = TorchScorer.dual_run_args
+    _fit_steps = TorchScorer._fit_steps
+    run_extend = TorchScorer.run_extend
+    run_extend_dual = TorchScorer.run_extend_dual
+    run_arena = TorchScorer.run_arena
+    run_takes = TorchScorer.run_takes
+    run_dual_takes = TorchScorer.run_dual_takes
+    arena_takes = TorchScorer.arena_takes
+    _geom_bucket = TorchScorer._geom_bucket
+    ARENA_CAP_MAX = TorchScorer.ARENA_CAP_MAX
+    ARENA_K = TorchScorer.ARENA_K
+    ARENA_TAKE_MAX = TorchScorer.ARENA_TAKE_MAX
+    ARENA_CRE_PER_EVENT = TorchScorer.ARENA_CRE_PER_EVENT
+    ARENA_POOL = TorchScorer.ARENA_POOL
+    ARENA_CAP = TorchScorer.ARENA_CAP
+
+    def _takes(self, kind: str, planner, *shape) -> bool:
+        """``TorchScorer._takes`` where the shards share one device; on
+        more than one device every planner refuses, counted as
+        ``plan_refused_cross_card``."""
+        if self.placement == "cross_card":
+            key = "plan_refused_cross_card"
+            self.counters[key] = self.counters.get(key, 0) + 1
+            return False
+        return TorchScorer._takes(self, kind, planner, *shape)
+
+    def _spec_drop(self, h=None) -> None:
+        """No gang deposits to drop: the store offers no gang."""
+
+    def ragged_run_probe(self, h: int):
+        """None: a sharded store joins no gang (the serving pool's or the
+        frontier gang), as the JAX package's gang refuses a sharded
+        scorer."""
+        return None
+
+    def _alloc(self) -> Tuple[int, int]:
+        return self._same([sh._alloc() for sh in self.shards])
+
+    def _scratch_reset(self) -> None:
+        for sh in self.shards:
+            sh._scratch_reset()
+
+    def _scratch_slot(self) -> int:
+        return self._same([sh._scratch_slot() for sh in self.shards])
+
+    def _set_act_host(self, slot: int, act) -> None:
+        Rs = self._Rs
+        for k, sh in enumerate(self.shards):
+            sh._act_host[slot] = act[k * Rs:(k + 1) * Rs]
+
+    def _copy_off_host(self, dst: int, src: int) -> None:
+        for sh in self.shards:
+            sh._off_host[dst] = sh._off_host[src]
+
+    def _store(self):
+        """The shards' stores, reads and lengths."""
+        return ([sh._state for sh in self.shards],
+                [sh._reads for sh in self.shards],
+                [sh._rlen for sh in self.shards])
+
+    def _run_launch(self, slot: int, args):
+        states, reads, rlens = self._store()
+        return run_kernel.run_extend_shards(states, slot, reads, rlens, args)
+
+    def _dual_launch(self, s1: int, s2: int, mc_tab, imb_tab, args):
+        states, reads, rlens = self._store()
+        return run_dual_kernel.run_extend_dual_shards(
+            states, s1, s2, reads, rlens, mc_tab, imb_tab, args)
+
+    def _arena_launch(self, slots, kinds, lc, pc, tr, mc_tab, imb_tab,
+                      args):
+        states, reads, rlens = self._store()
+        return arena_kernel.arena_shards(states, reads, rlens, slots, kinds,
+                                         lc, pc, tr, mc_tab, imb_tab, args)

@@ -10,7 +10,9 @@ into both packages.  A read-sharded store
 (:mod:`waffle_con_tpu_torch.ops.sharded_scorer`) holds one such dict a
 shard, each with ``R / n`` of the reads: :func:`split_state` and
 :func:`gather_state` carry one store across, :func:`split_reads` and
-:func:`gather_reads` one per-read array (the read axis first).
+:func:`gather_reads` one per-read array (the read axis first), and
+:func:`gather_slots` / :func:`scatter_slots` some slots of the shards as
+one store and back (the plain versions of the sharded run paths).
 """
 
 from __future__ import annotations
@@ -91,3 +93,30 @@ def gather_state(shards: Sequence[Dict[str, torch.Tensor]]
     out["cons"] = shards[0]["cons"].cpu().numpy()
     out["clen"] = shards[0]["clen"].cpu().numpy()
     return out
+
+
+def gather_slots(states: Sequence[Dict[str, torch.Tensor]], slots,
+                 reads: Sequence[torch.Tensor], rlens: Sequence[torch.Tensor]):
+    """Slots ``slots`` of the shards' stores as one store of
+    ``len(slots)`` slots over every read (slot ``i`` of it is
+    ``slots[i]`` of the shards), with the shards' reads and lengths
+    joined, on the shards' device: ``(state, reads, rlen)``."""
+    dev = states[0]["D"].device
+    idx = torch.as_tensor(list(slots), dtype=torch.long)
+    part = [{name: st[name][idx.to(st[name].device)] for name in FIELDS}
+            for st in states]
+    state = state_from_numpy(gather_state(part), dev)
+    return (state, torch.from_numpy(gather_reads(reads)).to(dev),
+            torch.from_numpy(gather_reads(rlens)).to(dev))
+
+
+def scatter_slots(states: Sequence[Dict[str, torch.Tensor]], slots,
+                  state: Dict[str, torch.Tensor]) -> None:
+    """:func:`gather_slots` undone: the one store's slots written back in
+    place into slots ``slots`` of the shards (:func:`split_state`)."""
+    idx = torch.as_tensor(list(slots), dtype=torch.long)
+    parts = split_state(state_to_numpy(state),
+                        [st["D"].device for st in states])
+    for st, part in zip(states, parts):
+        for name in FIELDS:
+            st[name][idx.to(st[name].device)] = part[name]

@@ -889,10 +889,8 @@ class TorchScorer(WavefrontScorer):
             if rec is not None:
                 rec.annotate(kernel="solo", k=1, geom=self._geom_bucket())
             with _phases.device_scope(rec, self.device):
-                out, rec_steps, rec_fins = run_kernel.run_extend(
-                    self._state, self._slot_of[h], self._reads, self._rlen,
-                    args,
-                )
+                out, rec_steps, rec_fins = self._run_launch(
+                    self._slot_of[h], args)
             with _phases.transfer_scope(rec):
                 res, rsteps, rfins = run_kernel.fetch(
                     out, rec_steps, rec_fins, self._R, self.num_symbols,
@@ -918,6 +916,43 @@ class TorchScorer(WavefrontScorer):
         if code == 5:
             self._grow_e()
         return steps, code, appended, stats, records
+
+    # -- the run paths' launches and host mirrors (a read-sharded store,
+    # ops/sharded_scorer.py, shares the run paths above and below and
+    # brings its own of these) ----------------------------------------
+
+    def _run_launch(self, slot: int, args):
+        """One run of slot ``slot`` (``run_kernel.run_extend``)."""
+        from waffle_con_tpu_torch.ops import run_kernel
+
+        return run_kernel.run_extend(self._state, slot, self._reads,
+                                     self._rlen, args)
+
+    def _dual_launch(self, s1: int, s2: int, mc_tab, imb_tab, args):
+        """One dual run of slots ``s1``, ``s2``
+        (``run_dual_kernel.run_extend_dual``)."""
+        from waffle_con_tpu_torch.ops import run_dual_kernel
+
+        return run_dual_kernel.run_extend_dual(
+            self._state, s1, s2, self._reads, self._rlen, mc_tab, imb_tab,
+            args)
+
+    def _arena_launch(self, slots, kinds, lc, pc, tr, mc_tab, imb_tab,
+                      args):
+        """One arena call over ``slots`` (``arena_kernel.arena``)."""
+        from waffle_con_tpu_torch.ops import arena_kernel
+
+        return arena_kernel.arena(self._state, self._reads, self._rlen,
+                                  slots, kinds, lc, pc, tr, mc_tab, imb_tab,
+                                  args)
+
+    def _set_act_host(self, slot: int, act) -> None:
+        """The host mirror of slot ``slot``'s active reads (``[R]``)."""
+        self._act_host[slot] = act
+
+    def _copy_off_host(self, dst: int, src: int) -> None:
+        """Slot ``src``'s host mirror of the read offsets into ``dst``'s."""
+        self._off_host[dst] = self._off_host[src]
 
     # -- the frontier gang's deposits -------------------------------------
 
@@ -1089,10 +1124,7 @@ class TorchScorer(WavefrontScorer):
         if rec is not None:
             rec.annotate(kernel="dual", k=1, geom=self._geom_bucket())
         with _phases.device_scope(rec, self.device):
-            out = run_dual_kernel.run_extend_dual(
-                self._state, s1, s2, self._reads, self._rlen, mc_t, imb_t,
-                args,
-            )
+            out = self._dual_launch(s1, s2, mc_t, imb_t, args)
         with _phases.transfer_scope(rec):
             res, rsteps, rplanes = run_dual_kernel.fetch(
                 *out, self._R, self.num_symbols, max_steps
@@ -1121,8 +1153,8 @@ class TorchScorer(WavefrontScorer):
         ]
         # divergence pruning deactivates reads on the device: keep the
         # host mirror exact, or later activations are mis-routed
-        self._act_host[s1] = res.act[0]
-        self._act_host[s2] = res.act[1]
+        self._set_act_host(s1, res.act[0])
+        self._set_act_host(s2, res.act[1])
         if code == 5:
             self._grow_e()
         stats = [
@@ -1275,10 +1307,9 @@ class TorchScorer(WavefrontScorer):
         if rec is not None:
             rec.annotate(kernel="arena", k=1, geom=self._geom_bucket())
         with _phases.device_scope(rec, self.device):
-            out = arena_kernel.arena(
-                self._state, self._reads, self._rlen, slots, kinds, lc, pc,
-                np.asarray(tr_scalars).reshape(2, 4), mc_tab, imb_tab, args,
-            )
+            out = self._arena_launch(
+                slots, kinds, lc, pc, np.asarray(tr_scalars).reshape(2, 4),
+                mc_tab, imb_tab, args)
         with _phases.transfer_scope(rec):
             res = arena_kernel.fetch(out, K, self._R, self.num_symbols,
                                      args.max_steps)
@@ -1332,7 +1363,7 @@ class TorchScorer(WavefrontScorer):
                 1 for kind, _ in events if kind == "split")
         # divergence pruning deactivates reads on the device: mirror it
         for side in live_sides:
-            self._act_host[slots[side]] = res.act[side]
+            self._set_act_host(slots[side], res.act[side])
 
         # per-node (kind, first length of side 1, of side 2), children too
         eff = [(kinds[i], node_specs[i][2], node_specs[i][3])
@@ -1344,12 +1375,12 @@ class TorchScorer(WavefrontScorer):
             p1s = slots[2 * p]
             src2 = slots[2 * p + (1 if eff[p][0] == 1 else 0)]
             c1s = slots[2 * (n_live + j)]
-            self._off_host[c1s] = self._off_host[p1s]
-            self._act_host[c1s] = res.act[2 * (n_live + j)]
+            self._copy_off_host(c1s, p1s)
+            self._set_act_host(c1s, res.act[2 * (n_live + j)])
             if cre["kind"] == 1:
                 c2s = slots[2 * (n_live + j) + 1]
-                self._off_host[c2s] = self._off_host[src2]
-                self._act_host[c2s] = res.act[2 * (n_live + j) + 1]
+                self._copy_off_host(c2s, src2)
+                self._set_act_host(c2s, res.act[2 * (n_live + j) + 1])
 
         # each side's appended symbols: its node's commit events in order
         n_nodes = n_live + cre_count
